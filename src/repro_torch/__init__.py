@@ -1,0 +1,39 @@
+"""repro_torch — Hybridized Threshold Clustering in PyTorch, with
+hand-written CUDA kernels for Hopper.
+
+The port of the JAX package ``repro`` (which stays the reference).
+``repro_torch.fit(x, t, m, backend)`` runs the IHTC pipeline on a resident
+array; ``ClusterIndex.build(result)`` freezes the servable index and
+``ClusterService(index).assign(queries)`` serves it. Entry points run on
+``device="cuda"`` unless the caller passes ``device="cpu"`` (or configures
+it); a missing GPU raises.
+
+Heavy submodules load lazily, so ``import repro_torch`` stays cheap.
+"""
+from repro_torch import runtime  # noqa: F401
+
+_LAZY = {
+    "fit": "repro_torch.core.plan",
+    "plan_fit": "repro_torch.core.plan",
+    "execute_plan": "repro_torch.core.plan",
+    "FitPlan": "repro_torch.core.plan",
+    "FitResult": "repro_torch.core.plan",
+    "register_executor": "repro_torch.core.plan",
+    "available_executors": "repro_torch.core.plan",
+    "ClusterIndex": "repro_torch.core.index",
+    "ClusterService": "repro_torch.serve.cluster_service",
+}
+
+__all__ = ["runtime", *sorted(_LAZY)]
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))
