@@ -26,13 +26,28 @@ Phases, each printing one JSON line:
                accuracy must be >= 0.90;
   determinism  n = 65,536: the kernel path twice (bitwise equal labels) and
                the plain path once (label agreement >= 0.999);
-  profile      (only when asked for) the fit and the headline fit again under
-               torch.profiler: kernel time by name and the device busy share.
+  lm           the LM serving path at the full gemma2-2b config (random
+               weights from a seeded generator): ServeEngine.generate with
+               batch 4, prompt 2048, 160 new tokens, IHTC KV compression
+               t = 2, m = 1, tail 128 (one in-flight recompression); then the
+               kernel path against two plain paths (prefill, compress, 8
+               teacher-forced decode steps), the same arithmetic (K5's
+               plain version) and the reference's chunked route, within
+               LOGIT_ULPS, with a planted fault (K5's bias dropped for one
+               step) that must exceed it; then a second
+               kernel-path run (bitwise equal tokens);
+  profile      (only when asked for) the fit, the headline fit and (after
+               the lm phase) one generate again under torch.profiler:
+               kernel time by name and the device busy share.
 
 The kernel launch counts are set to 0 just before the fit and read after
-the fit and after the serve phase; every kernel must have launched. Then
-one JSON line lists every kernel, the card's name and power limit are
-printed, and the last line is ``{"ok": true, "device": {...}}``. Any
+the fit and after the serve phase, and set to 0 again just before the lm
+phase's generate and read right after it; every kernel of each path must
+have launched (K1-K4 in fit and serve; K2, K3 and K5 in lm, K5 once per
+global layer of the prefill and once per layer of every decode step).
+Then one JSON line lists every kernel (launches summed over both paths),
+the card's name and power limit are printed, and the last line is
+``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits nonzero without that line; so does a
 machine without a GPU, or a directory without the repository's ``src/``.
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -40,6 +55,7 @@ It imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -53,13 +69,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "headline",
-                  "determinism")
+                  "determinism", "lm")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
 ALL_PHASES = DEFAULT_PHASES + ("profile",)
 
-# H100 SXM published peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3
+# H100 SXM published peaks (NVIDIA data sheet, dense): f32 on the CUDA
+# cores, bf16 on the tensor cores (f32 accumulation), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # distance tolerance, kernel vs plain version, both f32 on the card: they
@@ -68,6 +86,24 @@ PEAK_BYTES = 3.35e12
 DIST_TOL = dict(rtol=1e-5, atol=1e-4)
 # segment sums: the plain version uses float atomics (any order) on the card
 SUM_TOL = dict(rtol=1e-5, atol=1e-4)
+# attention, kernel vs plain version: both fold in f32 (online vs dense
+# softmax, sums over up to 2208 keys in other orders); in bf16 both round
+# the output once, so they may land one bf16 ulp (2^-7 relative) apart
+ATTN_TOL_F32 = dict(rtol=1e-5, atol=3e-5)
+ATTN_TOL_BF16 = dict(rtol=2 ** -7, atol=1e-5)
+# LM logits, the kernel path against two plain paths, each compressing its
+# own cache: the same arithmetic (K5's plain version, f32 probabilities
+# times v; plain K2/K3) and the reference's "xla" route (chunked attention,
+# bf16 P·V products; plain K2/K3). Both within LOGIT_ULPS bf16 ulps of the
+# largest |logit|, top-1 agreement >= 0.9: the route bound
+# tests/test_torch_lm.py states, and on the card the readings of PERF.md
+# section 2 (at most 23.3 ulps on either path) stay below it, while one
+# decode step with K5's bias dropped (72 ulps) must exceed it
+LOGIT_ULPS, MIN_TOP1 = 32, 0.9
+# compressed caches, kernel vs plain compression of one cache: prototype
+# slots within one bf16 ulp; TC may split a distance near-tie another way,
+# which moves a few clusters, so >= 0.999 of the slots must agree
+MIN_SLOT_AGREEMENT = 0.999
 
 #: where the script runs and at what sizes (the main path's; a rehearsal
 #: elsewhere may shrink them)
@@ -75,6 +111,11 @@ DEV = "cuda"
 SIZES = dict(covertype=581_012, segments=193_670, blocked_q=8192,
              assign_q=2048, protos=2390, knn_n=7172, centres=7,
              gmm=1_000_000, det=65_536)
+#: the lm phase: gemma2-2b served at batch 4, prompt 2048, 160 new tokens,
+#: compressed at t = 2, m = 1 with a 128-slot tail (cache 2208 slots, 1232
+#: after the first compress), 8 teacher-forced steps in the parity check
+LM = dict(arch="gemma2-2b", batch=4, prompt=2048, new_tokens=160, t=2, m=1,
+          tail=128, forced_steps=8)
 
 KERNEL_META = {
     "K1": ("fused_topk", "src/repro_torch/csrc/topk.cu",
@@ -85,6 +126,8 @@ KERNEL_META = {
            "src/repro/kernels/segment_sum.py:20"),
     "K4": ("pairwise_sq_l2", "src/repro_torch/csrc/pairwise_l2.cu",
            "src/repro/kernels/pairwise_l2.py:22"),
+    "K5": ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:23"),
 }
 
 
@@ -122,10 +165,12 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of flops at the f32 peak and bytes
-    at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
+    """(bound_ms, bound_by): the larger of the operations' time (``flops``
+    at the f32 peak plus ``bf16_flops``, products of bf16 operands, at the
+    bf16 tensor-core peak) and bytes at the memory rate."""
+    t_ops = flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -180,6 +225,26 @@ def phase_build() -> None:
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          compile_seconds=round(compile_s, 3),
          functions_with_spills=spills)
+    # registers and spills of the any-d top-k kernel and of K5, per instance
+    for name, marker in (("topk", "topk_chunked_kernel"),
+                         ("flash_attention", "flash_kernel")):
+        text = _cuda.library_path(name).with_suffix(".log").read_text()
+        emit("ptxas", library=name, functions=_ptxas_usage(text, marker))
+
+
+def _ptxas_usage(log: str, marker: str) -> list:
+    """(mangled name, registers, spill store bytes) of each entry function
+    whose name holds ``marker``, from ``ptxas -v`` output."""
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        fn = block.split("'", 1)[0]
+        if marker not in fn:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out.append({"function": fn, "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None})
+    return out
 
 
 def _analog(n: int, seed: int = 0):
@@ -261,10 +326,10 @@ def phase_kernels(results: dict) -> None:
     ms = cuda_ms(lambda: knn_topk.knn_topk(xs, k))
     plain = cuda_ms(lambda: ref.knn(xs, k))
     b_ms, b_by = bound(n * n * (2 * 6 + 3), n * 6 * 4 + n * k * 8)
-    results["K2"] = dict(kernel="K2", n=n, d=6, k=k, max_abs_err=err,
-                         index_mismatches=mism, ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    emit("kernels", **results["K2"])
+    emit("kernels", kernel="K2", path="fit", n=n, d=6, k=k, max_abs_err=err,
+         index_mismatches=mism, ms=ms, plain_ms=plain, bound_ms=b_ms,
+         bound_by=b_by, library_ms=None)
+    _k2_compression(results)
 
     # K3: the level-0 prototype reduce, 8 blocks of 72,627 rows into
     # 193,670 segments (ids include dropped ones)
@@ -315,8 +380,164 @@ def phase_kernels(results: dict) -> None:
                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None)
     emit("kernels", **results["K4"])
+    _k3_compression()
+    _k5_path_shapes(results)
     _edge_checks(gen)
+    _attention_edges()
     emit("kernels_done", seconds=round(time.perf_counter() - t0, 3))
+
+
+def _head_keys(n: int, d: int, seed: int) -> torch.Tensor:
+    """(n, d) f32 keys as one KV head holds them: bf16 values."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn((n, d), generator=g, device=DEV).bfloat16().float()
+
+
+def _k2_compression(results: dict) -> None:
+    """K2 at the lm phase's compression shape: one (batch, kv-head) cache
+    of 2208 slots of width head_dim = 256, the first 2048 written (valid),
+    k = t - 1 = 1. This is K2's entry in the kernels line."""
+    from repro_torch.kernels import knn_topk, ref
+
+    n, d, k = LM["prompt"] + LM["new_tokens"], 256, LM["t"] - 1
+    x = _head_keys(n, d, 3)
+    valid = torch.arange(n, device=DEV) < LM["prompt"]
+    gd, gi = knn_topk.knn_topk(x, k, valid)
+    rd, ri = ref.knn(x, k, valid=valid)
+    sync()
+    ok = torch.isfinite(rd)
+    err = float((gd[ok] - rd[ok]).abs().max())
+    mism, bad = topk_mismatches(x, x, gd, gi, rd, ri)
+    check(torch.equal(torch.isfinite(gd), ok), "K2 (d 256): filled slots differ")
+    check(torch.allclose(gd[ok], rd[ok], rtol=1e-5, atol=1e-3),
+          f"K2 (d 256) distances off: {err}")
+    check(bad == 0, f"K2 (d 256): {bad} index mismatches that are not near-ties")
+    ms = cuda_ms(lambda: knn_topk.knn_topk(x, k, valid))
+    plain = cuda_ms(lambda: ref.knn(x, k, valid=valid))
+    # per pair: d fma of the cross term + add, subtract, max; bytes: x and
+    # valid in, distances and indices out
+    b_ms, b_by = bound(n * n * (2 * d + 3), n * d * 4 + n + n * k * 8)
+    results["K2"] = dict(kernel="K2", path="lm", n=n, d=d, k=k, max_abs_err=err,
+                         index_mismatches=mism, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    emit("kernels", **results["K2"])
+
+
+def _k3_compression() -> None:
+    """K3 at the lm phase's compression shapes: the keys (d 256) and the
+    [k||v] payload (d 512) of one head, 2208 rows into 1104 prototypes,
+    through the 8-block fold."""
+    from repro_torch.kernels import ops
+
+    gen = np.random.default_rng(4)
+    n, S = LM["prompt"] + LM["new_tokens"], (LM["prompt"] + LM["new_tokens"]) // LM["t"]
+    ids = dev(np.where(np.arange(n) < LM["prompt"], gen.integers(0, S, size=n), -1)
+              .astype(np.int32))
+    w = torch.ones(n, device=DEV)
+    for d in (256, 512):
+        x = _head_keys(n, d, d)
+        gs, gm = ops.blocked_segment_sum(x, ids, S, weights=w, impl="cuda")
+        rs, rm = ops.blocked_segment_sum(x, ids, S, weights=w, impl="ref")
+        sync()
+        err = max(float((gs - rs).abs().max()), float((gm - rm).abs().max()))
+        check(torch.allclose(gs, rs, **SUM_TOL) and torch.allclose(gm, rm, **SUM_TOL),
+              f"K3 (d {d}) sums off: {err}")
+        # the row-order fold of the plain version on the CPU: the same bits
+        cs, cm = ops.blocked_segment_sum(x.cpu(), ids.cpu(), S, weights=w.cpu(),
+                                         impl="ref")
+        check(torch.equal(gs.cpu(), cs) and torch.equal(gm.cpu(), cm),
+              f"K3 (d {d}) differs from the CPU plain version's bits")
+        ms = cuda_ms(lambda: ops.blocked_segment_sum(x, ids, S, weights=w, impl="cuda"))
+        plain = cuda_ms(lambda: ops.blocked_segment_sum(x, ids, S, weights=w,
+                                                        impl="ref"))
+        b_ms, b_by = bound(n * (2 * d + 1), n * d * 4 + n * 8 + S * (d + 1) * 4)
+        emit("kernels", kernel="K3", path="lm", n=n, d=d, segments=S, blocks=8,
+             max_abs_err=err, bit_equal_to_cpu_plain=True, ms=ms, plain_ms=plain,
+             bound_ms=b_ms, bound_by=b_by)
+
+
+def _attention_work(b, hq, hkv, lq, lk, dh, causal, elt, bias_heads):
+    """(f32 flops, bf16 flops, bytes) attention needs per visible (query,
+    key) pair: 2·dh for q·k, 2·dh for p·v and 8 for the logit's scale,
+    softcap, bias, max, exp and sum; with ``causal`` the masked future half
+    is not counted. With bf16 q and k (``elt`` 2) q·k is a product of bf16
+    operands, exact in f32, so the card could run it on its bf16 tensor
+    cores; p is f32, so p·v and the softmax count at the f32 peak. Bytes:
+    q, k, v and the bias read once, the output written once."""
+    i = np.arange(lq)
+    visible = (np.clip(i + lk - lq + 1, 0, lk).sum() if causal else lq * lk)
+    pairs = float(b * hq * visible)
+    qk = pairs * 2 * dh
+    f32 = pairs * (2 * dh + 8) + (0.0 if elt == 2 else qk)
+    nbytes = (2 * b * hq * lq * dh + 2 * b * hkv * lk * dh) * elt + b * bias_heads * lk * 4
+    return f32, (qk if elt == 2 else 0.0), nbytes
+
+
+def _attn_inputs(b, hq, hkv, lq, lk, dh, dtype, seed, bias=None):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = (torch.randn((b, hq, lq, dh), generator=g, device=DEV) * 4).to(dtype)
+    k = torch.randn((b, hkv, lk, dh), generator=g, device=DEV).to(dtype)
+    v = torch.randn((b, hkv, lk, dh), generator=g, device=DEV).to(dtype)
+    kb = None
+    if bias is not None:
+        hb = hq if bias == "q_heads" else hkv
+        kb = torch.randn((b, hb, lk), generator=g, device=DEV)
+        if bias == "masked":   # -1e30 entries scattered through the keys
+            kb = torch.where(torch.rand((b, hb, lk), generator=g, device=DEV) < 0.1,
+                             -1e30, kb)
+        if bias == "first_tile":  # every key of the first 40 masked
+            kb[..., :40] = -1e30
+    return q, k, v, kb
+
+
+def _k5_path_shapes(results: dict) -> None:
+    """K5 at the lm phase's shapes, in its working type (bf16): prefill of
+    a global layer (causal, no bias) and one decode step over the
+    compressed cache (P = 1104 prototypes with log-mass bias, one written
+    tail slot, the rest of the tail masked by the position mask)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, hq, hkv, dh = LM["batch"], 8, 4, 256
+    S, P = LM["prompt"], (LM["prompt"] + LM["new_tokens"]) // LM["t"]
+    lk_dec = P + LM["tail"]
+    bias = torch.full((B, hkv, lk_dec), -1e30, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(7)
+    bias[..., :P] = torch.log(torch.randint(1, 5, (B, hkv, P), generator=g,
+                                            device=DEV).float())
+    bias[..., P] = 0.0
+    shapes = (("prefill", (B, hq, hkv, S, S, dh), True, None),
+              ("decode", (B, hq, hkv, 1, lk_dec, dh), False, bias))
+    for label, (b, hq_, hkv_, lq, lk, d), causal, kb in shapes:
+        q, k, v, _ = _attn_inputs(b, hq_, hkv_, lq, lk, d, torch.bfloat16, 8)
+        kw = dict(causal=causal, scale=1.0 / 16, logit_softcap=50.0)
+        got = fa.flash_attention(q, k, v, kb, **kw)
+        want = fa.flash_attention_plain(q, k, v, kb, **kw)
+        sync()
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got.float()).all()), f"K5 {label}: non-finite")
+        check(torch.allclose(got.float(), want.float(), **ATTN_TOL_BF16),
+              f"K5 {label} (bf16) off: {err}")
+        # the same call in f32, held to the f32 tolerance
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        got32 = fa.flash_attention(q32, k32, v32, kb, **kw)
+        want32 = fa.flash_attention_plain(q32, k32, v32, kb, **kw)
+        err32 = float((got32 - want32).abs().max())
+        check(torch.allclose(got32, want32, **ATTN_TOL_F32),
+              f"K5 {label} (f32) off: {err32}")
+        del got32, want32
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kb, **kw))
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, kb, **kw))
+        flops, tc_flops, nbytes = _attention_work(
+            b, hq_, hkv_, lq, lk, d, causal, 2, 0 if kb is None else kb.shape[1])
+        b_ms, b_by = bound(flops, nbytes, bf16_flops=tc_flops)
+        row = dict(kernel="K5", path="lm", shape=label, q=list(q.shape),
+                   kv=list(k.shape), causal=causal, bias=kb is not None,
+                   dtype="bf16", max_abs_err=err, max_abs_err_f32=err32, ms=ms,
+                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   causal_half_counted=False, library_ms=None)
+        emit("kernels", **row)
+        if label == "prefill":
+            results["K5"] = row
 
 
 def _edge_checks(gen) -> None:
@@ -333,7 +554,8 @@ def _edge_checks(gen) -> None:
 
     cases = 0
     for nq, p, d, k in ((7, 33, 1, 1), (33, 17, 5, 3), (9, 9, 2, 9),
-                        (40, 70, 33, 32), (300, 1000, 6, 2), (5, 3, 4, 8)):
+                        (40, 70, 33, 32), (300, 1000, 6, 2), (5, 3, 4, 8),
+                        (40, 130, 256, 2), (33, 65, 512, 32), (70, 200, 300, 1)):
         q, keys = grid(nq, d), grid(p, d)
         valid = dev(gen.random(p) > 0.3)
         gidx = dev(gen.integers(0, 2 * p, size=nq).astype(np.int32))
@@ -343,7 +565,8 @@ def _edge_checks(gen) -> None:
             check(all(torch.equal(a, b) for a, b in zip(got, want)),
                   f"K1 differs from its plain version at {(nq, p, d, k)}")
             cases += 1
-    for n, d, k in ((17, 1, 16), (200, 6, 2), (64, 40, 5)):
+    for n, d, k in ((17, 1, 16), (200, 6, 2), (64, 40, 5), (300, 256, 1),
+                    (100, 512, 3)):
         x = grid(n, d)
         valid = dev(gen.random(n) > 0.2)
         for v in (None, valid):
@@ -351,7 +574,8 @@ def _edge_checks(gen) -> None:
             check(all(torch.equal(a, b) for a, b in zip(got, want)),
                   f"K2 differs from its plain version at {(n, d, k)}")
             cases += 1
-    for n, d, s in ((7, 1, 1), (1000, 6, 37), (333, 3, 500)):
+    for n, d, s in ((7, 1, 1), (1000, 6, 37), (333, 3, 500), (500, 40, 37),
+                    (300, 512, 20)):
         x = grid(n, d)
         ids = dev(gen.integers(-1, s + 1, size=n))
         w = dev((gen.integers(1, 5, size=n) * 0.5).astype(np.float32))
@@ -369,6 +593,40 @@ def _edge_checks(gen) -> None:
         cases += 1
     sync()
     emit("kernels_edges", cases=cases, bitwise=True)
+
+
+def _attention_edges() -> None:
+    """K5 against its plain version on awkward shapes: rows that fill no
+    whole tile, lq < lk, head_dim 16, 64 and 256, one kv head, a bias per
+    query head, -1e30 bias entries scattered, and every key of the first
+    kv tile masked. Within the stated tolerance, and no NaN."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = (
+        # b, hq, hkv, lq, lk, dh, causal, bias, softcap, dtype
+        (1, 4, 2, 100, 100, 64, True, None, 50.0, torch.float32),
+        (2, 4, 2, 37, 300, 64, True, "kv", 50.0, torch.float32),
+        (1, 2, 1, 5, 77, 16, True, "masked", 0.0, torch.float32),
+        (1, 8, 1, 70, 70, 16, True, None, 30.0, torch.float32),
+        (2, 8, 4, 1, 1232, 256, False, "masked", 50.0, torch.float32),
+        (1, 2, 1, 1, 90, 16, False, "first_tile", 50.0, torch.float32),
+        (1, 2, 1, 20, 90, 16, True, "first_tile", 50.0, torch.float32),
+        (1, 4, 2, 9, 33, 256, True, "q_heads", 50.0, torch.float32),
+        (2, 8, 4, 65, 129, 256, True, "kv", 50.0, torch.bfloat16),
+    )
+    worst = 0.0
+    for i, (b, hq, hkv, lq, lk, dh, causal, bias, cap, dt) in enumerate(cases):
+        q, k, v, kb = _attn_inputs(b, hq, hkv, lq, lk, dh, dt, 20 + i, bias)
+        kw = dict(causal=causal, scale=1.0 / 16, logit_softcap=cap)
+        got = fa.flash_attention(q, k, v, kb, **kw).float()
+        want = fa.flash_attention_plain(q, k, v, kb, **kw).float()
+        sync()
+        tol = ATTN_TOL_F32 if dt == torch.float32 else ATTN_TOL_BF16
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()), f"K5 edge {i}: non-finite")
+        check(torch.allclose(got, want, **tol), f"K5 edge {i} off: {err}")
+        worst = max(worst, err)
+    emit("kernels_edges", kernel="K5", cases=len(cases), max_abs_err=worst)
 
 
 def phase_fit(state: dict) -> None:
@@ -508,6 +766,187 @@ def phase_determinism() -> None:
          seconds=round(time.perf_counter() - t0, 3))
 
 
+def _logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """(b, vocab) logits of two paths: max |Δlogit|, its bound (LOGIT_ULPS
+    bf16 ulps of the largest |logit|), top-1 agreement."""
+    top = float(want.abs().max())
+    return {"err": float((got - want).abs().max()),
+            "bound": LOGIT_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7),
+            "top1": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _slot_agreement(a: dict, b: dict) -> float:
+    """Share of (layer, batch, head, prototype slot) entries whose key,
+    value (bf16: within one ulp) and mass (SUM_TOL) agree in two compressed
+    caches of the same model."""
+    agree = total = 0
+    for ca, cb in zip(a["layers"], b["layers"], strict=True):
+        P = ca["pos"]
+        check(P == cb["pos"], "compressed caches of different sizes")
+        ok = torch.isclose(ca["mass"][..., :P], cb["mass"][..., :P], **SUM_TOL)
+        for name in ("k", "v"):
+            x, y = ca[name][:, :, :P].float(), cb[name][:, :, :P].float()
+            ok &= torch.isclose(x, y, rtol=2 ** -7, atol=1e-5).all(-1)
+        agree += int(ok.sum())
+        total += ok.numel()
+    return agree / total
+
+
+@contextlib.contextmanager
+def _attention_as(fn):
+    """While the block runs, the model's windowless attention (its calls to
+    ``ops.flash_attention``, K5 on the card) goes to ``fn(q, k, v, kv_bias,
+    causal=, scale=, logit_softcap=)``; ``None`` leaves it alone."""
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention
+    if fn is not None:
+        ops.flash_attention = (lambda q, k, v, *, kv_bias=None, impl=None, **kw:
+                               fn(q, k, v, kv_bias, **kw))
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
+                  attention=None):
+    """One route through prefill, compression and teacher-forced decode:
+    (last-position f32 logits of the prefill and of each step, the prefill
+    caches, a copy of the compressed caches as the steps found them)."""
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    B, S = tok.shape
+    with torch.inference_mode(), _attention_as(attention):
+        raw = bundle.init_caches(B, S + LM["new_tokens"], device=DEV)
+        logits, raw = bundle.prefill(model, raw, {"tokens": tok}, impl=impl)
+        out = [logits[:, -1].float()]
+        comp = compress_model_caches(raw, LM["t"], LM["m"], tail=LM["tail"],
+                                     impl=compress_impl)
+        start = {**comp, "layers": [{n: (a.clone() if torch.is_tensor(a) else a)
+                                     for n, a in c.items()}
+                                    for c in comp["layers"]]}
+        for i in range(steps.shape[1]):
+            logits, comp = bundle.decode_step(model, comp,
+                                              {"tokens": steps[:, i:i + 1]},
+                                              impl=impl)
+            out.append(logits[:, -1].float())
+    return out, raw, start
+
+
+def phase_lm(state: dict) -> None:
+    """Serve the full gemma2-2b with IHTC KV compression, then hold the
+    kernel path against two plain paths and against itself."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    t0 = time.perf_counter()
+    cfg = ARCHS[LM["arch"]]
+    bundle = build(cfg)
+    model = bundle.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM["batch"], LM["prompt"]))
+    engine = ServeEngine(bundle, model, ServeConfig(
+        max_new_tokens=LM["new_tokens"], compress=True, compress_t=LM["t"],
+        compress_m=LM["m"], compress_tail=LM["tail"], impl="auto"))
+    sync()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = engine.generate({"tokens": prompts})
+    sync()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tm = out["timings"]
+    n_global = sum(cfg.attn_type(l) == "global" for l in range(cfg.n_layers))
+    want_k5 = n_global + cfg.n_layers * LM["new_tokens"]
+    heads = cfg.n_layers * LM["batch"] * cfg.n_kv_heads
+    check(out["compressions"] >= 1, "no in-flight recompression")
+    check(tuple(out["tokens"].shape) == (LM["batch"], LM["new_tokens"]),
+          "lm output shape")
+    check(bool(((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()),
+          "tokens outside the vocabulary")
+    check(counts["K5"] == want_k5,
+          f"K5 launched {counts['K5']} times, want {want_k5} ({n_global} "
+          f"global prefill layers + {cfg.n_layers} per decode step)")
+    check(counts["K2"] == heads * len(tm["compress"]),
+          f"K2 launched {counts['K2']} times, want one per head and compress")
+    check(counts["K3"] > 0, "K3 was not launched by the lm phase")
+    state["lm_counts"] = counts
+    state["lm_engine"] = (engine, prompts)
+    n_tok = LM["batch"] * out["n_steps"]
+    emit("lm", arch=cfg.name, batch=LM["batch"], prompt=LM["prompt"],
+         new_tokens=out["n_steps"], init_s=round(init_s, 3),
+         prefill_ms=tm["prefill_s"] * 1e3,
+         compress=[{"ms": c["seconds"] * 1e3, "slots_before": c["slots_before"],
+                    "slots_after": c["slots_after"]} for c in tm["compress"]],
+         decode_s=tm["decode_s"], decode_tok_per_s=n_tok / tm["decode_s"],
+         compressions=out["compressions"], max_memory_allocated=peak,
+         launches={k: counts[k] for k in ("K2", "K3", "K5")},
+         k5_expected=want_k5)
+
+    # the kernel path against the plain paths: prefill, each path
+    # compresses its own cache, then teacher-forced decode steps fed the
+    # tokens the kernel path generated
+    t1 = time.perf_counter()
+    tok = torch.from_numpy(prompts).to(DEV)
+    steps = out["tokens"][:, :LM["forced_steps"]].to(DEV, torch.int64)
+    kern, raw, start = _forced_route(bundle, model, tok, steps, impl="auto",
+                                     compress_impl="auto")
+    with torch.inference_mode():
+        # one cache compressed by both paths
+        slots = _slot_agreement(start, compress_model_caches(
+            raw, LM["t"], LM["m"], tail=LM["tail"], impl="ref"))
+        del raw
+        # the planted fault: the first step again with K5's bias dropped
+        with _attention_as(lambda q, k, v, kv_bias, **kw:
+                           fa.flash_attention(q, k, v, None, **kw)):
+            fault, _ = bundle.decode_step(model, start, {"tokens": steps[:, :1]},
+                                          impl="auto")
+        del start
+    plain = _forced_route(bundle, model, tok, steps, impl="auto",
+                          compress_impl="ref",
+                          attention=fa.flash_attention_plain)[0]
+    route = _forced_route(bundle, model, tok, steps, impl="ref",
+                          compress_impl="ref")[0]
+    sync()
+    errs = {"plain": [_logit_diff(a, b) for a, b in zip(kern, plain)],
+            "route": [_logit_diff(a, b) for a, b in zip(kern, route)]}
+    planted = _logit_diff(fault[:, -1].float(), plain[1])
+    parity_s = time.perf_counter() - t1
+
+    # the kernel path again: the same tokens, bit for bit
+    again = engine.generate({"tokens": prompts})
+    repeat = bool(torch.equal(again["tokens"], out["tokens"]))
+
+    def rounded(e):
+        return {k: round(v, 6) if isinstance(v, float) else v for k, v in e.items()}
+
+    emit("lm_parity", logit_ulps=LOGIT_ULPS,
+         steps={name: [rounded(e) for e in es] for name, es in errs.items()},
+         planted_fault=rounded(planted), compressed_slot_agreement=slots,
+         bitwise_repeat=repeat, parity_s=round(parity_s, 3),
+         seconds=round(time.perf_counter() - t0, 3))
+    for name, es in errs.items():
+        for i, e in enumerate(es):  # step 0 is the prefill
+            check(e["finite"], f"{name} step {i}: non-finite logits")
+            check(e["err"] <= e["bound"],
+                  f"{name} step {i}: max |dlogit| {e['err']} > {e['bound']}")
+            check(e["top1"] >= MIN_TOP1,
+                  f"{name} step {i}: top-1 agreement {e['top1']}")
+    check(planted["err"] > planted["bound"],
+          f"K5 with its bias dropped stays within the logit bound "
+          f"({planted['err']} <= {planted['bound']})")
+    check(slots >= MIN_SLOT_AGREEMENT,
+          f"kernel vs plain compression: slot agreement {slots}")
+    check(repeat, "two kernel-path generations differ")
+
+
 def _profiled(label: str, fn) -> None:
     """Run ``fn`` under torch.profiler; emit wall time, total kernel time,
     the busy share and the kernels that took most of the device time."""
@@ -542,6 +981,9 @@ def phase_profile(state: dict) -> None:
     g, _ = gmm_sample(SIZES["gmm"], seed=0)
     _profiled("fit_gmm_headline", lambda: repro_torch.fit(
         g, 2, 3, "kmeans", k=3, key=prng.PRNGKey(0), device=DEV))
+    if "lm_engine" in state:  # the lm phase's generate, once more
+        engine, prompts = state["lm_engine"]
+        _profiled("lm_gemma2", lambda: engine.generate({"tokens": prompts}))
 
 
 def main() -> int:
@@ -580,16 +1022,22 @@ def main() -> int:
         phase_headline()
     if "determinism" in phases:
         phase_determinism()
+    if "lm" in phases:
+        phase_lm(state)
     if "profile" in phases:
         phase_profile(state)
     if results:
-        launches = state.get("main_counts", state.get("fit_counts", {}))
+        paths = {"fit_serve": state.get("main_counts", state.get("fit_counts", {})),
+                 "lm": state.get("lm_counts", {})}
         line = []
-        for kid in ("K1", "K2", "K3", "K4"):
+        for kid in ("K1", "K2", "K3", "K4", "K5"):
             r = results[kid]
             name, source, replaces = KERNEL_META[kid]
+            by_path = {p: c.get(kid, 0) for p, c in paths.items() if c}
             line.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces, "launches": launches.get(kid),
+                         "replaces": replaces,
+                         "launches": sum(by_path.values()) if by_path else None,
+                         "launches_by_path": by_path,
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

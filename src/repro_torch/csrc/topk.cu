@@ -29,6 +29,14 @@
 // reproduces the earliest-index tie rule. At the end the LANES lists of a
 // query are merged through warp shuffles under the same (dist, g) order.
 // No (nq, p) matrix is written and no atomics are used.
+//
+// Any width: up to d = 128 the query row sits in registers (D a template
+// bound). Above that a row of D floats would pass the 255-register limit of
+// a thread, so topk_chunked_kernel keeps nothing of width d in registers:
+// a tile of 64 keys and the block's 32 query rows are staged through shared
+// memory 64 features at a time, and each thread carries the cross terms of
+// its 8 keys of the tile (lane l: keys l, l+8, ..., l+56, ascending, so the
+// strict-< tie rule holds as above) and the key norms across the chunks.
 // Later work: tensor-core cross term (wgmma) and TMA-fed key tiles.
 
 #include <cuda_runtime.h>
@@ -162,13 +170,133 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kChunk = 64;                  // features per stage
+constexpr int kCTile = 64;                  // keys per tile
+constexpr int kPerLane = kCTile / kLanes;   // keys of a tile per thread
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    topk_chunked_kernel(const float* __restrict__ q,
+                        const float* __restrict__ keys,
+                        const unsigned char* __restrict__ valid,
+                        const int* __restrict__ q_gidx,
+                        float* __restrict__ out_d, int* __restrict__ out_i,
+                        int nq, int p, int d, int k) {
+  // rows padded by one float: the 8 lanes of a query read 8 neighbouring
+  // key rows of a column, which then fall in 8 different banks
+  __shared__ float sq[kQPB][kChunk + 1];
+  __shared__ float sk[kCTile][kChunk + 1];
+  __shared__ float sn[kCTile];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % kLanes;
+  const int ql = tid / kLanes;
+  const int qi = blockIdx.x * kQPB + ql;
+  const bool active = qi < nq;
+
+  float xn = 0.f;
+  if (active) {
+    for (int f = 0; f < d; ++f) {
+      const float v = q[(size_t)qi * d + f];
+      xn = fmaf(v, v, xn);
+    }
+  }
+  const int self = (active && q_gidx != nullptr) ? q_gidx[qi] : -1;
+
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = CUDART_INF_F;
+    bi[s] = -1;
+  }
+
+  for (int base = 0; base < p; base += kCTile) {
+    const int nt = min(kCTile, p - base);
+    float acc[kPerLane];
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) acc[j] = 0.f;
+    float yn = 0.f;  // norm of key row tid (threads tid < kCTile)
+    for (int c0 = 0; c0 < d; c0 += kChunk) {
+      const int cw = min(kChunk, d - c0);
+      __syncthreads();  // the previous chunk is no longer read
+      for (int e = tid; e < kCTile * kChunk; e += kThreads) {
+        const int r = e / kChunk, f = e % kChunk;
+        sk[r][f] = (r < nt && f < cw) ? keys[(size_t)(base + r) * d + c0 + f] : 0.f;
+      }
+      for (int e = tid; e < kQPB * kChunk; e += kThreads) {
+        const int r = e / kChunk, f = e % kChunk;
+        const int g = blockIdx.x * kQPB + r;
+        sq[r][f] = (g < nq && f < cw) ? q[(size_t)g * d + c0 + f] : 0.f;
+      }
+      __syncthreads();
+      if (tid < kCTile) {
+#pragma unroll 8
+        for (int f = 0; f < kChunk; ++f) yn = fmaf(sk[tid][f], sk[tid][f], yn);
+      }
+#pragma unroll 4
+      for (int f = 0; f < kChunk; ++f) {
+        const float xv = sq[ql][f];
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j)
+          acc[j] = fmaf(xv, sk[lane + kLanes * j][f], acc[j]);
+      }
+    }
+    if (tid < kCTile)
+      sn[tid] = (tid < nt && (valid == nullptr || valid[base + tid])) ? yn
+                                                                     : CUDART_INF_F;
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const int r = lane + kLanes * j;
+        if (r < nt) {
+          const float dist = fmaxf(xn + sn[r] - 2.f * acc[j], 0.f);
+          const int g = base + r;
+          if (dist < bd[K - 1] && g != self) insert<K>(bd, bi, dist, g);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1) {
+    float od[K];
+    int oi[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      od[s] = __shfl_xor_sync(0xffffffffu, bd[s], off);
+      oi[s] = __shfl_xor_sync(0xffffffffu, bi[s], off);
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (before(od[s], oi[s], bd[K - 1], bi[K - 1])) insert<K>(bd, bi, od[s], oi[s]);
+    }
+  }
+
+  if (active && lane == 0) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (s < k) {
+        out_d[(size_t)qi * k + s] = bd[s];
+        out_i[(size_t)qi * k + s] = isinf(bd[s]) ? -1 : bi[s];
+      }
+    }
+  }
+}
+
+// D == 0 selects the chunked kernel (any d)
 template <int K, int D>
 cudaError_t launch(const float* q, const float* keys, const unsigned char* valid,
                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                    int d, int k, cudaStream_t stream) {
   const int blocks = (nq + kQPB - 1) / kQPB;
-  topk_kernel<K, D><<<blocks, kThreads, 0, stream>>>(q, keys, valid, q_gidx,
-                                                     out_d, out_i, nq, p, d, k);
+  if constexpr (D == 0)
+    topk_chunked_kernel<K><<<blocks, kThreads, 0, stream>>>(
+        q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k);
+  else
+    topk_kernel<K, D><<<blocks, kThreads, 0, stream>>>(
+        q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k);
   return cudaGetLastError();
 }
 
@@ -190,14 +318,13 @@ cudaError_t launch_k(const float* q, const float* keys, const unsigned char* val
 extern "C" {
 
 int repro_topk_max_k() { return 32; }
-int repro_topk_max_d() { return 128; }
 
 // q (nq, d) f32, keys (p, d) f32, valid (p,) u8 or null, q_gidx (nq,) i32 or
 // null -> out_d (nq, k) f32, out_i (nq, k) i32. Returns a cudaError_t.
 int repro_topk_f32(const float* q, const float* keys, const unsigned char* valid,
                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                    int d, int k, void* stream) {
-  if (nq < 0 || p < 0 || d < 1 || d > 128 || k < 1 || k > 32)
+  if (nq < 0 || p < 0 || d < 1 || k < 1 || k > 32)
     return (int)cudaErrorInvalidValue;
   if (nq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -205,7 +332,8 @@ int repro_topk_f32(const float* q, const float* keys, const unsigned char* valid
   if (d <= 4) err = launch_k<4>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
   else if (d <= 8) err = launch_k<8>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
   else if (d <= 32) err = launch_k<32>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
-  else err = launch_k<128>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
+  else if (d <= 128) err = launch_k<128>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
+  else err = launch_k<0>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
   return (int)err;
 }
 

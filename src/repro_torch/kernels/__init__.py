@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import fused_assign as _fused_assign
 from repro_torch.kernels import knn_topk as _knn_topk
 from repro_torch.kernels import pairwise_l2 as _pairwise_l2
@@ -20,6 +21,7 @@ WRAPPERS = {
     "K2": _knn_topk.knn_topk,
     "K3": _segment_sum.segment_sum,
     "K4": _pairwise_l2.pairwise_sq_l2,
+    "K5": _flash_attention.flash_attention,
 }
 
 

@@ -30,6 +30,7 @@ SOURCES = {
     "topk": "topk.cu",
     "segment_sum": "segment_sum.cu",
     "pairwise_l2": "pairwise_l2.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = (
@@ -40,12 +41,16 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C signatures (every function returns a cudaError_t as int)
 _SIGNATURES = {
     "topk": ("repro_topk_f32", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "segment_sum": ("repro_segment_sum_f32", [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P]),
     "pairwise_l2": ("repro_pairwise_sq_l2_f32", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "flash_attention": ("repro_flash_attention",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _P]),
 }
 
 _lock = threading.Lock()

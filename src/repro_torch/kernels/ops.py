@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_assign, knn_topk, pairwise_l2, ref
 from repro_torch.kernels import segment_sum as _segsum
 from repro_torch.runtime import IMPLS, active
@@ -161,3 +162,24 @@ def blocked_segment_sum(
         sums = s_b if sums is None else sums + s_b
         masses = m_b if masses is None else masses + m_b
     return sums, masses
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    kv_bias: Optional[torch.Tensor] = None,
+    logit_softcap: float = 0.0,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """GQA attention entry point: q (b, hq, lq, dh); k/v (b, hkv, lk, dh);
+    kv_bias (b, hkv or hq, lk). K5 for a CUDA tensor, the plain version
+    (kv heads repeated, dense softmax) for a CPU tensor or ``impl="ref"``."""
+    if resolve(impl, q.device) == "cuda":
+        return _fa.flash_attention(q, k, v, kv_bias, causal=causal, scale=scale,
+                                   logit_softcap=logit_softcap)
+    return _fa.flash_attention_plain(q, k, v, kv_bias, causal=causal,
+                                     scale=scale, logit_softcap=logit_softcap)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the clustering kernels.
+"""Plain PyTorch versions of the kernels.
 
 These are the reference semantics of the port, and the counterparts of
 ``repro.kernels.ref``. Every CUDA kernel of this package is checked
@@ -12,12 +12,15 @@ full float32 only with TF32 off: :func:`pairwise_sq_l2` turns it off.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 
-def _no_tf32(t: torch.Tensor) -> None:
+def no_tf32(t: torch.Tensor) -> None:
+    """Full-f32 matrix products on the card (TF32 off), as the reference
+    folds them."""
     # the reference folds distances in full f32 (Precision.HIGHEST); a TF32
     # product keeps about three decimal digits
     if t.is_cuda:
@@ -34,7 +37,7 @@ def pairwise_sq_l2(
     f32; invalid keys get ``+inf``."""
     x = x.float()
     y = y.float()
-    _no_tf32(x)
+    no_tf32(x)
     xn = torch.sum(x * x, dim=-1)
     yn = torch.sum(y * y, dim=-1)
     cross = x @ y.T
@@ -110,3 +113,41 @@ def segment_sum(
     sums.index_add_(0, ids, x * w[:, None])
     masses.index_add_(0, ids, w)
     return sums[:num_segments], masses[:num_segments]
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    kv_bias: Optional[torch.Tensor] = None,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Multi-head attention, the plain version of K5 (heads already
+    matched: q (b, h, lq, dh), k/v (b, h, lk, dh), kv_bias (b, h, lk)).
+
+    Everything folds in f32 (TF32 off on the card). ``causal`` aligns the
+    mask to the end of kv (query i sits at position lk − lq + i), and masks
+    with −inf; ``kv_bias`` is added to the logits after the softcap
+    ``cap·tanh(l/cap)``. Returns q's dtype.
+    """
+    orig = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    no_tf32(q)
+    dh = q.shape[-1]
+    s = 1.0 / math.sqrt(dh) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * s
+    if logit_softcap and logit_softcap > 0.0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    if kv_bias is not None:
+        logits = logits + kv_bias.float()[:, :, None, :]
+    if causal:
+        lq, lk = logits.shape[-2], logits.shape[-1]
+        qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        kpos = torch.arange(lk, device=q.device)[None, :]
+        logits = torch.where(kpos <= qpos, logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v)
+    return out.to(orig)

@@ -1,0 +1,126 @@
+"""Shared layers of the LM — the port of ``repro.models.layers``.
+
+Weights keep the reference's layout (a dense weight is (d_in, d_out) and
+applies as ``x @ w``) and are stored in the compute dtype, bf16, once:
+the reference keeps them in f32 and casts them to bf16 at every use,
+which gives the same values. Norm weights stay f32, as the reference
+applies them. Activations are bf16 between layers; norms, rope and the
+final logits work in f32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def weight(shape, *, dtype=COMPUTE_DTYPE, device=None) -> nn.Parameter:
+    """An uninitialised inference weight (filled by ``init`` or ``convert``)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                scale: Optional[float] = None) -> None:
+    """Fill ``w`` (d_in, ...) with N(0, 1)·scale drawn in f32 (default
+    scale 1/sqrt(d_in)), as the reference's ``_dense_init``."""
+    s = (1.0 / w.shape[0]) ** 0.5 if scale is None else scale
+    draw = torch.randn(w.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device) * s
+    with torch.no_grad():
+        w.copy_(draw.to(w.device, w.dtype))
+
+
+# ---------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm with gemma's ``(1 + w)`` weight, in f32; returns x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + w.float())
+    return out.to(dt)
+
+
+# ---------------------------------------------------------------- rope
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., seq, n_heads, head_dim); positions:
+    (..., seq)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq  # (..., seq, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- mlp
+class MLP(nn.Module):
+    """swiglu (gate, up, down) | relu2 | gelu (up, down), in bf16."""
+
+    def __init__(self, d: int, ff: int, kind: str, *, device=None):
+        super().__init__()
+        if kind not in ("swiglu", "relu2", "gelu"):
+            raise ValueError(f"unknown mlp kind {kind!r}")
+        self.kind = kind
+        self.up = weight((d, ff), device=device)
+        self.down = weight((ff, d), device=device)
+        if kind == "swiglu":
+            self.gate = weight((d, ff), device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        up = x @ self.up.to(dt)
+        if self.kind == "swiglu":
+            h = nn.functional.silu(x @ self.gate.to(dt)) * up
+        elif self.kind == "relu2":
+            h = torch.square(torch.relu(up))
+        else:  # the reference's jax.nn.gelu: the tanh approximation
+            h = nn.functional.gelu(up, approximate="tanh")
+        return h @ self.down.to(dt)
+
+
+# ---------------------------------------------------------------- embedding
+class Embed(nn.Module):
+    """Token table (padded vocab) and, untied, the unembedding."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        v = cfg.padded_vocab_size
+        self.table = weight((v, cfg.d_model), device=device)
+        if not cfg.tie_embeddings:
+            self.unembed = weight((cfg.d_model, v), device=device)
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.table.to(COMPUTE_DTYPE)[tokens]
+        cfg = self.cfg
+        if cfg.family in ("dense",) and cfg.name.startswith("gemma"):
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE,
+                                 device=x.device)
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(…, padded_vocab) f32 logits: final softcap, padding masked."""
+        cfg = self.cfg
+        dt = x.dtype
+        if cfg.tie_embeddings:
+            logits = x @ self.table.to(dt).T
+        else:
+            logits = x @ self.unembed.to(dt)
+        logits = logits.float()
+        if cfg.final_logit_softcap:
+            c = cfg.final_logit_softcap
+            logits = c * torch.tanh(logits / c)
+        if cfg.padded_vocab_size != cfg.vocab_size:
+            col = torch.arange(cfg.padded_vocab_size, device=x.device)
+            logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+        return logits

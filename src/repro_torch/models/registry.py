@@ -1,0 +1,59 @@
+"""Model registry: one bundle of callables per architecture, as
+``repro.models.registry`` gives the serving engine and the tests.
+
+    bundle = build(cfg)
+    model = bundle.init(torch.Generator("cuda").manual_seed(0))
+    caches = bundle.init_caches(batch, max_len, device=model_device)
+    logits, caches = bundle.prefill(model, caches, {"tokens": prompts})
+    logits, caches = bundle.decode_step(model, caches, {"tokens": tok[:, None]})
+
+``init`` builds the model on ``device`` (default: the runtime config's,
+"cuda" unless the caller asks for the CPU; a missing GPU raises). The
+dense family only (``transformer.check_supported``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.layers import COMPUTE_DTYPE
+from repro_torch.runtime import resolve_device
+
+
+@dataclass(frozen=True)
+class ModelBundle:
+    cfg: ModelConfig
+    init: Callable[..., transformer.LM]
+    prefill: Callable[..., Any]       # (logits (b, 1, V), caches)
+    decode_step: Callable[..., Any]   # (logits (b, 1, V), caches)
+    init_caches: Callable[..., dict]
+
+
+def build(cfg: ModelConfig) -> ModelBundle:
+    transformer.check_supported(cfg)
+
+    def init(generator: Optional[torch.Generator] = None, *,
+             device=None) -> transformer.LM:
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        model = transformer.LM(cfg, device=dev)
+        return model.init_weights(generator)
+
+    def prefill(model, caches, batch, *, impl=None):
+        return model(batch["tokens"], caches=caches, impl=impl, last_only=True)
+
+    def decode_step(model, caches, batch, *, impl=None):
+        start = transformer.cache_start_pos(caches)
+        return model(batch["tokens"], caches=caches, start_pos=start, impl=impl)
+
+    def init_caches(batch: int, max_len: int, *, dtype=COMPUTE_DTYPE,
+                    device=None) -> dict:
+        return transformer.init_lm_caches(cfg, batch, max_len, dtype=dtype,
+                                          device=resolve_device(device))
+
+    return ModelBundle(cfg, init, prefill, decode_step, init_caches)

@@ -8,7 +8,8 @@ using a ``torch.Generator``:
 
   * a key is a (2,) int64 CPU tensor holding two uint32 words;
   * :func:`split` and :func:`random_bits` hash the 64-bit iota of the
-    output shape (high word, low word) with the key;
+    output shape (high word, low word) with the key; :func:`fold_in`
+    hashes the pair (0, data);
   * :func:`uniform` puts 23 random bits under a 1.0 exponent;
   * :func:`categorical` is Gumbel-argmax with ``-log(-log(u))`` noise (the
     reference's default low-range mode). Its ``log`` may differ from
@@ -96,6 +97,15 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``num`` new keys, shape (num, 2)."""
     b1, b2 = _hash_iota(key, (int(num),), "cpu")
     return torch.stack([b1, b2], dim=1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """A new key from ``key`` and an integer: the key hashes the counter
+    pair (0, data mod 2**32), as ``jax.random.fold_in`` does."""
+    k1, k2 = _words(key)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros((1,), dtype=torch.int64),
+                          torch.tensor([int(data) & _M32], dtype=torch.int64))
+    return torch.cat([b1, b2])
 
 
 def random_bits(key: torch.Tensor, shape: Shape, *, device=None) -> torch.Tensor:

@@ -1,0 +1,154 @@
+"""Batched LM serving engine — the port of ``repro.serve.engine``.
+
+Prefill → decode with greedy or temperature sampling, EOS tracking and
+optional IHTC KV-cache compression: the caches are compressed right after
+prefill and again whenever the uncompressed tail fills, so steady-state
+memory is O(S / t^m + tail) per sequence.
+
+As in the reference, the decode loop keeps a host-side mirror of the
+cache write position (it never reads the device to know where it is), and
+after a compress the rope positions restart at ``pos = P``, the number of
+prototypes, since the decode position is the cache's ``pos``.
+
+Each result carries host-clock timings of its phases; the clock is read
+after a device synchronise at each phase boundary (a handful per call).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.models.registry import ModelBundle
+from repro_torch.serve.kv_compression import (
+    compress_model_caches,
+    find_attention_caches,
+)
+
+
+@dataclass
+class ServeConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0        # 0 ⇒ greedy
+    eos_id: int = -1                # -1 ⇒ never stop early
+    # IHTC cache compression
+    compress: bool = False
+    compress_t: int = 2
+    compress_m: int = 1
+    compress_tail: int = 128
+    #: dispatch policy of attention and compression ("auto": the kernels on
+    #: the card; "ref": the plain paths). None: the runtime config's.
+    impl: Optional[str] = None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    def __init__(self, bundle: ModelBundle, model: torch.nn.Module,
+                 scfg: Optional[ServeConfig] = None):
+        self.bundle = bundle
+        self.model = model
+        self.scfg = scfg if scfg is not None else ServeConfig()
+        self.device = next(model.parameters()).device
+
+    def _sample(self, logits: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+        if self.scfg.temperature <= 0.0:
+            return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return prng.categorical(
+            key, logits[:, -1] / self.scfg.temperature).to(torch.int32)
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        batch: Dict[str, object],
+        *,
+        max_len: Optional[int] = None,
+        key: Optional[torch.Tensor] = None,
+    ) -> Dict[str, object]:
+        """batch: ``{"tokens": (b, s) prompt ids}``. Returns ``{"tokens":
+        (b, n_steps) int32, "n_steps", "compressions" (in-flight ones, after
+        the first), "timings": {"prefill_s", "decode_s", "compress":
+        [{"seconds", "slots_before", "slots_after"}, ...]}}``."""
+        scfg, dev = self.scfg, self.device
+        if key is None:
+            key = prng.PRNGKey(0)
+        tokens = batch["tokens"]
+        if not torch.is_tensor(tokens):
+            tokens = torch.from_numpy(np.asarray(tokens))
+        prompt = tokens.to(dev, torch.int64)
+        b, s = prompt.shape
+        total = max_len or (s + scfg.max_new_tokens)
+        compress_log: List[dict] = []
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        caches = self.bundle.init_caches(b, total, device=dev)
+        logits, caches = self.bundle.prefill(self.model, caches,
+                                             {"tokens": prompt}, impl=scfg.impl)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+
+        def compress(caches):
+            before = self._cache_size(caches)
+            _sync(dev)
+            t1 = time.perf_counter()
+            caches = compress_model_caches(caches, scfg.compress_t,
+                                           scfg.compress_m,
+                                           tail=scfg.compress_tail,
+                                           impl=scfg.impl)
+            _sync(dev)
+            compress_log.append({"seconds": time.perf_counter() - t1,
+                                 "slots_before": before,
+                                 "slots_after": self._cache_size(caches)})
+            return caches
+
+        pos_host = -1
+        if scfg.compress:
+            caches = compress(caches)
+            pos_host = self._cache_size(caches) - scfg.compress_tail
+        t_loop = time.perf_counter()
+
+        out: List[torch.Tensor] = []
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        n_compress = 0
+        tok = self._sample(logits, key)
+        for i in range(scfg.max_new_tokens):
+            out.append(tok)
+            if scfg.eos_id >= 0:
+                done = done | (tok == scfg.eos_id)
+                if bool(done.all()):  # the one device read of the loop
+                    break
+            key = prng.fold_in(key, i)
+            logits, caches = self.bundle.decode_step(
+                self.model, caches, {"tokens": tok[:, None].to(torch.int64)},
+                impl=scfg.impl)
+            tok = self._sample(logits, key)
+            if scfg.compress:
+                pos_host += 1  # decode appended one token per sequence
+                if pos_host >= self._cache_size(caches):  # tail full
+                    caches = compress(caches)
+                    pos_host = self._cache_size(caches) - scfg.compress_tail
+                    n_compress += 1
+        _sync(dev)
+        loop_s = time.perf_counter() - t_loop
+        decode_s = loop_s - sum(c["seconds"] for c in compress_log[1:])
+        return {
+            "tokens": torch.stack(out, dim=1),
+            "n_steps": len(out),
+            "compressions": n_compress,
+            "timings": {"prefill_s": prefill_s, "decode_s": decode_s,
+                        "compress": compress_log},
+        }
+
+    @staticmethod
+    def _cache_size(caches) -> int:
+        """Sequence capacity of the first attention cache (shape metadata,
+        no device read)."""
+        return next(find_attention_caches(caches))["k"].shape[2]

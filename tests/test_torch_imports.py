@@ -47,6 +47,9 @@ def test_port_imports_without_jax():
         "import repro_torch\n"
         "from repro_torch import fit, ClusterIndex, ClusterService\n"
         "import repro_torch.kernels.ops, repro_torch.core.tc, repro_torch.prng\n"
+        "import repro_torch.models.registry, repro_torch.models.convert\n"
+        "import repro_torch.serve.engine, repro_torch.serve.kv_compression\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.launch.serve\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') for m in sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

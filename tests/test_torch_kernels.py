@@ -25,6 +25,7 @@ from repro.kernels.pairwise_l2 import pairwise_sq_l2 as j_pairwise
 from repro.kernels.segment_sum import segment_sum as j_segment_sum
 from repro_torch import kernels as tkernels
 from repro_torch.kernels import _cuda, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_assign import fused_topk, fused_topk_plain, launch_topk
 from repro_torch.kernels.knn_topk import knn_topk
 from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2
@@ -250,7 +251,10 @@ def test_cuda_launch_refuses_cpu_tensors_and_counts_nothing(rng):
     knn_topk(x, 1)
     segment_sum(x, torch.zeros(5, dtype=torch.int64), 2)
     pairwise_sq_l2(x, x)
-    assert tkernels.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    q = x.reshape(1, 1, 5, 2)
+    flash_attention(q, q, q)
+    assert tkernels.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                        "K5": 0}
 
 
 def test_merge_topk_tie_rule():

@@ -79,3 +79,22 @@ def test_categorical_matches_at_untied_logits(seed):
     top2 = np.sort(noisy)[-2:]
     if top2[1] - top2[0] > 1e-5 * max(1.0, abs(top2[1])):
         assert got == want
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_bitexact(seed):
+    """fold_in over many data values, and the chains the engine and the KV
+    compression derive: fold_in(fold_in(key, i-1), i) and fold_in(key, 100 + j)."""
+    k = jax.random.PRNGKey(seed)
+    tk = prng.PRNGKey(seed)
+    for data in (0, 1, 2, 99, 100, 101, 2**31 - 1, 2**32 - 1, 12345678):
+        np.testing.assert_array_equal(prng.key_to_numpy(prng.fold_in(tk, data)),
+                                      np.asarray(jax.random.fold_in(k, data)))
+    a, ta = k, tk
+    for i in range(20):
+        a, ta = jax.random.fold_in(a, i), prng.fold_in(ta, i)
+    np.testing.assert_array_equal(prng.key_to_numpy(ta), np.asarray(a))
+    # a folded key feeds the draws as any other key does
+    np.testing.assert_array_equal(
+        prng.uniform(prng.fold_in(tk, 7), (64,)).numpy(),
+        np.asarray(jax.random.uniform(jax.random.fold_in(k, 7), (64,))))
