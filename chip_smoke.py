@@ -26,6 +26,21 @@ Phases, each printing one JSON line:
                accuracy must be >= 0.90;
   determinism  n = 65,536: the kernel path twice (bitwise equal labels) and
                the plain path once (label agreement >= 0.999);
+  online       the online loop: a 10,485,760-point blobs stream (d = 6, 7
+               blobs, 80 chunks of 131,072) folded by an OnlineFitter
+               (t = 3, m = 4, k-means k = 7, prefetch depth 2), its snapshot
+               packed into an index, saved to and loaded from an
+               IndexStore, served by an AsyncClusterService on an asyncio
+               loop under fused, fused_bf16 and fused_int8 (requests of 1,
+               100, 2048, 5000 points), then a RefreshDriver folding a
+               drifted stream refreshes once under live traffic (snapshot,
+               pack, save, warmup, hot-swap); the fit's prototypes,
+               clustered under 16 k-means seedings, must match the
+               generating blobs (accuracy >= 0.97); then a determinism
+               check on the first 8 chunks (prefetch depth 0 vs 2 bitwise,
+               kernel path vs plain path level-0 maps agreement >= 0.999,
+               both paths' prototypes as above, lowest inertias within
+               5 %);
   lm           the LM serving path at the full gemma2-2b config (random
                weights from a seeded generator): ServeEngine.generate with
                batch 4, prompt 2048, 160 new tokens, IHTC KV compression
@@ -36,16 +51,24 @@ Phases, each printing one JSON line:
                LOGIT_ULPS, with a planted fault (K5's bias dropped for one
                step) that must exceed it; then a second
                kernel-path run (bitwise equal tokens);
-  profile      (only when asked for) the fit, the headline fit and (after
-               the lm phase) one generate again under torch.profiler:
-               kernel time by name and the device busy share.
+  profile      (only when asked for) the fit, the headline fit, (after
+               the lm phase) one generate and (after the online phase) the
+               stream's first 16 chunks again under torch.profiler: kernel
+               time by name and the device busy share;
+  basins       (only when asked for) which k-means optimum the kernel and
+               the plain path reach on the online stream's first 8 chunks,
+               under 6 keys and on data scaled by 1 + 2^-22; then k-means
+               alone on each path's prototypes under 12 keys.
 
 The kernel launch counts are set to 0 just before the fit and read after
-the fit and after the serve phase, and set to 0 again just before the lm
+the fit and after the serve phase, set to 0 again just before the online
+phase's stream and read after its refresh, and again just before the lm
 phase's generate and read right after it; every kernel of each path must
-have launched (K1-K4 in fit and serve; K2, K3 and K5 in lm, K5 once per
+have launched (K1-K4 in fit and serve; K1 and its bf16 and int8 key
+instances, K3 and K4 in online; K2, K3 and K5 in lm, K5 once per
 global layer of the prefill and once per layer of every decode step).
-Then one JSON line lists every kernel (launches summed over both paths),
+Then one JSON line lists every kernel and variant (launches summed over
+the paths),
 the card's name and power limit are printed, and the last line is
 ``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits nonzero without that line; so does a
@@ -55,9 +78,11 @@ It imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,10 +94,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "headline",
-                  "determinism", "lm")
+                  "determinism", "online", "lm")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
-ALL_PHASES = DEFAULT_PHASES + ("profile",)
+ALL_PHASES = DEFAULT_PHASES + ("profile", "basins")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): f32 on the CUDA
 # cores, bf16 on the tensor cores (f32 accumulation), HBM3
@@ -116,6 +141,31 @@ SIZES = dict(covertype=581_012, segments=193_670, blocked_q=8192,
 #: after the first compress), 8 teacher-forced steps in the parity check
 LM = dict(arch="gemma2-2b", batch=4, prompt=2048, new_tokens=160, t=2, m=1,
           tail=128, forced_steps=8)
+#: the online phase: the blobs stream, its fit, the serve ladder and
+#: request sizes, the refresh (a drifted stream: the shift of
+#: benchmarks/bench_lifecycle.py), the open-loop traffic around it, and the
+#: stand-in final index (its buffer rows) of the kernels phase's K1-variant
+#: rows, which the online phase measures again on the real index
+ONLINE = dict(n=10_485_760, d=6, k=7, chunk=131_072, t=3, m=4, depth=2,
+              buckets=(32, 128, 512, 2048), sizes=(1, 100, 2048, 5000),
+              reps={1: 40, 100: 40, 2048: 20, 5000: 20},
+              refresh_points=1_048_576, drift_shift=6.0, qps=100.0,
+              traffic_s=3.0, det_chunks=8, protos=5393, shortlist=8,
+              basin_keys=6)
+#: quantized vs exact labels, and kernel path vs plain path, both online
+MIN_QUANT_AGREEMENT = 0.999
+#: the online fits' quality, with the k-means seeding taken out: each fit's
+#: final prototypes are clustered under SEED_RESTARTS keys and the lowest
+#: inertia kept (one seeding lands the blob mixture in a worse optimum for
+#: about half of all keys, on either path). Its labels must match the
+#: generating blobs on >= MIN_BLOB_ACCURACY of the points (readings
+#: 0.982-0.989 in the best optimum, the 80-chunk fit lowest, and at most
+#: 0.792 in the others; PERF.md, PR 13), and the kernel path's lowest
+#: inertia must lie within MAX_INERTIA_GAP of the plain path's (reading
+#: -1.3 %; the next optimum is 27 % higher)
+SEED_RESTARTS = 16
+MIN_BLOB_ACCURACY = 0.97
+MAX_INERTIA_GAP = 0.05
 
 KERNEL_META = {
     "K1": ("fused_topk", "src/repro_torch/csrc/topk.cu",
@@ -128,6 +178,10 @@ KERNEL_META = {
            "src/repro/kernels/pairwise_l2.py:22"),
     "K5": ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention.py:23"),
+    "K1-bf16": ("fused_topk_bf16", "src/repro_torch/csrc/topk.cu",
+                "src/repro/kernels/fused_assign.py:61"),
+    "K1-int8": ("fused_topk_int8", "src/repro_torch/csrc/topk.cu",
+                "src/repro/kernels/fused_assign.py:61"),
 }
 
 
@@ -225,8 +279,11 @@ def phase_build() -> None:
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          compile_seconds=round(compile_s, 3),
          functions_with_spills=spills)
-    # registers and spills of the any-d top-k kernel and of K5, per instance
+    # registers and spills of the any-d top-k kernel (each key type) and of
+    # K5, per instance
     for name, marker in (("topk", "topk_chunked_kernel"),
+                         ("topk_bf16", "topk_chunked_kernel"),
+                         ("topk_int8", "topk_chunked_kernel"),
                          ("flash_attention", "flash_kernel")):
         text = _cuda.library_path(name).with_suffix(".log").read_text()
         emit("ptxas", library=name, functions=_ptxas_usage(text, marker))
@@ -312,6 +369,8 @@ def phase_kernels(results: dict) -> None:
         emit("kernels", **row)
         results.setdefault("K1", row)
 
+    _k1_variants(results, *_standin_index())
+
     # K2: the one-shot TC graph (level 4 of the fit: 7172 rows, under the
     # 8192-row blocking threshold)
     n, k = SIZES["knn_n"], 2
@@ -385,6 +444,59 @@ def phase_kernels(results: dict) -> None:
     _edge_checks(gen)
     _attention_edges()
     emit("kernels_done", seconds=round(time.perf_counter() - t0, 3))
+
+
+def _standin_index():
+    """(protos, valid, queries) shaped as the online phase's final index and
+    its largest request: ONLINE["protos"] rows from the blobs stream, 5000
+    queries from later in it."""
+    from repro_torch.data import PointStreamConfig, point_chunk
+
+    cfg = PointStreamConfig(n=ONLINE["n"], d=ONLINE["d"], chunk=ONLINE["chunk"],
+                            seed=0, kind="blobs", k=ONLINE["k"])
+    protos = dev(point_chunk(cfg, 0)[:ONLINE["protos"]])
+    valid = torch.ones(protos.shape[0], dtype=torch.bool, device=DEV)
+    queries = dev(point_chunk(cfg, 1)[:max(ONLINE["sizes"])])
+    return protos, valid, queries
+
+
+def _k1_variants(results: dict, protos, valid, queries, path="kernels") -> None:
+    """K1's bf16 and int8 key instances at the serve shape (the largest
+    request against the final index, the k = 8 shortlist), each against
+    its plain version on the same packed buffer: distances within
+    DIST_TOL, indices equal except at near-ties."""
+    from repro_torch.kernels import fused_assign as fa
+
+    nq, p, d, k = queries.shape[0], protos.shape[0], protos.shape[1], ONLINE["shortlist"]
+    q8, scale, zero = fa.quantize_keys(protos, valid)
+    cases = {
+        "K1-bf16": (queries.bfloat16(), protos.bfloat16(), {}, 2, 2),
+        "K1-int8": (queries, q8, dict(keys_scale=scale, keys_zero=zero), 4, 1),
+    }
+    for kid, (q, keys, kw, q_bytes, k_bytes) in cases.items():
+        gd, gi = fa.fused_topk(q, keys, k, valid, **kw)
+        rd, ri = fa.fused_topk_plain(q, keys, k, valid, **kw)
+        sync()
+        err = float((gd - rd).abs().max())
+        # near-ties judged on the keys as the kernel sees them (widened or
+        # dequantized), in float64
+        keys_f = (keys.float() * scale + zero) if kw else keys.float()
+        mism, bad = topk_mismatches(q.float(), keys_f, gd, gi, rd, ri)
+        check(torch.allclose(gd, rd, **DIST_TOL), f"{kid} distances off: {err}")
+        check(bad == 0, f"{kid}: {bad} index mismatches that are not near-ties")
+        ms = cuda_ms(lambda: fa.fused_topk(q, keys, k, valid, **kw))
+        plain = cuda_ms(lambda: fa.fused_topk_plain(q, keys, k, valid, **kw))
+        # operations as for K1 f32 (the widening or dequantization is per
+        # key element, not per pair); bytes: keys at their width, queries,
+        # valid, scale and zero in, distances and indices out
+        b_ms, b_by = bound(nq * p * (2 * d + 3),
+                           p * d * k_bytes + nq * d * q_bytes + p
+                           + (2 * d * 4 if kw else 0) + nq * k * 8)
+        row = dict(kernel=kid, path=path, nq=nq, p=p, d=d, k=k, max_abs_err=err,
+                   index_mismatches=mism, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        emit("kernels", **row)
+        results[kid] = row
 
 
 def _head_keys(n: int, d: int, seed: int) -> torch.Tensor:
@@ -565,6 +677,7 @@ def _edge_checks(gen) -> None:
             check(all(torch.equal(a, b) for a, b in zip(got, want)),
                   f"K1 differs from its plain version at {(nq, p, d, k)}")
             cases += 1
+    cases += _variant_edges(gen, grid)
     for n, d, k in ((17, 1, 16), (200, 6, 2), (64, 40, 5), (300, 256, 1),
                     (100, 512, 3)):
         x = grid(n, d)
@@ -593,6 +706,64 @@ def _edge_checks(gen) -> None:
         cases += 1
     sync()
     emit("kernels_edges", cases=cases, bitwise=True)
+
+
+def _variant_edges(gen, grid) -> int:
+    """K1's bf16 and int8 instances against their plain versions, bit for
+    bit, at d = 6 (register instance), 130 and 256 (chunked): dyadic keys
+    and queries (exact in bf16; int8 values in [-16, 16] with scales 1/4
+    or 1/2 and dyadic zero points, so every dequantized value, product and
+    sum of 256 squares is exact in f32), coarse grids that force distance
+    ties, masks and self-exclusion, k in {1, 3, 8, 20}; and
+    the FMA case: q8 = 127 with scale 1 + 2^-23 and zero -127 gives 2^-16
+    by a rounded multiply then an add, 127·2^-23 by one fused
+    multiply-add, so a zero query must see every valid key at d·2^-32."""
+    from repro_torch.kernels import fused_assign
+
+    cases = 0
+    for d in (6, 130, 256):
+        for nq, p, k in ((33, 70, 1), (40, 129, 3), (9, 300, 8), (70, 65, 20)):
+            valid = dev(gen.random(p) > 0.3)
+            gidx = dev(gen.integers(0, 2 * p, size=nq).astype(np.int32))
+            lim = 2 if k >= 8 else 16  # a coarse grid: many exact ties
+            qb = dev((gen.integers(-lim, lim + 1, size=(nq, d)) * 0.25)
+                     .astype(np.float32))
+            kb = dev((gen.integers(-lim, lim + 1, size=(p, d)) * 0.25)
+                     .astype(np.float32))
+            q8 = dev(gen.integers(-16, 17, size=(p, d)).astype(np.int8))
+            scale = dev((2.0 ** -gen.integers(1, 3, size=d)).astype(np.float32))
+            zero = dev((gen.integers(-8, 9, size=d) * 0.25).astype(np.float32))
+            runs = [(qb.bfloat16(), kb.bfloat16(), {}),
+                    (qb, q8, dict(keys_scale=scale, keys_zero=zero))]
+            for q, keys, kw in runs:
+                for v, g in ((None, None), (valid, gidx)):
+                    got = fused_assign.fused_topk(q, keys, k, v, q_gidx=g, **kw)
+                    want = fused_assign.fused_topk_plain(q, keys, k, v,
+                                                         q_gidx=g, **kw)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"K1 ({keys.dtype}, q {q.dtype}) differs from its "
+                          f"plain version at {(nq, p, d, k)}")
+                    cases += 1
+        # the FMA case
+        p, k = 50, 8
+        q8 = torch.full((p, d), 127, dtype=torch.int8, device=DEV)
+        scale = torch.full((d,), 1 + 2.0 ** -23, device=DEV)
+        zero = torch.full((d,), -127.0, device=DEV)
+        valid = dev(gen.random(p) > 0.5)
+        q = torch.zeros((5, d), device=DEV)
+        got = fused_assign.fused_topk(q, q8, k, valid, keys_scale=scale,
+                                      keys_zero=zero)
+        want = fused_assign.fused_topk_plain(q, q8, k, valid, keys_scale=scale,
+                                             keys_zero=zero)
+        first = valid.nonzero()[:k, 0].to(torch.int32)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K1 int8 FMA case differs from its plain version at d {d}")
+        check(bool((got[0] == d * 2.0 ** -32).all())
+              and torch.equal(got[1], first.expand(5, -1)),
+              f"K1 int8 at d {d}: dequantization is not a rounded multiply "
+              f"then an add, or the tie order is off")
+        cases += 1
+    return cases
 
 
 def _attention_edges() -> None:
@@ -764,6 +935,392 @@ def phase_determinism() -> None:
          assignments_equal=[bool(torch.equal(p, q)) for p, q in
                             zip(runs[0].assignments, plain.assignments)],
          seconds=round(time.perf_counter() - t0, 3))
+
+
+def _pct(values, q) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+async def _closed_loop(svc, queries, reps: int) -> list:
+    """``reps`` requests one after another (each awaited): latencies, ms."""
+    loop = asyncio.get_running_loop()
+    out = []
+    for _ in range(reps):
+        t0 = loop.time()
+        await svc.submit(queries)
+        out.append((loop.time() - t0) * 1e3)
+    return out
+
+
+async def _open_loop(svc, pool, *, qps, duration, sizes, fire_at, fire):
+    """Open-loop traffic at ``qps`` for ``duration`` seconds, request sizes
+    cycling through ``sizes``; ``fire()`` (loop-blocking: the refresh)
+    runs at ``fire_at``. Returns (records, errors, swap window)."""
+    loop = asyncio.get_running_loop()
+    rng = np.random.default_rng(5)
+    records, errors, window = [], [], None
+    t0 = loop.time()
+    next_t, i = 0.0, 0
+    while next_t < duration:
+        if window is None and next_t >= fire_at:
+            w0 = loop.time()
+            fire()
+            window = (w0, loop.time())
+        gap = t0 + next_t - loop.time()
+        if gap > 0:
+            await asyncio.sleep(gap)
+        n = sizes[i % len(sizes)]
+        lo = int(rng.integers(0, pool.shape[0] - n))
+        rec = {"n": n, "t_submit": loop.time(), "t_done": None}
+        fut = svc.submit(pool[lo:lo + n])
+
+        def done(f, rec=rec):
+            rec["t_done"] = loop.time()
+            if f.cancelled() or f.exception() is not None:
+                errors.append(repr(f.exception()))
+        fut.add_done_callback(done)
+        records.append(rec)
+        i += 1
+        next_t += 1.0 / qps
+    while any(r["t_done"] is None for r in records):
+        await asyncio.sleep(0.002)
+    return records, errors, window
+
+
+def phase_online(results: dict, state: dict) -> None:
+    """The online loop at full size: stream → fit → pack → store → async
+    serve under the three fused impls → refresh under live traffic."""
+    from repro_torch import kernels, prng
+    from repro_torch.core.index import ClusterIndex, nearest_valid_prototype
+    from repro_torch.data import PointStreamConfig, point_chunk, point_chunks
+    from repro_torch.serve import (AsyncClusterService, IndexStore,
+                                   OnlineFitter, RefreshDriver, RefreshPolicy)
+
+    o = ONLINE
+    t_phase = time.perf_counter()
+    cfg = PointStreamConfig(n=o["n"], d=o["d"], chunk=o["chunk"], seed=0,
+                            kind="blobs", k=o["k"])
+    n_chunks = -(-o["n"] // o["chunk"])
+    # the same generator further on: points the fit never saw (100,000
+    # for serving, then the drifted stream)
+    n_home = -(-100_000 // o["chunk"])
+    n_drift = o["refresh_points"] // o["chunk"]
+    beyond = PointStreamConfig(n=(n_chunks + n_home + n_drift) * o["chunk"],
+                               d=o["d"], chunk=o["chunk"], seed=0,
+                               kind="blobs", k=o["k"])
+    store_dir = ROOT / "build" / "online_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+
+    # ---- stream → fit
+    t0 = time.perf_counter()
+    fitter = OnlineFitter(point_chunks(cfg), o["t"], o["m"], "kmeans",
+                          k=o["k"], prefetch_depth=o["depth"],
+                          key=prng.PRNGKey(0), device=DEV)
+    sync()
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snap = fitter.snapshot()
+    sync()
+    snapshot_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st = snap.spill.ingest_stats
+    check(fitter.n_points == o["n"] and fitter.n_chunks == n_chunks,
+          f"stream folded {fitter.n_points} points in {fitter.n_chunks} chunks")
+    check(bool(torch.isfinite(snap.protos).all()), "non-finite prototypes")
+    mass = float(snap.proto_mass[snap.proto_valid].double().sum())
+    check(abs(mass - o["n"]) < 1e-3 * o["n"], f"prototype mass {mass} != n")
+
+    # ---- pack → store → load
+    t0 = time.perf_counter()
+    index = ClusterIndex.build(snap, pack=True).check_servable(expect_dim=o["d"])
+    store = IndexStore(store_dir)
+    v1 = store.save(index, metadata={"n_points": fitter.n_points})
+    loaded = store.load(v1, expect_dim=o["d"], device=DEV)
+    sync()
+    store_s = time.perf_counter() - t0
+    for f in ("protos", "proto_valid", "proto_labels", "protos_bf16",
+              "protos_q8", "q8_scale", "q8_zero"):
+        check(torch.equal(getattr(loaded, f), getattr(index, f)),
+              f"IndexStore round trip changed {f}")
+
+    # ---- serve under the three fused impls
+    gen = np.random.default_rng(3)
+    home = np.concatenate([point_chunk(beyond, n_chunks + j)
+                           for j in range(n_home)])[:100_000]
+    assign_ms, agreement, services = {}, {}, {}
+
+    async def serve_all():
+        for impl in ("fused", "fused_bf16", "fused_int8"):
+            # no flush deadline: a request dispatches at once, so a closed
+            # loop times the serve path, not the batching wait
+            svc = AsyncClusterService(loaded, buckets=o["buckets"], impl=impl,
+                                      max_wait=0.0, queue_depth=1 << 22)
+            services[impl] = svc
+            lat = {}
+            for n in o["sizes"]:
+                lo = int(gen.integers(0, home.shape[0] - n))
+                lat[str(n)] = await _closed_loop(svc, home[lo:lo + n],
+                                                 o["reps"][n])
+            assign_ms[impl] = {n: {"p50": _pct(v, 50), "p99": _pct(v, 99)}
+                               for n, v in lat.items()}
+            agreement[impl] = await svc.submit(home)
+    asyncio.run(serve_all())
+    exact = agreement["fused"]
+    plain = loaded.assign(home, impl="ref").cpu().numpy()
+    agree = {impl: float((lab == exact).mean()) for impl, lab in agreement.items()}
+    agree["plain_vs_fused"] = float((plain == exact).mean())
+    for name, a in agree.items():
+        check(a >= MIN_QUANT_AGREEMENT, f"online label agreement {name}: {a}")
+
+    # ---- refresh under live traffic (the drifted stream)
+    svc = services["fused_int8"]
+    drifted = [point_chunk(beyond, n_chunks + n_home + i) + o["drift_shift"]
+               for i in range(n_drift)]
+    pool = np.concatenate(drifted[:2])
+    driver = RefreshDriver(svc, fitter, store=store,
+                           policy=RefreshPolicy(max_points=o["refresh_points"]))
+    t0 = time.perf_counter()
+    for c in drifted[:-1]:  # evidence ahead of the timed window
+        check(driver.observe(c) is None, "refresh fired before the window")
+    sync()
+    observe_s = time.perf_counter() - t0
+    stale = svc.current_index()
+    fired = []
+    records, errors, window = asyncio.run(_open_loop(
+        svc, pool, qps=o["qps"], duration=o["traffic_s"], sizes=o["sizes"],
+        fire_at=o["traffic_s"] / 2,
+        fire=lambda: fired.append(driver.observe(drifted[-1]))))
+    sched = svc.stats_snapshot()["scheduler"]
+    check(fired == [2] and svc.version() == 2,
+          f"the refresh did not install version 2 ({fired})")
+    check(not errors and sched["failed"] == 0 and sched["rejected"] == 0,
+          f"requests failed across the swap: {errors[:3]} {sched}")
+    swap_ms = (window[1] - window[0]) * 1e3
+    lat = [(r["t_done"] - r["t_submit"]) * 1e3 for r in records]
+    stalled = [(r["t_done"] - r["t_submit"]) * 1e3 for r in records
+               if r["t_submit"] <= window[1] and r["t_done"] >= window[0]]
+    fresh = svc.current_index()
+    saved = store.load(store.latest(), device=DEV)
+    for f in ("protos", "protos_q8", "q8_scale", "protos_bf16", "proto_labels"):
+        check(torch.equal(getattr(saved, f), getattr(fresh, f)),
+              f"the stored refresh differs from the installed index in {f}")
+
+    def mean_dist(idx, x):
+        dd, _ = nearest_valid_prototype(dev(x), idx.protos, idx.proto_valid)
+        return float(torch.sqrt(torch.clamp_min(dd, 0.0)).mean())
+    ratio = mean_dist(fresh, pool) / max(mean_dist(stale, pool), 1e-12)
+    check(ratio < 1.0, f"the refresh did not move the index toward the "
+                       f"drifted traffic (distance ratio {ratio})")
+    asyncio.run(_drain_all(services))
+    counts = kernels.launch_counts()
+    state["online_counts"] = counts
+    # every level of this path has more than 8192 rows (the smallest TC
+    # input is the finalize's 3rd level, about 19,400), so K2 is not on it
+    for kid in ("K1", "K1-bf16", "K1-int8", "K3", "K4"):
+        check(counts[kid] > 0, f"{kid} was not launched by the online path")
+
+    # the whole stream's prototypes, seeding taken out (see _restarted),
+    # against the generating blobs on every 10th chunk
+    sample = range(0, n_chunks, 10)
+    truth = np.concatenate([point_chunk(cfg, c, with_labels=True)[1]
+                            for c in sample])
+    quality = _restarted(snap, sample, truth)
+    check(quality["accuracy"] >= MIN_BLOB_ACCURACY,
+          f"online fit: accuracy {quality['accuracy']} against the "
+          f"generating blobs")
+
+    # the K1 variants at the serve shape, on the real final index
+    _k1_variants(results, loaded.protos, loaded.proto_valid,
+                 dev(home[:max(o["sizes"])]), path="online")
+
+    emit("online", n=o["n"], d=o["d"], chunks=n_chunks, chunk=o["chunk"],
+         t=o["t"], m=o["m"], k=o["k"], prefetch_depth=o["depth"],
+         stream_s=stream_s, stream_points_per_s=o["n"] / stream_s,
+         snapshot_s=snapshot_s, ingest_wait_s=st["ingest_wait_s"],
+         cascades=fitter.n_cascades, reservoir_n=st["reservoir_n"],
+         finalize_level_sizes=st["finalize_level_sizes"],
+         n_prototypes=int(index.n_prototypes), index_rows=index.protos.shape[0],
+         quality=quality,
+         max_memory_allocated=peak, store_s=store_s, assign_ms=assign_ms,
+         label_agreement=agree, refresh={
+             "observe_s": observe_s, "swap_ms": swap_ms,
+             "stall_p99_ms": _pct(stalled, 99) if stalled else 0.0,
+             "stalled_requests": len(stalled), "requests": len(records),
+             "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+             "failed": sched["failed"] + len(errors), "swaps": sched["swaps"],
+             "distance_ratio": ratio, "history": driver.history},
+         launches={kid: counts[kid] for kid in
+                   ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5")},
+         seconds=time.perf_counter() - t_phase)
+    _online_determinism(cfg)
+
+
+async def _drain_all(services) -> None:
+    for svc in services.values():
+        await svc.drain()
+
+
+def _partition_agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """Share of points whose cluster in ``a`` maps onto their cluster in
+    ``b`` (each cluster of one labelling matched to the cluster of the
+    other that holds most of its points; the smaller of both directions).
+    Invariant to renumbering: TC numbers its clusters by seed rank, so one
+    extra seed renumbers every later cluster."""
+    def one_way(x, y):
+        keep = (x >= 0) & (y >= 0)
+        x, y = x[keep].astype(np.int64), y[keep].astype(np.int64)
+        pairs, counts = np.unique(x * (int(y.max()) + 1) + y, return_counts=True)
+        best = np.zeros(int(x.max()) + 1, np.int64)
+        np.maximum.at(best, pairs // (int(y.max()) + 1), counts)
+        return float(best.sum()) / max(x.size, 1)
+    return min(one_way(a, b), one_way(b, a))
+
+
+def _restarted(r, chunk_ids, truth) -> dict:
+    """k-means alone on a fit's final prototypes (mass-weighted) under
+    SEED_RESTARTS keys; the lowest-inertia run's labels backed out through
+    the fit's spill to the points of ``chunk_ids`` and held against their
+    generating components. One k-means++ seeding lands this blob mixture
+    in a worse local optimum for about half of all keys, on either path
+    (PERF.md, PR 13), so the restarts take the seeding out of what is
+    compared and leave the levels that built the prototypes."""
+    from repro_torch import prng
+    from repro_torch.cluster.kmeans import kmeans
+    from repro_torch.cluster.metrics import clustering_accuracy
+
+    o = ONLINE
+    t0 = time.perf_counter()
+    runs = [kmeans(r.protos, o["k"], valid=r.proto_valid, weights=r.proto_mass,
+                   key=prng.PRNGKey(s)) for s in range(SEED_RESTARTS)]
+    best = min(runs, key=lambda x: float(x.inertia))
+    plab = best.labels.cpu().numpy()
+    lab = np.concatenate([r.spill.labels_for(c, plab) for c in chunk_ids])
+    own = np.concatenate([r.labels_for(c) for c in chunk_ids])
+    return {"inertia": float(best.inertia),
+            "accuracy": clustering_accuracy(truth, lab, o["k"]),
+            "own_inertia": float(r.backend_result.inertia),
+            "own_accuracy": clustering_accuracy(truth, own, o["k"]),
+            "seconds": time.perf_counter() - t0}
+
+
+def _online_determinism(cfg) -> None:
+    """The first chunks of the stream through the streaming executor:
+    prefetch depth 0 and 2 must give the same bits; the plain path
+    (impl="ref") must agree with the kernel path on >= 0.999 of every
+    chunk's level-0 partition (compared up to renumbering, see
+    _partition_agreement); and each path's final prototypes, clustered
+    with SEED_RESTARTS k-means seedings, must label the points as the
+    generating blobs do (accuracy >= MIN_BLOB_ACCURACY) at a lowest
+    inertia within MAX_INERTIA_GAP of the other path's. The fits' own
+    labels (one seeding each) and their agreement are reported."""
+    import repro_torch
+    from repro_torch import prng
+    from repro_torch.cluster.metrics import clustering_accuracy
+    from repro_torch.data import point_chunk
+
+    o = ONLINE
+    t0 = time.perf_counter()
+    pairs = [point_chunk(cfg, i, with_labels=True) for i in range(o["det_chunks"])]
+    chunks = [c for c, _ in pairs]
+    truth = np.concatenate([comp for _, comp in pairs])
+    kw = dict(k=o["k"], key=prng.PRNGKey(0), device=DEV)
+    runs = {depth: repro_torch.fit(iter(chunks), o["t"], o["m"], "kmeans",
+                                   prefetch_depth=depth, **kw)
+            for depth in (0, 2)}
+    a, b = runs[0], runs[2]
+    la, lb = np.asarray(a.labels), np.asarray(b.labels)
+    check(np.array_equal(la, lb) and torch.equal(a.protos, b.protos),
+          "prefetch depth 0 and 2 streams differ")
+    plain = repro_torch.fit(iter(chunks), o["t"], o["m"], "kmeans", impl="ref",
+                            **kw)
+    maps = [_partition_agreement(x, y) for x, y in
+            zip(a.spill.chunk_assign, plain.spill.chunk_assign)]
+    ids = range(o["det_chunks"])
+    quality = {"kernel": _restarted(a, ids, truth),
+               "plain": _restarted(plain, ids, truth)}
+    gap = quality["kernel"]["inertia"] / quality["plain"]["inertia"] - 1.0
+    emit("online_determinism", chunks=o["det_chunks"], depth0_vs_depth2_bitwise=True,
+         level0_partition_agreement=maps,
+         final_label_agreement_renamed=clustering_accuracy(
+             np.asarray(plain.labels), la, o["k"]),
+         restarts=SEED_RESTARTS, quality=quality, inertia_gap=gap,
+         cascades=[a.n_cascades, plain.n_cascades],
+         n_prototypes=[int(a.n_prototypes), int(plain.n_prototypes)],
+         seconds=time.perf_counter() - t0)
+    check(min(maps) >= MIN_QUANT_AGREEMENT,
+          f"stream kernel vs plain path: level-0 partition agreement {min(maps)}")
+    for path, q in quality.items():
+        check(q["accuracy"] >= MIN_BLOB_ACCURACY,
+              f"stream {path} path: accuracy {q['accuracy']} against the "
+              f"generating blobs")
+    check(abs(gap) <= MAX_INERTIA_GAP,
+          f"stream kernel vs plain path: lowest k-means inertia {gap:+.4f} apart")
+
+
+def _point_sse(x: torch.Tensor, labels: np.ndarray, k: int) -> float:
+    """Within-cluster sum of squares of the points under ``labels``
+    (centres are the label means; float64 on the device)."""
+    lab = torch.as_tensor(labels, device=x.device).long()
+    keep = lab >= 0
+    xd, lab = x[keep].double(), lab[keep]
+    sums = torch.zeros((k, x.shape[1]), dtype=torch.float64, device=x.device)
+    sums.index_add_(0, lab, xd)
+    cnt = torch.bincount(lab, minlength=k).double().clamp_min(1.0)
+    return float(((xd - (sums / cnt[:, None])[lab]) ** 2).sum())
+
+
+def phase_basins() -> None:
+    """Which k-means optimum the kernel path and the plain path reach on
+    the online stream's first 8 chunks: both paths under several PRNG
+    keys, on the data and on the data scaled by 1 + 2^-22, each with its
+    prototype-level inertia, the points' within-cluster sum of squares and
+    its accuracy against the generating components; then k-means alone
+    (both impls, the same keys) on each path's final prototypes, which
+    separates the prototypes from the seeding."""
+    import repro_torch
+    from repro_torch import prng
+    from repro_torch.cluster.kmeans import kmeans
+    from repro_torch.cluster.metrics import clustering_accuracy
+    from repro_torch.data import PointStreamConfig, point_chunk
+
+    o = ONLINE
+    t0 = time.perf_counter()
+    cfg = PointStreamConfig(n=o["n"], d=o["d"], chunk=o["chunk"], seed=0,
+                            kind="blobs", k=o["k"])
+    pairs = [point_chunk(cfg, i, with_labels=True) for i in range(o["det_chunks"])]
+    chunks = [c for c, _ in pairs]
+    truth = np.concatenate([comp for _, comp in pairs])
+    x = dev(np.concatenate(chunks))
+    emit("basins", run="truth", point_sse=_point_sse(x, truth, o["k"]))
+    keep = {}
+    for scale in (1.0, 1 + 2.0 ** -22):
+        data = chunks if scale == 1.0 else [c * np.float32(scale) for c in chunks]
+        for seed in range(o["basin_keys"] if scale == 1.0 else 1):
+            for path, impl in (("kernel", None), ("plain", "ref")):
+                r = repro_torch.fit(iter(data), o["t"], o["m"], "kmeans",
+                                    k=o["k"], key=prng.PRNGKey(seed),
+                                    impl=impl, device=DEV)
+                lab = np.asarray(r.labels)
+                if seed == 0 and scale == 1.0:
+                    keep[path] = r
+                emit("basins", run="fit", path=path, key=seed, scale=scale,
+                     n_prototypes=int(r.n_prototypes),
+                     inertia=float(r.backend_result.inertia),
+                     lloyd_iters=int(r.backend_result.iters),
+                     point_sse=_point_sse(x, lab, o["k"]),
+                     accuracy=clustering_accuracy(truth, lab, o["k"]))
+    for path, r in keep.items():
+        for impl in (None, "ref"):
+            inert = [float(kmeans(r.protos, o["k"], valid=r.proto_valid,
+                                  weights=r.proto_mass, key=prng.PRNGKey(s),
+                                  impl=impl).inertia)
+                     for s in range(2 * o["basin_keys"])]
+            emit("basins", run="kmeans_on_prototypes", prototypes=path,
+                 impl=impl or "auto", inertia=inert)
+    emit("basins", run="done", seconds=time.perf_counter() - t0)
 
 
 def _logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -984,6 +1541,15 @@ def phase_profile(state: dict) -> None:
     if "lm_engine" in state:  # the lm phase's generate, once more
         engine, prompts = state["lm_engine"]
         _profiled("lm_gemma2", lambda: engine.generate({"tokens": prompts}))
+    if "online_counts" in state:  # the online stream's first 16 chunks
+        from repro_torch.data import PointStreamConfig, point_chunks
+
+        o = ONLINE
+        cfg = PointStreamConfig(n=16 * o["chunk"], d=o["d"], chunk=o["chunk"],
+                                seed=0, kind="blobs", k=o["k"])
+        _profiled("online_stream_16_chunks", lambda: repro_torch.fit(
+            point_chunks(cfg), o["t"], o["m"], "kmeans", k=o["k"],
+            prefetch_depth=o["depth"], key=prng.PRNGKey(0), device=DEV))
 
 
 def main() -> int:
@@ -1022,15 +1588,22 @@ def main() -> int:
         phase_headline()
     if "determinism" in phases:
         phase_determinism()
+    if "online" in phases:
+        phase_online(results, state)
     if "lm" in phases:
         phase_lm(state)
     if "profile" in phases:
         phase_profile(state)
+    if "basins" in phases:
+        phase_basins()
     if results:
         paths = {"fit_serve": state.get("main_counts", state.get("fit_counts", {})),
+                 "online": state.get("online_counts", {}),
                  "lm": state.get("lm_counts", {})}
         line = []
-        for kid in ("K1", "K2", "K3", "K4", "K5"):
+        for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5"):
+            if kid not in results:  # a run without the kernels phase
+                continue
             r = results[kid]
             name, source, replaces = KERNEL_META[kid]
             by_path = {p: c.get(kid, 0) for p, c in paths.items() if c}

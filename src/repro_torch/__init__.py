@@ -2,9 +2,11 @@
 hand-written CUDA kernels for Hopper.
 
 The port of the JAX package ``repro`` (which stays the reference).
-``repro_torch.fit(x, t, m, backend)`` runs the IHTC pipeline on a resident
-array; ``ClusterIndex.build(result)`` freezes the servable index and
-``ClusterService(index).assign(queries)`` serves it. Entry points run on
+``repro_torch.fit(x_or_chunks, t, m, backend)`` runs the IHTC pipeline on
+a resident array or a chunk stream; ``ClusterIndex.build(result)`` freezes
+the servable index, ``ClusterService(index).assign(queries)`` or
+``AsyncClusterService`` serves it, ``IndexStore`` versions it, and
+``OnlineFitter`` / ``RefreshDriver`` keep it fresh under live traffic. Entry points run on
 ``device="cuda"`` unless the caller passes ``device="cpu"`` (or configures
 it); a missing GPU raises.
 
@@ -22,6 +24,12 @@ _LAZY = {
     "available_executors": "repro_torch.core.plan",
     "ClusterIndex": "repro_torch.core.index",
     "ClusterService": "repro_torch.serve.cluster_service",
+    "AsyncClusterService": "repro_torch.serve.async_service",
+    "OnlineFitter": "repro_torch.serve.lifecycle",
+    "RefreshDriver": "repro_torch.serve.lifecycle",
+    "RefreshPolicy": "repro_torch.serve.lifecycle",
+    "IndexStore": "repro_torch.serve.artifacts",
+    "ihtc_streaming": "repro_torch.core.streaming",
 }
 
 __all__ = ["runtime", *sorted(_LAZY)]

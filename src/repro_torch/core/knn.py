@@ -74,7 +74,7 @@ def knn_graph_blocked(
     for q0 in range(0, npad, block):
         q = xp[q0:q0 + block]
         q_gidx = torch.arange(q0, q0 + block, dtype=torch.int64, device=x.device)
-        if r == "fused":
+        if r in ops.FUSED_IMPLS:
             # the kernel streams the keys itself; self-exclusion by global
             # query index
             bd, bi = ops.nearest_topk(q, xp, k, key_valid=vp,

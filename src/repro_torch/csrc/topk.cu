@@ -37,10 +37,36 @@
 // memory 64 features at a time, and each thread carries the cross terms of
 // its 8 keys of the tile (lane l: keys l, l+8, ..., l+56, ascending, so the
 // strict-< tie rule holds as above) and the key norms across the chunks.
+// Key and query types (the reference's fused_bf16 / fused_int8 shortlist):
+// the kernels are templated on the query type QT (f32 or bf16) and the key
+// type KT (f32, bf16, or int8 with per-feature scale and zero point); the
+// instances built are f32 x f32, bf16 x bf16 and f32 x int8. A
+// bf16 element is read at 2 bytes and an int8 one at 1 byte, and each is
+// widened to f32 in registers as it is staged into shared memory; no f32
+// copy of the key set exists. An int8 key dequantizes as q * scale + zero
+// with the multiply and the add rounded separately (__fmul_rn, __fadd_rn):
+// nvcc would otherwise contract them into one FMA, which rounds once and
+// gives other bits than the plain version's multiply-then-add. The register
+// instance stages the (d,) scale and zero once per block into shared
+// memory; the chunked instance reads them through the cache as it stages
+// each 64-feature chunk. Everything after the widening (distance, merge,
+// tie rule) is the f32 kernel's. The f32 instance covers every list length
+// K in {1, 2, 4, 8, 16, 32}; the bf16/int8 instances K in {1, 8, 32} (the
+// shortlist is k = 8; the first k of a top-K list are the top-k).
+//
+// Build: REPRO_TOPK_KEYS selects the key type whose C entry point (and so
+// whose template instances) a build of this file holds: 0 f32, 1 bf16,
+// 2 int8. The three are compiled by three nvcc processes at once, which
+// splits the compile time of the instances.
+//
 // Later work: tensor-core cross term (wgmma) and TMA-fed key tiles.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,6 +74,23 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 8;               // threads that share one query
 constexpr int kQPB = kThreads / kLanes;  // queries per block
 constexpr int kTileFloats = 8192;        // 32 KB of keys per stage
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Element i of a key row (feature f) as f32. f32 and bf16 widen exactly;
+// int8 dequantizes with a separately rounded multiply and add (no FMA).
+template <typename KT>
+__device__ __forceinline__ float key_at(const KT* keys, size_t i, int f,
+                                        const float*, const float*) {
+  return widen(keys[i]);
+}
+template <>
+__device__ __forceinline__ float key_at<int8_t>(const int8_t* keys, size_t i,
+                                                int f, const float* scale,
+                                                const float* zero) {
+  return __fadd_rn(__fmul_rn(static_cast<float>(keys[i]), scale[f]), zero[f]);
+}
 
 __device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
@@ -73,26 +116,33 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float dv,
   }
 }
 
-template <int K, int D>
+template <typename QT, typename KT, int K, int D>
 __global__ void __launch_bounds__(kThreads)
-    topk_kernel(const float* __restrict__ q, const float* __restrict__ keys,
+    topk_kernel(const QT* __restrict__ q, const KT* __restrict__ keys,
+                const float* __restrict__ scale, const float* __restrict__ zero,
                 const unsigned char* __restrict__ valid,
                 const int* __restrict__ q_gidx, float* __restrict__ out_d,
                 int* __restrict__ out_i, int nq, int p, int d, int k) {
   constexpr int kTile = kTileFloats / D;
   __shared__ __align__(16) float sk[kTile * D];
   __shared__ float sn[kTile];
+  __shared__ float ss[D], sz[D];  // int8 keys: per-feature scale, zero
 
   const int tid = threadIdx.x;
   const int lane = tid % kLanes;
   const int qi = blockIdx.x * kQPB + tid / kLanes;
   const bool active = qi < nq;
 
+  for (int f = tid; f < D; f += kThreads) {  // read after the tile loop's sync
+    ss[f] = (scale != nullptr && f < d) ? scale[f] : 0.f;
+    sz[f] = (zero != nullptr && f < d) ? zero[f] : 0.f;
+  }
+
   float xq[D];
   float xn = 0.f;
 #pragma unroll
   for (int f = 0; f < D; ++f) {
-    xq[f] = (active && f < d) ? q[(size_t)qi * d + f] : 0.f;
+    xq[f] = (active && f < d) ? widen(q[(size_t)qi * d + f]) : 0.f;
     xn = fmaf(xq[f], xq[f], xn);
   }
   const int self = (active && q_gidx != nullptr) ? q_gidx[qi] : -1;
@@ -110,7 +160,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile is no longer read
     for (int e = tid; e < kTile * D; e += kThreads) {
       const int r = e / D, f = e % D;
-      sk[e] = (r < nt && f < d) ? keys[(size_t)(base + r) * d + f] : 0.f;
+      sk[e] = (r < nt && f < d)
+                  ? key_at<KT>(keys, (size_t)(base + r) * d + f, f, ss, sz)
+                  : 0.f;
     }
     __syncthreads();
     for (int r = tid; r < nt; r += kThreads) {
@@ -174,10 +226,12 @@ constexpr int kChunk = 64;                  // features per stage
 constexpr int kCTile = 64;                  // keys per tile
 constexpr int kPerLane = kCTile / kLanes;   // keys of a tile per thread
 
-template <int K>
+template <typename QT, typename KT, int K>
 __global__ void __launch_bounds__(kThreads)
-    topk_chunked_kernel(const float* __restrict__ q,
-                        const float* __restrict__ keys,
+    topk_chunked_kernel(const QT* __restrict__ q,
+                        const KT* __restrict__ keys,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ zero,
                         const unsigned char* __restrict__ valid,
                         const int* __restrict__ q_gidx,
                         float* __restrict__ out_d, int* __restrict__ out_i,
@@ -197,7 +251,7 @@ __global__ void __launch_bounds__(kThreads)
   float xn = 0.f;
   if (active) {
     for (int f = 0; f < d; ++f) {
-      const float v = q[(size_t)qi * d + f];
+      const float v = widen(q[(size_t)qi * d + f]);
       xn = fmaf(v, v, xn);
     }
   }
@@ -222,12 +276,15 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();  // the previous chunk is no longer read
       for (int e = tid; e < kCTile * kChunk; e += kThreads) {
         const int r = e / kChunk, f = e % kChunk;
-        sk[r][f] = (r < nt && f < cw) ? keys[(size_t)(base + r) * d + c0 + f] : 0.f;
+        sk[r][f] = (r < nt && f < cw)
+                       ? key_at<KT>(keys, (size_t)(base + r) * d + c0 + f,
+                                    c0 + f, scale, zero)
+                       : 0.f;
       }
       for (int e = tid; e < kQPB * kChunk; e += kThreads) {
         const int r = e / kChunk, f = e % kChunk;
         const int g = blockIdx.x * kQPB + r;
-        sq[r][f] = (g < nq && f < cw) ? q[(size_t)g * d + c0 + f] : 0.f;
+        sq[r][f] = (g < nq && f < cw) ? widen(q[(size_t)g * d + c0 + f]) : 0.f;
       }
       __syncthreads();
       if (tid < kCTile) {
@@ -286,56 +343,104 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // D == 0 selects the chunked kernel (any d)
-template <int K, int D>
-cudaError_t launch(const float* q, const float* keys, const unsigned char* valid,
+template <typename QT, typename KT, int K, int D>
+cudaError_t launch(const QT* q, const KT* keys, const float* scale,
+                   const float* zero, const unsigned char* valid,
                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                    int d, int k, cudaStream_t stream) {
   const int blocks = (nq + kQPB - 1) / kQPB;
   if constexpr (D == 0)
-    topk_chunked_kernel<K><<<blocks, kThreads, 0, stream>>>(
-        q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k);
+    topk_chunked_kernel<QT, KT, K><<<blocks, kThreads, 0, stream>>>(
+        q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq, p, d, k);
   else
-    topk_kernel<K, D><<<blocks, kThreads, 0, stream>>>(
-        q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k);
+    topk_kernel<QT, KT, K, D><<<blocks, kThreads, 0, stream>>>(
+        q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq, p, d, k);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_k(const float* q, const float* keys, const unsigned char* valid,
+#define REPRO_TOPK_ARGS q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq, p, d, k, stream
+
+template <typename QT, typename KT, int D>
+cudaError_t launch_k(const QT* q, const KT* keys, const float* scale,
+                     const float* zero, const unsigned char* valid,
                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                      int d, int k, cudaStream_t stream) {
   // the first k of a top-K list (K >= k) are the top-k under the same order
-  if (k <= 1) return launch<1, D>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, stream);
-  if (k <= 2) return launch<2, D>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, stream);
-  if (k <= 4) return launch<4, D>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, stream);
-  if (k <= 8) return launch<8, D>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, stream);
-  if (k <= 16) return launch<16, D>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, stream);
-  return launch<32, D>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, stream);
+  if (k <= 1) return launch<QT, KT, 1, D>(REPRO_TOPK_ARGS);
+  if constexpr (std::is_same<QT, float>::value && std::is_same<KT, float>::value) {
+    if (k <= 2) return launch<QT, KT, 2, D>(REPRO_TOPK_ARGS);
+    if (k <= 4) return launch<QT, KT, 4, D>(REPRO_TOPK_ARGS);
+    if (k <= 8) return launch<QT, KT, 8, D>(REPRO_TOPK_ARGS);
+    if (k <= 16) return launch<QT, KT, 16, D>(REPRO_TOPK_ARGS);
+  } else {
+    if (k <= 8) return launch<QT, KT, 8, D>(REPRO_TOPK_ARGS);
+  }
+  return launch<QT, KT, 32, D>(REPRO_TOPK_ARGS);
 }
 
+template <typename QT, typename KT>
+cudaError_t launch_d(const QT* q, const KT* keys, const float* scale,
+                     const float* zero, const unsigned char* valid,
+                     const int* q_gidx, float* out_d, int* out_i, int nq, int p,
+                     int d, int k, cudaStream_t stream) {
+  if (nq < 0 || p < 0 || d < 1 || k < 1 || k > 32) return cudaErrorInvalidValue;
+  if (nq == 0) return cudaSuccess;
+  if (d <= 4) return launch_k<QT, KT, 4>(REPRO_TOPK_ARGS);
+  if (d <= 8) return launch_k<QT, KT, 8>(REPRO_TOPK_ARGS);
+  if (d <= 32) return launch_k<QT, KT, 32>(REPRO_TOPK_ARGS);
+  if (d <= 128) return launch_k<QT, KT, 128>(REPRO_TOPK_ARGS);
+  return launch_k<QT, KT, 0>(REPRO_TOPK_ARGS);
+}
+
+#undef REPRO_TOPK_ARGS
+
 }  // namespace
+
+#ifndef REPRO_TOPK_KEYS
+#define REPRO_TOPK_KEYS 0
+#endif
 
 extern "C" {
 
 int repro_topk_max_k() { return 32; }
+
+#if REPRO_TOPK_KEYS == 0
 
 // q (nq, d) f32, keys (p, d) f32, valid (p,) u8 or null, q_gidx (nq,) i32 or
 // null -> out_d (nq, k) f32, out_i (nq, k) i32. Returns a cudaError_t.
 int repro_topk_f32(const float* q, const float* keys, const unsigned char* valid,
                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                    int d, int k, void* stream) {
-  if (nq < 0 || p < 0 || d < 1 || k < 1 || k > 32)
-    return (int)cudaErrorInvalidValue;
-  if (nq == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (d <= 4) err = launch_k<4>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
-  else if (d <= 8) err = launch_k<8>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
-  else if (d <= 32) err = launch_k<32>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
-  else if (d <= 128) err = launch_k<128>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
-  else err = launch_k<0>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, s);
-  return (int)err;
+  return (int)launch_d<float, float>(q, keys, nullptr, nullptr, valid, q_gidx,
+                                     out_d, out_i, nq, p, d, k,
+                                     static_cast<cudaStream_t>(stream));
 }
+#endif
+
+#if REPRO_TOPK_KEYS == 1
+// q (nq, d) bf16, keys (p, d) bf16. As above.
+int repro_topk_bf16(const __nv_bfloat16* q, const __nv_bfloat16* keys,
+                    const unsigned char* valid, const int* q_gidx, float* out_d,
+                    int* out_i, int nq, int p, int d, int k, void* stream) {
+  return (int)launch_d<__nv_bfloat16, __nv_bfloat16>(
+      q, keys, nullptr, nullptr, valid, q_gidx, out_d, out_i, nq, p, d, k,
+      static_cast<cudaStream_t>(stream));
+}
+#endif
+
+#if REPRO_TOPK_KEYS == 2
+// int8 keys (p, d) with per-feature scale (d,) and zero (d,) f32: key value
+// q8 * scale + zero. q (nq, d) f32. As above.
+int repro_topk_int8(const float* q, const int8_t* keys, const float* scale,
+                    const float* zero, const unsigned char* valid,
+                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
+                    int d, int k, void* stream) {
+  if (scale == nullptr || zero == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_d<float, int8_t>(q, keys, scale, zero, valid, q_gidx, out_d,
+                                      out_i, nq, p, d, k,
+                                      static_cast<cudaStream_t>(stream));
+}
+#endif
 
 const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

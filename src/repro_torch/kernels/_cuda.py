@@ -4,9 +4,10 @@ Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``build/repro_torch/``
 at the root of the checkout, named by a hash of the source and the flags,
-and are built at first use: all sources at once, one ``nvcc`` process
-each. Nothing here runs at import time, so the CPU tests can import every
-module of the package on a machine with no CUDA toolkit.
+and are built at first use: all libraries at once, one ``nvcc`` process
+each (``topk.cu`` is built three times, once per key type). Nothing here
+runs at import time, so the CPU tests can import every module of the
+package on a machine with no CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -25,12 +26,15 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-#: library name -> source file under csrc/
+#: library name -> (source file under csrc/, extra nvcc flags); the three
+#: top-k libraries are one source built once per key type
 SOURCES = {
-    "topk": "topk.cu",
-    "segment_sum": "segment_sum.cu",
-    "pairwise_l2": "pairwise_l2.cu",
-    "flash_attention": "flash_attention.cu",
+    "topk": ("topk.cu", ("-DREPRO_TOPK_KEYS=0",)),
+    "topk_bf16": ("topk.cu", ("-DREPRO_TOPK_KEYS=1",)),
+    "topk_int8": ("topk.cu", ("-DREPRO_TOPK_KEYS=2",)),
+    "segment_sum": ("segment_sum.cu", ()),
+    "pairwise_l2": ("pairwise_l2.cu", ()),
+    "flash_attention": ("flash_attention.cu", ()),
 }
 
 NVCC_FLAGS = (
@@ -46,6 +50,9 @@ _F = ctypes.c_float
 #: C signatures (every function returns a cudaError_t as int)
 _SIGNATURES = {
     "topk": ("repro_topk_f32", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "topk_bf16": ("repro_topk_bf16", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "topk_int8": ("repro_topk_int8",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "segment_sum": ("repro_segment_sum_f32", [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P]),
     "pairwise_l2": ("repro_pairwise_sq_l2_f32", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "flash_attention": ("repro_flash_attention",
@@ -72,8 +79,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, defines = SOURCES[name]
+    src = (CSRC / source).read_bytes()
+    flags = " ".join(NVCC_FLAGS + defines)
+    tag = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -91,7 +100,8 @@ def build_all() -> float:
         procs = {}
         for name, out in todo.items():
             tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-            cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+            source, defines = SOURCES[name]
+            cmd = [exe, *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC / source)]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
                            tmp, out)
@@ -100,7 +110,8 @@ def build_all() -> float:
             log, _ = proc.communicate()
             out.with_suffix(".log").write_text(log)
             if proc.returncode != 0:
-                failed.append(f"{SOURCES[name]} (exit {proc.returncode}):\n{log}")
+                failed.append(f"{SOURCES[name][0]} {' '.join(SOURCES[name][1])} "
+                              f"(exit {proc.returncode}):\n{log}")
             else:
                 os.replace(tmp, out)
         if failed:
@@ -172,6 +183,14 @@ def f32(t: torch.Tensor) -> torch.Tensor:
     if not t.is_floating_point():
         raise TypeError(f"the CUDA kernels take float tensors, got {t.dtype}")
     return t.to(torch.float32).contiguous()
+
+
+def contiguous_as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` contiguous and of exactly ``dtype`` (no conversion: a tensor of
+    another type is refused, so no silent copy of a key set is made)."""
+    if t.dtype != dtype:
+        raise TypeError(f"the CUDA kernel takes {dtype} here, got {t.dtype}")
+    return t.contiguous()
 
 
 def index(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:

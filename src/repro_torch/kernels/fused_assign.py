@@ -14,8 +14,12 @@ wins a distance tie, unfilled slots are (inf, -1)):
     one (block_q, block_k) tile at a time (the counterpart of
     ``fused_topk_xla``); peak memory O(block_q·block_k).
 
-The int8/bf16 key variants of the reference (``quantize_keys``,
-``rescore_top1``) are not ported yet.
+Keys are f32, bf16, or int8 with per-feature ``keys_scale``/``keys_zero``
+(key value ``q8 * scale + zero``, a multiply then an add); queries f32,
+or bf16 with bf16 keys. Distances always fold in f32. :func:`quantize_keys` freezes the int8
+buffer of an index and :func:`rescore_top1` rescores a low-precision
+shortlist in exact f32 — plain PyTorch, as the reference computes them
+outside Pallas.
 """
 from __future__ import annotations
 
@@ -26,6 +30,28 @@ import torch
 from repro_torch.kernels import _cuda, ref
 from repro_torch.runtime import active
 
+#: shortlist length the quantized assign variants rescore in exact f32
+RESCORE_K = 8
+
+
+def _check_key_types(q, keys, keys_scale, keys_zero) -> None:
+    if keys.dtype == torch.bfloat16 and q.dtype != torch.bfloat16:
+        raise ValueError(f"bf16 keys take bf16 queries, got {q.dtype} queries "
+                         f"(cast them, as the fused_bf16 assign does)")
+    if (keys_scale is None) != (keys_zero is None):
+        raise ValueError("keys_scale and keys_zero come together")
+    if keys_scale is None:
+        if keys.dtype == torch.int8:
+            raise ValueError("int8 keys need keys_scale and keys_zero")
+        return
+    if keys.dtype != torch.int8:
+        raise ValueError(f"keys_scale/keys_zero dequantize int8 keys, got "
+                         f"{keys.dtype} keys")
+    d = keys.shape[1]
+    for name, t in (("keys_scale", keys_scale), ("keys_zero", keys_zero)):
+        if tuple(t.shape) != (d,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want ({d},)")
+
 
 def launch_topk(
     q: torch.Tensor,
@@ -33,9 +59,13 @@ def launch_topk(
     k: int,
     key_valid: Optional[torch.Tensor],
     q_gidx: Optional[torch.Tensor],
+    keys_scale: Optional[torch.Tensor] = None,
+    keys_zero: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/topk.cu`` (shared by the K1 and K2 wrappers)."""
-    dev = _cuda.require_cuda("topk", q, keys, key_valid, q_gidx)
+    """Launch ``csrc/topk.cu`` (shared by the K1 and K2 wrappers): the f32,
+    bf16 or int8 key instance, chosen by ``keys.dtype``."""
+    dev = _cuda.require_cuda("topk", q, keys, key_valid, q_gidx, keys_scale,
+                             keys_zero)
     lib = _cuda.library("topk")
     if q.ndim != 2 or keys.ndim != 2 or q.shape[1] != keys.shape[1]:
         raise ValueError(f"topk: want q (nq, d) and keys (p, d), got "
@@ -53,14 +83,28 @@ def launch_topk(
     if q_gidx is not None and tuple(q_gidx.shape) != (nq,):
         raise ValueError(f"topk: q_gidx has shape {tuple(q_gidx.shape)}, "
                          f"want ({nq},)")
-    qf, kf, v = _cuda.f32(q), _cuda.f32(keys), _cuda.u8(key_valid)
+    _check_key_types(q, keys, keys_scale, keys_zero)
+    v = _cuda.u8(key_valid)
     g = _cuda.index(q_gidx, torch.int32)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    tail = (_cuda.ptr(v), _cuda.ptr(g), _cuda.ptr(out_d), _cuda.ptr(out_i),
+            nq, p, d, k, _cuda.stream(dev))
     with torch.cuda.device(dev):
-        _cuda.call("topk", _cuda.ptr(qf), _cuda.ptr(kf), _cuda.ptr(v),
-                   _cuda.ptr(g), _cuda.ptr(out_d), _cuda.ptr(out_i),
-                   nq, p, d, k, _cuda.stream(dev))
+        if keys.dtype == torch.int8:
+            # bf16 queries widen to f32 exactly (the int8 instance reads f32)
+            qf = _cuda.f32(q)
+            s = _cuda.contiguous_as(keys_scale, torch.float32)
+            z = _cuda.contiguous_as(keys_zero, torch.float32)
+            kc = keys.contiguous()
+            _cuda.call("topk_int8", _cuda.ptr(qf), _cuda.ptr(kc), _cuda.ptr(s),
+                       _cuda.ptr(z), *tail)
+        elif keys.dtype == torch.bfloat16:
+            qc, kc = q.contiguous(), keys.contiguous()
+            _cuda.call("topk_bf16", _cuda.ptr(qc), _cuda.ptr(kc), *tail)
+        else:
+            qf, kf = _cuda.f32(q), _cuda.f32(keys)
+            _cuda.call("topk", _cuda.ptr(qf), _cuda.ptr(kf), *tail)
     return out_d, out_i
 
 
@@ -71,13 +115,19 @@ def fused_topk(
     key_valid: Optional[torch.Tensor] = None,
     *,
     q_gidx: Optional[torch.Tensor] = None,
+    keys_scale: Optional[torch.Tensor] = None,
+    keys_zero: Optional[torch.Tensor] = None,
     block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest valid keys of each query row (K1).
 
     Args:
-      q: (nq, d) queries; keys: (p, d) keys (distances fold in f32).
-      k: best-list length (1 for assign, t−1 for TC).
+      q: (nq, d) queries, f32, or bf16 with bf16 keys (distances fold
+        in f32).
+      keys: (p, d) keys: float (f32, bf16), or int8 with ``keys_scale`` /
+        ``keys_zero`` (d,) per-feature dequantization (see
+        :func:`quantize_keys`).
+      k: best-list length (1 for assign, t−1 for TC, 8 for a shortlist).
       key_valid: optional (p,) mask; invalid keys never enter a list.
       q_gidx: optional (nq,) global index of each query among the keys;
         the matching key is excluded (the blocked-kNN self-match mask).
@@ -85,18 +135,27 @@ def fused_topk(
 
     Returns:
       (dists (nq, k) f32 ascending, idx (nq, k) int32; unfilled slots
-      inf/-1).
+      inf/-1). Launches count per key type: ``fused_topk.launches`` (f32),
+      ``.launches_bf16`` and ``.launches_int8``.
     """
     if not q.is_cuda:
         return fused_topk_plain(q, keys, k, key_valid, q_gidx=q_gidx,
+                                keys_scale=keys_scale, keys_zero=keys_zero,
                                 block_k=block_k)
-    out = launch_topk(q, keys, k, key_valid, q_gidx)
+    out = launch_topk(q, keys, k, key_valid, q_gidx, keys_scale, keys_zero)
     if q.shape[0]:
-        fused_topk.launches += 1
+        if keys.dtype == torch.int8:
+            fused_topk.launches_int8 += 1
+        elif keys.dtype == torch.bfloat16:
+            fused_topk.launches_bf16 += 1
+        else:
+            fused_topk.launches += 1
     return out
 
 
 fused_topk.launches = 0
+fused_topk.launches_bf16 = 0
+fused_topk.launches_int8 = 0
 
 
 def fused_topk_plain(
@@ -106,12 +165,17 @@ def fused_topk_plain(
     key_valid: Optional[torch.Tensor] = None,
     *,
     q_gidx: Optional[torch.Tensor] = None,
+    keys_scale: Optional[torch.Tensor] = None,
+    keys_zero: Optional[torch.Tensor] = None,
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain streaming fold: dense distances of one (block_q, block_k)
     tile at a time, merged into the query block's running best list, so
-    peak memory is O(block_q·block_k) whatever nq and p."""
+    peak memory is O(block_q·block_k) whatever nq and p. An int8 key tile
+    dequantizes as ``q8.float() * scale + zero`` (a multiply, then an add,
+    each rounded), as the reference does."""
+    _check_key_types(q, keys, keys_scale, keys_zero)
     cfg = active()
     block_q = cfg.block_q if block_q is None else block_q
     block_k = cfg.block_k if block_k is None else block_k
@@ -127,7 +191,10 @@ def fused_topk_plain(
         for lo in range(0, p, bk):
             hi = min(lo + bk, p)
             v = None if key_valid is None else key_valid[lo:hi]
-            d = ref.pairwise_sq_l2(qb, keys[lo:hi], y_valid=v)
+            y = keys[lo:hi]
+            if keys_scale is not None:
+                y = y.float() * keys_scale.float() + keys_zero.float()
+            d = ref.pairwise_sq_l2(qb, y, y_valid=v)
             gidx = torch.arange(lo, hi, dtype=torch.int64, device=q.device)
             if gb is not None:
                 d = torch.where(gb[:, None] == gidx[None, :], torch.inf, d)
@@ -138,3 +205,72 @@ def fused_topk_plain(
         return (torch.empty((0, k), dtype=torch.float32, device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
     return torch.cat(out_d), torch.cat(out_i)
+
+
+# ---------------------------------------------------------------------------
+# quantization (freeze time) and exact-f32 shortlist rescore (serve time)
+# ---------------------------------------------------------------------------
+
+
+def quantize_keys(
+    keys: torch.Tensor, valid: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-feature symmetric-range int8 quantization of a key set.
+
+    Scale and zero point come from the valid rows only (padding rows must
+    not widen the range); a constant feature gets a floor scale, so its
+    zero point reproduces it. Returns ``(q8 (p, d) int8, scale (d,) f32,
+    zero (d,) f32)``; a key dequantizes as ``q8 * scale + zero``. The same
+    bits as ``repro.kernels.fused_assign.quantize_keys``.
+    """
+    k32 = keys.float()
+    v = (torch.ones((keys.shape[0],), dtype=torch.bool, device=keys.device)
+         if valid is None else valid.bool())
+    any_valid = v.any()
+    inf = torch.tensor(torch.inf, dtype=torch.float32, device=keys.device)
+    if keys.shape[0] == 0:  # no rows: the empty reductions' identities
+        lo = hi = torch.zeros((keys.shape[1],), dtype=torch.float32,
+                              device=keys.device)
+    else:
+        lo = torch.where(v[:, None], k32, inf).amin(dim=0)
+        hi = torch.where(v[:, None], k32, -inf).amax(dim=0)
+    lo = torch.where(any_valid, lo, 0.0)
+    hi = torch.where(any_valid, hi, 0.0)
+    zero = 0.5 * (hi + lo)
+    scale = torch.clamp_min((hi - lo) / 254.0, 1e-12)
+    q8 = torch.clamp(torch.round((k32 - zero) / scale), -127.0, 127.0)
+    return q8.to(torch.int8), scale, zero
+
+
+def rescore_top1(
+    queries: torch.Tensor,
+    keys: torch.Tensor,
+    valid: torch.Tensor,
+    cand_idx: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact-f32 rescore of a shortlist: gather the candidate rows of the
+    full-precision key buffer and return the true nearest.
+
+    Args:
+      queries: (nq, d); keys: (p, d) full-precision buffer.
+      valid: (p,) mask; cand_idx: (nq, r) shortlist (int32, -1 = empty).
+
+    Returns:
+      (dist (nq,), idx (nq,) int32) — exact sq-L2 to the winner (the first
+      of equal candidates), -1 if the shortlist holds no valid candidate.
+    """
+    q32 = queries.float()
+    cand = cand_idx.to(torch.int64)
+    safe = torch.where(cand >= 0, cand, 0)
+    cp = keys.float()[safe]                          # (nq, r, d)
+    d = torch.square(q32[:, None, :] - cp).sum(dim=-1)
+    ok = (cand >= 0) & valid.bool()[safe]
+    d = torch.where(ok, d, torch.inf)
+    if d.shape[1] == 0:
+        nq = d.shape[0]
+        return (torch.full((nq,), torch.inf, device=d.device),
+                torch.full((nq,), -1, dtype=torch.int32, device=d.device))
+    j = torch.argmin(d, dim=1, keepdim=True)
+    dist = torch.gather(d, 1, j)[:, 0]
+    idx = torch.gather(cand_idx.to(torch.int32), 1, j)[:, 0]
+    return dist, torch.where(torch.isfinite(dist), idx, -1)

@@ -11,6 +11,10 @@ Dispatch policy (``impl=``), resolved by :func:`resolve`:
     with the plain merge, as the reference's ``"pallas"`` does;
   * ``"fused"`` — the streaming top-k on nearest/kNN; ops without a fused
     path treat it as ``"auto"``;
+  * ``"fused_bf16"`` / ``"fused_int8"`` — the quantized shortlist of
+    :meth:`repro_torch.core.index.ClusterIndex.assign`, which holds the
+    frozen low-precision buffers; the stateless ops here run them as
+    ``"fused"``, and ops without a fused path as ``"auto"``;
   * ``"ref"``   — the plain versions, on any device (on the card only when
     asked for explicitly).
 
@@ -28,16 +32,20 @@ from repro_torch.kernels import fused_assign, knn_topk, pairwise_l2, ref
 from repro_torch.kernels import segment_sum as _segsum
 from repro_torch.runtime import IMPLS, active
 
+#: the fused nearest/top-k dispatch family
+FUSED_IMPLS = ("fused", "fused_bf16", "fused_int8")
+
 
 def resolve(impl: Optional[str], device: torch.device, *,
             fused: bool = False) -> str:
-    """Dispatch policy → "ref" | "cuda" | "fused" for a tensor on
-    ``device``; ``fused`` marks the ops that have a streaming top-k."""
+    """Dispatch policy → "ref" | "cuda" or one of :data:`FUSED_IMPLS` for
+    a tensor on ``device``; ``fused`` marks the ops that have a streaming
+    top-k (the others degrade the fused family to "auto")."""
     if impl is None:
         impl = active().impl
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; registered impls: {list(IMPLS)}")
-    if impl == "fused" and not fused:
+    if impl in FUSED_IMPLS and not fused:
         impl = "auto"
     if impl == "auto":
         if torch.device(device).type == "cuda":
@@ -71,11 +79,11 @@ def knn(
     fused policy runs the plain streaming fold, the others the dense
     reference."""
     r = resolve(impl, x.device, fused=True)
-    if r == "fused" and not x.is_cuda:
+    if r in FUSED_IMPLS and not x.is_cuda:
         gidx = (torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
                 if exclude_self else None)
         return fused_assign.fused_topk_plain(x, x, k, valid, q_gidx=gidx)
-    if r in ("fused", "cuda"):
+    if r in FUSED_IMPLS or r == "cuda":
         return knn_topk.knn_topk(x, k, valid, exclude_self=exclude_self)
     return ref.knn(x, k, valid=valid, exclude_self=exclude_self)
 
@@ -87,17 +95,24 @@ def nearest_topk(
     *,
     key_valid: Optional[torch.Tensor] = None,
     q_gidx: Optional[torch.Tensor] = None,
+    keys_scale: Optional[torch.Tensor] = None,
+    keys_zero: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
     block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest valid keys of each query row (dists ascending, idx; -1 for
     unfillable slots) — the assign and blocked-kNN entry point. Every
     policy gives the same bits on exact inputs: they share the merge's tie
-    rule."""
+    rule. int8 keys (with ``keys_scale``/``keys_zero``) and bf16 keys go
+    through the fused family's streaming fold (K1's int8/bf16 instances
+    on the card); the composed policies dequantize or widen them first."""
     r = resolve(impl, q.device, fused=True)
-    if r == "fused":
+    if r in FUSED_IMPLS:
         return fused_assign.fused_topk(q, keys, k, key_valid, q_gidx=q_gidx,
-                                       block_k=block_k)
+                                       keys_scale=keys_scale,
+                                       keys_zero=keys_zero, block_k=block_k)
+    if keys_scale is not None:
+        keys = keys.float() * keys_scale.float() + keys_zero.float()
     d = pairwise_sq_l2(q, keys, y_valid=key_valid, impl=r)
     kcols = torch.arange(keys.shape[0], dtype=torch.int64, device=q.device)
     if q_gidx is not None:

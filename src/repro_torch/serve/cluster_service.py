@@ -5,8 +5,9 @@ Every request is padded onto a small ladder of bucket shapes and sliced
 on return; requests above the top bucket are chunked through it. The
 ladder keeps the served shapes few and fixed, so each bucket's work is
 one known kernel launch shape; ``warmup()`` runs each bucket once before
-traffic (on the card that also builds and loads the kernels) and then
-zeroes the counters.
+traffic under the service's impl (the quantized ones included; on the
+card that also builds and loads the kernels) and then zeroes the
+counters.
 """
 from __future__ import annotations
 
@@ -41,6 +42,12 @@ class ClusterService:
             "requests": 0, "points": 0, "chunks": 0,
             **{f"bucket_{b}": 0 for b in self.buckets},
         }
+
+    @classmethod
+    def from_fit(cls, result, **service_kwargs) -> "ClusterService":
+        """A service straight from any fitted :class:`FitResult` (every
+        executor returns the same artifact), its index packed."""
+        return cls(result.to_index(), **service_kwargs)
 
     def bucket_for(self, n: int) -> int:
         """The bucket an ``n``-row batch pads to (the top bucket if it

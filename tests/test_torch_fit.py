@@ -78,8 +78,10 @@ def test_fit_rejects_what_it_cannot_run(rng):
     with pytest.raises(ValueError, match="threshold t"):
         repro_torch.fit(x, 1, 2, device="cpu")
     with pytest.raises(ValueError, match="resident"):
-        repro_torch.fit(iter([x]), 2, 1, device="cpu")
+        repro_torch.fit(iter([x]), 2, 1, executor="memory", device="cpu")
+    with pytest.raises(ValueError, match="iterable of host chunks"):
+        repro_torch.fit(x, 2, 1, executor="streaming", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         repro_torch.fit(x, 2, 1, "hac", device="cpu")
     with pytest.raises(ValueError, match="unknown executor"):
-        repro_torch.fit(x, 2, 1, executor="streaming", device="cpu")
+        repro_torch.fit(x, 2, 1, executor="sharded", device="cpu")

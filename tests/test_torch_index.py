@@ -93,7 +93,8 @@ def test_assign_reproduces_training_labels(rng):
     np.testing.assert_array_equal(idx.assign(x).numpy(), res.labels.numpy())
     with pytest.raises(TypeError):
         ClusterIndex.build(res, t=2, m=1)
-    assert ClusterIndex.build(idx) is idx
+    assert ClusterIndex.build(idx, pack=False) is idx
+    assert idx.protos_q8 is not None and idx.protos_bf16 is not None  # packed
     built = ClusterIndex.build(x, 2, 1, k=3, device="cpu")
     assert built.n_valid == int(built.n_prototypes)
 

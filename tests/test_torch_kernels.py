@@ -253,8 +253,11 @@ def test_cuda_launch_refuses_cpu_tensors_and_counts_nothing(rng):
     pairwise_sq_l2(x, x)
     q = x.reshape(1, 1, 5, 2)
     flash_attention(q, q, q)
-    assert tkernels.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                        "K5": 0}
+    fused_topk(x.bfloat16(), x.bfloat16(), 1)
+    fused_topk(x, torch.zeros((5, 2), dtype=torch.int8), 1,
+               keys_scale=torch.ones(2), keys_zero=torch.zeros(2))
+    assert tkernels.launch_counts() == {"K1": 0, "K1-bf16": 0, "K1-int8": 0,
+                                        "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 
 def test_merge_topk_tie_rule():
