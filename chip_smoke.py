@@ -10,12 +10,19 @@ Phases, each printing one JSON line:
   build        compile the CUDA kernels (csrc/*.cu, one nvcc each, in
                parallel) into build/repro_torch/;
   kernels      every kernel against its plain PyTorch version on the card,
-               at the shapes the main path gives it: error within the
-               stated tolerance, indices equal except at distance near-ties,
-               and times (CUDA events, median of 10 after a warm-up; the
-               plain version at the fit's largest K1 shape, one call); then
-               awkward shapes on a dyadic grid, where kernel and plain
-               version must agree bit for bit, tie-breaking included;
+               at the shapes the main path gives it (K1 f32 at the fit's
+               level 0, the stream's 8192 x 131,072 and the serve shape;
+               K3 at the level-0 reduce, the Lloyd statistics and the KV
+               compressions, bit for bit against the plain version on the
+               CPU): error within the stated tolerance, indices equal
+               except at distance near-ties, the route each row timed
+               (K1's tensor-core "tc3xtf32" or "cuda_core"; K3's "few" or
+               "many" segments), and times (CUDA events, median of 10
+               after a warm-up; the plain version at the fit's largest K1
+               shapes, one call; K1 and K3 also their device time alone);
+               then awkward shapes on a dyadic grid, where kernel and plain
+               version must agree bit for bit, tie-breaking included, and
+               the edge cases of K1's tensor-core route and of K3's paths;
   fit          the main path: repro_torch.fit on a covertype-sized
                Gaussian-mixture analog (n = 581,012, d = 6, 7 components,
                standardized), t = 3, m = 5, k-means k = 7;
@@ -103,6 +110,7 @@ ALL_PHASES = DEFAULT_PHASES + ("profile", "basins")
 # cores, bf16 on the tensor cores (f32 accumulation), HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 # distance tolerance, kernel vs plain version, both f32 on the card: they
@@ -135,7 +143,7 @@ MIN_SLOT_AGREEMENT = 0.999
 DEV = "cuda"
 SIZES = dict(covertype=581_012, segments=193_670, blocked_q=8192,
              assign_q=2048, protos=2390, knn_n=7172, centres=7,
-             gmm=1_000_000, det=65_536)
+             gmm=1_000_000, det=65_536, lloyd_n=15_625)
 #: the lm phase: gemma2-2b served at batch 4, prompt 2048, 160 new tokens,
 #: compressed at t = 2, m = 1 with a 128-slot tail (cache 2208 slots, 1232
 #: after the first compress), 8 teacher-forced steps in the parity check
@@ -219,6 +227,26 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Milliseconds of device time per call of ``fn()``: the calls are
+    queued behind a spin kernel (``torch.cuda._sleep``) that holds the
+    card until the host has queued them all, so the CUDA events around
+    them read the kernels back to back, not the host (a call of several
+    small launches spends more on the host than on the device, and
+    ``cuda_ms`` reads the host then)."""
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~60 ms at the H100's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
     """(bound_ms, bound_by): the larger of the operations' time (``flops``
     at the f32 peak plus ``bf16_flops``, products of bf16 operands, at the
@@ -227,6 +255,22 @@ def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound(nq: int, p: int, d: int, k: int, nbytes: float, route: str):
+    """(bound_ms, bound_by) of a top-k launch: the least time the card could
+    take. On the tensor-core route the larger of the cross term as three
+    TF32 products (3·2·d a pair at the TF32 peak), the epilogue's add,
+    subtract and max (3 a pair at the f32 peak) and the bytes; on the CUDA
+    cores d fma of the cross term plus those 3 at the f32 peak, or the
+    bytes."""
+    pairs = float(nq) * p
+    if route == "tc3xtf32":
+        t_ops = max(3 * 2 * d * pairs / PEAK_TF32_FLOPS, 3 * pairs / PEAK_F32_FLOPS)
+        t_bytes = nbytes / PEAK_BYTES
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+    return bound(pairs * (2 * d + 3), nbytes)
 
 
 def topk_mismatches(q, keys, got_d, got_i, ref_d, ref_i):
@@ -279,9 +323,11 @@ def phase_build() -> None:
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          compile_seconds=round(compile_s, 3),
          functions_with_spills=spills)
-    # registers and spills of the any-d top-k kernel (each key type) and of
-    # K5, per instance
-    for name, marker in (("topk", "topk_chunked_kernel"),
+    # registers and spills per instance: K1's tensor-core route and its
+    # merge, K3's kernels, the any-d top-k kernel (each key type) and K5
+    for name, marker in (("topk", "topk_tc_kernel"), ("topk", "topk_merge_kernel"),
+                         ("segment_sum", "_kernel"),
+                         ("topk", "topk_chunked_kernel"),
                          ("topk_bf16", "topk_chunked_kernel"),
                          ("topk_int8", "topk_chunked_kernel"),
                          ("flash_attention", "flash_kernel")):
@@ -345,31 +391,18 @@ def phase_kernels(results: dict) -> None:
         cases.append((x[:nq].contiguous(), keys, dev(gen.random(p) > 0.05),
                       gidx, k, 10))
     for q, keys, valid, gidx, k, plain_reps in cases:
-        nq, p = q.shape[0], keys.shape[0]
-        gd, gi = fused_assign.fused_topk(q, keys, k, valid, q_gidx=gidx)
-        rd, ri = fused_assign.fused_topk_plain(q, keys, k, valid, q_gidx=gidx)
-        sync()
-        err = float((gd - rd).abs().max())
-        mism, bad = topk_mismatches(q, keys, gd, gi, rd, ri)
-        check(torch.allclose(gd, rd, **DIST_TOL), f"K1 distances off: {err}")
-        check(bad == 0, f"K1: {bad} index mismatches that are not near-ties")
-        ms = cuda_ms(lambda: fused_assign.fused_topk(q, keys, k, valid, q_gidx=gidx))
-        plain = cuda_ms(lambda: fused_assign.fused_topk_plain(
-            q, keys, k, valid, q_gidx=gidx), reps=plain_reps,
-            warmup=2 if plain_reps > 1 else 0)
-        # per pair: 6 fma of the cross term + add, subtract, max; bytes:
-        # queries, keys, valid, q_gidx in; distances and indices out
-        b_ms, b_by = bound(nq * p * (2 * 6 + 3),
-                           (nq + p) * 6 * 4 + p + (0 if gidx is None else nq * 4)
-                           + nq * k * 8)
-        row = dict(kernel="K1", nq=nq, p=p, d=6, k=k, max_abs_err=err,
-                   index_mismatches=mism, ms=ms, plain_ms=plain,
-                   plain_reps=plain_reps, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None)
-        emit("kernels", **row)
+        row = _k1_row("fit", q, keys, valid, gidx, k, plain_reps)
         results.setdefault("K1", row)
+    # the stream's shape: one 8192-row query block of a 131,072-point chunk
+    # against the whole chunk (2,607 launches of the online run), k = t - 1
+    xs, _ = _stream_chunk()
+    _k1_row("online", xs[:bq].contiguous(), xs, None,
+            torch.arange(bq, dtype=torch.int32, device=DEV), ONLINE["t"] - 1, 1)
+    # the serve shape: the largest request against the final index, k = 1
+    protos, pvalid, queries = _standin_index()
+    _k1_row("serve", queries, protos, pvalid, None, 1, 10)
 
-    _k1_variants(results, *_standin_index())
+    _k1_variants(results, protos, pvalid, queries)
 
     # K2: the one-shot TC graph (level 4 of the fit: 7172 rows, under the
     # 8192-row blocking threshold)
@@ -384,43 +417,23 @@ def phase_kernels(results: dict) -> None:
     check(bad == 0, f"K2: {bad} index mismatches that are not near-ties")
     ms = cuda_ms(lambda: knn_topk.knn_topk(xs, k))
     plain = cuda_ms(lambda: ref.knn(xs, k))
-    b_ms, b_by = bound(n * n * (2 * 6 + 3), n * 6 * 4 + n * k * 8)
-    emit("kernels", kernel="K2", path="fit", n=n, d=6, k=k, max_abs_err=err,
-         index_mismatches=mism, ms=ms, plain_ms=plain, bound_ms=b_ms,
-         bound_by=b_by, library_ms=None)
+    route = fused_assign.route(xs.dtype, xs.dtype, 6, k)
+    b_ms, b_by = k1_bound(n, n, 6, k, n * 6 * 4 + n * k * 8, route)
+    emit("kernels", kernel="K2", path="fit", variant=route, n=n, d=6, k=k,
+         max_abs_err=err, index_mismatches=mism, ms=ms, plain_ms=plain,
+         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     _k2_compression(results)
 
     # K3: the level-0 prototype reduce, 8 blocks of 72,627 rows into
-    # 193,670 segments (ids include dropped ones)
+    # 193,670 segments (ids include dropped ones); then the headline fit's
+    # Lloyd statistics: 15,625 prototypes (10^6 / 4^3) of d = 2 into k = 3
     n, S = x.shape[0], SIZES["segments"]
     ids = dev(gen.integers(-1, S, size=n).astype(np.int32))
     w = dev(gen.integers(1, 4, size=n).astype(np.float32))
-    gs, gm = ops.blocked_segment_sum(x, ids, S, weights=w, impl="cuda")
-    rs, rm = ops.blocked_segment_sum(x, ids, S, weights=w, impl="ref")
-    sync()
-    err = max(float((gs - rs).abs().max()), float((gm - rm).abs().max()))
-    check(torch.allclose(gs, rs, **SUM_TOL) and torch.allclose(gm, rm, **SUM_TOL),
-          f"K3 sums off: {err}")
-    # the plain version on the CPU folds each segment in row order, as the
-    # kernel does: are the bits equal?
-    cs, cm = ops.blocked_segment_sum(x.cpu(), ids.cpu(), S, weights=w.cpu(),
-                                     impl="ref")
-    bit_equal = bool(torch.equal(gs.cpu(), cs) and torch.equal(gm.cpu(), cm))
-    ms = cuda_ms(lambda: ops.blocked_segment_sum(x, ids, S, weights=w, impl="cuda"))
-    plain = cuda_ms(lambda: ops.blocked_segment_sum(x, ids, S, weights=w, impl="ref"))
-    keep = (ids >= 0) & (ids < S)
-    lib_ids = torch.where(keep, ids, S)
-    src = torch.cat([x * w[:, None], w[:, None]], dim=1).contiguous()
-    lib_out = torch.zeros((S + 1, 7), device=DEV)
-    library = cuda_ms(lambda: lib_out.index_add_(0, lib_ids, src))
-    # per row: d products and d + 1 sums; bytes: x, i32 ids, weights in,
-    # (S, d) sums and (S,) masses out
-    b_ms, b_by = bound(n * (2 * 6 + 1), n * 6 * 4 + n * 4 + n * 4 + S * 7 * 4)
-    results["K3"] = dict(kernel="K3", n=n, d=6, segments=S, blocks=8,
-                         max_abs_err=err, bit_equal_to_cpu_plain=bit_equal,
-                         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=library)
-    emit("kernels", **results["K3"])
+    results["K3"] = _k3_row("fit", x, ids, S, w)
+    g2 = dev(gen.normal(size=(SIZES["lloyd_n"], 2)).astype(np.float32))
+    _k3_row("lloyd", g2, dev(gen.integers(0, 3, size=g2.shape[0])), 3,
+            dev(gen.integers(1, 9, size=g2.shape[0]).astype(np.float32)))
 
     # K4: k-means++/Lloyd distances, 2390 prototypes against 7 centres
     n, m = npro, SIZES["centres"]
@@ -444,6 +457,98 @@ def phase_kernels(results: dict) -> None:
     _edge_checks(gen)
     _attention_edges()
     emit("kernels_done", seconds=round(time.perf_counter() - t0, 3))
+
+
+def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
+    """K1 f32 at one of the main path's shapes against its plain version:
+    distances within DIST_TOL, index mismatches only at near-ties; the
+    kernel's time, its plain version's (``plain_reps`` calls) and the bound
+    of the route it took."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import fused_assign as fa
+
+    nq, p, d = q.shape[0], keys.shape[0], q.shape[1]
+    route = fa.route(q.dtype, keys.dtype, d, k)
+    check(_cuda.library("topk").repro_topk_route(d, k) == (route == "tc3xtf32"),
+          f"K1 route rule differs from the library's at d {d}, k {k}")
+    gd, gi = fa.fused_topk(q, keys, k, valid, q_gidx=gidx)
+    rd, ri = fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx)
+    sync()
+    err = float((gd - rd).abs().max())
+    mism, bad = topk_mismatches(q, keys, gd, gi, rd, ri)
+    check(torch.allclose(gd, rd, **DIST_TOL), f"K1 ({path}) distances off: {err}")
+    check(bad == 0, f"K1 ({path}): {bad} index mismatches that are not near-ties")
+    ms = cuda_ms(lambda: fa.fused_topk(q, keys, k, valid, q_gidx=gidx))
+    plain = cuda_ms(lambda: fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx),
+                    reps=plain_reps, warmup=2 if plain_reps > 1 else 0)
+    # bytes: queries, keys, valid, q_gidx in; distances and indices out
+    nbytes = ((nq + p) * d * 4 + (0 if valid is None else p)
+              + (0 if gidx is None else nq * 4) + nq * k * 8)
+    b_ms, b_by = k1_bound(nq, p, d, k, nbytes, route)
+    dev_ms = device_ms(lambda: fa.fused_topk(q, keys, k, valid, q_gidx=gidx))
+    row = dict(kernel="K1", path=path, variant=route, nq=nq, p=p, d=d, k=k,
+               max_abs_err=err, index_mismatches=mism, ms=ms, device_ms=dev_ms,
+               plain_ms=plain,
+               plain_reps=plain_reps, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None)
+    emit("kernels", **row)
+    return row
+
+
+def _stream_chunk():
+    """(chunk 0 of the online phase's blobs stream on the device, cfg)."""
+    from repro_torch.data import PointStreamConfig, point_chunk
+
+    cfg = PointStreamConfig(n=ONLINE["n"], d=ONLINE["d"], chunk=ONLINE["chunk"],
+                            seed=0, kind="blobs", k=ONLINE["k"])
+    return dev(point_chunk(cfg, 0)), cfg
+
+
+def _k3_row(path: str, x, ids, S: int, w, n_blocks: int = 8) -> dict:
+    """K3 under the n_blocks fold against its plain version: the bits of
+    the plain version on the CPU (which folds each block's rows in row
+    order), and within SUM_TOL of the plain version on the card (float
+    atomics there); times of the kernel, the plain version and one
+    ``index_add_`` of the same sums (float atomics, any order)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as seg
+
+    n, d = x.shape
+    gs, gm = ops.blocked_segment_sum(x, ids, S, weights=w, n_blocks=n_blocks,
+                                     impl="cuda")
+    rs, rm = ops.blocked_segment_sum(x, ids, S, weights=w, n_blocks=n_blocks,
+                                     impl="ref")
+    sync()
+    err = max(float((gs - rs).abs().max()), float((gm - rm).abs().max()))
+    check(torch.allclose(gs, rs, **SUM_TOL) and torch.allclose(gm, rm, **SUM_TOL),
+          f"K3 ({path}, d {d}) sums off: {err}")
+    cs, cm = ops.blocked_segment_sum(x.cpu(), ids.cpu(), S, weights=w.cpu(),
+                                     n_blocks=n_blocks, impl="ref")
+    check(torch.equal(gs.cpu(), cs) and torch.equal(gm.cpu(), cm),
+          f"K3 ({path}, d {d}) differs from the CPU plain version's bits")
+    ms = cuda_ms(lambda: ops.blocked_segment_sum(x, ids, S, weights=w,
+                                                 n_blocks=n_blocks, impl="cuda"))
+    plain = cuda_ms(lambda: ops.blocked_segment_sum(x, ids, S, weights=w,
+                                                    n_blocks=n_blocks, impl="ref"))
+    keep = (ids >= 0) & (ids < S)
+    lib_ids = torch.where(keep, ids, S)
+    src = torch.cat([x * w[:, None], w[:, None]], dim=1).contiguous()
+    lib_out = torch.zeros((S + 1, d + 1), device=DEV)
+    library = cuda_ms(lambda: lib_out.index_add_(0, lib_ids, src))
+    # per row: d products and d + 1 sums; bytes: x, the ids at their width
+    # and the weights in, (S, d) sums and (S,) masses out
+    b_ms, b_by = bound(n * (2 * d + 1),
+                       n * d * 4 + n * ids.element_size() + n * 4 + S * (d + 1) * 4)
+    dev_ms = device_ms(lambda: ops.blocked_segment_sum(
+        x, ids, S, weights=w, n_blocks=n_blocks, impl="cuda"))
+    lib_dev_ms = device_ms(lambda: lib_out.index_add_(0, lib_ids, src))
+    row = dict(kernel="K3", path=path, variant=seg.plan(n, S, n_blocks)[0],
+               n=n, d=d, segments=S, blocks=n_blocks, max_abs_err=err,
+               bit_equal_to_cpu_plain=True, ms=ms, device_ms=dev_ms,
+               library_device_ms=lib_dev_ms, plain_ms=plain, bound_ms=b_ms,
+               bound_by=b_by, library_ms=library)
+    emit("kernels", **row)
+    return row
 
 
 def _standin_index():
@@ -492,7 +597,8 @@ def _k1_variants(results: dict, protos, valid, queries, path="kernels") -> None:
         b_ms, b_by = bound(nq * p * (2 * d + 3),
                            p * d * k_bytes + nq * d * q_bytes + p
                            + (2 * d * 4 if kw else 0) + nq * k * 8)
-        row = dict(kernel=kid, path=path, nq=nq, p=p, d=d, k=k, max_abs_err=err,
+        row = dict(kernel=kid, path=path, variant=fa.route(q.dtype, keys.dtype, d, k),
+                   nq=nq, p=p, d=d, k=k, max_abs_err=err,
                    index_mismatches=mism, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=None)
         emit("kernels", **row)
@@ -509,7 +615,7 @@ def _k2_compression(results: dict) -> None:
     """K2 at the lm phase's compression shape: one (batch, kv-head) cache
     of 2208 slots of width head_dim = 256, the first 2048 written (valid),
     k = t - 1 = 1. This is K2's entry in the kernels line."""
-    from repro_torch.kernels import knn_topk, ref
+    from repro_torch.kernels import fused_assign, knn_topk, ref
 
     n, d, k = LM["prompt"] + LM["new_tokens"], 256, LM["t"] - 1
     x = _head_keys(n, d, 3)
@@ -528,8 +634,10 @@ def _k2_compression(results: dict) -> None:
     plain = cuda_ms(lambda: ref.knn(x, k, valid=valid))
     # per pair: d fma of the cross term + add, subtract, max; bytes: x and
     # valid in, distances and indices out
-    b_ms, b_by = bound(n * n * (2 * d + 3), n * d * 4 + n + n * k * 8)
-    results["K2"] = dict(kernel="K2", path="lm", n=n, d=d, k=k, max_abs_err=err,
+    route = fused_assign.route(x.dtype, x.dtype, d, k)
+    b_ms, b_by = k1_bound(n, n, d, k, n * d * 4 + n + n * k * 8, route)
+    results["K2"] = dict(kernel="K2", path="lm", variant=route, n=n, d=d, k=k,
+                         max_abs_err=err,
                          index_mismatches=mism, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
     emit("kernels", **results["K2"])
@@ -539,33 +647,13 @@ def _k3_compression() -> None:
     """K3 at the lm phase's compression shapes: the keys (d 256) and the
     [k||v] payload (d 512) of one head, 2208 rows into 1104 prototypes,
     through the 8-block fold."""
-    from repro_torch.kernels import ops
-
     gen = np.random.default_rng(4)
     n, S = LM["prompt"] + LM["new_tokens"], (LM["prompt"] + LM["new_tokens"]) // LM["t"]
     ids = dev(np.where(np.arange(n) < LM["prompt"], gen.integers(0, S, size=n), -1)
               .astype(np.int32))
     w = torch.ones(n, device=DEV)
     for d in (256, 512):
-        x = _head_keys(n, d, d)
-        gs, gm = ops.blocked_segment_sum(x, ids, S, weights=w, impl="cuda")
-        rs, rm = ops.blocked_segment_sum(x, ids, S, weights=w, impl="ref")
-        sync()
-        err = max(float((gs - rs).abs().max()), float((gm - rm).abs().max()))
-        check(torch.allclose(gs, rs, **SUM_TOL) and torch.allclose(gm, rm, **SUM_TOL),
-              f"K3 (d {d}) sums off: {err}")
-        # the row-order fold of the plain version on the CPU: the same bits
-        cs, cm = ops.blocked_segment_sum(x.cpu(), ids.cpu(), S, weights=w.cpu(),
-                                         impl="ref")
-        check(torch.equal(gs.cpu(), cs) and torch.equal(gm.cpu(), cm),
-              f"K3 (d {d}) differs from the CPU plain version's bits")
-        ms = cuda_ms(lambda: ops.blocked_segment_sum(x, ids, S, weights=w, impl="cuda"))
-        plain = cuda_ms(lambda: ops.blocked_segment_sum(x, ids, S, weights=w,
-                                                        impl="ref"))
-        b_ms, b_by = bound(n * (2 * d + 1), n * d * 4 + n * 8 + S * (d + 1) * 4)
-        emit("kernels", kernel="K3", path="lm", n=n, d=d, segments=S, blocks=8,
-             max_abs_err=err, bit_equal_to_cpu_plain=True, ms=ms, plain_ms=plain,
-             bound_ms=b_ms, bound_by=b_by)
+        _k3_row("lm", _head_keys(n, d, d), ids, S, w)
 
 
 def _attention_work(b, hq, hkv, lq, lk, dh, causal, elt, bias_heads):
@@ -678,6 +766,8 @@ def _edge_checks(gen) -> None:
                   f"K1 differs from its plain version at {(nq, p, d, k)}")
             cases += 1
     cases += _variant_edges(gen, grid)
+    cases += _k1_tc_edges(gen, grid)
+    cases += _k3_edges(gen)
     for n, d, k in ((17, 1, 16), (200, 6, 2), (64, 40, 5), (300, 256, 1),
                     (100, 512, 3)):
         x = grid(n, d)
@@ -706,6 +796,144 @@ def _edge_checks(gen) -> None:
         cases += 1
     sync()
     emit("kernels_edges", cases=cases, bitwise=True)
+
+
+def _k1_tc_edges(gen, grid) -> int:
+    """K1 f32 on the tensor-core route (3xTF32) against its plain version:
+    d in {1, 2, 6, 8, 9, 32}, k in {1, 2, 8}, query and key counts that fill
+    no tile or split; bit for bit on dyadic grids (the split is exact there)
+    with duplicate keys (ties go to the lowest index), masks, every key
+    invalid (inf / -1), self-exclusion; then rows of magnitude about 10^3
+    within DIST_TOL, indices equal except at near-ties. That last case runs
+    at d = 8 and 32: at d <= 6 the f32 formula |x|^2 + |y|^2 - 2 x.y itself
+    loses more than DIST_TOL to cancellation at the nearest keys, whatever
+    the route (an exactly rounded cross term lands more than DIST_TOL from
+    the plain version there; tests/test_torch_topk_tc.py)."""
+    from repro_torch.kernels import fused_assign as fa
+
+    cases = 0
+    for d in (1, 2, 6, 8, 9, 32):
+        for k in (1, 2, 8):
+            check(fa.route(torch.float32, torch.float32, d, k) == "tc3xtf32",
+                  f"K1 at d {d}, k {k} does not take the tensor-core route")
+            for nq, p in ((130, 1100), (70, 3000), (5, 3)):
+                q = grid(nq, d)
+                base = grid(max(p // 3, 1), d)
+                keys = base[dev(gen.integers(0, base.shape[0], size=p))]  # duplicates
+                valid = dev(gen.random(p) > 0.3)
+                gidx = dev(gen.integers(0, 2 * p, size=nq).astype(np.int32))
+                none = torch.zeros(p, dtype=torch.bool, device=DEV)
+                runs = ((None, None), (valid, gidx), (none, None))
+                for v, g in runs:
+                    got = fa.fused_topk(q, keys, k, v, q_gidx=g)
+                    want = fa.fused_topk_plain(q, keys, k, v, q_gidx=g)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"K1 (tc) differs from its plain version at {(nq, p, d, k)}")
+                    cases += 1
+                check(bool(torch.isinf(got[0]).all() and (got[1] == -1).all()),
+                      f"K1 (tc) with every key invalid at {(nq, p, d, k)}")
+            # self-exclusion on the K2 layout: keys = queries, q_gidx = arange
+            x = grid(500, d)
+            self_g = torch.arange(500, dtype=torch.int32, device=DEV)
+            got = fa.fused_topk(x, x, k, None, q_gidx=self_g)
+            want = fa.fused_topk_plain(x, x, k, None, q_gidx=self_g)
+            check(all(torch.equal(a, b) for a, b in zip(got, want))
+                  and not bool((got[1] == self_g[:, None]).any()),
+                  f"K1 (tc) self-exclusion at d {d}, k {k}")
+            cases += 1
+    worst = 0.0
+    for d in (8, 32):
+        q = dev((gen.normal(size=(3000, d)) * 1e3).astype(np.float32))
+        keys = dev((gen.normal(size=(5000, d)) * 1e3).astype(np.float32))
+        for k in (1, 8):
+            gd, gi = fa.fused_topk(q, keys, k)
+            rd, ri = fa.fused_topk_plain(q, keys, k)
+            sync()
+            err = float((gd - rd).abs().max())
+            _, bad = topk_mismatches(q, keys, gd, gi, rd, ri)
+            check(torch.allclose(gd, rd, **DIST_TOL),
+                  f"K1 (tc) at |x| ~ 1e3, d {d}: distances off by {err}")
+            check(bad == 0, f"K1 (tc) at |x| ~ 1e3, d {d}: {bad} index "
+                            f"mismatches that are not near-ties")
+            worst = max(worst, float(((gd - rd).abs()
+                                      / (DIST_TOL["atol"] + DIST_TOL["rtol"] * rd.abs())).max()))
+            cases += 1
+    emit("kernels_edges", kernel="K1", variant="tc3xtf32", cases=cases,
+         large_magnitude_err_over_tol=worst)
+    return cases
+
+
+def _k3_edges(gen) -> int:
+    """K3 bit for bit against the plain version on the CPU (the contract),
+    on continuous data, where any other fold order shows: S = 1; every id
+    dropped; n < n_blocks; one segment holding every row (a run that fits
+    the block-wide sort, 5,000 rows, and one longer than it, 20,000 rows,
+    which walks every row); runs of exactly 32/33, 64/65, 256/257 and
+    8192/8193 rows (the capacities of the group sort and the block sort);
+    a segment whose rows skip blocks; ids -5, S, S + 7 and int64 ids above
+    2^31; d in {1, 6, 31, 32, 256, 512}; n_blocks 1, 3 and 8."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_sum as seg
+
+    def case(x, ids, S, w, n_blocks, label):
+        got = seg.blocked_segment_sum(x, ids, S, w, n_blocks=n_blocks)
+        want = ref.blocked_segment_sum(x.cpu(), ids.cpu(), S,
+                                       weights=None if w is None else w.cpu(),
+                                       n_blocks=n_blocks)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"K3 differs from the CPU plain version's bits: {label}, "
+              f"d {x.shape[1]}, n {x.shape[0]}, S {S}, n_blocks {n_blocks}")
+
+    def data(n, d):
+        return (dev(gen.normal(size=(n, d)).astype(np.float32)),
+                dev(gen.random(n).astype(np.float32) + 0.5))
+
+    cases = 0
+    for d in (1, 6, 31, 32, 256, 512):
+        for n_blocks in (1, 3, 8):
+            n = 3000
+            x, w = data(n, d)
+            for S in (1, 37, 500):
+                ids = gen.integers(-1, S + 1, size=n)
+                ids[:4] = (-5, S, S + 7, 2 ** 31 + 3)
+                ids[4:8] = 2 ** 33 + np.arange(4)  # int64 ids far out of range
+                case(x, dev(ids), S, w, n_blocks, "random ids")
+                case(x, dev(ids.clip(-1, S).astype(np.int32)), S, None, n_blocks,
+                     "i32 ids, no weights")
+                cases += 2
+            # runs of the group sort's and block sort's capacities
+            lens = [32, 33, 64, 65, 256, 257, 1, 2]
+            if d == 6 and n_blocks == 8:
+                lens += [8192, 8193]
+            ids = np.repeat(np.arange(len(lens)), lens)
+            ids = np.concatenate([ids, gen.integers(len(lens), 300, size=2000)])
+            gen.shuffle(ids)
+            x, w = data(ids.shape[0], d)
+            case(x, dev(ids), 300, w, n_blocks, "run lengths")
+            cases += 1
+        # a segment whose rows lie in blocks 0 and 5 of 8 only
+        n = 8000
+        ids = gen.integers(1, 120, size=n)
+        ids[[3, 17, 500, 5200, 5300]] = 0
+        x, w = data(n, d)
+        case(x, dev(ids), 120, w, 8, "empty blocks inside a run")
+        cases += 1
+    for d in (1, 6, 256):
+        for n_blocks in (1, 8):
+            # every id dropped
+            x, w = data(1000, d)
+            case(x, dev(np.full(1000, -1)), 100, w, n_blocks, "all dropped")
+            # n < n_blocks
+            x3, w3 = data(3, d)
+            for S in (2, 100):
+                case(x3, dev(np.array([0, 1, 0]) % S), S, w3, 8, "n < n_blocks")
+            # one segment holding every row: the block sort, the walk, few
+            for n, S in ((5000, 1000), (20000, 1000), (20000, 1)):
+                x, w = data(n, d)
+                case(x, dev(np.full(n, S - 1)), S, w, n_blocks, "one segment")
+            cases += 6
+    emit("kernels_edges", kernel="K3", cases=cases, bitwise_to_cpu_plain=True)
+    return cases
 
 
 def _variant_edges(gen, grid) -> int:
@@ -1607,8 +1835,9 @@ def main() -> int:
             r = results[kid]
             name, source, replaces = KERNEL_META[kid]
             by_path = {p: c.get(kid, 0) for p, c in paths.items() if c}
-            line.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces,
+            line.append({"name": name, "route": "cuda",
+                         "variant": r.get("variant", "cuda_core"),
+                         "source": source, "replaces": replaces,
                          "launches": sum(by_path.values()) if by_path else None,
                          "launches_by_path": by_path,
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],

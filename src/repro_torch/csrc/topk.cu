@@ -54,12 +54,62 @@
 // K in {1, 2, 4, 8, 16, 32}; the bf16/int8 instances K in {1, 8, 32} (the
 // shortlist is k = 8; the first k of a top-K list are the top-k).
 //
+// The tensor-core route (topk_tc_kernel; f32 queries and keys, d <= 32,
+// k <= 8: the fit's and the stream's TC, k = t - 1, the serve assign, k = 1,
+// and K2 at the fit's last levels). At d <= 32 the pair loop above reads a
+// whole key row from shared memory for one query and so is held near the
+// shared-memory bandwidth (about 0.9e12 pairs/s on the card), far below
+// the f32 FMA rate. Here the tensor cores form the whole distance of a
+// 16-query x 8-key tile: with A = [q, 1, xn] and B = [-2 y, yn, 1] (xn, yn
+// the CUDA-core kernel's fmaf chains; features zero-padded to a multiple
+// of 8, which is exact) A.B = xn + yn - 2 q.y, one mma.sync.m16n8k8 TF32
+// product per 8 features in the 3xTF32 split: a = big + small with big =
+// cvt.rna.tf32(a), small = cvt.rna.tf32(a - big), and A.B ~ small.big' +
+// big.small' + big.big' accumulated in f32, about 2^-21 relative to the
+// terms (the tensor core's accumulation is not IEEE-rounded, so the
+// distance of a near pair may be off by a few 1e-4 at |x|^2 ~ 200). So
+// that distance only chooses candidates: the pair loop keeps a few more
+// than k per query (tc_list_len: 4 for k <= 2), and topk_merge_kernel
+// rescores them in the CUDA-core kernel's arithmetic, dist = fmaxf(xn +
+// yn - 2 cross, 0) with the cross term an fmaf chain too, and keeps the k
+// best: the distances returned are the CUDA-core kernel's bits, and a true
+// top-k key is lost only if a rounding of ~1e-4 moved more candidates than
+// the margin past it (on dyadic grids every split and sum is exact, so the
+// answer is bitwise the plain version's, ties included). A warp owns 16
+// queries: their big and small A fragments stay in registers for the whole
+// key loop. Key tiles (256 rows up to d = 14, 128 above) are split once as
+// they are staged into shared memory as (big, small) pairs, rows padded by
+// 4 pairs so that the B-fragment loads of a warp fall in distinct banks;
+// the next tile's global loads are issued before the current tile is
+// computed (a register double buffer; cp.async would copy the raw floats
+// and leave the split and the yn column to every warp). The keys come as
+// (p, d) rows of d floats: at d = 6 the 24-byte row stride is not a
+// multiple of 16 bytes, so a 2-D TMA tensor map cannot describe them. An
+// invalid key (or one past the range) gets yn = 3e38, and a list starts
+// full of kTcEmpty = 1e38 distances, so it never enters (a valid pair whose
+// squared distance reaches 1e38 would overflow the f32 formula anyway).
+// Each thread owns 2 query rows x 2 key columns of the accumulator per
+// tile and keeps a candidate list per row; the mma chains of 4 tiles are
+// issued together, then each row's pair minimum is compared once with the
+// least last entry of the row's 4 lists (a pair above it cannot be among
+// the row's K best), and only a pair at or below it reaches the own list;
+// keys arrive in ascending g, so the strict-< insert keeps the tie rule,
+// and the 4 lanes of a row merge by shuffles under the (dist, g) order.
+// wgmma would be the full-rate route, but at d <= 32 the per-pair work on
+// the CUDA cores (the compares and the list) sets the pace, not the tensor
+// cores, so mma.sync serves. The key axis is split across blocks so that a
+// launch of 8192 queries fills the card several times over: each (128-query
+// tile, key range) block writes its partial lists to scratch and
+// topk_merge_kernel merges the lists of each query. (dist, g) is a total
+// order, so the merged list does not depend on the split: no atomics, the
+// same answer for every split.
+//
 // Build: REPRO_TOPK_KEYS selects the key type whose C entry point (and so
 // whose template instances) a build of this file holds: 0 f32, 1 bf16,
 // 2 int8. The three are compiled by three nvcc processes at once, which
 // splits the compile time of the instances.
 //
-// Later work: tensor-core cross term (wgmma) and TMA-fed key tiles.
+// Later work: wgmma and TMA-fed key tiles for the bf16 and int8 instances.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -342,6 +392,363 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// the tensor-core route's range (f32 queries and keys)
+constexpr int kTcMaxD = 32;
+constexpr int kTcMaxK = 8;
+
+#if !defined(REPRO_TOPK_KEYS) || REPRO_TOPK_KEYS == 0
+
+constexpr int kTcGroup = 4;                 // n8 tiles whose mma chains run together
+constexpr int kTcWarps = 8;                 // 16 queries a warp
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcQ = 16 * kTcWarps;         // queries per block
+// (query tile, key range) blocks a launch aims at: about 2.7 waves of 3
+// blocks on each of the 132 SMs (more, shorter blocks ran slower)
+constexpr int kTcBlocksWanted = 132 * 8;
+constexpr int kTcMinKeys = 1024;            // keys a split holds at least
+constexpr float kTcEmpty = 1e38f;           // an unfilled candidate slot
+constexpr float kTcFar = 3e38f;             // yn of an invalid key
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// c += A (16x8, row) * B (8x8, col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the candidate list the pair loop keeps for an output of k: k plus a
+// margin, so that a tensor-core rounding near a tie cannot push a true
+// top-k key out before the exact rescore
+int tc_list_len(int k) { return k <= 2 ? 4 : k <= 4 ? 8 : 12; }
+
+// [features, 1, xn] padded to a multiple of 8
+int tc_width(int d) { return d + 2 <= 8 ? 8 : d + 2 <= 16 ? 16 : d + 2 <= 32 ? 32 : 40; }
+
+// key axis splits of a launch: enough (query tile, key range) blocks for
+// a few waves, each range at least kTcMinKeys keys
+int tc_splits(int nq, int p) {
+  const int qtiles = (nq + kTcQ - 1) / kTcQ;
+  int want = (kTcBlocksWanted + qtiles - 1) / qtiles;
+  const int most = (p + kTcMinKeys - 1) / kTcMinKeys;
+  if (want > most) want = most;
+  return want < 1 ? 1 : want;
+}
+
+int tc_keys_per_split(int p, int splits) {
+  const int per = (p + splits - 1) / splits;
+  return (per + 255) / 256 * 256;  // whole staged tiles
+}
+
+template <int K>
+__device__ __forceinline__ void tc_offer(float (&bd)[K], int (&bi)[K], float dist,
+                                         int g, int self) {
+  if (dist < bd[K - 1] && g != self) insert<K>(bd, bi, dist, g);
+}
+
+// merge the lists of the 4 lanes of a quad (lanes 4g .. 4g + 3)
+template <int K>
+__device__ __forceinline__ void quad_merge(float (&bd)[K], int (&bi)[K]) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    float od[K];
+    int oi[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      od[s] = __shfl_xor_sync(0xffffffffu, bd[s], off);
+      oi[s] = __shfl_xor_sync(0xffffffffu, bi[s], off);
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (before(od[s], oi[s], bd[K - 1], bi[K - 1])) insert<K>(bd, bi, od[s], oi[s]);
+    }
+  }
+}
+
+// The pair loop: K candidates per query and key range by the 3xTF32
+// distance. DP: [features, 1, xn] padded to a multiple of 8 (KS = DP / 8
+// mma k-steps). 3 blocks an SM (registers <= 80) for the short lists at
+// narrow d (the fit, the stream, the serve assign); 2 for the rest, which
+// need more registers.
+template <int K, int DP>
+__global__ void __launch_bounds__(kTcThreads, (K <= 4 && DP <= 16) ? 3 : 2)
+    topk_tc_kernel(const float* __restrict__ q, const float* __restrict__ keys,
+                   const unsigned char* __restrict__ valid,
+                   const int* __restrict__ q_gidx, float* __restrict__ part_d,
+                   int* __restrict__ part_i, int nq, int p, int d,
+                   int keys_per_split, int splits) {
+  constexpr int KS = DP / 8;
+  constexpr int kKeys = DP <= 16 ? 256 : 128;  // keys per staged tile
+  constexpr int kTpr = kTcThreads / kKeys;     // threads that stage one key row
+  constexpr int kPart = DP / kTpr;             // columns a staging thread holds
+  constexpr int kStride = DP + 4;              // (big, small) pairs a key row
+  static_assert(kPart * kTpr == DP && kKeys % 64 == 0, "tile shape");
+  __shared__ float2 sb[kKeys][kStride];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int split = blockIdx.y;
+  const int kbeg = split * keys_per_split;
+  const int kend = min(p, kbeg + keys_per_split);
+
+  // the warp's 16 queries: rows r0 (grp) and r1 (grp + 8) of its tile
+  const int r0 = blockIdx.x * kTcQ + warp * 16 + grp;
+  const int r1 = r0 + 8;
+  float xn0 = 0.f, xn1 = 0.f;  // the CUDA-core kernel's fmaf chains
+  for (int f = 0; f < d; ++f) {
+    const float v0 = r0 < nq ? q[(size_t)r0 * d + f] : 0.f;
+    const float v1 = r1 < nq ? q[(size_t)r1 * d + f] : 0.f;
+    xn0 = fmaf(v0, v0, xn0);
+    xn1 = fmaf(v1, v1, xn1);
+  }
+  // A fragments a0..a3 = (r0, tig), (r1, tig), (r0, tig + 4), (r1, tig + 4)
+  // of A = [q, 1, xn]
+  uint32_t ab[KS][4], as[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int row = (h & 1) ? r1 : r0;
+      const int f = ks * 8 + tig + ((h & 2) ? 4 : 0);
+      float v = 0.f;
+      if (row < nq) {
+        v = f < d ? q[(size_t)row * d + f] : f == d ? 1.f : f == d + 1 ? ((h & 1) ? xn1 : xn0) : 0.f;
+      }
+      ab[ks][h] = tf32_rna(v);
+      as[ks][h] = tf32_rna(__fsub_rn(v, __uint_as_float(ab[ks][h])));
+    }
+  }
+  const int self0 = (r0 < nq && q_gidx != nullptr) ? q_gidx[r0] : -1;
+  const int self1 = (r1 < nq && q_gidx != nullptr) ? q_gidx[r1] : -1;
+
+  float bd0[K], bd1[K];
+  int bi0[K], bi1[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd0[s] = bd1[s] = kTcEmpty;
+    bi0[s] = bi1[s] = -1;
+  }
+
+  // staging: thread tid holds columns [sf, sf + kPart) of key row
+  // tid / kTpr of the tile
+  const int srow = tid / kTpr, spart = tid % kTpr, sf = spart * kPart;
+  float pre[kPart];
+#pragma unroll
+  for (int i = 0; i < kPart; ++i) {
+    const int g = kbeg + srow, f = sf + i;
+    pre[i] = (g < kend && f < d) ? keys[(size_t)g * d + f] : 0.f;
+  }
+  for (int base = kbeg; base < kend; base += kKeys) {
+    // yn of the staged row: one fmaf chain over its features in order,
+    // passed along the row's kTpr threads
+    float yn = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTpr; ++j) {
+      if (spart == j) {
+#pragma unroll
+        for (int i = 0; i < kPart; ++i) yn = fmaf(pre[i], pre[i], yn);
+      }
+      if (kTpr > 1) yn = __shfl_sync(0xffffffffu, yn, (lane & ~(kTpr - 1)) | j);
+    }
+    const int gs = base + srow;
+    if (!(gs < kend && (valid == nullptr || valid[gs]))) yn = kTcFar;
+    // B = [-2 y, yn, 1] (the factor -2 is exact), split
+    float2 st[kPart];
+#pragma unroll
+    for (int i = 0; i < kPart; ++i) {
+      const int f = sf + i;
+      const float v = f < d ? -2.f * pre[i] : f == d ? yn : f == d + 1 ? 1.f : 0.f;
+      const uint32_t big = tf32_rna(v);
+      st[i] = make_float2(__uint_as_float(big),
+                          __uint_as_float(tf32_rna(__fsub_rn(v, __uint_as_float(big)))));
+    }
+    __syncthreads();  // the previous tile is no longer read
+#pragma unroll
+    for (int i = 0; i < kPart; ++i) sb[srow][sf + i] = st[i];
+    __syncthreads();
+    // the next tile's loads are in flight while this one is computed
+#pragma unroll
+    for (int i = 0; i < kPart; ++i) {
+      const int g = base + kKeys + srow, f = sf + i;
+      pre[i] = (g < kend && f < d) ? keys[(size_t)g * d + f] : 0.f;
+    }
+
+#pragma unroll 1
+    for (int j0 = 0; j0 < kKeys / 8; j0 += kTcGroup) {
+      // a row's threshold: the least last entry of its quad's 4 lists. A
+      // pair above it cannot be among the row's K best (that lane holds K
+      // better), so only pairs at or below it are offered to the own list
+      float t0 = bd0[K - 1], t1 = bd1[K - 1];
+      t0 = fminf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
+      t1 = fminf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
+      t0 = fminf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
+      t1 = fminf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
+      // kTcGroup independent mma chains, then their compares
+      float c[kTcGroup][4];
+#pragma unroll
+      for (int jj = 0; jj < kTcGroup; ++jj) {
+        const int kr = (j0 + jj) * 8 + grp;  // this thread's B column: key row kr
+        c[jj][0] = c[jj][1] = c[jj][2] = c[jj][3] = 0.f;
+        uint32_t bb[KS][2];
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const float2 e0 = sb[kr][ks * 8 + tig];
+          const float2 e1 = sb[kr][ks * 8 + tig + 4];
+          bb[ks][0] = __float_as_uint(e0.x);
+          bb[ks][1] = __float_as_uint(e1.x);
+          mma_tf32(c[jj], as[ks], bb[ks][0], bb[ks][1]);                          // small . big'
+          mma_tf32(c[jj], ab[ks], __float_as_uint(e0.y), __float_as_uint(e1.y));  // big . small'
+        }
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) mma_tf32(c[jj], ab[ks], bb[ks][0], bb[ks][1]);  // big . big'
+      }
+#pragma unroll
+      for (int jj = 0; jj < kTcGroup; ++jj) {
+        // c[0], c[1]: row r0, columns 2 tig, 2 tig + 1; c[2], c[3]: row r1
+        const int g0 = base + (j0 + jj) * 8 + 2 * tig, g1 = g0 + 1;
+        if (fminf(c[jj][0], c[jj][1]) <= t0) {
+          tc_offer<K>(bd0, bi0, c[jj][0], g0, self0);
+          tc_offer<K>(bd0, bi0, c[jj][1], g1, self0);
+        }
+        if (fminf(c[jj][2], c[jj][3]) <= t1) {
+          tc_offer<K>(bd1, bi1, c[jj][2], g0, self1);
+          tc_offer<K>(bd1, bi1, c[jj][3], g1, self1);
+        }
+      }
+    }
+  }
+
+  quad_merge<K>(bd0, bi0);
+  quad_merge<K>(bd1, bi1);
+  if (tig == 0) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (r0 < nq) {
+        part_d[((size_t)r0 * splits + split) * K + s] = bd0[s];
+        part_i[((size_t)r0 * splits + split) * K + s] = bi0[s];
+      }
+      if (r1 < nq) {
+        part_d[((size_t)r1 * splits + split) * K + s] = bd1[s];
+        part_i[((size_t)r1 * splits + split) * K + s] = bi1[s];
+      }
+    }
+  }
+}
+
+// Per query: merge the splits' candidate lists (3xTF32 distances) into its
+// K best, rescore those in the CUDA-core kernel's arithmetic (xn, yn and
+// the cross term as fmaf chains over the features in order, then
+// fmaxf(xn + yn - 2 cross, 0)) and keep the k best under (dist, g). So the
+// distances returned are the CUDA-core kernel's bits.
+template <int K, int DP>
+__global__ void topk_merge_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ keys,
+                                  const float* __restrict__ part_d,
+                                  const int* __restrict__ part_i, int splits,
+                                  float* __restrict__ out_d,
+                                  int* __restrict__ out_i, int nq, int d, int k) {
+  constexpr int kF = DP - 2 < 32 ? DP - 2 : 32;  // features at most (d <= kF)
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= nq) return;
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = CUDART_INF_F;
+    bi[s] = -1;
+  }
+  for (int sp = 0; sp < splits; ++sp) {
+    const size_t o = ((size_t)qi * splits + sp) * K;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int iv = part_i[o + s];
+      const float dv = part_d[o + s];
+      if (iv >= 0 && before(dv, iv, bd[K - 1], bi[K - 1])) insert<K>(bd, bi, dv, iv);
+    }
+  }
+  float xq[kF];
+  float xn = 0.f;
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    xq[f] = f < d ? q[(size_t)qi * d + f] : 0.f;
+    xn = fmaf(xq[f], xq[f], xn);
+  }
+  float ed[K];
+  int ei[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    ed[s] = CUDART_INF_F;
+    ei[s] = -1;
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int g = bi[s];
+    if (g < 0) continue;  // an unfilled slot
+    float yn = 0.f, cross = 0.f;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      const float y = f < d ? keys[(size_t)g * d + f] : 0.f;
+      yn = fmaf(y, y, yn);
+      cross = fmaf(xq[f], y, cross);
+    }
+    const float dist = fmaxf(xn + yn - 2.f * cross, 0.f);
+    if (before(dist, g, ed[K - 1], ei[K - 1])) insert<K>(ed, ei, dist, g);
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (s < k) {
+      out_d[(size_t)qi * k + s] = ed[s];
+      out_i[(size_t)qi * k + s] = isinf(ed[s]) ? -1 : ei[s];
+    }
+  }
+}
+
+bool tc_route(int d, int k) { return d >= 1 && d <= kTcMaxD && k >= 1 && k <= kTcMaxK; }
+
+long long tc_scratch_bytes(int nq, int p, int d, int k) {
+  if (!tc_route(d, k) || nq < 1) return 0;
+  return (long long)nq * tc_splits(nq, p) * tc_list_len(k) * 8;
+}
+
+template <int K, int DP>
+cudaError_t launch_tc(const float* q, const float* keys, const unsigned char* valid,
+                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
+                      int d, int k, void* scratch, cudaStream_t stream) {
+  const int splits = tc_splits(nq, p);
+  const int per = tc_keys_per_split(p, splits);
+  float* part_d = static_cast<float*>(scratch);
+  int* part_i = reinterpret_cast<int*>(part_d + (size_t)nq * splits * K);
+  const dim3 grid((nq + kTcQ - 1) / kTcQ, splits);
+  topk_tc_kernel<K, DP><<<grid, kTcThreads, 0, stream>>>(
+      q, keys, valid, q_gidx, part_d, part_i, nq, p, d, per, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  topk_merge_kernel<K, DP><<<(nq + 127) / 128, 128, 0, stream>>>(
+      q, keys, part_d, part_i, splits, out_d, out_i, nq, d, k);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_tc_k(const float* q, const float* keys, const unsigned char* valid,
+                        const int* q_gidx, float* out_d, int* out_i, int nq, int p,
+                        int d, int k, void* scratch, cudaStream_t stream) {
+  switch (tc_list_len(k)) {
+    case 4: return launch_tc<4, DP>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, stream);
+    case 8: return launch_tc<8, DP>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, stream);
+    default: return launch_tc<12, DP>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, stream);
+  }
+}
+
+#endif  // REPRO_TOPK_KEYS == 0
+
 // D == 0 selects the chunked kernel (any d)
 template <typename QT, typename KT, int K, int D>
 cudaError_t launch(const QT* q, const KT* keys, const float* scale,
@@ -366,13 +773,17 @@ cudaError_t launch_k(const QT* q, const KT* keys, const float* scale,
                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                      int d, int k, cudaStream_t stream) {
   // the first k of a top-K list (K >= k) are the top-k under the same order
-  if (k <= 1) return launch<QT, KT, 1, D>(REPRO_TOPK_ARGS);
   if constexpr (std::is_same<QT, float>::value && std::is_same<KT, float>::value) {
-    if (k <= 2) return launch<QT, KT, 2, D>(REPRO_TOPK_ARGS);
-    if (k <= 4) return launch<QT, KT, 4, D>(REPRO_TOPK_ARGS);
-    if (k <= 8) return launch<QT, KT, 8, D>(REPRO_TOPK_ARGS);
+    // at d <= 32 the tensor-core route takes k <= 8
+    if constexpr (D == 0 || D > kTcMaxD) {
+      if (k <= 1) return launch<QT, KT, 1, D>(REPRO_TOPK_ARGS);
+      if (k <= 2) return launch<QT, KT, 2, D>(REPRO_TOPK_ARGS);
+      if (k <= 4) return launch<QT, KT, 4, D>(REPRO_TOPK_ARGS);
+      if (k <= 8) return launch<QT, KT, 8, D>(REPRO_TOPK_ARGS);
+    }
     if (k <= 16) return launch<QT, KT, 16, D>(REPRO_TOPK_ARGS);
   } else {
+    if (k <= 1) return launch<QT, KT, 1, D>(REPRO_TOPK_ARGS);
     if (k <= 8) return launch<QT, KT, 8, D>(REPRO_TOPK_ARGS);
   }
   return launch<QT, KT, 32, D>(REPRO_TOPK_ARGS);
@@ -385,6 +796,10 @@ cudaError_t launch_d(const QT* q, const KT* keys, const float* scale,
                      int d, int k, cudaStream_t stream) {
   if (nq < 0 || p < 0 || d < 1 || k < 1 || k > 32) return cudaErrorInvalidValue;
   if (nq == 0) return cudaSuccess;
+  if constexpr (std::is_same<QT, float>::value && std::is_same<KT, float>::value) {
+    // the tensor-core route, which the f32 entry point launches itself
+    if (d <= kTcMaxD && k <= kTcMaxK) return cudaErrorInvalidValue;
+  }
   if (d <= 4) return launch_k<QT, KT, 4>(REPRO_TOPK_ARGS);
   if (d <= 8) return launch_k<QT, KT, 8>(REPRO_TOPK_ARGS);
   if (d <= 32) return launch_k<QT, KT, 32>(REPRO_TOPK_ARGS);
@@ -406,14 +821,32 @@ int repro_topk_max_k() { return 32; }
 
 #if REPRO_TOPK_KEYS == 0
 
+// 1 if (d, k) takes the tensor-core route (3xTF32 cross term), else 0
+int repro_topk_route(int d, int k) { return tc_route(d, k) ? 1 : 0; }
+
+// bytes of scratch repro_topk_f32 needs (the TC route's partial lists)
+long long repro_topk_scratch_bytes(int nq, int p, int d, int k) {
+  return tc_scratch_bytes(nq, p, d, k);
+}
+
 // q (nq, d) f32, keys (p, d) f32, valid (p,) u8 or null, q_gidx (nq,) i32 or
-// null -> out_d (nq, k) f32, out_i (nq, k) i32. Returns a cudaError_t.
+// null, scratch of repro_topk_scratch_bytes -> out_d (nq, k) f32, out_i
+// (nq, k) i32. Returns a cudaError_t.
 int repro_topk_f32(const float* q, const float* keys, const unsigned char* valid,
                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
-                   int d, int k, void* stream) {
+                   int d, int k, void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nq > 0 && tc_route(d, k)) {
+    if (p < 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+    switch (tc_width(d)) {
+      case 8: return (int)launch_tc_k<8>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
+      case 16: return (int)launch_tc_k<16>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
+      case 32: return (int)launch_tc_k<32>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
+      default: return (int)launch_tc_k<40>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
+    }
+  }
   return (int)launch_d<float, float>(q, keys, nullptr, nullptr, valid, q_gidx,
-                                     out_d, out_i, nq, p, d, k,
-                                     static_cast<cudaStream_t>(stream));
+                                     out_d, out_i, nq, p, d, k, st);
 }
 #endif
 

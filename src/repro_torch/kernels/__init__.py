@@ -22,7 +22,7 @@ COUNTERS = {
     "K1-bf16": (_fused_assign.fused_topk, "launches_bf16"),
     "K1-int8": (_fused_assign.fused_topk, "launches_int8"),
     "K2": (_knn_topk.knn_topk, "launches"),
-    "K3": (_segment_sum.segment_sum, "launches"),
+    "K3": (_segment_sum.blocked_segment_sum, "launches"),
     "K4": (_pairwise_l2.pairwise_sq_l2, "launches"),
     "K5": (_flash_attention.flash_attention, "launches"),
 }

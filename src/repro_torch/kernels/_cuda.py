@@ -49,15 +49,23 @@ _F = ctypes.c_float
 
 #: C signatures (every function returns a cudaError_t as int)
 _SIGNATURES = {
-    "topk": ("repro_topk_f32", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "topk": ("repro_topk_f32", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "topk_bf16": ("repro_topk_bf16", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "topk_int8": ("repro_topk_int8",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "segment_sum": ("repro_segment_sum_f32", [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P]),
+    "segment_sum": ("repro_segment_sum_f32",
+                    [_P, _P, _P, _I, _P, _P, _L, _I, _I, _L, _I, _I, _P, _P]),
     "pairwise_l2": ("repro_pairwise_sq_l2_f32", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "flash_attention": ("repro_flash_attention",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P]),
+}
+
+#: the libraries' other C functions: name -> (argument types, result type)
+_HELPERS = {
+    "topk": {"repro_topk_scratch_bytes": ([_I, _I, _I, _I], _L),
+             "repro_topk_route": ([_I, _I], _I)},
+    "segment_sum": {"repro_segment_sum_scratch_bytes": ([_L, _I, _I, _I, _I], _L)},
 }
 
 _lock = threading.Lock()
@@ -134,6 +142,9 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            for helper, (args, res) in _HELPERS.get(name, {}).items():
+                getattr(lib, helper).argtypes = args
+                getattr(lib, helper).restype = res
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -33,6 +33,22 @@ from repro_torch.runtime import active
 #: shortlist length the quantized assign variants rescore in exact f32
 RESCORE_K = 8
 
+#: the tensor-core route of ``csrc/topk.cu`` (the cross term as 3xTF32
+#: products): f32 queries and keys, d <= TC_MAX_D, k <= TC_MAX_K
+TC_MAX_D, TC_MAX_K = 32, 8
+
+
+def route(q_dtype: torch.dtype, keys_dtype: torch.dtype, d: int, k: int) -> str:
+    """Which kernel of ``csrc/topk.cu`` a launch takes: "tc3xtf32" (the
+    tensor-core cross term, keys split across blocks) or "cuda_core" (the
+    f32 FMA pair loop; every bf16 and int8 key launch, d > 32, k > 8).
+    Float keys other than bf16 are widened to f32, and so are the queries,
+    as :func:`launch_topk` does."""
+    f32_keys = keys_dtype.is_floating_point and keys_dtype != torch.bfloat16
+    if f32_keys and 1 <= d <= TC_MAX_D and 1 <= k <= TC_MAX_K:
+        return "tc3xtf32"
+    return "cuda_core"
+
 
 def _check_key_types(q, keys, keys_scale, keys_zero) -> None:
     if keys.dtype == torch.bfloat16 and q.dtype != torch.bfloat16:
@@ -88,8 +104,9 @@ def launch_topk(
     g = _cuda.index(q_gidx, torch.int32)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    tail = (_cuda.ptr(v), _cuda.ptr(g), _cuda.ptr(out_d), _cuda.ptr(out_i),
-            nq, p, d, k, _cuda.stream(dev))
+    args = (_cuda.ptr(v), _cuda.ptr(g), _cuda.ptr(out_d), _cuda.ptr(out_i),
+            nq, p, d, k)
+    stream = _cuda.stream(dev)
     with torch.cuda.device(dev):
         if keys.dtype == torch.int8:
             # bf16 queries widen to f32 exactly (the int8 instance reads f32)
@@ -98,13 +115,19 @@ def launch_topk(
             z = _cuda.contiguous_as(keys_zero, torch.float32)
             kc = keys.contiguous()
             _cuda.call("topk_int8", _cuda.ptr(qf), _cuda.ptr(kc), _cuda.ptr(s),
-                       _cuda.ptr(z), *tail)
+                       _cuda.ptr(z), *args, stream)
         elif keys.dtype == torch.bfloat16:
             qc, kc = q.contiguous(), keys.contiguous()
-            _cuda.call("topk_bf16", _cuda.ptr(qc), _cuda.ptr(kc), *tail)
+            _cuda.call("topk_bf16", _cuda.ptr(qc), _cuda.ptr(kc), *args, stream)
         else:
             qf, kf = _cuda.f32(q), _cuda.f32(keys)
-            _cuda.call("topk", _cuda.ptr(qf), _cuda.ptr(kf), *tail)
+            # the tensor-core route's per-split candidate lists (0 bytes
+            # on the CUDA-core route)
+            nbytes = lib.repro_topk_scratch_bytes(nq, p, d, k)
+            scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+                       if nbytes else None)
+            _cuda.call("topk", _cuda.ptr(qf), _cuda.ptr(kf), *args,
+                       _cuda.ptr(scratch), stream)
     return out_d, out_i
 
 

@@ -151,32 +151,15 @@ def blocked_segment_sum(
     partials added left to right in block order. The order is pinned by
     ``n_blocks`` alone, which is what makes the bits reproducible; it
     defaults to the runtime config (8). ``n_blocks <= 1`` is one plain
-    segment sum."""
+    segment sum. Under "cuda" the whole tree is one K3 call; "ref" runs
+    the plain per-block loop."""
     if n_blocks is None:
         n_blocks = active().n_blocks
-    if n_blocks <= 1:
-        return segment_sum(x, segment_ids, num_segments, weights=weights,
-                           impl=impl)
-    n = x.shape[0]
-    pad = (-n) % n_blocks
-    xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
-    # padded rows get id == num_segments, which the segment sum drops; the
-    # ids go to i32 once here (the kernel reads i32), clamped first so that
-    # no wide id wraps into range
-    ids = segment_ids
-    if ids.dtype != torch.int32:
-        ids = ids.clamp(-1, num_segments).to(torch.int32)
-    ip = torch.nn.functional.pad(ids, (0, pad), value=num_segments)
-    wp = None if weights is None else torch.nn.functional.pad(weights, (0, pad))
-    nb = (n + pad) // n_blocks
-    sums = masses = None
-    for b in range(n_blocks):
-        sl = slice(b * nb, (b + 1) * nb)
-        s_b, m_b = segment_sum(xp[sl], ip[sl], num_segments,
-                               weights=None if wp is None else wp[sl], impl=impl)
-        sums = s_b if sums is None else sums + s_b
-        masses = m_b if masses is None else masses + m_b
-    return sums, masses
+    if resolve(impl, x.device) == "cuda":
+        return _segsum.blocked_segment_sum(x, segment_ids, num_segments,
+                                           weights, n_blocks=n_blocks)
+    return ref.blocked_segment_sum(x, segment_ids, num_segments,
+                                   weights=weights, n_blocks=n_blocks)
 
 
 def flash_attention(

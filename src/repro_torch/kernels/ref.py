@@ -115,6 +115,39 @@ def segment_sum(
     return sums[:num_segments], masses[:num_segments]
 
 
+def blocked_segment_sum(
+    x: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    *,
+    weights: Optional[torch.Tensor] = None,
+    n_blocks: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`segment_sum` under the reference's fixed tree: the rows
+    right-padded (with dropped ids) to ``n_blocks`` equal blocks, one
+    partial per block, the partials added left to right in block order.
+    ``n_blocks <= 1`` is one plain segment sum."""
+    if n_blocks <= 1:
+        return segment_sum(x, segment_ids, num_segments, weights=weights)
+    n = x.shape[0]
+    pad = (-n) % n_blocks
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    # padded rows get id == num_segments, which the segment sum drops; wide
+    # ids are clamped first so that none wraps into range
+    ids = segment_ids.to(torch.int64).clamp(-1, num_segments)
+    ip = torch.nn.functional.pad(ids, (0, pad), value=num_segments)
+    wp = None if weights is None else torch.nn.functional.pad(weights, (0, pad))
+    nb = (n + pad) // n_blocks
+    sums = masses = None
+    for b in range(n_blocks):
+        sl = slice(b * nb, (b + 1) * nb)
+        s_b, m_b = segment_sum(xp[sl], ip[sl], num_segments,
+                               weights=None if wp is None else wp[sl])
+        sums = s_b if sums is None else sums + s_b
+        masses = m_b if masses is None else masses + m_b
+    return sums, masses
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
