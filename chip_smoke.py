@@ -16,10 +16,12 @@ Phases, each printing one JSON line:
                compressions, bit for bit against the plain version on the
                CPU): error within the stated tolerance, indices equal
                except at distance near-ties, the route each row timed
-               (K1's tensor-core "tc3xtf32" or "cuda_core"; K3's "few" or
-               "many" segments), and times (CUDA events, median of 10
-               after a warm-up; the plain version at the fit's largest K1
-               shapes, one call; K1 and K3 also their device time alone);
+               (K1's tensor-core "tc3xtf32", "cuda_core_split" or
+               "cuda_core"; K3's "few" or "many" segments; K5's "split_kv"
+               or "tiled"), and times (CUDA events, median of 10 after a
+               warm-up; the plain version at the fit's largest K1 shapes,
+               one call; K1, K2 at d 256, K3 and K5 also their device time
+               alone);
                then awkward shapes on a dyadic grid, where kernel and plain
                version must agree bit for bit, tie-breaking included, and
                the edge cases of K1's tensor-core route and of K3's paths;
@@ -73,7 +75,8 @@ phase's stream and read after its refresh, and again just before the lm
 phase's generate and read right after it; every kernel of each path must
 have launched (K1-K4 in fit and serve; K1 and its bf16 and int8 key
 instances, K3 and K4 in online; K2, K3 and K5 in lm, K5 once per
-global layer of the prefill and once per layer of every decode step).
+global layer of the prefill on its tiled route and once per layer of
+every decode step on its split-kv route, counted apart as K5-decode).
 Then one JSON line lists every kernel and variant (launches summed over
 the paths),
 the card's name and power limit are printed, and the last line is
@@ -186,11 +189,18 @@ KERNEL_META = {
            "src/repro/kernels/pairwise_l2.py:22"),
     "K5": ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention.py:23"),
+    "K5-decode": ("flash_attention_split_kv",
+                  "src/repro_torch/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:23"),
     "K1-bf16": ("fused_topk_bf16", "src/repro_torch/csrc/topk.cu",
                 "src/repro/kernels/fused_assign.py:61"),
     "K1-int8": ("fused_topk_int8", "src/repro_torch/csrc/topk.cu",
                 "src/repro/kernels/fused_assign.py:61"),
 }
+
+
+#: the f32 top-k library's route codes (repro_topk_route)
+TOPK_ROUTES = {0: "cuda_core", 1: "tc3xtf32", 2: "cuda_core_split"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -324,13 +334,18 @@ def phase_build() -> None:
          compile_seconds=round(compile_s, 3),
          functions_with_spills=spills)
     # registers and spills per instance: K1's tensor-core route and its
-    # merge, K3's kernels, the any-d top-k kernel (each key type) and K5
+    # merge, K3's kernels, the any-d top-k kernel (each key type), the
+    # split route and its merge, and K5's two routes
     for name, marker in (("topk", "topk_tc_kernel"), ("topk", "topk_merge_kernel"),
+                         ("topk", "topk_split_kernel"),
+                         ("topk", "topk_split_merge_kernel"),
                          ("segment_sum", "_kernel"),
                          ("topk", "topk_chunked_kernel"),
                          ("topk_bf16", "topk_chunked_kernel"),
                          ("topk_int8", "topk_chunked_kernel"),
-                         ("flash_attention", "flash_kernel")):
+                         ("flash_attention", "flash_kernel"),
+                         ("flash_attention", "split_kv_kernel"),
+                         ("flash_attention", "split_combine_kernel")):
         text = _cuda.library_path(name).with_suffix(".log").read_text()
         emit("ptxas", library=name, functions=_ptxas_usage(text, marker))
 
@@ -469,7 +484,7 @@ def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
 
     nq, p, d = q.shape[0], keys.shape[0], q.shape[1]
     route = fa.route(q.dtype, keys.dtype, d, k)
-    check(_cuda.library("topk").repro_topk_route(d, k) == (route == "tc3xtf32"),
+    check(TOPK_ROUTES[_cuda.library("topk").repro_topk_route(d, k)] == route,
           f"K1 route rule differs from the library's at d {d}, k {k}")
     gd, gi = fa.fused_topk(q, keys, k, valid, q_gidx=gidx)
     rd, ri = fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx)
@@ -614,10 +629,20 @@ def _head_keys(n: int, d: int, seed: int) -> torch.Tensor:
 def _k2_compression(results: dict) -> None:
     """K2 at the lm phase's compression shape: one (batch, kv-head) cache
     of 2208 slots of width head_dim = 256, the first 2048 written (valid),
-    k = t - 1 = 1. This is K2's entry in the kernels line."""
-    from repro_torch.kernels import fused_assign, knn_topk, ref
+    k = t - 1 = 1, on the CUDA-core split route (its key ranges as the
+    library counts them). This is K2's entry in the kernels line."""
+    from repro_torch.kernels import _cuda, fused_assign, knn_topk, ref
 
     n, d, k = LM["prompt"] + LM["new_tokens"], 256, LM["t"] - 1
+    route = fused_assign.route(torch.float32, torch.float32, d, k)
+    lib = _cuda.library("topk")
+    splits, keys_per_split = fused_assign.split_plan(n, n)
+    check(route == "cuda_core_split"
+          and TOPK_ROUTES[lib.repro_topk_route(d, k)] == route
+          and lib.repro_topk_split_count(n, n) == splits,
+          f"K2 at d {d}: route {route}, library route "
+          f"{lib.repro_topk_route(d, k)}, splits {lib.repro_topk_split_count(n, n)} "
+          f"against {splits}")
     x = _head_keys(n, d, 3)
     valid = torch.arange(n, device=DEV) < LM["prompt"]
     gd, gi = knn_topk.knn_topk(x, k, valid)
@@ -631,14 +656,16 @@ def _k2_compression(results: dict) -> None:
           f"K2 (d 256) distances off: {err}")
     check(bad == 0, f"K2 (d 256): {bad} index mismatches that are not near-ties")
     ms = cuda_ms(lambda: knn_topk.knn_topk(x, k, valid))
+    dev_ms = device_ms(lambda: knn_topk.knn_topk(x, k, valid))
     plain = cuda_ms(lambda: ref.knn(x, k, valid=valid))
     # per pair: d fma of the cross term + add, subtract, max; bytes: x and
     # valid in, distances and indices out
-    route = fused_assign.route(x.dtype, x.dtype, d, k)
     b_ms, b_by = k1_bound(n, n, d, k, n * d * 4 + n + n * k * 8, route)
     results["K2"] = dict(kernel="K2", path="lm", variant=route, n=n, d=d, k=k,
+                         splits=splits, keys_per_split=keys_per_split,
                          max_abs_err=err,
-                         index_mismatches=mism, ms=ms, plain_ms=plain,
+                         index_mismatches=mism, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
     emit("kernels", **results["K2"])
 
@@ -687,14 +714,20 @@ def _attn_inputs(b, hq, hkv, lq, lk, dh, dtype, seed, bias=None):
                              -1e30, kb)
         if bias == "first_tile":  # every key of the first 40 masked
             kb[..., :40] = -1e30
+        if bias == "masked_split":  # keys 64-127 (a whole split) and the tail
+            kb[..., 64:128] = -1e30
+            kb[..., lk - lk // 3:] = -1e30
     return q, k, v, kb
 
 
 def _k5_path_shapes(results: dict) -> None:
     """K5 at the lm phase's shapes, in its working type (bf16): prefill of
-    a global layer (causal, no bias) and one decode step over the
-    compressed cache (P = 1104 prototypes with log-mass bias, one written
-    tail slot, the rest of the tail masked by the position mask)."""
+    a global layer (causal, no bias; the tiled route) and one decode step
+    over the compressed cache (P = 1104 prototypes with log-mass bias, one
+    written tail slot, the rest of the tail masked by the position mask;
+    the split-kv route, its splits as the library counts them). A second
+    call must give the same bits."""
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as fa
 
     B, hq, hkv, dh = LM["batch"], 8, 4, 256
@@ -707,13 +740,22 @@ def _k5_path_shapes(results: dict) -> None:
     bias[..., P] = 0.0
     shapes = (("prefill", (B, hq, hkv, S, S, dh), True, None),
               ("decode", (B, hq, hkv, 1, lk_dec, dh), False, bias))
+    lib = _cuda.library("flash_attention")
     for label, (b, hq_, hkv_, lq, lk, d), causal, kb in shapes:
+        variant = fa.route(hq_, hkv_, lq)
+        check(variant == ("tiled" if label == "prefill" else "split_kv")
+              and lib.repro_flash_attention_route(hq_, hkv_, lq) == (variant == "split_kv")
+              and lib.repro_flash_attention_split_keys(lk) == fa.split_keys(lk),
+              f"K5 {label}: route {variant} or its split rule differs from the "
+              f"library's")
         q, k, v, _ = _attn_inputs(b, hq_, hkv_, lq, lk, d, torch.bfloat16, 8)
         kw = dict(causal=causal, scale=1.0 / 16, logit_softcap=50.0)
         got = fa.flash_attention(q, k, v, kb, **kw)
+        again = fa.flash_attention(q, k, v, kb, **kw)
         want = fa.flash_attention_plain(q, k, v, kb, **kw)
         sync()
         err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, again), f"K5 {label}: a repeat differs")
         check(bool(torch.isfinite(got.float()).all()), f"K5 {label}: non-finite")
         check(torch.allclose(got.float(), want.float(), **ATTN_TOL_BF16),
               f"K5 {label} (bf16) off: {err}")
@@ -726,18 +768,22 @@ def _k5_path_shapes(results: dict) -> None:
               f"K5 {label} (f32) off: {err32}")
         del got32, want32
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kb, **kw))
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, kb, **kw))
         plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, kb, **kw))
         flops, tc_flops, nbytes = _attention_work(
             b, hq_, hkv_, lq, lk, d, causal, 2, 0 if kb is None else kb.shape[1])
         b_ms, b_by = bound(flops, nbytes, bf16_flops=tc_flops)
-        row = dict(kernel="K5", path="lm", shape=label, q=list(q.shape),
-                   kv=list(k.shape), causal=causal, bias=kb is not None,
-                   dtype="bf16", max_abs_err=err, max_abs_err_f32=err32, ms=ms,
-                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                   causal_half_counted=False, library_ms=None)
+        row = dict(kernel="K5", path="lm", shape=label, variant=variant,
+                   q=list(q.shape), kv=list(k.shape), causal=causal,
+                   bias=kb is not None, dtype="bf16", max_abs_err=err,
+                   max_abs_err_f32=err32, bitwise_repeat=True, ms=ms,
+                   device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, causal_half_counted=False, library_ms=None)
+        if variant == "split_kv":
+            row.update(split_keys=fa.split_keys(lk),
+                       splits=-(-lk // fa.split_keys(lk)))
         emit("kernels", **row)
-        if label == "prefill":
-            results["K5"] = row
+        results["K5" if label == "prefill" else "K5-decode"] = row
 
 
 def _edge_checks(gen) -> None:
@@ -767,6 +813,7 @@ def _edge_checks(gen) -> None:
             cases += 1
     cases += _variant_edges(gen, grid)
     cases += _k1_tc_edges(gen, grid)
+    cases += _k2_split_edges(gen)
     cases += _k3_edges(gen)
     for n, d, k in ((17, 1, 16), (200, 6, 2), (64, 40, 5), (300, 256, 1),
                     (100, 512, 3)):
@@ -860,6 +907,38 @@ def _k1_tc_edges(gen, grid) -> int:
             cases += 1
     emit("kernels_edges", kernel="K1", variant="tc3xtf32", cases=cases,
          large_magnitude_err_over_tol=worst)
+    return cases
+
+
+def _k2_split_edges(gen) -> int:
+    """K2 on the CUDA-core split route (f32, d > 32, k <= 8) against its
+    plain version, bit for bit: d in {33, 64, 256, 512}, k in {1, 2, 8},
+    n = 200 and 700 (ranges of 64 keys, the last short), a coarse dyadic
+    grid (many exact ties) with the rows on both sides of every range
+    boundary equal (ties across ranges go to the lowest index), with and
+    without masked rows; the self-exclusion holds."""
+    from repro_torch.kernels import fused_assign, knn_topk, ref
+
+    cases = 0
+    for d in (33, 64, 256, 512):
+        for k in (1, 2, 8):
+            check(fused_assign.route(torch.float32, torch.float32, d, k)
+                  == "cuda_core_split", f"K2 at d {d}, k {k} is not on the split route")
+            for n in (200, 700):
+                _, per = fused_assign.split_plan(n, n)
+                x = (gen.integers(-2, 3, size=(n, d)) * 0.25).astype(np.float32)
+                for b in range(per, n, per):
+                    x[b - 2:b + 2] = x[b - 3]
+                x = dev(x)
+                valid = dev(gen.random(n) > 0.25)
+                for v in (None, valid):
+                    got, want = knn_topk.knn_topk(x, k, v), ref.knn(x, k, valid=v)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want))
+                          and not bool((got[1] == torch.arange(n, device=DEV)[:, None]).any()),
+                          f"K2 (split) differs from its plain version at {(n, d, k)}")
+                    cases += 1
+    emit("kernels_edges", kernel="K2", variant="cuda_core_split", cases=cases,
+         bitwise=True)
     return cases
 
 
@@ -996,9 +1075,12 @@ def _variant_edges(gen, grid) -> int:
 
 def _attention_edges() -> None:
     """K5 against its plain version on awkward shapes: rows that fill no
-    whole tile, lq < lk, head_dim 16, 64 and 256, one kv head, a bias per
-    query head, -1e30 bias entries scattered, and every key of the first
-    kv tile masked. Within the stated tolerance, and no NaN."""
+    whole tile, lq < lk, head_dim 16, 64, 100 and 256, one kv head, a bias
+    per query head, -1e30 bias entries scattered, and every key of the first
+    kv tile masked; on the split-kv route (lq 1 and 2) a split wholly
+    masked in the middle of the keys beside a masked tail, lk below one
+    split and one key past it, a bias per query head. Within the stated
+    tolerance, no NaN, and a second call gives the same bits."""
     from repro_torch.kernels import flash_attention as fa
 
     cases = (
@@ -1012,20 +1094,35 @@ def _attention_edges() -> None:
         (1, 2, 1, 20, 90, 16, True, "first_tile", 50.0, torch.float32),
         (1, 4, 2, 9, 33, 256, True, "q_heads", 50.0, torch.float32),
         (2, 8, 4, 65, 129, 256, True, "kv", 50.0, torch.bfloat16),
+        # the split-kv route
+        (4, 8, 4, 1, 1232, 256, False, "masked_split", 50.0, torch.bfloat16),
+        (2, 8, 4, 1, 300, 256, False, "masked_split", 50.0, torch.float32),
+        (2, 8, 4, 1, 40, 256, False, "kv", 50.0, torch.float32),
+        (2, 8, 4, 1, 65, 256, False, "kv", 50.0, torch.bfloat16),
+        (2, 8, 4, 1, 65, 256, False, "kv", 0.0, torch.float32),
+        (1, 8, 4, 1, 300, 256, False, "q_heads", 50.0, torch.float32),
+        (1, 8, 4, 2, 150, 64, True, "kv", 50.0, torch.float32),
+        (1, 2, 2, 1, 100, 100, False, "kv", 0.0, torch.float32),
     )
     worst = 0.0
+    routes = {}
     for i, (b, hq, hkv, lq, lk, dh, causal, bias, cap, dt) in enumerate(cases):
         q, k, v, kb = _attn_inputs(b, hq, hkv, lq, lk, dh, dt, 20 + i, bias)
         kw = dict(causal=causal, scale=1.0 / 16, logit_softcap=cap)
-        got = fa.flash_attention(q, k, v, kb, **kw).float()
+        got = fa.flash_attention(q, k, v, kb, **kw)
+        again = fa.flash_attention(q, k, v, kb, **kw)
         want = fa.flash_attention_plain(q, k, v, kb, **kw).float()
         sync()
         tol = ATTN_TOL_F32 if dt == torch.float32 else ATTN_TOL_BF16
-        err = float((got - want).abs().max())
-        check(bool(torch.isfinite(got).all()), f"K5 edge {i}: non-finite")
-        check(torch.allclose(got, want, **tol), f"K5 edge {i} off: {err}")
+        err = float((got.float() - want).abs().max())
+        check(torch.equal(got, again), f"K5 edge {i}: a repeat differs")
+        check(bool(torch.isfinite(got.float()).all()), f"K5 edge {i}: non-finite")
+        check(torch.allclose(got.float(), want, **tol), f"K5 edge {i} off: {err}")
         worst = max(worst, err)
-    emit("kernels_edges", kernel="K5", cases=len(cases), max_abs_err=worst)
+        route = fa.route(hq, hkv, lq)
+        routes[route] = routes.get(route, 0) + 1
+    emit("kernels_edges", kernel="K5", cases=len(cases), routes=routes,
+         bitwise_repeat=True, max_abs_err=worst)
 
 
 def phase_fit(state: dict) -> None:
@@ -1659,6 +1756,12 @@ def phase_lm(state: dict) -> None:
     check(counts["K5"] == want_k5,
           f"K5 launched {counts['K5']} times, want {want_k5} ({n_global} "
           f"global prefill layers + {cfg.n_layers} per decode step)")
+    want_decode = cfg.n_layers * LM["new_tokens"]
+    check(counts["K5-decode"] == want_decode
+          and counts["K5"] - counts["K5-decode"] == n_global,
+          f"K5's split-kv route launched {counts['K5-decode']} times, want "
+          f"{want_decode} (every decode step), and the tiled route "
+          f"{counts['K5'] - counts['K5-decode']}, want {n_global} (the prefill)")
     check(counts["K2"] == heads * len(tm["compress"]),
           f"K2 launched {counts['K2']} times, want one per head and compress")
     check(counts["K3"] > 0, "K3 was not launched by the lm phase")
@@ -1672,7 +1775,7 @@ def phase_lm(state: dict) -> None:
                     "slots_after": c["slots_after"]} for c in tm["compress"]],
          decode_s=tm["decode_s"], decode_tok_per_s=n_tok / tm["decode_s"],
          compressions=out["compressions"], max_memory_allocated=peak,
-         launches={k: counts[k] for k in ("K2", "K3", "K5")},
+         launches={k: counts[k] for k in ("K2", "K3", "K5", "K5-decode")},
          k5_expected=want_k5)
 
     # the kernel path against the plain paths: prefill, each path
@@ -1829,7 +1932,7 @@ def main() -> int:
                  "online": state.get("online_counts", {}),
                  "lm": state.get("lm_counts", {})}
         line = []
-        for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5"):
+        for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5", "K5-decode"):
             if kid not in results:  # a run without the kernels phase
                 continue
             r = results[kid]

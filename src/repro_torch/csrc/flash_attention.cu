@@ -20,12 +20,45 @@
 // What bounds it on an H100: the operations. A prefill call of gemma2-2b
 // (q 4 x 8 x 2048 x 256, causal) needs ~69 GFLOP for the visible half
 // against ~67 MB of q, k, v and out; decode (one query row per head against
-// the cache) is bound by reading k and v.
+// the cache) is bound by reading k and v: 20.2 MB at kv 1232, 6 us.
 //
+// Two routes, chosen by the packed row count g * lq (g = hq / hkv) of a kv
+// head: at most kSplitMaxRows rows (every decode call) take the split-kv
+// route, all others the tiled kernel.
+//
+// The split-kv route (split_kv_kernel, then split_combine_kernel). One
+// block per (batch, kv head) leaves 16 blocks on 132 SMs at decode, with
+// one warp in eight working, so the key axis is split across blocks: the
+// grid is (b * hkv, splits), each split a range of split_keys(lk) keys (64,
+// doubled until there are at most 32 splits: 20 splits of 64 at lk = 1232,
+// 320 blocks). A block serves all g * lq rows of its kv head; each of its 4
+// warps walks its own quarter of the split's keys, a few keys at a time,
+// reading k and v rows straight from device memory, a lane its dh / 32
+// consecutive features (one 16-byte load a lane, 512 bytes a warp, for a
+// bf16 row of 256), with the rows' q in f32 registers. A logit is the
+// lanes' partial dot products summed by a xor butterfly (every lane ends
+// with the same bits), then scale, softcap, bias and the causal -1e30 as
+// below, -inf past the warp's range; an online softmax (m from -1e30, l,
+// acc) runs per warp. The 4 warps' partials meet in shared memory in warp
+// order and one partial (m, l, acc[dh], f32) per (row, split) goes to a
+// scratch the wrapper allocates. The combine kernel then takes, per row and
+// in split order, M = max m_s, L = sum l_s exp(m_s - M), out = sum acc_s
+// exp(m_s - M) / max(L, 1e-30), stored in q's type. No atomics anywhere, so
+// a repeat is bitwise. Masked splits drop out exactly: a split whose
+// logits are all -1e30 (a masked middle or tail of the cache) ends with m_s
+// = -1e30 and l_s = its key count, and a warp or split with no key at all
+// keeps m = -1e30, l = 0, acc = 0; as soon as any split has a key with a
+// finite bias, M is finite and exp(-1e30 - M) = 0 in f32, so either weighs
+// nothing. A row whose every key carries -1e30 has no defined answer (M =
+// -1e30 and all keys weigh 1: the average of v over the whole range, as the
+// one-block kernel averages over the keys it visits); the LM forms no such
+// row, since the slot being decoded is always visible with a finite bias.
+//
+// The tiled route (flash_kernel; prefill and every call with more rows).
 // Design (simple and right first): the hq / hkv query heads that share a kv
 // head are packed with their rows into one row space of g * lq rows, so a
 // block owns 64 rows of one (batch, kv head) and every kv tile it stages
-// serves all of them (decode: both query heads of a kv head in one block).
+// serves all of them.
 // The block's q tile (64 x dh) and each kv tile (32 keys of k and v) are
 // staged in f32 in dynamic shared memory (140 KB at dh = 256, hence
 // cudaFuncSetAttribute). 256 threads: a group of 8 threads owns 2 rows; each
@@ -39,15 +72,15 @@
 // key has no defined answer (every logit it sees is -1e30, and each version
 // averages v over the keys it visits); the wrapper refuses causal calls
 // with lq > lk, whose first rows see no key at all. Warps whose rows
-// all lie past the end of the row space skip the arithmetic (decode: one
-// warp of eight works). Everything runs on the CUDA cores in f32 with
-// accurate expf and tanhf; no atomics, so a launch is repeatable bit for bit.
-// Later work: wgmma with bf16 operands, TMA-fed kv tiles, and split-kv for
-// decode, where b * hkv = 16 blocks leave most SMs idle.
+// all lie past the end of the row space skip the arithmetic. Both routes
+// run on the CUDA cores in f32 with accurate expf and tanhf; no atomics, so
+// a launch is repeatable bit for bit.
+// Later work: wgmma with bf16 operands and TMA-fed kv tiles for prefill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
@@ -274,25 +307,358 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, const float* 
   return launch<T, 256>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, s);
 }
 
+// ---------------------------------------------------------------- split-kv
+
+constexpr int kSplitThreads = 128;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitMaxRows = 8;    // g * lq a call may have on this route
+constexpr int kSplitMinKeys = 64;   // keys a split holds at least
+constexpr int kSplitMaxSplits = 32;
+constexpr int kCombineThreads = 128;
+
+bool split_route(int hq, int hkv, int lq) {
+  return hkv >= 1 && hq % hkv == 0 && (long long)(hq / hkv) * lq <= kSplitMaxRows;
+}
+
+// keys of a split: kSplitMinKeys, doubled until at most kSplitMaxSplits
+// splits cover lk
+int split_keys(int lk) {
+  long long s = kSplitMinKeys;
+  while ((lk + s - 1) / s > kSplitMaxSplits) s *= 2;
+  return (int)s;
+}
+
+int split_count(int lk) {
+  const int s = split_keys(lk);
+  const int n = (int)(((long long)lk + s - 1) / s);
+  return n < 1 ? 1 : n;
+}
+
+// the partials: acc [b * hkv][rows][splits][dh], then m and l, each
+// [b * hkv][rows][splits]
+long long split_scratch_bytes(int b, int hq, int hkv, int lq, int lk, int dh) {
+  if (!split_route(hq, hkv, lq) || b < 1 || lq < 1) return 0;
+  const long long parts = (long long)b * hkv * (hq / hkv) * lq * split_count(lk);
+  return parts * (dh + 2) * (long long)sizeof(float);
+}
+
+// FPL consecutive features of a row (features lane * FPL ...) as f32. With
+// ``vec`` the row has exactly 32 * FPL features and 16-byte aligned rows,
+// so they come as whole 4-, 8- or 16-byte words; else one element at a
+// time, zero past dh.
+template <typename T, int FPL>
+__device__ __forceinline__ void load_feats(const T* __restrict__ row, int lane, int dh,
+                                           bool vec, float (&x)[FPL]) {
+  constexpr int kEpw = 4 / (int)sizeof(T);   // elements a 32-bit word
+  constexpr int kWords = FPL / kEpw;
+  const int f0 = lane * FPL;
+  if (vec) {
+    uint32_t w[kWords];
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(row + f0);
+    if constexpr (kWords % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < kWords / 4; ++i) {
+        const uint4 u = reinterpret_cast<const uint4*>(src)[i];
+        w[4 * i] = u.x; w[4 * i + 1] = u.y; w[4 * i + 2] = u.z; w[4 * i + 3] = u.w;
+      }
+    } else if constexpr (kWords == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(src);
+      w[0] = u.x; w[1] = u.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) w[i] = src[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      if constexpr (kEpw == 1) {
+        x[i] = __uint_as_float(w[i]);
+      } else {  // bf16: the low half is the earlier element
+        x[2 * i] = __uint_as_float(w[i] << 16);
+        x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < FPL; ++e) x[e] = f0 + e < dh ? to_f32(row[f0 + e]) : 0.f;
+  }
+}
+
+// One block per (batch * kv head, split): the partial (m, l, acc) of every
+// packed row of the kv head over the split's keys. R >= g * lq rows, DH >=
+// dh a multiple of 64 (a lane owns DH / 32 features).
+template <typename T, int DH, int R>
+__global__ void __launch_bounds__(kSplitThreads)
+    split_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ bias,
+                    float* __restrict__ part, int hq, int hkv, int lq, int lk,
+                    int dh, int bias_heads, int causal, float scale, float softcap,
+                    int keys_per_split, int splits, int vec) {
+  constexpr int FPL = DH / 32;
+  constexpr int KG = R <= 2 ? 4 : 2;  // keys a warp takes at once
+  __shared__ float s_m[kSplitWarps][R], s_l[kSplitWarps][R];
+  __shared__ float s_acc[kSplitWarps][R][DH];
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int bh = blockIdx.x;
+  const int bb = bh / hkv, hk = bh % hkv;
+  const int split = blockIdx.y;
+  const int g = hq / hkv;
+  const int n_rows = g * lq;
+
+  float qf[R][FPL];
+  int head[R], qpos[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int rr = r < n_rows ? r : 0;
+    head[r] = hk * g + rr / lq;
+    qpos[r] = rr % lq + lk - lq;
+    if (r < n_rows) {
+      load_feats<T, FPL>(q + (((size_t)bb * hq + head[r]) * lq + rr % lq) * dh, lane, dh,
+                         vec != 0, qf[r]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < FPL; ++e) qf[r][e] = 0.f;
+    }
+  }
+
+  const int per_warp = keys_per_split / kSplitWarps;
+  const int k_end = min(lk, (split + 1) * keys_per_split);
+  const int w0 = split * keys_per_split + warp * per_warp;
+  const int w1 = min(k_end, w0 + per_warp);
+  const size_t kv_base = ((size_t)bb * hkv + hk) * lk;
+
+  float m[R], l[R], acc[R][FPL];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kMasked;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < FPL; ++e) acc[r][e] = 0.f;
+  }
+
+  for (int c0 = w0; c0 < w1; c0 += KG) {
+    float kf[KG][FPL], vf[KG][FPL];
+#pragma unroll
+    for (int j = 0; j < KG; ++j) {
+      if (c0 + j < w1) {
+        load_feats<T, FPL>(k + (kv_base + c0 + j) * dh, lane, dh, vec != 0, kf[j]);
+        load_feats<T, FPL>(v + (kv_base + c0 + j) * dh, lane, dh, vec != 0, vf[j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < FPL; ++e) kf[j][e] = vf[j][e] = 0.f;
+      }
+    }
+    float s[R][KG];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < KG; ++j) {
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < FPL; ++e) a = fmaf(qf[r][e], kf[j][e], a);
+        s[r][j] = a;
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < KG; ++j) s[r][j] += __shfl_xor_sync(0xffffffffu, s[r][j], off);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mt = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < KG; ++j) {
+        const int kp = c0 + j;
+        float x = s[r][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (kp >= w1 || r >= n_rows) {
+          x = -CUDART_INF_F;  // past the range: no weight at all
+        } else {
+          if (bias != nullptr)
+            x += bias[((size_t)bb * bias_heads + (bias_heads == hq ? head[r] : hk)) * lk + kp];
+          if (causal && kp > qpos[r]) x = kMasked;
+        }
+        s[r][j] = x;
+        mt = fmaxf(mt, x);
+      }
+      const float m_new = fmaxf(m[r], mt);
+      const float alpha = expf(m[r] - m_new);
+      float p[KG], rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < KG; ++j) {
+        p[j] = expf(s[r][j] - m_new);
+        rs += p[j];
+      }
+      l[r] = l[r] * alpha + rs;
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < FPL; ++e) {
+        float a = acc[r][e] * alpha;
+#pragma unroll
+        for (int j = 0; j < KG; ++j) a = fmaf(p[j], vf[j][e], a);
+        acc[r][e] = a;
+      }
+    }
+  }
+
+  // the warps' partials, combined in warp order
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (lane == 0) {
+      s_m[warp][r] = m[r];
+      s_l[warp][r] = l[r];
+    }
+#pragma unroll
+    for (int e = 0; e < FPL; ++e) s_acc[warp][r][lane * FPL + e] = acc[r][e];
+  }
+  __syncthreads();
+  const size_t row0 = (size_t)bh * n_rows;
+  const size_t n_parts = (size_t)gridDim.x * n_rows * splits;
+  float* part_acc = part;
+  float* part_m = part + n_parts * dh;
+  float* part_l = part_m + n_parts;
+  for (int e = threadIdx.x; e < n_rows * dh; e += kSplitThreads) {
+    const int r = e / dh, f = e % dh;
+    float mm = kMasked;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mm = fmaxf(mm, s_m[w][r]);
+    float a = 0.f, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float wt = expf(s_m[w][r] - mm);
+      a = fmaf(s_acc[w][r][f], wt, a);
+      ll = fmaf(s_l[w][r], wt, ll);
+    }
+    const size_t pi = (row0 + r) * splits + split;
+    part_acc[pi * dh + f] = a;
+    if (f == 0) {
+      part_m[pi] = mm;
+      part_l[pi] = ll;
+    }
+  }
+}
+
+// One block per (batch * kv head, packed row): the splits' partials in
+// split order, stored in q's type.
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+    split_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                         int hq, int hkv, int lq, int dh, int splits,
+                         long long n_parts) {
+  __shared__ float s_w[kSplitMaxSplits];
+  const int g = hq / hkv;
+  const int n_rows = g * lq;
+  const long long rid = blockIdx.x;  // (batch * kv head) * n_rows + row
+  const int bh = (int)(rid / n_rows), r = (int)(rid % n_rows);
+  const int bb = bh / hkv, hk = bh % hkv;
+  const int h = hk * g + r / lq, i = r % lq;
+  const float* part_acc = part + rid * splits * dh;
+  const float* pm = part + n_parts * dh + rid * splits;
+  const float* pl = pm + n_parts;
+  float mm = kMasked;
+  for (int s = 0; s < splits; ++s) mm = fmaxf(mm, pm[s]);
+  if (threadIdx.x < splits) s_w[threadIdx.x] = expf(pm[threadIdx.x] - mm);
+  __syncthreads();
+  float ll = 0.f;
+  for (int s = 0; s < splits; ++s) ll = fmaf(pl[s], s_w[s], ll);
+  const float den = fmaxf(ll, 1e-30f);
+  T* o = out + (((size_t)bb * hq + h) * lq + i) * dh;
+  for (int f = threadIdx.x; f < dh; f += kCombineThreads) {
+    float a = 0.f;
+    for (int s = 0; s < splits; ++s) a = fmaf(part_acc[(size_t)s * dh + f], s_w[s], a);
+    store(o + f, a / den);
+  }
+}
+
+template <typename T, int DH, int R>
+cudaError_t launch_split(const void* q, const void* k, const void* v, const float* bias,
+                         void* out, int b, int hq, int hkv, int lq, int lk, int dh,
+                         int bias_heads, int causal, float scale, float softcap,
+                         void* scratch, cudaStream_t stream) {
+  const int keys = split_keys(lk), splits = split_count(lk);
+  const int n_rows = (hq / hkv) * lq;
+  const long long blocks = (long long)b * hkv;
+  const long long n_parts = blocks * n_rows * splits;
+  if (blocks * n_rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool vec = dh == DH && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                 reinterpret_cast<uintptr_t>(v)) % 16 == 0);
+  float* part = static_cast<float*>(scratch);
+  split_kv_kernel<T, DH, R><<<dim3((unsigned)blocks, (unsigned)splits), kSplitThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      part, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, keys, splits,
+      vec ? 1 : 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  split_combine_kernel<T><<<(unsigned)(blocks * n_rows), kCombineThreads, 0, stream>>>(
+      part, static_cast<T*>(out), hq, hkv, lq, dh, splits, n_parts);
+  return cudaGetLastError();
+}
+
+template <typename T, int R>
+cudaError_t launch_split_dh(const void* q, const void* k, const void* v, const float* bias,
+                            void* out, int b, int hq, int hkv, int lq, int lk, int dh,
+                            int bias_heads, int causal, float scale, float softcap,
+                            void* scratch, cudaStream_t s) {
+  if (dh <= 64)
+    return launch_split<T, 64, R>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+  if (dh <= 128)
+    return launch_split<T, 128, R>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+  return launch_split<T, 256, R>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+}
+
+template <typename T>
+cudaError_t launch_split_rows(const void* q, const void* k, const void* v, const float* bias,
+                              void* out, int b, int hq, int hkv, int lq, int lk, int dh,
+                              int bias_heads, int causal, float scale, float softcap,
+                              void* scratch, cudaStream_t s) {
+  if ((hq / hkv) * lq <= 2)
+    return launch_split_dh<T, 2>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+  return launch_split_dh<T, kSplitMaxRows>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 int repro_flash_attention_max_dh() { return 256; }
 
+// 1 if a call with these heads and query rows takes the split-kv route
+int repro_flash_attention_route(int hq, int hkv, int lq) {
+  return split_route(hq, hkv, lq) ? 1 : 0;
+}
+
+// keys of a split of the split-kv route at kv length lk
+int repro_flash_attention_split_keys(int lk) { return split_keys(lk); }
+
+// bytes of scratch repro_flash_attention needs (the split-kv partials; 0 on
+// the tiled route)
+long long repro_flash_attention_scratch_bytes(int b, int hq, int hkv, int lq, int lk,
+                                              int dh) {
+  return split_scratch_bytes(b, hq, hkv, lq, lk, dh);
+}
+
 // q (b, hq, lq, dh), k and v (b, hkv, lk, dh), out (b, hq, lq, dh), all
 // contiguous in one type: dtype 0 = f32, 1 = bf16. bias (b, bias_heads, lk)
-// f32 or null, bias_heads = hkv or hq. Returns a cudaError_t.
+// f32 or null, bias_heads = hkv or hq. scratch: the bytes
+// repro_flash_attention_scratch_bytes asks for. Returns a cudaError_t.
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           const float* bias, void* out, int dtype, int b, int hq,
                           int hkv, int lq, int lk, int dh, int bias_heads,
-                          int causal, float scale, float softcap, void* stream) {
+                          int causal, float scale, float softcap, void* scratch,
+                          void* stream) {
   if (b < 0 || hq < 1 || hkv < 1 || hq % hkv != 0 || lq < 0 || lk < 0 || dh < 1 ||
       dh > 256 || (bias != nullptr && bias_heads != hkv && bias_heads != hq) ||
       (dtype != 0 && dtype != 1) || (long long)b * hkv > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || lq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split_route(hq, hkv, lq)) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return (int)launch_split_rows<float>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+    return (int)launch_split_rows<__nv_bfloat16>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+  }
   if (dtype == 0)
     return (int)launch_dh<float>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, s);
   return (int)launch_dh<__nv_bfloat16>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, s);

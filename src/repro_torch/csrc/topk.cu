@@ -30,7 +30,8 @@
 // query are merged through warp shuffles under the same (dist, g) order.
 // No (nq, p) matrix is written and no atomics are used.
 //
-// Any width: up to d = 128 the query row sits in registers (D a template
+// Any width (the bf16 and int8 instances, and f32 lists longer than 8):
+// up to d = 128 the query row sits in registers (D a template
 // bound). Above that a row of D floats would pass the 255-register limit of
 // a thread, so topk_chunked_kernel keeps nothing of width d in registers:
 // a tile of 64 keys and the block's 32 query rows are staged through shared
@@ -103,6 +104,37 @@
 // topk_merge_kernel merges the lists of each query. (dist, g) is a total
 // order, so the merged list does not depend on the split: no atomics, the
 // same answer for every split.
+//
+// The CUDA-core split route (topk_split_kernel; f32 queries and keys,
+// d > 32, k <= 8: K2 at the LM's compression, 2208 keys of d = 256, k = 1).
+// What bounds it: the f32 FMAs of the cross term, nq * p * d (1.25e9 at
+// the compression, 37 us at 67 TFLOP/s); no tensor-core route, because the
+// distances must be the fma chain's bits. topk_chunked_kernel ran it at
+// 30x that: 69 blocks of 32 queries on 132 SMs, 8 FMAs for 9 shared-memory
+// loads, the query rows restaged for every key tile, no overlap of staging
+// and arithmetic. Here a block owns 64 queries and a range of keys (the key
+// axis split across blocks as on the tensor-core route: sp_splits aims at
+// one wave of two blocks an SM, 35 x 7 = 245 blocks at 2208 rows), walked
+// 256 keys at a time. Features come 32 at a time, the query and key rows
+// of the next chunk copied by cp.async into the second of two buffers while
+// this chunk is computed, so the query tile is staged once per chunk for 4
+// key tiles. Each of 256 threads owns 4 queries x 4 keys of every 64-key
+// tile: per 4 features it reads 4 float4 query rows once and 4 float4 key
+// rows a tile (rows padded to 36 floats, so a phase of 8 threads hits 8
+// bank quads), 20 loads for 256 FMAs. Shared memory hands an SM 32 floats
+// a clock against its 128 FMA lanes, so these loads, not the FMAs, set the
+// pace; an 8 x 8 micro-tile (16 loads) would need more than the 128
+// registers that two blocks an SM leave (its operands and 64 sums). The
+// per-pair arithmetic is topk_chunked_kernel's exactly: xn, yn and the cross
+// term are fmaf chains in ascending feature order across the chunks
+// (zero-padded features add exactly 0), dist = fmaxf(xn + yn - 2 cross, 0)
+// written the same way, an invalid key yn = +inf, so the distances are that
+// kernel's bits. The 64 x 256 distances go to shared memory (over the key
+// buffers), 4 threads scan a query's row in ascending key order with the
+// strict-< insert (lane l: keys l, l + 4, ...), the 4 lists merge by
+// shuffles under (dist, g), and each block writes its partial lists;
+// topk_split_merge_kernel merges the splits' lists under the same total
+// order, so the answer does not depend on the split. No atomics.
 //
 // Build: REPRO_TOPK_KEYS selects the key type whose C entry point (and so
 // whose template instances) a build of this file holds: 0 f32, 1 bf16,
@@ -648,18 +680,12 @@ __global__ void __launch_bounds__(kTcThreads, (K <= 4 && DP <= 16) ? 3 : 2)
 // the cross term as fmaf chains over the features in order, then
 // fmaxf(xn + yn - 2 cross, 0)) and keep the k best under (dist, g). So the
 // distances returned are the CUDA-core kernel's bits.
-template <int K, int DP>
-__global__ void topk_merge_kernel(const float* __restrict__ q,
-                                  const float* __restrict__ keys,
-                                  const float* __restrict__ part_d,
-                                  const int* __restrict__ part_i, int splits,
-                                  float* __restrict__ out_d,
-                                  int* __restrict__ out_i, int nq, int d, int k) {
-  constexpr int kF = DP - 2 < 32 ? DP - 2 : 32;  // features at most (d <= kF)
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= nq) return;
-  float bd[K];
-  int bi[K];
+// the K best of query qi's partial lists (splits of K each), under (dist, g)
+template <int K>
+__device__ __forceinline__ void merge_parts(const float* __restrict__ part_d,
+                                            const int* __restrict__ part_i,
+                                            int splits, int qi, float (&bd)[K],
+                                            int (&bi)[K]) {
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     bd[s] = CUDART_INF_F;
@@ -674,6 +700,21 @@ __global__ void topk_merge_kernel(const float* __restrict__ q,
       if (iv >= 0 && before(dv, iv, bd[K - 1], bi[K - 1])) insert<K>(bd, bi, dv, iv);
     }
   }
+}
+
+template <int K, int DP>
+__global__ void topk_merge_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ keys,
+                                  const float* __restrict__ part_d,
+                                  const int* __restrict__ part_i, int splits,
+                                  float* __restrict__ out_d,
+                                  int* __restrict__ out_i, int nq, int d, int k) {
+  constexpr int kF = DP - 2 < 32 ? DP - 2 : 32;  // features at most (d <= kF)
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= nq) return;
+  float bd[K];
+  int bi[K];
+  merge_parts<K>(part_d, part_i, splits, qi, bd, bi);
   float xq[kF];
   float xn = 0.f;
 #pragma unroll
@@ -747,6 +788,297 @@ cudaError_t launch_tc_k(const float* q, const float* keys, const unsigned char* 
   }
 }
 
+// ------------------------------------------- the CUDA-core split route
+
+constexpr int kSpQ = 64;                     // queries a block
+constexpr int kSpKT = 4;                     // 64-key tiles a pass
+constexpr int kSpKeys = 64 * kSpKT;          // keys a pass
+constexpr int kSpF = 32;                     // features a staged chunk
+constexpr int kSpStride = kSpF + 4;          // floats a staged row
+constexpr int kSpDStride = kSpKeys + 4;      // floats a row of the distance tile
+constexpr int kSpLanes = 4;                  // threads that scan a query's row
+constexpr int kSpBlocksWanted = 132 * 2;     // one wave of two blocks an SM
+constexpr size_t kSpSmem =
+    sizeof(float) * (2 * kSpQ * kSpStride + 2 * kSpKeys * kSpStride + kSpKeys + kSpQ);
+static_assert(kSpQ * kSpDStride <= 2 * kSpKeys * kSpStride,
+              "the distance tile fits the key buffers");
+
+bool sp_route(int d, int k) { return d > kTcMaxD && k >= 1 && k <= kTcMaxK; }
+
+// key axis splits: enough (64-query tile, key range) blocks for one wave,
+// each range whole 64-key tiles, none empty
+int sp_splits(int nq, int p) {
+  const int qtiles = (nq + kSpQ - 1) / kSpQ;
+  const int tiles = (p + 63) / 64;
+  if (tiles < 1 || qtiles < 1) return 1;
+  int want = (kSpBlocksWanted + qtiles - 1) / qtiles;
+  if (want > tiles) want = tiles;
+  const int per = (tiles + want - 1) / want;
+  return (tiles + per - 1) / per;
+}
+
+int sp_keys_per_split(int p, int splits) {
+  const int tiles = (p + 63) / 64;
+  return (tiles + splits - 1) / splits * 64;
+}
+
+int sp_list_len(int k) { return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8; }
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy features [c0, c0 + kSpF) of rows [g0, g0 + rows) of src (n rows of
+// d floats) into dst ([rows][kSpStride]); features past d and rows past
+// g_end are zero-filled (a copy of 0 source bytes). ``vec``: d % 4 == 0
+// and src 16-byte aligned, so 16-byte copies; else 4-byte ones.
+__device__ __forceinline__ void sp_stage(float* dst, const float* src, int rows, int g0,
+                                         int g_end, int c0, int d, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (kSpF / 4); e += kThreads) {
+      const int r = e / (kSpF / 4), f = 4 * (e % (kSpF / 4));
+      const int g = g0 + r;
+      const bool ok = g < g_end && c0 + f < d;
+      cp_async16(dst + r * kSpStride + f, ok ? src + (size_t)g * d + c0 + f : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * kSpF; e += kThreads) {
+      const int r = e / kSpF, f = e % kSpF;
+      const int g = g0 + r;
+      const bool ok = g < g_end && c0 + f < d;
+      cp_async4(dst + r * kSpStride + f, ok ? src + (size_t)g * d + c0 + f : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// One block per (64-query tile, key range): the K best keys of the range
+// for each query, under (dist, g), to part_d / part_i [nq][splits][K].
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+    topk_split_kernel(const float* __restrict__ q, const float* __restrict__ keys,
+                      const unsigned char* __restrict__ valid,
+                      const int* __restrict__ q_gidx, float* __restrict__ part_d,
+                      int* __restrict__ part_i, int nq, int p, int d,
+                      int keys_per_split, int splits, int vec) {
+  extern __shared__ __align__(16) float sp_smem[];
+  float* sQ = sp_smem;                       // [2][kSpQ][kSpStride]
+  float* sK = sQ + 2 * kSpQ * kSpStride;     // [2][kSpKeys][kSpStride]
+  float* sYn = sK + 2 * kSpKeys * kSpStride; // [kSpKeys]
+  float* sXn = sYn + kSpKeys;                // [kSpQ]
+  float* sD = sK;                            // [kSpQ][kSpDStride] between passes
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;  // queries ty + 16 i, keys tx + 16 j
+  const int q0 = blockIdx.x * kSpQ;
+  const int split = blockIdx.y;
+  const int kbeg = split * keys_per_split;
+  const int kend = min(p, kbeg + keys_per_split);
+  const int nchunks = (d + kSpF - 1) / kSpF;
+  const bool v16 = vec != 0;
+
+  // the scan: thread tid offers keys l, l + 4, ... of query q0 + tid / 4
+  const int sq = tid / kSpLanes, sl = tid % kSpLanes;
+  const int sqi = q0 + sq;
+  const int self = (sqi < nq && q_gidx != nullptr) ? q_gidx[sqi] : -1;
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = CUDART_INF_F;
+    bi[s] = -1;
+  }
+  float xn = 0.f;  // threads tid < kSpQ: the norm of query q0 + tid
+
+  for (int base = kbeg; base < kend; base += kSpKeys) {
+    const int nk = min(kSpKeys, kend - base);
+    const int ntiles = (nk + 63) / 64;
+    const bool first = base == kbeg;
+    float acc[kSpKT][4][4];
+#pragma unroll
+    for (int t = 0; t < kSpKT; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
+    float yn = 0.f;  // the norm of key base + tid
+
+    sp_stage(sQ, q, kSpQ, q0, nq, 0, d, v16);
+    sp_stage(sK, keys, ntiles * 64, base, base + nk, 0, d, v16);
+    cp_async_commit();
+    for (int c = 0; c < nchunks; ++c) {
+      const int buf = c & 1;
+      if (c + 1 < nchunks) {
+        // the other buffer was last read before the previous iteration's
+        // closing barrier
+        sp_stage(sQ + (buf ^ 1) * kSpQ * kSpStride, q, kSpQ, q0, nq, (c + 1) * kSpF, d, v16);
+        sp_stage(sK + (buf ^ 1) * kSpKeys * kSpStride, keys, ntiles * 64, base, base + nk,
+                 (c + 1) * kSpF, d, v16);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* cq = sQ + buf * kSpQ * kSpStride;
+      const float* ck = sK + buf * kSpKeys * kSpStride;
+      // norms: fmaf chains in ascending feature order
+      if (tid < ntiles * 64) {
+        const float4* row = reinterpret_cast<const float4*>(ck + tid * kSpStride);
+#pragma unroll
+        for (int f4 = 0; f4 < kSpF / 4; ++f4) {
+          const float4 y = row[f4];
+          yn = fmaf(y.x, y.x, yn);
+          yn = fmaf(y.y, y.y, yn);
+          yn = fmaf(y.z, y.z, yn);
+          yn = fmaf(y.w, y.w, yn);
+        }
+      }
+      if (first && tid < kSpQ) {
+        const float4* row = reinterpret_cast<const float4*>(cq + tid * kSpStride);
+#pragma unroll
+        for (int f4 = 0; f4 < kSpF / 4; ++f4) {
+          const float4 x = row[f4];
+          xn = fmaf(x.x, x.x, xn);
+          xn = fmaf(x.y, x.y, xn);
+          xn = fmaf(x.z, x.z, xn);
+          xn = fmaf(x.w, x.w, xn);
+        }
+      }
+      // the cross terms: per pair one fmaf chain in ascending feature order
+#pragma unroll 2
+      for (int f4 = 0; f4 < kSpF / 4; ++f4) {
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = reinterpret_cast<const float4*>(cq + (ty + 16 * i) * kSpStride)[f4];
+#pragma unroll
+        for (int t = 0; t < kSpKT; ++t) {
+          if (t < ntiles) {
+            float4 b[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              b[j] = reinterpret_cast<const float4*>(ck + (t * 64 + tx + 16 * j) * kSpStride)[f4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                float c2 = acc[t][i][j];
+                c2 = fmaf(a[i].x, b[j].x, c2);
+                c2 = fmaf(a[i].y, b[j].y, c2);
+                c2 = fmaf(a[i].z, b[j].z, c2);
+                c2 = fmaf(a[i].w, b[j].w, c2);
+                acc[t][i][j] = c2;
+              }
+          }
+        }
+      }
+      __syncthreads();  // this buffer is free for the chunk after next
+    }
+
+    // an invalid key (or one past the range) gets yn = +inf: its distance
+    // is +inf and never enters a list
+    sYn[tid] = (tid < nk && (valid == nullptr || valid[base + tid])) ? yn : CUDART_INF_F;
+    if (first && tid < kSpQ) sXn[tid] = xn;
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kSpKT; ++t) {
+      if (t < ntiles) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int qa = ty + 16 * i, kb = t * 64 + tx + 16 * j;
+            sD[qa * kSpDStride + kb] = fmaxf(sXn[qa] + sYn[kb] - 2.f * acc[t][i][j], 0.f);
+          }
+      }
+    }
+    __syncthreads();
+    if (sqi < nq) {
+      const float* row = sD + sq * kSpDStride;
+      for (int c = sl; c < nk; c += kSpLanes) {
+        const float dist = row[c];
+        const int g = base + c;
+        // keys arrive in ascending g within a lane: strict < keeps the
+        // earlier index on a tie
+        if (dist < bd[K - 1] && g != self) insert<K>(bd, bi, dist, g);
+      }
+    }
+    __syncthreads();  // the tile's space is staged over by the next pass
+  }
+
+  quad_merge<K>(bd, bi);
+  if (sl == 0 && sqi < nq) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      part_d[((size_t)sqi * splits + split) * K + s] = bd[s];
+      part_i[((size_t)sqi * splits + split) * K + s] = bi[s];
+    }
+  }
+}
+
+// Per query: the splits' lists merged under (dist, g), the first k kept
+// (the distances are already the CUDA-core arithmetic's)
+template <int K>
+__global__ void topk_split_merge_kernel(const float* __restrict__ part_d,
+                                        const int* __restrict__ part_i, int splits,
+                                        float* __restrict__ out_d,
+                                        int* __restrict__ out_i, int nq, int k) {
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= nq) return;
+  float bd[K];
+  int bi[K];
+  merge_parts<K>(part_d, part_i, splits, qi, bd, bi);
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (s < k) {
+      out_d[(size_t)qi * k + s] = bd[s];
+      out_i[(size_t)qi * k + s] = isinf(bd[s]) ? -1 : bi[s];
+    }
+  }
+}
+
+long long sp_scratch_bytes(int nq, int p, int d, int k) {
+  if (!sp_route(d, k) || nq < 1) return 0;
+  return (long long)nq * sp_splits(nq, p) * sp_list_len(k) * 8;
+}
+
+template <int K>
+cudaError_t launch_sp(const float* q, const float* keys, const unsigned char* valid,
+                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
+                      int d, int k, void* scratch, cudaStream_t stream) {
+  const int splits = sp_splits(nq, p);
+  const int per = sp_keys_per_split(p, splits);
+  float* part_d = static_cast<float*>(scratch);
+  int* part_i = reinterpret_cast<int*>(part_d + (size_t)nq * splits * K);
+  const bool vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(keys) % 16 == 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_split_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSpSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + kSpQ - 1) / kSpQ, splits);
+  topk_split_kernel<K><<<grid, kThreads, kSpSmem, stream>>>(
+      q, keys, valid, q_gidx, part_d, part_i, nq, p, d, per, splits, vec ? 1 : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  topk_split_merge_kernel<K><<<(nq + 127) / 128, 128, 0, stream>>>(
+      part_d, part_i, splits, out_d, out_i, nq, k);
+  return cudaGetLastError();
+}
+
 #endif  // REPRO_TOPK_KEYS == 0
 
 // D == 0 selects the chunked kernel (any d)
@@ -774,13 +1106,7 @@ cudaError_t launch_k(const QT* q, const KT* keys, const float* scale,
                      int d, int k, cudaStream_t stream) {
   // the first k of a top-K list (K >= k) are the top-k under the same order
   if constexpr (std::is_same<QT, float>::value && std::is_same<KT, float>::value) {
-    // at d <= 32 the tensor-core route takes k <= 8
-    if constexpr (D == 0 || D > kTcMaxD) {
-      if (k <= 1) return launch<QT, KT, 1, D>(REPRO_TOPK_ARGS);
-      if (k <= 2) return launch<QT, KT, 2, D>(REPRO_TOPK_ARGS);
-      if (k <= 4) return launch<QT, KT, 4, D>(REPRO_TOPK_ARGS);
-      if (k <= 8) return launch<QT, KT, 8, D>(REPRO_TOPK_ARGS);
-    }
+    // k <= 8 takes the tensor-core route (d <= 32) or the split route
     if (k <= 16) return launch<QT, KT, 16, D>(REPRO_TOPK_ARGS);
   } else {
     if (k <= 1) return launch<QT, KT, 1, D>(REPRO_TOPK_ARGS);
@@ -797,8 +1123,8 @@ cudaError_t launch_d(const QT* q, const KT* keys, const float* scale,
   if (nq < 0 || p < 0 || d < 1 || k < 1 || k > 32) return cudaErrorInvalidValue;
   if (nq == 0) return cudaSuccess;
   if constexpr (std::is_same<QT, float>::value && std::is_same<KT, float>::value) {
-    // the tensor-core route, which the f32 entry point launches itself
-    if (d <= kTcMaxD && k <= kTcMaxK) return cudaErrorInvalidValue;
+    // the tensor-core and split routes, which the f32 entry point launches
+    if (k <= kTcMaxK) return cudaErrorInvalidValue;
   }
   if (d <= 4) return launch_k<QT, KT, 4>(REPRO_TOPK_ARGS);
   if (d <= 8) return launch_k<QT, KT, 8>(REPRO_TOPK_ARGS);
@@ -821,12 +1147,17 @@ int repro_topk_max_k() { return 32; }
 
 #if REPRO_TOPK_KEYS == 0
 
-// 1 if (d, k) takes the tensor-core route (3xTF32 cross term), else 0
-int repro_topk_route(int d, int k) { return tc_route(d, k) ? 1 : 0; }
+// the route of (d, k): 1 the tensor-core route (3xTF32 cross term), 2 the
+// CUDA-core split route, 0 the CUDA-core kernels
+int repro_topk_route(int d, int k) { return tc_route(d, k) ? 1 : sp_route(d, k) ? 2 : 0; }
 
-// bytes of scratch repro_topk_f32 needs (the TC route's partial lists)
+// key axis splits of the CUDA-core split route for nq queries and p keys
+int repro_topk_split_count(int nq, int p) { return sp_splits(nq, p); }
+
+// bytes of scratch repro_topk_f32 needs (the TC and split routes' partial
+// lists)
 long long repro_topk_scratch_bytes(int nq, int p, int d, int k) {
-  return tc_scratch_bytes(nq, p, d, k);
+  return tc_route(d, k) ? tc_scratch_bytes(nq, p, d, k) : sp_scratch_bytes(nq, p, d, k);
 }
 
 // q (nq, d) f32, keys (p, d) f32, valid (p,) u8 or null, q_gidx (nq,) i32 or
@@ -843,6 +1174,15 @@ int repro_topk_f32(const float* q, const float* keys, const unsigned char* valid
       case 16: return (int)launch_tc_k<16>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
       case 32: return (int)launch_tc_k<32>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
       default: return (int)launch_tc_k<40>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
+    }
+  }
+  if (nq > 0 && sp_route(d, k)) {
+    if (p < 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+    switch (sp_list_len(k)) {
+      case 1: return (int)launch_sp<1>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
+      case 2: return (int)launch_sp<2>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
+      case 4: return (int)launch_sp<4>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
+      default: return (int)launch_sp<8>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
     }
   }
   return (int)launch_d<float, float>(q, keys, nullptr, nullptr, valid, q_gidx,

@@ -2,9 +2,10 @@
 
 Each kernel wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches`` (K1 counts its bf16 and int8 key instances apart,
-in ``.launches_bf16`` and ``.launches_int8``); :func:`launch_counts`
-reads them all and :func:`reset_launch_counts` zeroes them, so a run can
-show which kernels the main path went through.
+in ``.launches_bf16`` and ``.launches_int8``; K5 counts every launch and,
+apart, those of its split-kv decode route in ``.launches_decode``);
+:func:`launch_counts` reads them all and :func:`reset_launch_counts`
+zeroes them, so a run can show which kernels the main path went through.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ COUNTERS = {
     "K3": (_segment_sum.blocked_segment_sum, "launches"),
     "K4": (_pairwise_l2.pairwise_sq_l2, "launches"),
     "K5": (_flash_attention.flash_attention, "launches"),
+    "K5-decode": (_flash_attention.flash_attention, "launches_decode"),
 }
 
 

@@ -58,14 +58,19 @@ _SIGNATURES = {
     "pairwise_l2": ("repro_pairwise_sq_l2_f32", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "flash_attention": ("repro_flash_attention",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _P]),
+                         _F, _F, _P, _P]),
 }
 
 #: the libraries' other C functions: name -> (argument types, result type)
 _HELPERS = {
     "topk": {"repro_topk_scratch_bytes": ([_I, _I, _I, _I], _L),
-             "repro_topk_route": ([_I, _I], _I)},
+             "repro_topk_route": ([_I, _I], _I),
+             "repro_topk_split_count": ([_I, _I], _I)},
     "segment_sum": {"repro_segment_sum_scratch_bytes": ([_L, _I, _I, _I, _I], _L)},
+    "flash_attention": {
+        "repro_flash_attention_route": ([_I, _I, _I], _I),
+        "repro_flash_attention_split_keys": ([_I], _I),
+        "repro_flash_attention_scratch_bytes": ([_I, _I, _I, _I, _I, _I], _L)},
 }
 
 _lock = threading.Lock()

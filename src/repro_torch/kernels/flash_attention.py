@@ -6,10 +6,12 @@ with gemma2's logit softcap, an additive per-key bias (the IHTC
 position mask) and a causal mask aligned to the end of kv. Two versions
 of one function:
 
-  * :func:`flash_attention` — the wrapper of the CUDA kernel
+  * :func:`flash_attention` — the wrapper of the CUDA kernels
     ``csrc/flash_attention.cu``. It takes grouped-query heads as they are
-    (kv head ``h // (hq / hkv)``), so k and v are never repeated. For a
-    CPU tensor it runs :func:`flash_attention_plain`.
+    (kv head ``h // (hq / hkv)``), so k and v are never repeated. A call
+    with few query rows per kv head (every decode step) takes the split-kv
+    route, the rest the tiled kernel (:func:`route`). For a CPU tensor it
+    runs :func:`flash_attention_plain`.
   * :func:`flash_attention_plain` — repeats the kv heads, as the
     reference's ``ops.flash_attention`` does, and runs the dense softmax
     of :func:`repro_torch.kernels.ref.flash_attention`.
@@ -23,6 +25,27 @@ import torch
 from repro_torch.kernels import _cuda, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the split-kv route takes calls with at most this many packed query rows
+#: (hq / hkv · lq) per kv head; its splits hold SPLIT_MIN_KEYS keys, doubled
+#: until at most SPLIT_MAX_SPLITS of them cover the keys (csrc/flash_attention.cu)
+SPLIT_MAX_ROWS, SPLIT_MIN_KEYS, SPLIT_MAX_SPLITS = 8, 64, 32
+
+
+def route(hq: int, hkv: int, lq: int) -> str:
+    """Which kernel of ``csrc/flash_attention.cu`` a call takes: "split_kv"
+    (the key axis split across blocks, then a combine kernel) when the
+    hq / hkv query heads of a kv head times lq rows fit SPLIT_MAX_ROWS —
+    every decode step — else "tiled" (one block per 64 packed rows)."""
+    return "split_kv" if (hq // hkv) * lq <= SPLIT_MAX_ROWS else "tiled"
+
+
+def split_keys(lk: int) -> int:
+    """Keys of one split of the split-kv route at kv length ``lk``."""
+    s = SPLIT_MIN_KEYS
+    while -(-lk // s) > SPLIT_MAX_SPLITS:
+        s *= 2
+    return s
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,9 +89,10 @@ def flash_attention(
     visible keys all carry a −1e30 bias has none either: every logit it
     sees is −1e30, so each version averages v over the keys it happens to
     visit — the Pallas kernel over its padded 128-key blocks, the dense
-    plain version over the visible keys, the kernel over its 32-key tiles
-    up to the block's causal end. The LM path forms no such row: the slot
-    being decoded is always visible with a finite bias."""
+    plain version over the visible keys, the tiled kernel over its 32-key
+    tiles up to the block's causal end, the split-kv kernel over all lk
+    keys. The LM path forms no such row: the slot being decoded is always
+    visible with a finite bias."""
     _check(q, k, v, kv_bias, causal)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, kv_bias, causal=causal,
@@ -89,18 +113,26 @@ def flash_attention(
     bc = None if kv_bias is None else kv_bias.to(torch.float32).contiguous()
     out = torch.empty_like(qc)
     s = 1.0 / dh ** 0.5 if scale is None else float(scale)
+    # the split-kv route's partials (0 bytes on the tiled route)
+    nbytes = lib.repro_flash_attention_scratch_bytes(b, hq, hkv, lq, lk, dh)
+    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+               if nbytes else None)
     with torch.cuda.device(dev):
         _cuda.call("flash_attention", _cuda.ptr(qc), _cuda.ptr(kc),
                    _cuda.ptr(vc), _cuda.ptr(bc), _cuda.ptr(out),
                    _DTYPES[q.dtype], b, hq, hkv, lq, lk, dh,
                    0 if bc is None else bc.shape[1], int(bool(causal)), s,
-                   float(logit_softcap), _cuda.stream(dev))
+                   float(logit_softcap), _cuda.ptr(scratch), _cuda.stream(dev))
     if out.numel():
         flash_attention.launches += 1
+        if route(hq, hkv, lq) == "split_kv":
+            flash_attention.launches_decode += 1
     return out
 
 
+#: every launch, and (``launches_decode``) those of the split-kv route
 flash_attention.launches = 0
+flash_attention.launches_decode = 0
 
 
 def flash_attention_plain(

@@ -34,20 +34,43 @@ from repro_torch.runtime import active
 RESCORE_K = 8
 
 #: the tensor-core route of ``csrc/topk.cu`` (the cross term as 3xTF32
-#: products): f32 queries and keys, d <= TC_MAX_D, k <= TC_MAX_K
+#: products): f32 queries and keys, d <= TC_MAX_D, k <= TC_MAX_K; above
+#: TC_MAX_D the same (f32, k) take the CUDA-core split route
 TC_MAX_D, TC_MAX_K = 32, 8
+
+#: the CUDA-core split route's blocks: SPLIT_Q queries against whole
+#: 64-key tiles of one key range, about SPLIT_BLOCKS_WANTED of them
+SPLIT_Q, SPLIT_BLOCKS_WANTED = 64, 132 * 2
 
 
 def route(q_dtype: torch.dtype, keys_dtype: torch.dtype, d: int, k: int) -> str:
     """Which kernel of ``csrc/topk.cu`` a launch takes: "tc3xtf32" (the
-    tensor-core cross term, keys split across blocks) or "cuda_core" (the
-    f32 FMA pair loop; every bf16 and int8 key launch, d > 32, k > 8).
-    Float keys other than bf16 are widened to f32, and so are the queries,
-    as :func:`launch_topk` does."""
+    tensor-core cross term, keys split across blocks; f32, d <= 32,
+    k <= 8), "cuda_core_split" (the register-tiled f32 FMA kernel, keys
+    split across blocks; f32, d > 32, k <= 8) or "cuda_core" (the f32 FMA
+    pair loop; every bf16 and int8 key launch, and k > 8). Float keys
+    other than bf16 are widened to f32, and so are the queries, as
+    :func:`launch_topk` does."""
     f32_keys = keys_dtype.is_floating_point and keys_dtype != torch.bfloat16
-    if f32_keys and 1 <= d <= TC_MAX_D and 1 <= k <= TC_MAX_K:
-        return "tc3xtf32"
+    if f32_keys and 1 <= k <= TC_MAX_K:
+        if 1 <= d <= TC_MAX_D:
+            return "tc3xtf32"
+        if d > TC_MAX_D:
+            return "cuda_core_split"
     return "cuda_core"
+
+
+def split_plan(nq: int, p: int) -> Tuple[int, int]:
+    """(key ranges, keys a range) of the CUDA-core split route for nq
+    queries against p keys: about SPLIT_BLOCKS_WANTED (query tile, key
+    range) blocks, each range whole 64-key tiles and none empty (the
+    last may be short)."""
+    qtiles, tiles = -(-nq // SPLIT_Q), -(-p // 64)
+    if tiles < 1 or qtiles < 1:
+        return 1, 64
+    want = min(-(-SPLIT_BLOCKS_WANTED // qtiles), tiles)
+    splits = -(-tiles // -(-tiles // want))
+    return splits, -(-tiles // splits) * 64
 
 
 def _check_key_types(q, keys, keys_scale, keys_zero) -> None:
@@ -121,8 +144,8 @@ def launch_topk(
             _cuda.call("topk_bf16", _cuda.ptr(qc), _cuda.ptr(kc), *args, stream)
         else:
             qf, kf = _cuda.f32(q), _cuda.f32(keys)
-            # the tensor-core route's per-split candidate lists (0 bytes
-            # on the CUDA-core route)
+            # the tensor-core and split routes' per-split candidate lists
+            # (0 bytes on the CUDA-core route)
             nbytes = lib.repro_topk_scratch_bytes(nq, p, d, k)
             scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
                        if nbytes else None)

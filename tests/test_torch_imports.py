@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and the
-package imports in a process where ``jax`` cannot be imported."""
+"""The port stands alone: no module of ``src/repro_torch`` and neither
+``chip_smoke.py`` nor ``chip_ab.py`` imports ``jax`` or the JAX package
+``repro``, and the package imports in a process where ``jax`` cannot be
+imported."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

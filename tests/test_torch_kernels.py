@@ -257,7 +257,8 @@ def test_cuda_launch_refuses_cpu_tensors_and_counts_nothing(rng):
     fused_topk(x, torch.zeros((5, 2), dtype=torch.int8), 1,
                keys_scale=torch.ones(2), keys_zero=torch.zeros(2))
     assert tkernels.launch_counts() == {"K1": 0, "K1-bf16": 0, "K1-int8": 0,
-                                        "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+                                        "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                                        "K5-decode": 0}
 
 
 def test_merge_topk_tie_rule():
