@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Time K5's decode call and K2's compression call of one checkout on a GPU.
+"""Time K5's decode and prefill calls, K2's compression call, K1's
+quantized shortlist calls and K1 f32 at the main path's shapes of one
+checkout on a GPU.
 
     python3 chip_ab.py ROOT      # ROOT: a checkout holding src/repro_torch
 
 Builds that checkout's top-k and flash-attention kernels (into
-ROOT/build/repro_torch/), then, at the lm phase's shapes of
-``chip_smoke.py`` (K5: q 4 x 8 x 1 x 256 bf16 over a 1232-slot compressed
-cache with its log-mass bias; K2: 2208 bf16-valued rows of d 256, 2048
-valid, k 1), prints one line ``AB {...}``: each call's median time between
-CUDA events (``ms``), its device time with the calls queued behind a spin
-kernel (``device_ms``), its largest error against the plain version, and
-the card's name and power limit. To compare two commits on one card, unpack
-the other commit beside this one (``git archive``) and run the two in turns
-in one session: parent, change, change, parent.
+ROOT/build/repro_torch/), then, at the shapes of ``chip_smoke.py``'s lm and
+online phases (K5 decode: q 4 x 8 x 1 x 256 bf16 over a 1232-slot
+compressed cache with its log-mass bias; K5 prefill: q 4 x 8 x 2048 x 256
+bf16, causal, softcap 50; K2: 2208 bf16-valued rows of d 256, 2048 valid,
+k 1; K1-bf16 and K1-int8: 5000 queries against the 5,393-row stand-in
+index, d 6, k 8, the keys packed as the index packs them; K1 f32: the
+fit's level 0, 8192 x 581,632, d 6, k 2, the stream's block, 8192 x
+131,072, k 2, the serve shape at k 1 and at k 8, and the headline's 8192
+x 10^6, d 2, k 1), prints one line ``AB {...}``: each call's median time
+between CUDA events (``ms``), its device time with the calls queued behind
+a spin kernel (``device_ms``), its largest error against the plain version
+(at the K1 f32 shapes on the first 512 queries: the plain version takes
+seconds there), and the card's name and power limit. To compare two commits on one card, unpack the other commit beside
+this one (``git archive``) and run the two in turns on that card: parent,
+change, change, parent.
 """
 import json
 import subprocess
@@ -30,10 +38,11 @@ def main() -> int:
     sys.path.insert(0, sys.argv[1] + "/src")
     from repro_torch.kernels import _cuda
 
-    _cuda.SOURCES = {n: _cuda.SOURCES[n] for n in ("topk", "flash_attention")}
+    _cuda.SOURCES = {n: _cuda.SOURCES[n]
+                     for n in ("topk", "topk_bf16", "topk_int8", "flash_attention")}
     build_s = _cuda.build_all()
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import knn_topk, ref
+    from repro_torch.kernels import fused_assign, knn_topk, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -71,6 +80,67 @@ def main() -> int:
                          "device_ms": cs.device_ms(k5, reps=100), "max_abs_err": err5},
            "k2_compress": {"ms": cs.cuda_ms(k2, reps=50),
                            "device_ms": cs.device_ms(k2, reps=100), "max_abs_err": err2}}
+
+    # K5 prefill of one global layer
+    qp, kp, vp, _ = cs._attn_inputs(B, hq, hkv, cs.LM["prompt"], cs.LM["prompt"], dh,
+                                    torch.bfloat16, 8)
+    kwp = dict(causal=True, scale=1.0 / 16, logit_softcap=50.0)
+
+    def k5p():
+        return fa.flash_attention(qp, kp, vp, None, **kwp)
+
+    errp = float((k5p().float()
+                  - fa.flash_attention_plain(qp, kp, vp, None, **kwp).float()).abs().max())
+    out["k5_prefill"] = {"ms": cs.cuda_ms(k5p, reps=20), "device_ms": cs.device_ms(k5p, reps=20),
+                         "max_abs_err": errp}
+
+    # K1's quantized shortlist at the serve shape
+    protos, pvalid, queries = cs._standin_index()
+    q8, scale, zero = fused_assign.quantize_keys(protos, pvalid)
+    k = cs.ONLINE["shortlist"]
+    for name, (q1, keys, kw1) in {
+            "k1_bf16": (queries.bfloat16(), protos.bfloat16(), {}),
+            "k1_int8": (queries, q8, dict(keys_scale=scale, keys_zero=zero))}.items():
+        def k1(q1=q1, keys=keys, kw1=kw1):
+            return fused_assign.fused_topk(q1, keys, k, pvalid, **kw1)
+
+        rd = fused_assign.fused_topk_plain(q1, keys, k, pvalid, **kw1)[0]
+        out[name] = {"ms": cs.cuda_ms(k1, reps=50), "device_ms": cs.device_ms(k1, reps=100),
+                     "max_abs_err": float((k1()[0] - rd).abs().max())}
+
+    # K1 f32 at the shapes of chip_smoke.py's kernels phase
+    bq = cs.SIZES["blocked_q"]
+    x, _ = cs._analog(cs.SIZES["covertype"])
+    n_pad = -(-x.shape[0] // bq) * bq
+    xp = torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[0]))
+    q0 = (n_pad // bq // 2) * bq
+    xs, _ = cs._stream_chunk()
+    from repro_torch.data import gmm_sample
+
+    gm = cs.dev(gmm_sample(cs.SIZES["gmm"], seed=0)[0])
+    g_pad = -(-gm.shape[0] // bq) * bq
+    gp = torch.nn.functional.pad(gm, (0, 0, 0, g_pad - gm.shape[0]))
+    h0 = (g_pad // bq // 2) * bq
+    rows = torch.arange(bq, dtype=torch.int32, device="cuda")
+    f32_cases = {
+        "k1_f32_level0": (xp[q0:q0 + bq].contiguous(), xp,
+                          torch.arange(n_pad, device="cuda") < x.shape[0], rows + q0, 2),
+        "k1_f32_stream": (xs[:bq].contiguous(), xs, None, rows, cs.ONLINE["t"] - 1),
+        "k1_f32_serve_k1": (queries, protos, pvalid, None, 1),
+        "k1_f32_serve_k8": (queries, protos, pvalid, None, k),
+        "k1_f32_headline": (gp[h0:h0 + bq].contiguous(), gp,
+                            torch.arange(g_pad, device="cuda") < gm.shape[0], rows + h0, 1),
+    }
+    for name, (q1, keys, kv, gidx, kk) in f32_cases.items():
+        def k1(q1=q1, keys=keys, kv=kv, gidx=gidx, kk=kk):
+            return fused_assign.fused_topk(q1, keys, kk, kv, q_gidx=gidx)
+
+        m = min(512, q1.shape[0])
+        rd = fused_assign.fused_topk_plain(q1[:m], keys, kk, kv,
+                                           q_gidx=None if gidx is None else gidx[:m])[0]
+        out[name] = {"nq": q1.shape[0], "p": keys.shape[0], "d": q1.shape[1], "k": kk,
+                     "ms": cs.cuda_ms(k1, reps=20), "device_ms": cs.device_ms(k1, reps=50),
+                     "max_abs_err": float((k1()[0][:m] - rd).abs().max())}
     print("AB " + json.dumps(out), flush=True)
     return 0
 

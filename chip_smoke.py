@@ -14,17 +14,20 @@ Phases, each printing one JSON line:
                level 0, the stream's 8192 x 131,072 and the serve shape;
                K3 at the level-0 reduce, the Lloyd statistics and the KV
                compressions, bit for bit against the plain version on the
-               CPU): error within the stated tolerance, indices equal
+               CPU; K1's bf16 and int8 key instances at the serve shape and
+               at d 64): error within the stated tolerance, indices equal
                except at distance near-ties, the route each row timed
                (K1's tensor-core "tc3xtf32", "cuda_core_split" or
-               "cuda_core"; K3's "few" or "many" segments; K5's "split_kv"
-               or "tiled"), and times (CUDA events, median of 10 after a
-               warm-up; the plain version at the fit's largest K1 shapes,
-               one call; K1, K2 at d 256, K3 and K5 also their device time
+               "cuda_core", for every key type; K3's "few" or "many"
+               segments; K5's "split_kv", "tiled_mma" or "tiled"), and
+               times (CUDA events, median of 10 after a warm-up; the plain
+               version at the fit's largest K1 shapes, one call; K1 in each
+               key type, K2 at d 256, K3 and K5 also their device time
                alone);
                then awkward shapes on a dyadic grid, where kernel and plain
                version must agree bit for bit, tie-breaking included, and
-               the edge cases of K1's tensor-core route and of K3's paths;
+               the edge cases of K1's tensor-core and split routes (every
+               key type), of K3's paths and of K5's routes;
   fit          the main path: repro_torch.fit on a covertype-sized
                Gaussian-mixture analog (n = 581,012, d = 6, 7 components,
                standardized), t = 3, m = 5, k-means k = 7;
@@ -32,7 +35,8 @@ Phases, each printing one JSON line:
                ClusterService with buckets (32, 128, 512, 2048), requests of
                1, 100, 2048 and 5000 points, held against the plain path;
   headline     the paper's GMM at n = 1,000,000, t = 2, m = 3, k = 3:
-               accuracy must be >= 0.90;
+               accuracy must be >= 0.90 (its launches are counted too; the
+               kernels phase times K1 at its three level sizes);
   determinism  n = 65,536: the kernel path twice (bitwise equal labels) and
                the plain path once (label agreement >= 0.999);
   online       the online loop: a 10,485,760-point blobs stream (d = 6, 7
@@ -70,13 +74,16 @@ Phases, each printing one JSON line:
                alone on each path's prototypes under 12 keys.
 
 The kernel launch counts are set to 0 just before the fit and read after
-the fit and after the serve phase, set to 0 again just before the online
+the fit and after the serve phase, set to 0 again just before the
+headline fit and read after it, set to 0 again just before the online
 phase's stream and read after its refresh, and again just before the lm
 phase's generate and read right after it; every kernel of each path must
 have launched (K1-K4 in fit and serve; K1 and its bf16 and int8 key
-instances, K3 and K4 in online; K2, K3 and K5 in lm, K5 once per
-global layer of the prefill on its tiled route and once per layer of
-every decode step on its split-kv route, counted apart as K5-decode).
+instances, K3 and K4 in online, the quantized ones never on the CUDA-core
+route at k <= 8; K2, K3 and K5 in lm, K5 once per global layer of the
+prefill on its tensor-core tiled route (route count K5/tiled_mma), and
+once per layer of every decode step on its split-kv route, counted apart
+as K5-decode). The online and lm lines also list the launches per route.
 Then one JSON line lists every kernel and variant (launches summed over
 the paths),
 the card's name and power limit are printed, and the last line is
@@ -192,6 +199,9 @@ KERNEL_META = {
     "K5-decode": ("flash_attention_split_kv",
                   "src/repro_torch/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:23"),
+    "K5-prefill": ("flash_attention_tiled_mma",
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:23"),
     "K1-bf16": ("fused_topk_bf16", "src/repro_torch/csrc/topk.cu",
                 "src/repro/kernels/fused_assign.py:61"),
     "K1-int8": ("fused_topk_int8", "src/repro_torch/csrc/topk.cu",
@@ -199,8 +209,10 @@ KERNEL_META = {
 }
 
 
-#: the f32 top-k library's route codes (repro_topk_route)
+#: the top-k libraries' route codes (repro_topk_route, every key type)
 TOPK_ROUTES = {0: "cuda_core", 1: "tc3xtf32", 2: "cuda_core_split"}
+#: the flash-attention library's route codes (repro_flash_attention_route)
+K5_ROUTES = {0: "tiled", 1: "split_kv", 2: "tiled_mma"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -267,16 +279,20 @@ def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound(nq: int, p: int, d: int, k: int, nbytes: float, route: str):
+def k1_bound(nq: int, p: int, d: int, k: int, nbytes: float, route: str,
+             bf16_operands: bool = False):
     """(bound_ms, bound_by) of a top-k launch: the least time the card could
     take. On the tensor-core route the larger of the cross term as three
-    TF32 products (3·2·d a pair at the TF32 peak), the epilogue's add,
-    subtract and max (3 a pair at the f32 peak) and the bytes; on the CUDA
-    cores d fma of the cross term plus those 3 at the f32 peak, or the
-    bytes."""
+    TF32 products (3·2·d a pair at the TF32 peak; with ``bf16_operands``,
+    bf16 queries and keys, one bf16 product, 2·d a pair at the bf16 peak,
+    is exact), the epilogue's add, subtract and max (3 a pair at the f32
+    peak) and the bytes; on the CUDA cores d fma of the cross term plus
+    those 3 at the f32 peak, or the bytes."""
     pairs = float(nq) * p
     if route == "tc3xtf32":
-        t_ops = max(3 * 2 * d * pairs / PEAK_TF32_FLOPS, 3 * pairs / PEAK_F32_FLOPS)
+        t_cross = (2 * d * pairs / PEAK_BF16_FLOPS if bf16_operands
+                   else 3 * 2 * d * pairs / PEAK_TF32_FLOPS)
+        t_ops = max(t_cross, 3 * pairs / PEAK_F32_FLOPS)
         t_bytes = nbytes / PEAK_BYTES
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
@@ -334,16 +350,23 @@ def phase_build() -> None:
          compile_seconds=round(compile_s, 3),
          functions_with_spills=spills)
     # registers and spills per instance: K1's tensor-core route and its
-    # merge, K3's kernels, the any-d top-k kernel (each key type), the
-    # split route and its merge, and K5's two routes
+    # merge, the split route and its merge (each key type), K3's kernels,
+    # the any-d top-k kernel (each key type), and K5's three routes
     for name, marker in (("topk", "topk_tc_kernel"), ("topk", "topk_merge_kernel"),
                          ("topk", "topk_split_kernel"),
                          ("topk", "topk_split_merge_kernel"),
+                         ("topk_bf16", "topk_tc_kernel"),
+                         ("topk_bf16", "topk_merge_kernel"),
+                         ("topk_bf16", "topk_split_kernel"),
+                         ("topk_int8", "topk_tc_kernel"),
+                         ("topk_int8", "topk_merge_kernel"),
+                         ("topk_int8", "topk_split_kernel"),
                          ("segment_sum", "_kernel"),
                          ("topk", "topk_chunked_kernel"),
                          ("topk_bf16", "topk_chunked_kernel"),
                          ("topk_int8", "topk_chunked_kernel"),
                          ("flash_attention", "flash_kernel"),
+                         ("flash_attention", "flash_mma_kernel"),
                          ("flash_attention", "split_kv_kernel"),
                          ("flash_attention", "split_combine_kernel")):
         text = _cuda.library_path(name).with_suffix(".log").read_text()
@@ -416,6 +439,20 @@ def phase_kernels(results: dict) -> None:
     # the serve shape: the largest request against the final index, k = 1
     protos, pvalid, queries = _standin_index()
     _k1_row("serve", queries, protos, pvalid, None, 1, 10)
+    # the headline fit's shapes: the paper's GMM at n = 10^6 and its next
+    # two levels' sizes (5 * 10^5, 2.5 * 10^5), d 2, k = t - 1 = 1, one
+    # 8192-row query block from the middle of the padded key set
+    from repro_torch.data import gmm_sample
+
+    g_all = dev(gmm_sample(SIZES["gmm"], seed=0)[0])
+    for n in (SIZES["gmm"], SIZES["gmm"] // 2, SIZES["gmm"] // 4):
+        n_pad = -(-n // bq) * bq
+        gp = torch.nn.functional.pad(g_all[:n], (0, 0, 0, n_pad - n))
+        q0 = (n_pad // bq // 2) * bq
+        _k1_row("headline", gp[q0:q0 + bq].contiguous(), gp,
+                torch.arange(n_pad, device=DEV) < n,
+                torch.arange(q0, q0 + bq, dtype=torch.int32, device=DEV), 1, 1)
+    del g_all
 
     _k1_variants(results, protos, pvalid, queries)
 
@@ -487,15 +524,22 @@ def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
     check(TOPK_ROUTES[_cuda.library("topk").repro_topk_route(d, k)] == route,
           f"K1 route rule differs from the library's at d {d}, k {k}")
     gd, gi = fa.fused_topk(q, keys, k, valid, q_gidx=gidx)
-    rd, ri = fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx)
     sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rd, ri = fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx)
+    end.record()
+    end.synchronize()
     err = float((gd - rd).abs().max())
     mism, bad = topk_mismatches(q, keys, gd, gi, rd, ri)
     check(torch.allclose(gd, rd, **DIST_TOL), f"K1 ({path}) distances off: {err}")
     check(bad == 0, f"K1 ({path}): {bad} index mismatches that are not near-ties")
     ms = cuda_ms(lambda: fa.fused_topk(q, keys, k, valid, q_gidx=gidx))
-    plain = cuda_ms(lambda: fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx),
-                    reps=plain_reps, warmup=2 if plain_reps > 1 else 0)
+    # one call (seconds at the fit's largest shapes): the checked call itself
+    plain = (start.elapsed_time(end) if plain_reps == 1 else
+             cuda_ms(lambda: fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx),
+                     reps=plain_reps))
     # bytes: queries, keys, valid, q_gidx in; distances and indices out
     nbytes = ((nq + p) * d * 4 + (0 if valid is None else p)
               + (0 if gidx is None else nq * 4) + nq * k * 8)
@@ -584,40 +628,66 @@ def _k1_variants(results: dict, protos, valid, queries, path="kernels") -> None:
     """K1's bf16 and int8 key instances at the serve shape (the largest
     request against the final index, the k = 8 shortlist), each against
     its plain version on the same packed buffer: distances within
-    DIST_TOL, indices equal except at near-ties."""
+    DIST_TOL, indices equal except at near-ties, a repeat bitwise; with the
+    route taken (the library's rule too), the time between events and on
+    the device, the bound of that route and, beside it, the CUDA-core
+    count the earlier rows used. In the kernels phase also at d 64
+    (synthetic keys and queries of the same counts: the split route)."""
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels import fused_assign as fa
 
-    nq, p, d, k = queries.shape[0], protos.shape[0], protos.shape[1], ONLINE["shortlist"]
-    q8, scale, zero = fa.quantize_keys(protos, valid)
-    cases = {
-        "K1-bf16": (queries.bfloat16(), protos.bfloat16(), {}, 2, 2),
-        "K1-int8": (queries, q8, dict(keys_scale=scale, keys_zero=zero), 4, 1),
-    }
-    for kid, (q, keys, kw, q_bytes, k_bytes) in cases.items():
-        gd, gi = fa.fused_topk(q, keys, k, valid, **kw)
-        rd, ri = fa.fused_topk_plain(q, keys, k, valid, **kw)
-        sync()
-        err = float((gd - rd).abs().max())
-        # near-ties judged on the keys as the kernel sees them (widened or
-        # dequantized), in float64
-        keys_f = (keys.float() * scale + zero) if kw else keys.float()
-        mism, bad = topk_mismatches(q.float(), keys_f, gd, gi, rd, ri)
-        check(torch.allclose(gd, rd, **DIST_TOL), f"{kid} distances off: {err}")
-        check(bad == 0, f"{kid}: {bad} index mismatches that are not near-ties")
-        ms = cuda_ms(lambda: fa.fused_topk(q, keys, k, valid, **kw))
-        plain = cuda_ms(lambda: fa.fused_topk_plain(q, keys, k, valid, **kw))
-        # operations as for K1 f32 (the widening or dequantization is per
-        # key element, not per pair); bytes: keys at their width, queries,
-        # valid, scale and zero in, distances and indices out
-        b_ms, b_by = bound(nq * p * (2 * d + 3),
-                           p * d * k_bytes + nq * d * q_bytes + p
-                           + (2 * d * 4 if kw else 0) + nq * k * 8)
-        row = dict(kernel=kid, path=path, variant=fa.route(q.dtype, keys.dtype, d, k),
-                   nq=nq, p=p, d=d, k=k, max_abs_err=err,
-                   index_mismatches=mism, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None)
-        emit("kernels", **row)
-        results[kid] = row
+    k = ONLINE["shortlist"]
+    shapes = [(protos, queries, path)]
+    if path == "kernels":
+        g = torch.Generator(device=DEV).manual_seed(11)
+        shapes.append((torch.randn((protos.shape[0], 64), generator=g, device=DEV),
+                       torch.randn((queries.shape[0], 64), generator=g, device=DEV),
+                       "kernels_d64"))
+    for keys32, qs, label in shapes:
+        nq, p, d = qs.shape[0], keys32.shape[0], keys32.shape[1]
+        q8, scale, zero = fa.quantize_keys(keys32, valid)
+        cases = {
+            "K1-bf16": (qs.bfloat16(), keys32.bfloat16(), {}, 2, 2),
+            "K1-int8": (qs, q8, dict(keys_scale=scale, keys_zero=zero), 4, 1),
+        }
+        for kid, (q, keys, kw, q_bytes, k_bytes) in cases.items():
+            route = fa.route(q.dtype, keys.dtype, d, k)
+            lib = _cuda.library(fa.KEY_TYPES[kid][0])
+            check(TOPK_ROUTES[lib.repro_topk_route(d, k)] == route
+                  and route == ("tc3xtf32" if d <= fa.TC_MAX_D else "cuda_core_split"),
+                  f"{kid} at d {d}, k {k}: route {route}, library "
+                  f"{lib.repro_topk_route(d, k)}")
+            gd, gi = fa.fused_topk(q, keys, k, valid, **kw)
+            again = fa.fused_topk(q, keys, k, valid, **kw)
+            rd, ri = fa.fused_topk_plain(q, keys, k, valid, **kw)
+            sync()
+            err = float((gd - rd).abs().max())
+            # near-ties judged on the keys as the kernel sees them (widened or
+            # dequantized), in float64
+            keys_f = (keys.float() * scale + zero) if kw else keys.float()
+            mism, bad = topk_mismatches(q.float(), keys_f, gd, gi, rd, ri)
+            check(torch.allclose(gd, rd, **DIST_TOL), f"{kid} ({label}) distances off: {err}")
+            check(bad == 0, f"{kid} ({label}): {bad} index mismatches that are not near-ties")
+            check(torch.equal(gd, again[0]) and torch.equal(gi, again[1]),
+                  f"{kid} ({label}): a repeat differs")
+            ms = cuda_ms(lambda: fa.fused_topk(q, keys, k, valid, **kw))
+            dev_ms = device_ms(lambda: fa.fused_topk(q, keys, k, valid, **kw))
+            plain = cuda_ms(lambda: fa.fused_topk_plain(q, keys, k, valid, **kw))
+            # operations as for K1 f32 (the widening or dequantization is per
+            # key element, not per pair); bytes: keys at their width, queries,
+            # valid, scale and zero in, distances and indices out
+            nbytes = (p * d * k_bytes + nq * d * q_bytes + p
+                      + (2 * d * 4 if kw else 0) + nq * k * 8)
+            b_ms, b_by = k1_bound(nq, p, d, k, nbytes, route,
+                                  bf16_operands=kid == "K1-bf16")
+            cc_ms, _ = k1_bound(nq, p, d, k, nbytes, "cuda_core")
+            row = dict(kernel=kid, path=label, variant=route, nq=nq, p=p, d=d, k=k,
+                       max_abs_err=err, index_mismatches=mism, bitwise_repeat=True,
+                       ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, bound_ms_cuda_core=cc_ms, library_ms=None)
+            emit("kernels", **row)
+            if label == path:
+                results[kid] = row
 
 
 def _head_keys(n: int, d: int, seed: int) -> torch.Tensor:
@@ -714,19 +784,38 @@ def _attn_inputs(b, hq, hkv, lq, lk, dh, dtype, seed, bias=None):
                              -1e30, kb)
         if bias == "first_tile":  # every key of the first 40 masked
             kb[..., :40] = -1e30
+        if bias == "first_tile64":  # a whole 64-key tile of the tensor-core route
+            kb[..., :64] = -1e30
         if bias == "masked_split":  # keys 64-127 (a whole split) and the tail
             kb[..., 64:128] = -1e30
             kb[..., lk - lk // 3:] = -1e30
     return q, k, v, kb
 
 
+def _mma_attention_work(b, hq, lq, lk, dh, causal):
+    """(bf16 tensor-core flops, f32 flops) of the tensor-core tiled route
+    per visible (query, key) pair: q·k (2·dh) and p·v twice (p_hi and
+    p_lo, 4·dh) as products of bf16 operands, and the 8 f32 operations of
+    the logit and the softmax; the masked future half not counted."""
+    i = np.arange(lq)
+    visible = (np.clip(i + lk - lq + 1, 0, lk).sum() if causal else lq * lk)
+    pairs = float(b * hq * visible)
+    return pairs * 6 * dh, pairs * 8
+
+
 def _k5_path_shapes(results: dict) -> None:
-    """K5 at the lm phase's shapes, in its working type (bf16): prefill of
-    a global layer (causal, no bias; the tiled route) and one decode step
-    over the compressed cache (P = 1104 prototypes with log-mass bias, one
-    written tail slot, the rest of the tail masked by the position mask;
-    the split-kv route, its splits as the library counts them). A second
-    call must give the same bits."""
+    """K5 at the lm phase's shapes: prefill of a global layer (causal, no
+    bias) in the working type, bf16 (the tensor-core tiled route), and the
+    same call in f32 (the tiled route); one decode step over the
+    compressed cache (P = 1104 prototypes with log-mass bias, one written
+    tail slot, the rest of the tail masked by the position mask; the
+    split-kv route, its splits as the library counts them), in bf16 and, to
+    the f32 tolerance, in f32. Each route's rule is the library's too; a
+    second call must give the same bits. The bf16 prefill's bound is that
+    of its tensor-core form (q·k and the two bf16 p·v at the bf16 peak);
+    beside it, as ``bound_ms_f32_pv``, the count of the earlier rows: q·k
+    at the bf16 peak and p·v at the f32 peak (the f32 p of the
+    reference)."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as fa
 
@@ -738,52 +827,63 @@ def _k5_path_shapes(results: dict) -> None:
     bias[..., :P] = torch.log(torch.randint(1, 5, (B, hkv, P), generator=g,
                                             device=DEV).float())
     bias[..., P] = 0.0
-    shapes = (("prefill", (B, hq, hkv, S, S, dh), True, None),
-              ("decode", (B, hq, hkv, 1, lk_dec, dh), False, bias))
+    shapes = (("K5-prefill", "prefill", (B, hq, hkv, S, S, dh), True, None, torch.bfloat16),
+              ("K5", "prefill", (B, hq, hkv, S, S, dh), True, None, torch.float32),
+              ("K5-decode", "decode", (B, hq, hkv, 1, lk_dec, dh), False, bias,
+               torch.bfloat16))
     lib = _cuda.library("flash_attention")
-    for label, (b, hq_, hkv_, lq, lk, d), causal, kb in shapes:
-        variant = fa.route(hq_, hkv_, lq)
-        check(variant == ("tiled" if label == "prefill" else "split_kv")
-              and lib.repro_flash_attention_route(hq_, hkv_, lq) == (variant == "split_kv")
+    want_routes = {"K5-prefill": "tiled_mma", "K5": "tiled", "K5-decode": "split_kv"}
+    for kid, label, (b, hq_, hkv_, lq, lk, d), causal, kb, dt in shapes:
+        variant = fa.route(hq_, hkv_, lq, dt, d)
+        lib_route = K5_ROUTES[lib.repro_flash_attention_route(
+            hq_, hkv_, lq, int(dt == torch.bfloat16), d)]
+        check(variant == want_routes[kid] and lib_route == variant
               and lib.repro_flash_attention_split_keys(lk) == fa.split_keys(lk),
-              f"K5 {label}: route {variant} or its split rule differs from the "
-              f"library's")
+              f"{kid} {label}: route {variant} (library {lib_route}) or its split "
+              f"rule differs")
         q, k, v, _ = _attn_inputs(b, hq_, hkv_, lq, lk, d, torch.bfloat16, 8)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
         kw = dict(causal=causal, scale=1.0 / 16, logit_softcap=50.0)
+        tol = ATTN_TOL_BF16 if dt == torch.bfloat16 else ATTN_TOL_F32
         got = fa.flash_attention(q, k, v, kb, **kw)
         again = fa.flash_attention(q, k, v, kb, **kw)
         want = fa.flash_attention_plain(q, k, v, kb, **kw)
         sync()
         err = float((got.float() - want.float()).abs().max())
-        check(torch.equal(got, again), f"K5 {label}: a repeat differs")
-        check(bool(torch.isfinite(got.float()).all()), f"K5 {label}: non-finite")
-        check(torch.allclose(got.float(), want.float(), **ATTN_TOL_BF16),
-              f"K5 {label} (bf16) off: {err}")
-        # the same call in f32, held to the f32 tolerance
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        got32 = fa.flash_attention(q32, k32, v32, kb, **kw)
-        want32 = fa.flash_attention_plain(q32, k32, v32, kb, **kw)
-        err32 = float((got32 - want32).abs().max())
-        check(torch.allclose(got32, want32, **ATTN_TOL_F32),
-              f"K5 {label} (f32) off: {err32}")
-        del got32, want32
+        check(torch.equal(got, again), f"{kid} {label}: a repeat differs")
+        check(bool(torch.isfinite(got.float()).all()), f"{kid} {label}: non-finite")
+        check(torch.allclose(got.float(), want.float(), **tol),
+              f"{kid} {label} ({dt}) off: {err}")
+        row = dict(kernel=kid, path="lm", shape=label, variant=variant,
+                   q=list(q.shape), kv=list(k.shape), causal=causal,
+                   bias=kb is not None, dtype=str(dt).replace("torch.", ""),
+                   max_abs_err=err, bitwise_repeat=True)
+        if kid == "K5-decode":
+            # the same call in f32, held to the f32 tolerance
+            got32 = fa.flash_attention(q.float(), k.float(), v.float(), kb, **kw)
+            want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(), kb, **kw)
+            err32 = float((got32 - want32).abs().max())
+            check(torch.allclose(got32, want32, **ATTN_TOL_F32),
+                  f"K5 {label} (f32) off: {err32}")
+            row.update(max_abs_err_f32=err32, split_keys=fa.split_keys(lk),
+                       splits=-(-lk // fa.split_keys(lk)))
+            del got32, want32
+        del got, again, want
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kb, **kw))
         dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, kb, **kw))
         plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, kb, **kw))
+        elt = 2 if dt == torch.bfloat16 else 4
         flops, tc_flops, nbytes = _attention_work(
-            b, hq_, hkv_, lq, lk, d, causal, 2, 0 if kb is None else kb.shape[1])
+            b, hq_, hkv_, lq, lk, d, causal, elt, 0 if kb is None else kb.shape[1])
         b_ms, b_by = bound(flops, nbytes, bf16_flops=tc_flops)
-        row = dict(kernel="K5", path="lm", shape=label, variant=variant,
-                   q=list(q.shape), kv=list(k.shape), causal=causal,
-                   bias=kb is not None, dtype="bf16", max_abs_err=err,
-                   max_abs_err_f32=err32, bitwise_repeat=True, ms=ms,
-                   device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+        if variant == "tiled_mma":
+            mma_tc, mma_f32 = _mma_attention_work(b, hq_, lq, lk, d, causal)
+            row["bound_ms_f32_pv"] = b_ms
+            b_ms, b_by = bound(mma_f32, nbytes, bf16_flops=mma_tc)
+        row.update(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, causal_half_counted=False, library_ms=None)
-        if variant == "split_kv":
-            row.update(split_keys=fa.split_keys(lk),
-                       splits=-(-lk // fa.split_keys(lk)))
         emit("kernels", **row)
-        results["K5" if label == "prefill" else "K5-decode"] = row
+        results[kid] = row
 
 
 def _edge_checks(gen) -> None:
@@ -1016,41 +1116,73 @@ def _k3_edges(gen) -> int:
 
 
 def _variant_edges(gen, grid) -> int:
-    """K1's bf16 and int8 instances against their plain versions, bit for
-    bit, at d = 6 (register instance), 130 and 256 (chunked): dyadic keys
-    and queries (exact in bf16; int8 values in [-16, 16] with scales 1/4
-    or 1/2 and dyadic zero points, so every dequantized value, product and
-    sum of 256 squares is exact in f32), coarse grids that force distance
-    ties, masks and self-exclusion, k in {1, 3, 8, 20}; and
-    the FMA case: q8 = 127 with scale 1 + 2^-23 and zero -127 gives 2^-16
-    by a rounded multiply then an add, 127·2^-23 by one fused
-    multiply-add, so a zero query must see every valid key at d·2^-32."""
+    """K1's bf16 and int8 key instances against their plain versions, bit
+    for bit, on every route: the tensor-core route (d 2, 6, 8, 16, 32;
+    k <= 8), the split route (d 33, 64, 130, 256; k <= 8) and the CUDA-core
+    kernels (k 20). Dyadic keys and queries (exact in bf16; int8 values in
+    [-16, 16] with scales 1/4 or 1/2 and dyadic zero points, so every
+    dequantized value, product and sum of 256 squares is exact in f32),
+    coarse grids and duplicate keys that force distance ties (the lowest
+    index wins), masks, every key invalid (inf / -1), self-exclusion
+    through q_gidx and on the K2 layout (keys = queries), query and key
+    counts that fill no tile or split; and the FMA case: q8 = 127 with
+    scale 1 + 2^-23 and zero -127 gives 2^-16 by a rounded multiply then an
+    add, 127·2^-23 by one fused multiply-add, so a zero query must see
+    every valid key at d·2^-32."""
     from repro_torch.kernels import fused_assign
 
     cases = 0
-    for d in (6, 130, 256):
-        for nq, p, k in ((33, 70, 1), (40, 129, 3), (9, 300, 8), (70, 65, 20)):
+    shapes = [(nq, p, k) for nq, p in ((130, 1100), (70, 3000), (5, 3)) for k in (1, 2, 8)]
+    shapes += [(33, 70, 1), (40, 129, 3), (9, 300, 8), (70, 65, 20)]
+    for d in (2, 6, 8, 16, 32, 33, 64, 130, 256):
+        for nq, p, k in shapes:
             valid = dev(gen.random(p) > 0.3)
             gidx = dev(gen.integers(0, 2 * p, size=nq).astype(np.int32))
+            none = torch.zeros(p, dtype=torch.bool, device=DEV)
             lim = 2 if k >= 8 else 16  # a coarse grid: many exact ties
             qb = dev((gen.integers(-lim, lim + 1, size=(nq, d)) * 0.25)
                      .astype(np.float32))
-            kb = dev((gen.integers(-lim, lim + 1, size=(p, d)) * 0.25)
-                     .astype(np.float32))
-            q8 = dev(gen.integers(-16, 17, size=(p, d)).astype(np.int8))
+            pick = gen.integers(0, max(p // 3, 1), size=p)  # duplicate rows
+            kb = dev((gen.integers(-lim, lim + 1, size=(max(p // 3, 1), d)) * 0.25)
+                     [pick].astype(np.float32))
+            q8 = dev(gen.integers(-16, 17, size=(max(p // 3, 1), d))[pick].astype(np.int8))
             scale = dev((2.0 ** -gen.integers(1, 3, size=d)).astype(np.float32))
             zero = dev((gen.integers(-8, 9, size=d) * 0.25).astype(np.float32))
+            want_route = ("cuda_core" if k > fused_assign.TC_MAX_K else
+                          "tc3xtf32" if d <= fused_assign.TC_MAX_D else "cuda_core_split")
             runs = [(qb.bfloat16(), kb.bfloat16(), {}),
                     (qb, q8, dict(keys_scale=scale, keys_zero=zero))]
             for q, keys, kw in runs:
-                for v, g in ((None, None), (valid, gidx)):
+                check(fused_assign.route(q.dtype, keys.dtype, d, k) == want_route,
+                      f"K1 {keys.dtype} at d {d}, k {k} is not on {want_route}")
+                for v, g in ((None, None), (valid, gidx), (none, None)):
                     got = fused_assign.fused_topk(q, keys, k, v, q_gidx=g, **kw)
                     want = fused_assign.fused_topk_plain(q, keys, k, v,
                                                          q_gidx=g, **kw)
                     check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                          f"K1 ({keys.dtype}, q {q.dtype}) differs from its "
-                          f"plain version at {(nq, p, d, k)}")
+                          f"K1 ({keys.dtype}, q {q.dtype}, {want_route}) differs "
+                          f"from its plain version at {(nq, p, d, k)}, masked "
+                          f"{v is not None}")
                     cases += 1
+                check(bool(torch.isinf(got[0]).all() and (got[1] == -1).all()),
+                      f"K1 ({keys.dtype}) with every key invalid at {(nq, p, d, k)}")
+        # the K2 layout: keys = queries (as the kernel reads them), q_gidx =
+        # arange
+        q8 = dev(gen.integers(-16, 17, size=(300, d)).astype(np.int8))
+        scale = dev((2.0 ** -gen.integers(1, 3, size=d)).astype(np.float32))
+        zero = dev((gen.integers(-8, 9, size=d) * 0.25).astype(np.float32))
+        x = grid(300, d)
+        self_g = torch.arange(300, dtype=torch.int32, device=DEV)
+        for k in (1, 2, 8):
+            for q, keys, kw in ((x.bfloat16(), x.bfloat16(), {}),
+                                (q8.float() * scale + zero, q8,
+                                 dict(keys_scale=scale, keys_zero=zero))):
+                got = fused_assign.fused_topk(q, keys, k, None, q_gidx=self_g, **kw)
+                want = fused_assign.fused_topk_plain(q, keys, k, None, q_gidx=self_g, **kw)
+                check(all(torch.equal(a, b) for a, b in zip(got, want))
+                      and not bool((got[1] == self_g[:, None]).any()),
+                      f"K1 ({keys.dtype}) self-exclusion at d {d}, k {k}")
+                cases += 1
         # the FMA case
         p, k = 50, 8
         q8 = torch.full((p, d), 127, dtype=torch.int8, device=DEV)
@@ -1070,6 +1202,8 @@ def _variant_edges(gen, grid) -> int:
               f"K1 int8 at d {d}: dequantization is not a rounded multiply "
               f"then an add, or the tie order is off")
         cases += 1
+    emit("kernels_edges", kernel="K1-bf16/K1-int8",
+         variant="tc3xtf32/cuda_core_split/cuda_core", cases=cases, bitwise=True)
     return cases
 
 
@@ -1077,7 +1211,11 @@ def _attention_edges() -> None:
     """K5 against its plain version on awkward shapes: rows that fill no
     whole tile, lq < lk, head_dim 16, 64, 100 and 256, one kv head, a bias
     per query head, -1e30 bias entries scattered, and every key of the first
-    kv tile masked; on the split-kv route (lq 1 and 2) a split wholly
+    kv tile masked; on the tensor-core tiled route (bf16 at head_dim 64, 128
+    and 256) a block that straddles two query heads, g 1, 2, 4 and 16, a
+    bias per kv and per query head, softcap 0, 30 and 50, the first kv tile
+    wholly masked, no causal mask, one query row per head, one head of the
+    LM's prefill in batch 1; on the split-kv route (lq 1 and 2) a split wholly
     masked in the middle of the keys beside a masked tail, lk below one
     split and one key past it, a bias per query head. Within the stated
     tolerance, no NaN, and a second call gives the same bits."""
@@ -1094,6 +1232,14 @@ def _attention_edges() -> None:
         (1, 2, 1, 20, 90, 16, True, "first_tile", 50.0, torch.float32),
         (1, 4, 2, 9, 33, 256, True, "q_heads", 50.0, torch.float32),
         (2, 8, 4, 65, 129, 256, True, "kv", 50.0, torch.bfloat16),
+        # the tensor-core tiled route (bf16, head_dim 64/128/256)
+        (1, 4, 2, 100, 100, 64, True, None, 50.0, torch.bfloat16),
+        (2, 4, 2, 37, 300, 128, True, "kv", 0.0, torch.bfloat16),
+        (1, 8, 2, 70, 200, 64, True, "q_heads", 50.0, torch.bfloat16),
+        (1, 2, 1, 70, 200, 128, True, "first_tile64", 50.0, torch.bfloat16),
+        (1, 4, 1, 40, 90, 256, False, "masked", 50.0, torch.bfloat16),
+        (1, 16, 1, 1, 77, 64, False, "kv", 30.0, torch.bfloat16),
+        (1, 8, 4, 2048, 2048, 256, True, None, 50.0, torch.bfloat16),
         # the split-kv route
         (4, 8, 4, 1, 1232, 256, False, "masked_split", 50.0, torch.bfloat16),
         (2, 8, 4, 1, 300, 256, False, "masked_split", 50.0, torch.float32),
@@ -1119,7 +1265,7 @@ def _attention_edges() -> None:
         check(bool(torch.isfinite(got.float()).all()), f"K5 edge {i}: non-finite")
         check(torch.allclose(got.float(), want, **tol), f"K5 edge {i} off: {err}")
         worst = max(worst, err)
-        route = fa.route(hq, hkv, lq)
+        route = fa.route(hq, hkv, lq, dt, dh)
         routes[route] = routes.get(route, 0) + 1
     emit("kernels_edges", kernel="K5", cases=len(cases), routes=routes,
          bitwise_repeat=True, max_abs_err=worst)
@@ -1198,6 +1344,7 @@ def phase_serve(state: dict) -> None:
             not_ties += int((~torch.isclose(dk, dr, **DIST_TOL)).sum())
     counts = kernels.launch_counts()
     state["main_counts"] = counts
+    state["main_routes"] = kernels.route_counts()
     check(counts["K1"] > k1_before, "K1 did not launch while serving")
     rate = agree / total
     check(rate >= 0.999, f"serve agreement with the plain path {rate} < 0.999")
@@ -1215,24 +1362,31 @@ def _owner(idx, q, impl):
     return d, i.long()
 
 
-def phase_headline() -> None:
+def phase_headline(state: dict) -> None:
     import repro_torch
-    from repro_torch import prng
+    from repro_torch import kernels, prng
     from repro_torch.cluster.metrics import clustering_accuracy
     from repro_torch.data import gmm_sample
 
     n = SIZES["gmm"]
     x, comp = gmm_sample(n, seed=0)
+    sync()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = repro_torch.fit(x, 2, 3, "kmeans", k=3, key=prng.PRNGKey(0),
                           device=DEV)
     sync()
     wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    state.update(headline_counts=counts, headline_routes=kernels.route_counts())
     acc = clustering_accuracy(comp, res.labels, 3)
     check(acc >= 0.90, f"GMM accuracy {acc} < 0.90 (the paper reports 0.9239)")
+    check(counts["K1"] > 0, "K1 was not launched by the headline fit")
     emit("headline", n=n, t=2, m=3, k=3, accuracy=acc,
          seconds=round(wall, 3), mis_rounds=res.info["mis_rounds"],
-         lloyd_iters=res.backend_result.iters)
+         lloyd_iters=res.backend_result.iters,
+         launches={kid: counts[kid] for kid in ("K1", "K2", "K3", "K4")},
+         launches_by_route=state["headline_routes"])
 
 
 def phase_determinism() -> None:
@@ -1441,7 +1595,13 @@ def phase_online(results: dict, state: dict) -> None:
                        f"drifted traffic (distance ratio {ratio})")
     asyncio.run(_drain_all(services))
     counts = kernels.launch_counts()
+    routes = kernels.route_counts()
     state["online_counts"] = counts
+    state["online_routes"] = routes
+    # the quantized shortlist (k 8) never takes the CUDA-core route
+    stale_routes = {r: n for r, n in routes.items()
+                    if r.startswith(("K1-bf16/", "K1-int8/")) and r.endswith("/cuda_core")}
+    check(not stale_routes, f"quantized K1 launches on the CUDA-core route: {stale_routes}")
     # every level of this path has more than 8192 rows (the smallest TC
     # input is the finalize's 3rd level, about 19,400), so K2 is not on it
     for kid in ("K1", "K1-bf16", "K1-int8", "K3", "K4"):
@@ -1479,7 +1639,7 @@ def phase_online(results: dict, state: dict) -> None:
              "distance_ratio": ratio, "history": driver.history},
          launches={kid: counts[kid] for kid in
                    ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5")},
-         seconds=time.perf_counter() - t_phase)
+         launches_by_route=routes, seconds=time.perf_counter() - t_phase)
     _online_determinism(cfg)
 
 
@@ -1743,6 +1903,7 @@ def phase_lm(state: dict) -> None:
     out = engine.generate({"tokens": prompts})
     sync()
     counts = kernels.launch_counts()
+    routes = kernels.route_counts()
     peak = torch.cuda.max_memory_allocated()
     tm = out["timings"]
     n_global = sum(cfg.attn_type(l) == "global" for l in range(cfg.n_layers))
@@ -1760,12 +1921,15 @@ def phase_lm(state: dict) -> None:
     check(counts["K5-decode"] == want_decode
           and counts["K5"] - counts["K5-decode"] == n_global,
           f"K5's split-kv route launched {counts['K5-decode']} times, want "
-          f"{want_decode} (every decode step), and the tiled route "
+          f"{want_decode} (every decode step), and the others "
           f"{counts['K5'] - counts['K5-decode']}, want {n_global} (the prefill)")
+    check(routes.get("K5/tiled_mma") == n_global and "K5/tiled" not in routes,
+          f"K5's prefill took routes {routes}, want {n_global} calls on tiled_mma")
     check(counts["K2"] == heads * len(tm["compress"]),
           f"K2 launched {counts['K2']} times, want one per head and compress")
     check(counts["K3"] > 0, "K3 was not launched by the lm phase")
     state["lm_counts"] = counts
+    state["lm_routes"] = routes
     state["lm_engine"] = (engine, prompts)
     n_tok = LM["batch"] * out["n_steps"]
     emit("lm", arch=cfg.name, batch=LM["batch"], prompt=LM["prompt"],
@@ -1776,7 +1940,7 @@ def phase_lm(state: dict) -> None:
          decode_s=tm["decode_s"], decode_tok_per_s=n_tok / tm["decode_s"],
          compressions=out["compressions"], max_memory_allocated=peak,
          launches={k: counts[k] for k in ("K2", "K3", "K5", "K5-decode")},
-         k5_expected=want_k5)
+         launches_by_route=routes, k5_expected=want_k5)
 
     # the kernel path against the plain paths: prefill, each path
     # compresses its own cache, then teacher-forced decode steps fed the
@@ -1916,7 +2080,7 @@ def main() -> int:
         if "serve" in phases:
             phase_serve(state)
     if "headline" in phases:
-        phase_headline()
+        phase_headline(state)
     if "determinism" in phases:
         phase_determinism()
     if "online" in phases:
@@ -1929,15 +2093,24 @@ def main() -> int:
         phase_basins()
     if results:
         paths = {"fit_serve": state.get("main_counts", state.get("fit_counts", {})),
+                 "headline": state.get("headline_counts", {}),
                  "online": state.get("online_counts", {}),
                  "lm": state.get("lm_counts", {})}
+        routes = {"fit_serve": state.get("main_routes", {}),
+                  "headline": state.get("headline_routes", {}),
+                  "online": state.get("online_routes", {}),
+                  "lm": state.get("lm_routes", {})}
         line = []
-        for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5", "K5-decode"):
+        for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5", "K5-decode",
+                    "K5-prefill"):
             if kid not in results:  # a run without the kernels phase
                 continue
             r = results[kid]
             name, source, replaces = KERNEL_META[kid]
             by_path = {p: c.get(kid, 0) for p, c in paths.items() if c}
+            if kid in ("K5", "K5-prefill"):  # one route's kernel alone
+                key = "K5/tiled" if kid == "K5" else "K5/tiled_mma"
+                by_path = {p: routes[p].get(key, 0) for p in by_path}
             line.append({"name": name, "route": "cuda",
                          "variant": r.get("variant", "cuda_core"),
                          "source": source, "replaces": replaces,

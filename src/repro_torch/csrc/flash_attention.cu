@@ -22,9 +22,11 @@
 // against ~67 MB of q, k, v and out; decode (one query row per head against
 // the cache) is bound by reading k and v: 20.2 MB at kv 1232, 6 us.
 //
-// Two routes, chosen by the packed row count g * lq (g = hq / hkv) of a kv
-// head: at most kSplitMaxRows rows (every decode call) take the split-kv
-// route, all others the tiled kernel.
+// Three routes, chosen by the packed row count g * lq (g = hq / hkv) of a
+// kv head, the type and head_dim: at most kSplitMaxRows rows (every decode
+// call) take the split-kv route; the others the tensor-core tiled route
+// when q, k and v are bf16 at head_dim 64, 128 or 256 (every prefill of the
+// served LM), else the tiled kernel.
 //
 // The split-kv route (split_kv_kernel, then split_combine_kernel). One
 // block per (batch, kv head) leaves 16 blocks on 132 SMs at decode, with
@@ -75,7 +77,36 @@
 // all lie past the end of the row space skip the arithmetic. Both routes
 // run on the CUDA cores in f32 with accurate expf and tanhf; no atomics, so
 // a launch is repeatable bit for bit.
-// Later work: wgmma with bf16 operands and TMA-fed kv tiles for prefill.
+//
+// The tensor-core tiled route (flash_mma_kernel; bf16, dh 64/128/256). The
+// tiled kernel above stages bf16 as f32 (140 KB at dh 256) and runs both
+// products on the CUDA cores, where q.k and p.v (4 * dh flops a visible
+// pair) set its pace. Here the rows are packed and the causal future
+// skipped as above, a block owns 128 packed rows with 8 warps of 16, and
+// the block's q tile and 64-key tiles of k and v stay bf16 in shared
+// memory (rows padded by 16 bytes, so an ldmatrix phase of 8 rows hits 8
+// bank quads; 203 KB at dh 256 with two k and two v buffers, so one block
+// an SM), the next kv tile copied by cp.async while this one is computed.
+// A block of 4 warps (64 rows, 165 KB) ran slower: 4 warps an SM hide
+// too little of the mma and softmax latency, and each kv tile served half
+// the rows (PERF.md). q.k is
+// mma.sync.m16n8k16 with bf16 operands from ldmatrix and f32 accumulation:
+// each product of two bf16 is exact in f32, as in the reference's f32 dot of
+// widened bf16 (the tensor core's order of the sums is its own). The logit
+// rules (scale, softcap with accurate tanhf, bias, the causal -1e30, -inf
+// past lk) and the online softmax with accurate expf run in f32 on the
+// accumulator fragments, each row's max over the 4 threads of its quad.
+// p is f32 in the reference, so it is not rounded to one bf16: p = p_hi +
+// p_lo with p_hi = bf16(p), p_lo = bf16(p - p_hi) (about 16 significant
+// bits), and two mma with the same v fragment (ldmatrix.trans; v is exact
+// bf16) add p_hi.v and p_lo.v into the f32 output; the accumulator's
+// layout is the next A fragment's, so p never goes to shared memory. The
+// sum l is taken of the f32 p. A warp carries 16 x dh f32 outputs (128
+// registers a thread at dh 256) and a 16 x 64 logit tile (32). The row
+// tiles run heaviest first. No atomics: a repeat is bitwise.
+//
+// Later work: wgmma over a 64-row warpgroup and TMA-fed kv tiles with a
+// producer warp (mma.sync issues a warp's 16 rows at a time).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -305,6 +336,309 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, const float* 
   if (dh <= 128)
     return launch<T, 128>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, s);
   return launch<T, 256>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, s);
+}
+
+// ---------------------------------------------------------------- tiled_mma
+
+constexpr int kMmaThreads = 256;  // 8 warps, 16 packed rows each
+constexpr int kMmaRows = 128;     // packed rows a block
+constexpr int kMmaKeys = 64;      // keys a kv tile
+
+// bf16 q, k and v at a head_dim the tensor-core tiles take whole
+bool mma_route(int dtype, int dh) { return dtype == 1 && (dh == 64 || dh == 128 || dh == 256); }
+
+// bf16 elements a staged row: DH plus 16 bytes, so the 8 rows an ldmatrix
+// phase reads start in 8 different bank quads
+template <int DH>
+__host__ __device__ constexpr int mma_stride() { return DH + 8; }
+
+// the q tile and two buffers each of the k and v tiles
+template <int DH>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)mma_stride<DH>() * (kMmaRows + 4 * kMmaKeys);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices from shared memory (lane l gives the row address
+// of matrix l / 8), plain or transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// c += A (16x16, row) * B (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 t;
+  t.x = lo;  // the lower column sits in the low half
+  t.y = hi;
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// p (f32) as p_hi + p_lo, two bf16: p_hi = bf16(p), p_lo = bf16(p - p_hi)
+// (the difference is exact in f32), together about 16 significant bits;
+// (a, b) two neighbouring columns of one row
+__device__ __forceinline__ void split_p(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat16 ah = __float2bfloat16_rn(a), bh = __float2bfloat16_rn(b);
+  hi = pack_bf16(ah, bh);
+  lo = pack_bf16(__float2bfloat16_rn(a - __bfloat162float(ah)),
+                 __float2bfloat16_rn(b - __bfloat162float(bh)));
+}
+
+// One block per (batch * kv head, 128 packed rows), 8 warps of 16 rows.
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, int hq, int hkv, int lq, int lk,
+                     int bias_heads, int causal, float scale, float softcap) {
+  constexpr int S = mma_stride<DH>();
+  constexpr int CPR = DH / 8;  // 16-byte pieces a row
+  constexpr int NO = DH / 8;   // n8 column tiles of the output
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [kMmaRows][S]
+  __nv_bfloat16* sK = sQ + kMmaRows * S;                             // [2][kMmaKeys][S]
+  __nv_bfloat16* sV = sK + 2 * kMmaKeys * S;                         // [2][kMmaKeys][S]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x;
+  const int bb = bh / hkv, hk = bh % hkv;
+  const int g = hq / hkv;
+  const int n_rows = g * lq;
+  // the row tiles with the most visible keys first (a causal call's last
+  // rows), so the short ones fill the tail of the grid
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kMmaRows;
+  const int rows_here = min(kMmaRows, n_rows - row0);
+
+  int kv_end = lk;  // causal: the last key any row of the block sees, + 1
+  if (causal) {
+    const int last = row0 + rows_here - 1;
+    const int max_i = (last / lq != row0 / lq) ? lq - 1 : last % lq;
+    kv_end = min(lk, max_i + lk - lq + 1);
+  }
+  const int ntiles = (kv_end + kMmaKeys - 1) / kMmaKeys;
+  const size_t kv_base = ((size_t)bb * hkv + hk) * lk;
+
+  // the q tile (rows past the row space zero-filled) and kv tile 0
+  for (int e = tid; e < kMmaRows * CPR; e += kMmaThreads) {
+    const int r = e / CPR, c = (e % CPR) * 8;
+    const bool ok = r < rows_here;
+    const __nv_bfloat16* src = q;
+    if (ok) {
+      const int rho = row0 + r, h = hk * g + rho / lq, i = rho % lq;
+      src = q + (((size_t)bb * hq + h) * lq + i) * DH + c;
+    }
+    cp_async16(sQ + r * S + c, src, ok ? 16 : 0);
+  }
+  // kv tile t into buffer t & 1; keys past lk zero-filled (v must not
+  // carry garbage into 0 * v)
+  auto stage_kv = [&](int t) {
+    __nv_bfloat16* dk = sK + (t & 1) * kMmaKeys * S;
+    __nv_bfloat16* dv = sV + (t & 1) * kMmaKeys * S;
+    const int k0 = t * kMmaKeys;
+    for (int e = tid; e < kMmaKeys * CPR; e += kMmaThreads) {
+      const int r = e / CPR, c = (e % CPR) * 8;
+      const bool ok = k0 + r < lk;
+      const size_t off = (kv_base + k0 + r) * DH + c;
+      cp_async16(dk + r * S + c, ok ? k + off : k, ok ? 16 : 0);
+      cp_async16(dv + r * S + c, ok ? v + off : v, ok ? 16 : 0);
+    }
+  };
+  if (ntiles > 0) stage_kv(0);
+  cp_async_commit();
+
+  // this thread's rows of the accumulator: warp * 16 + grp and + 8
+  int head[2], qpos[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int r = warp * 16 + grp + 8 * t;
+    row_ok[t] = r < rows_here;
+    const int rho = row_ok[t] ? row0 + r : row0;
+    head[t] = hk * g + rho / lq;
+    qpos[t] = rho % lq + lk - lq;
+  }
+  const bool warp_live = warp * 16 < rows_here;
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // l: this thread's part
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      // buffer (t + 1) & 1 was last read before the previous closing barrier
+      stage_kv(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp_live) {
+      const __nv_bfloat16* cK = sK + (t & 1) * kMmaKeys * S;
+      const __nv_bfloat16* cV = sV + (t & 1) * kMmaKeys * S;
+      // s = q . k for the warp's 16 rows and the tile's 64 keys: products
+      // of bf16 exact, summed in f32; s[n]: keys 8 n + 2 tig (+1), rows
+      // grp ([0], [1]) and grp + 8 ([2], [3])
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, sQ + (warp * 16 + (lane & 15)) * S + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t b[4];
+          ldsm_x4(b, cK + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * S + ks * 16 +
+                         ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * j], a, b[0], b[1]);
+          mma_bf16(s[2 * j + 1], a, b[2], b[3]);
+        }
+      }
+      // logits: scale, softcap, bias, the causal -1e30, -inf past lk or
+      // the row space; then the online softmax (m from -1e30) of each row,
+      // its max over the 4 threads of the row's quad
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tr = e >> 1;
+          const int kp = t * kMmaKeys + 8 * n + 2 * tig + (e & 1);
+          float x = s[n][e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          if (kp >= lk || !row_ok[tr]) {
+            x = -CUDART_INF_F;  // past the end: no weight at all
+          } else {
+            if (bias != nullptr)
+              x += bias[((size_t)bb * bias_heads + (bias_heads == hq ? head[tr] : hk)) * lk + kp];
+            if (causal && kp > qpos[tr]) x = kMasked;
+          }
+          s[n][e] = x;
+          mx[tr] = fmaxf(mx[tr], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int tr = 0; tr < 2; ++tr) {
+        mx[tr] = fmaxf(mx[tr], __shfl_xor_sync(0xffffffffu, mx[tr], 1));
+        mx[tr] = fmaxf(mx[tr], __shfl_xor_sync(0xffffffffu, mx[tr], 2));
+        const float m_new = fmaxf(m[tr], mx[tr]);
+        alpha[tr] = expf(m[tr] - m_new);
+        m[tr] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = expf(s[n][e] - m[e >> 1]);
+          s[n][e] = pv;
+          rs[e >> 1] += pv;
+        }
+      }
+      l[0] = l[0] * alpha[0] + rs[0];
+      l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+      // o += p . v, 16 keys a step: the accumulator's layout is the A
+      // fragment's (keys 16 kk .. + 15 are tiles 2 kk and 2 kk + 1), p
+      // split into p_hi + p_lo, two mma with the same v fragment
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_p(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_p(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int j = 0; j < DH / 16; ++j) {
+          uint32_t b[4];
+          ldsm_x4_t(b, cV + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S + 16 * j +
+                           (lane >> 4) * 8);
+          mma_bf16(o[2 * j], ph, b[0], b[1]);
+          mma_bf16(o[2 * j], pl, b[0], b[1]);
+          mma_bf16(o[2 * j + 1], ph, b[2], b[3]);
+          mma_bf16(o[2 * j + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // buffer t & 1 is free for tile t + 2
+  }
+
+#pragma unroll
+  for (int tr = 0; tr < 2; ++tr) {
+    l[tr] += __shfl_xor_sync(0xffffffffu, l[tr], 1);
+    l[tr] += __shfl_xor_sync(0xffffffffu, l[tr], 2);
+    if (!row_ok[tr]) continue;
+    const int rho = row0 + warp * 16 + grp + 8 * tr;
+    const float inv = 1.f / fmaxf(l[tr], 1e-30f);
+    __nv_bfloat16* o_row = out + (((size_t)bb * hq + head[tr]) * lq + rho % lq) * DH;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<uint32_t*>(o_row + 8 * j + 2 * tig) =
+          pack_bf16(__float2bfloat16(o[j][2 * tr] * inv), __float2bfloat16(o[j][2 * tr + 1] * inv));
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
+                       void* out, int b, int hq, int hkv, int lq, int lk, int bias_heads,
+                       int causal, float scale, float softcap, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
+    return cudaErrorMisalignedAddress;  // the wrapper hands over aligned copies
+  constexpr size_t smem = mma_smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long row_tiles = ((long long)(hq / hkv) * lq + kMmaRows - 1) / kMmaRows;
+  if (row_tiles > 65535) return cudaErrorInvalidValue;
+  flash_mma_kernel<DH><<<dim3((unsigned)(b * hkv), (unsigned)row_tiles), kMmaThreads, smem,
+                         stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(out), hq, hkv,
+      lq, lk, bias_heads, causal, scale, softcap);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- split-kv
@@ -623,9 +957,10 @@ extern "C" {
 
 int repro_flash_attention_max_dh() { return 256; }
 
-// 1 if a call with these heads and query rows takes the split-kv route
-int repro_flash_attention_route(int hq, int hkv, int lq) {
-  return split_route(hq, hkv, lq) ? 1 : 0;
+// the route of a call: 1 split-kv (at most kSplitMaxRows packed rows a kv
+// head), 2 tiled_mma (bf16, head_dim 64, 128 or 256), 0 tiled
+int repro_flash_attention_route(int hq, int hkv, int lq, int dtype, int dh) {
+  return split_route(hq, hkv, lq) ? 1 : mma_route(dtype, dh) ? 2 : 0;
 }
 
 // keys of a split of the split-kv route at kv length lk
@@ -658,6 +993,13 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
     if (dtype == 0)
       return (int)launch_split_rows<float>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
     return (int)launch_split_rows<__nv_bfloat16>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+  }
+  if (mma_route(dtype, dh)) {
+    if (dh == 64)
+      return (int)launch_mma<64>(q, k, v, bias, out, b, hq, hkv, lq, lk, bias_heads, causal, scale, softcap, s);
+    if (dh == 128)
+      return (int)launch_mma<128>(q, k, v, bias, out, b, hq, hkv, lq, lk, bias_heads, causal, scale, softcap, s);
+    return (int)launch_mma<256>(q, k, v, bias, out, b, hq, hkv, lq, lk, bias_heads, causal, scale, softcap, s);
   }
   if (dtype == 0)
     return (int)launch_dh<float>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, s);

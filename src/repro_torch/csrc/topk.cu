@@ -30,34 +30,32 @@
 // query are merged through warp shuffles under the same (dist, g) order.
 // No (nq, p) matrix is written and no atomics are used.
 //
-// Any width (the bf16 and int8 instances, and f32 lists longer than 8):
-// up to d = 128 the query row sits in registers (D a template
-// bound). Above that a row of D floats would pass the 255-register limit of
-// a thread, so topk_chunked_kernel keeps nothing of width d in registers:
-// a tile of 64 keys and the block's 32 query rows are staged through shared
-// memory 64 features at a time, and each thread carries the cross terms of
-// its 8 keys of the tile (lane l: keys l, l+8, ..., l+56, ascending, so the
-// strict-< tie rule holds as above) and the key norms across the chunks.
-// Key and query types (the reference's fused_bf16 / fused_int8 shortlist):
-// the kernels are templated on the query type QT (f32 or bf16) and the key
-// type KT (f32, bf16, or int8 with per-feature scale and zero point); the
-// instances built are f32 x f32, bf16 x bf16 and f32 x int8. A
-// bf16 element is read at 2 bytes and an int8 one at 1 byte, and each is
-// widened to f32 in registers as it is staged into shared memory; no f32
-// copy of the key set exists. An int8 key dequantizes as q * scale + zero
-// with the multiply and the add rounded separately (__fmul_rn, __fadd_rn):
-// nvcc would otherwise contract them into one FMA, which rounds once and
-// gives other bits than the plain version's multiply-then-add. The register
-// instance stages the (d,) scale and zero once per block into shared
-// memory; the chunked instance reads them through the cache as it stages
-// each 64-feature chunk. Everything after the widening (distance, merge,
-// tie rule) is the f32 kernel's. The f32 instance covers every list length
-// K in {1, 2, 4, 8, 16, 32}; the bf16/int8 instances K in {1, 8, 32} (the
-// shortlist is k = 8; the first k of a top-K list are the top-k).
+// Any width (lists longer than 8, every key type): up to d = 128 the query
+// row sits in registers (D a template bound). Above that a row of D floats
+// would pass the 255-register limit of a thread, so topk_chunked_kernel
+// keeps nothing of width d in registers: a tile of 64 keys and the block's
+// 32 query rows are staged through shared memory 64 features at a time,
+// and each thread carries the cross terms of its 8 keys of the tile (lane
+// l: keys l, l+8, ..., l+56, ascending, so the strict-< tie rule holds as
+// above) and the key norms across the chunks.
+// Key types (the reference's fused_bf16 / fused_int8 shortlist): every
+// kernel is templated on the key type KT (f32, bf16, or int8 with
+// per-feature scale and zero point); queries are f32 (the wrapper widens
+// bf16 queries, which is exact). A bf16 key element is read at 2 bytes and
+// an int8 one at 1 byte, and each is widened to f32 in registers (key_at)
+// as it is staged; no f32 copy of the key set exists. An int8 key
+// dequantizes as q * scale + zero with the multiply and the add rounded
+// separately (__fmul_rn, __fadd_rn): nvcc would otherwise contract them
+// into one FMA, which rounds once and gives other bits than the plain
+// version's multiply-then-add. Everything after the widening (distance,
+// merge, tie rule) is the f32 kernel's, so each key type takes the same
+// routes: the tensor-core route (d <= 32, k <= 8), the CUDA-core split
+// route (d > 32, k <= 8) and, for k > 8, the kernels above (K in {16, 32};
+// the first k of a top-K list are the top-k).
 //
-// The tensor-core route (topk_tc_kernel; f32 queries and keys, d <= 32,
-// k <= 8: the fit's and the stream's TC, k = t - 1, the serve assign, k = 1,
-// and K2 at the fit's last levels). At d <= 32 the pair loop above reads a
+// The tensor-core route (topk_tc_kernel; d <= 32, k <= 8: the fit's and the
+// stream's TC, k = t - 1, the serve assign, k = 1, K2 at the fit's last
+// levels, and the bf16/int8 shortlist of the quantized assign, k = 8). At d <= 32 the pair loop above reads a
 // whole key row from shared memory for one query and so is held near the
 // shared-memory bandwidth (about 0.9e12 pairs/s on the card), far below
 // the f32 FMA rate. Here the tensor cores form the whole distance of a
@@ -89,13 +87,26 @@
 // invalid key (or one past the range) gets yn = 3e38, and a list starts
 // full of kTcEmpty = 1e38 distances, so it never enters (a valid pair whose
 // squared distance reaches 1e38 would overflow the f32 formula anyway).
+// bf16 and int8 keys are widened or dequantized by key_at as they are
+// loaded for the staging, and the merge's rescore reads them through the
+// same key_at, so the distances returned are those of the CUDA-core
+// kernel on the same keys (for bf16 the small part of -2 y is 0: a bf16
+// value is exact in TF32).
 // Each thread owns 2 query rows x 2 key columns of the accumulator per
 // tile and keeps a candidate list per row; the mma chains of 4 tiles are
-// issued together, then each row's pair minimum is compared once with the
-// least last entry of the row's 4 lists (a pair above it cannot be among
-// the row's K best), and only a pair at or below it reaches the own list;
-// keys arrive in ascending g, so the strict-< insert keeps the tie rule,
-// and the 4 lanes of a row merge by shuffles under the (dist, g) order.
+// issued together, then each pair is compared with a bound on its row's
+// K-th best from the row's 4 lists (quad_bound: the least last entry, or
+// the largest of the lanes' ceil(K / 4)-th entries when lower; a pair above
+// it cannot be among the row's K best), and only a pair at or below it is
+// offered to the own list. The lists set the pace at this width: the
+// inserts of 32 lanes come at random slots, and a warp runs an insert as
+// long as any lane has one, so each lane queues its offers of the 4 tiles
+// as bits and the warp takes one offer a row per pass, every lane in the
+// same pass (lists of 12, k > 4; the short lists offer slot by slot: with
+// few slots a pass costs more than the divergence it saves). Keys arrive in
+// ascending g, so the strict-< insert keeps the tie rule (insert_ascending:
+// no serial chain of swaps), and the 4 lanes of a row merge by shuffles
+// under (dist, g).
 // wgmma would be the full-rate route, but at d <= 32 the per-pair work on
 // the CUDA cores (the compares and the list) sets the pace, not the tensor
 // cores, so mma.sync serves. The key axis is split across blocks so that a
@@ -105,8 +116,9 @@
 // order, so the merged list does not depend on the split: no atomics, the
 // same answer for every split.
 //
-// The CUDA-core split route (topk_split_kernel; f32 queries and keys,
-// d > 32, k <= 8: K2 at the LM's compression, 2208 keys of d = 256, k = 1).
+// The CUDA-core split route (topk_split_kernel; d > 32, k <= 8: K2 at the
+// LM's compression, 2208 keys of d = 256, k = 1, and K1 of any key type at
+// that width).
 // What bounds it: the f32 FMAs of the cross term, nq * p * d (1.25e9 at
 // the compression, 37 us at 67 TFLOP/s); no tensor-core route, because the
 // distances must be the fma chain's bits. topk_chunked_kernel ran it at
@@ -135,13 +147,22 @@
 // shuffles under (dist, g), and each block writes its partial lists;
 // topk_split_merge_kernel merges the splits' lists under the same total
 // order, so the answer does not depend on the split. No atomics.
+// bf16 and int8 keys: cp.async copies raw bytes, so the key chunks are
+// copied as they are (2 or 1 bytes an element, double-buffered) into a
+// staging buffer, and one pass of the block widens or dequantizes the
+// chunk (key_at) into the single f32 key tile just before it is computed:
+// 32 conversions a thread against 2,048 FMAs, and the pair loop, the norms
+// and the distance tile stay the f32 kernel's (converting at every read
+// would repeat each dequantization for the 16 threads that read a key row).
 //
 // Build: REPRO_TOPK_KEYS selects the key type whose C entry point (and so
 // whose template instances) a build of this file holds: 0 f32, 1 bf16,
 // 2 int8. The three are compiled by three nvcc processes at once, which
 // splits the compile time of the instances.
 //
-// Later work: wgmma and TMA-fed key tiles for the bf16 and int8 instances.
+// Later work: wgmma (the tensor-core route issues mma.sync a warp at a
+// time) and TMA-fed key tiles; at d = 6 the 24-byte key rows (6 bytes for
+// int8) are not a layout a 2-D tensor map takes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,9 +219,9 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float dv,
   }
 }
 
-template <typename QT, typename KT, int K, int D>
+template <typename KT, int K, int D>
 __global__ void __launch_bounds__(kThreads)
-    topk_kernel(const QT* __restrict__ q, const KT* __restrict__ keys,
+    topk_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
                 const float* __restrict__ scale, const float* __restrict__ zero,
                 const unsigned char* __restrict__ valid,
                 const int* __restrict__ q_gidx, float* __restrict__ out_d,
@@ -224,7 +245,7 @@ __global__ void __launch_bounds__(kThreads)
   float xn = 0.f;
 #pragma unroll
   for (int f = 0; f < D; ++f) {
-    xq[f] = (active && f < d) ? widen(q[(size_t)qi * d + f]) : 0.f;
+    xq[f] = (active && f < d) ? q[(size_t)qi * d + f] : 0.f;
     xn = fmaf(xq[f], xq[f], xn);
   }
   const int self = (active && q_gidx != nullptr) ? q_gidx[qi] : -1;
@@ -308,9 +329,9 @@ constexpr int kChunk = 64;                  // features per stage
 constexpr int kCTile = 64;                  // keys per tile
 constexpr int kPerLane = kCTile / kLanes;   // keys of a tile per thread
 
-template <typename QT, typename KT, int K>
+template <typename KT, int K>
 __global__ void __launch_bounds__(kThreads)
-    topk_chunked_kernel(const QT* __restrict__ q,
+    topk_chunked_kernel(const float* __restrict__ q,
                         const KT* __restrict__ keys,
                         const float* __restrict__ scale,
                         const float* __restrict__ zero,
@@ -333,7 +354,7 @@ __global__ void __launch_bounds__(kThreads)
   float xn = 0.f;
   if (active) {
     for (int f = 0; f < d; ++f) {
-      const float v = widen(q[(size_t)qi * d + f]);
+      const float v = q[(size_t)qi * d + f];
       xn = fmaf(v, v, xn);
     }
   }
@@ -366,7 +387,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = tid; e < kQPB * kChunk; e += kThreads) {
         const int r = e / kChunk, f = e % kChunk;
         const int g = blockIdx.x * kQPB + r;
-        sq[r][f] = (g < nq && f < cw) ? widen(q[(size_t)g * d + c0 + f]) : 0.f;
+        sq[r][f] = (g < nq && f < cw) ? q[(size_t)g * d + c0 + f] : 0.f;
       }
       __syncthreads();
       if (tid < kCTile) {
@@ -424,11 +445,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// the tensor-core route's range (f32 queries and keys)
+// the tensor-core route's range
 constexpr int kTcMaxD = 32;
 constexpr int kTcMaxK = 8;
-
-#if !defined(REPRO_TOPK_KEYS) || REPRO_TOPK_KEYS == 0
 
 constexpr int kTcGroup = 4;                 // n8 tiles whose mma chains run together
 constexpr int kTcWarps = 8;                 // 16 queries a warp
@@ -479,10 +498,48 @@ int tc_keys_per_split(int p, int splits) {
   return (per + 255) / 256 * 256;  // whole staged tiles
 }
 
+// Place (dv, iv) into the sorted list of a lane whose keys arrive in
+// ascending index: the list holds only smaller indices, so (dv, iv) goes
+// after every entry with a distance <= dv, as insert's bubble would place
+// it. The K compares are independent, so the shift carries no serial chain
+// of compare-and-swaps (which held the pair loop's lists of 8 and 12).
+template <int K>
+__device__ __forceinline__ void insert_ascending(float (&bd)[K], int (&bi)[K], float dv,
+                                                 int iv) {
+  bool gt[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) gt[s] = bd[s] > dv;
+#pragma unroll
+  for (int s = K - 1; s > 0; --s) {
+    bd[s] = gt[s - 1] ? bd[s - 1] : gt[s] ? dv : bd[s];
+    bi[s] = gt[s - 1] ? bi[s - 1] : gt[s] ? iv : bi[s];
+  }
+  bd[0] = gt[0] ? dv : bd[0];
+  bi[0] = gt[0] ? iv : bi[0];
+}
+
 template <int K>
 __device__ __forceinline__ void tc_offer(float (&bd)[K], int (&bi)[K], float dist,
                                          int g, int self) {
-  if (dist < bd[K - 1] && g != self) insert<K>(bd, bi, dist, g);
+  if (dist < bd[K - 1] && g != self) insert_ascending<K>(bd, bi, dist, g);
+}
+
+// A bound on a row's K-th best distance from the 4 lists of its quad
+// (lanes 4 grp .. 4 grp + 3, each K entries sorted): the least last entry
+// (one lane holds K pairs at or below it), and the largest of the lanes'
+// ceil(K / 4)-th entries (the 4 lanes hold 4 ceil(K / 4) >= K pairs at or
+// below it). A pair above the bound cannot be among the row's K best
+// under (dist, g): the pairs the lists hold come from earlier key tiles,
+// so they have lower indices too.
+template <int K>
+__device__ __forceinline__ float quad_bound(const float (&bd)[K]) {
+  constexpr int kQ = (K + 3) / 4 - 1;
+  float last = bd[K - 1], quarter = bd[kQ];
+  last = fminf(last, __shfl_xor_sync(0xffffffffu, last, 1));
+  quarter = fmaxf(quarter, __shfl_xor_sync(0xffffffffu, quarter, 1));
+  last = fminf(last, __shfl_xor_sync(0xffffffffu, last, 2));
+  quarter = fmaxf(quarter, __shfl_xor_sync(0xffffffffu, quarter, 2));
+  return fminf(last, quarter);
 }
 
 // merge the lists of the 4 lanes of a quad (lanes 4g .. 4g + 3)
@@ -509,9 +566,10 @@ __device__ __forceinline__ void quad_merge(float (&bd)[K], int (&bi)[K]) {
 // mma k-steps). 3 blocks an SM (registers <= 80) for the short lists at
 // narrow d (the fit, the stream, the serve assign); 2 for the rest, which
 // need more registers.
-template <int K, int DP>
+template <typename KT, int K, int DP>
 __global__ void __launch_bounds__(kTcThreads, (K <= 4 && DP <= 16) ? 3 : 2)
-    topk_tc_kernel(const float* __restrict__ q, const float* __restrict__ keys,
+    topk_tc_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
+                   const float* __restrict__ scale, const float* __restrict__ zero,
                    const unsigned char* __restrict__ valid,
                    const int* __restrict__ q_gidx, float* __restrict__ part_d,
                    int* __restrict__ part_i, int nq, int p, int d,
@@ -570,13 +628,13 @@ __global__ void __launch_bounds__(kTcThreads, (K <= 4 && DP <= 16) ? 3 : 2)
   }
 
   // staging: thread tid holds columns [sf, sf + kPart) of key row
-  // tid / kTpr of the tile
+  // tid / kTpr of the tile, widened or dequantized as they are loaded
   const int srow = tid / kTpr, spart = tid % kTpr, sf = spart * kPart;
   float pre[kPart];
 #pragma unroll
   for (int i = 0; i < kPart; ++i) {
     const int g = kbeg + srow, f = sf + i;
-    pre[i] = (g < kend && f < d) ? keys[(size_t)g * d + f] : 0.f;
+    pre[i] = (g < kend && f < d) ? key_at<KT>(keys, (size_t)g * d + f, f, scale, zero) : 0.f;
   }
   for (int base = kbeg; base < kend; base += kKeys) {
     // yn of the staged row: one fmaf chain over its features in order,
@@ -610,19 +668,14 @@ __global__ void __launch_bounds__(kTcThreads, (K <= 4 && DP <= 16) ? 3 : 2)
 #pragma unroll
     for (int i = 0; i < kPart; ++i) {
       const int g = base + kKeys + srow, f = sf + i;
-      pre[i] = (g < kend && f < d) ? keys[(size_t)g * d + f] : 0.f;
+      pre[i] = (g < kend && f < d) ? key_at<KT>(keys, (size_t)g * d + f, f, scale, zero) : 0.f;
     }
 
 #pragma unroll 1
     for (int j0 = 0; j0 < kKeys / 8; j0 += kTcGroup) {
-      // a row's threshold: the least last entry of its quad's 4 lists. A
-      // pair above it cannot be among the row's K best (that lane holds K
-      // better), so only pairs at or below it are offered to the own list
-      float t0 = bd0[K - 1], t1 = bd1[K - 1];
-      t0 = fminf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
-      t1 = fminf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
-      t0 = fminf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
-      t1 = fminf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
+      // a row's threshold (quad_bound): only pairs at or below it are
+      // offered to the own list
+      const float t0 = quad_bound<K>(bd0), t1 = quad_bound<K>(bd1);
       // kTcGroup independent mma chains, then their compares
       float c[kTcGroup][4];
 #pragma unroll
@@ -642,17 +695,57 @@ __global__ void __launch_bounds__(kTcThreads, (K <= 4 && DP <= 16) ? 3 : 2)
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) mma_tf32(c[jj], ab[ks], bb[ks][0], bb[ks][1]);  // big . big'
       }
+      // c[jj][0], [1]: row r0, columns 2 tig, 2 tig + 1 of tile j0 + jj;
+      // [2], [3]: row r1
+      if constexpr (K <= 8) {
+        // short lists: each slot's pairs offered in turn
 #pragma unroll
-      for (int jj = 0; jj < kTcGroup; ++jj) {
-        // c[0], c[1]: row r0, columns 2 tig, 2 tig + 1; c[2], c[3]: row r1
-        const int g0 = base + (j0 + jj) * 8 + 2 * tig, g1 = g0 + 1;
-        if (fminf(c[jj][0], c[jj][1]) <= t0) {
-          tc_offer<K>(bd0, bi0, c[jj][0], g0, self0);
-          tc_offer<K>(bd0, bi0, c[jj][1], g1, self0);
+        for (int jj = 0; jj < kTcGroup; ++jj) {
+          const int g0 = base + (j0 + jj) * 8 + 2 * tig, g1 = g0 + 1;
+          if (fminf(c[jj][0], c[jj][1]) <= t0) {
+            tc_offer<K>(bd0, bi0, c[jj][0], g0, self0);
+            tc_offer<K>(bd0, bi0, c[jj][1], g1, self0);
+          }
+          if (fminf(c[jj][2], c[jj][3]) <= t1) {
+            tc_offer<K>(bd1, bi1, c[jj][2], g0, self1);
+            tc_offer<K>(bd1, bi1, c[jj][3], g1, self1);
+          }
         }
-        if (fminf(c[jj][2], c[jj][3]) <= t1) {
-          tc_offer<K>(bd1, bi1, c[jj][2], g0, self1);
-          tc_offer<K>(bd1, bi1, c[jj][3], g1, self1);
+      } else {
+        // long lists: the pairs each row offers (at or below its bound, not
+        // the query itself) as bits 2 jj + column, so ascending bits are
+        // ascending key indices; then one offer a row per pass, every lane in
+        // the same pass (offered one slot at a time, the insert ran whenever
+        // any of the warp's 32 lanes had a pair in that slot)
+        unsigned pend0 = 0, pend1 = 0;
+#pragma unroll
+        for (int jj = 0; jj < kTcGroup; ++jj) {
+          const int g0 = base + (j0 + jj) * 8 + 2 * tig;
+#pragma unroll
+          for (int col = 0; col < 2; ++col) {
+            if (c[jj][col] <= t0 && g0 + col != self0) pend0 |= 1u << (2 * jj + col);
+            if (c[jj][2 + col] <= t1 && g0 + col != self1) pend1 |= 1u << (2 * jj + col);
+          }
+        }
+        while (__any_sync(0xffffffffu, (pend0 | pend1) != 0)) {
+          if (pend0 != 0) {
+            const int b = __ffs(pend0) - 1;
+            pend0 &= pend0 - 1;
+            float dv = c[0][0];
+#pragma unroll
+            for (int t = 1; t < 2 * kTcGroup; ++t) dv = b == t ? c[t >> 1][t & 1] : dv;
+            if (dv < bd0[K - 1])
+              insert_ascending<K>(bd0, bi0, dv, base + (j0 + (b >> 1)) * 8 + 2 * tig + (b & 1));
+          }
+          if (pend1 != 0) {
+            const int b = __ffs(pend1) - 1;
+            pend1 &= pend1 - 1;
+            float dv = c[0][2];
+#pragma unroll
+            for (int t = 1; t < 2 * kTcGroup; ++t) dv = b == t ? c[t >> 1][2 + (t & 1)] : dv;
+            if (dv < bd1[K - 1])
+              insert_ascending<K>(bd1, bi1, dv, base + (j0 + (b >> 1)) * 8 + 2 * tig + (b & 1));
+          }
         }
       }
     }
@@ -675,11 +768,6 @@ __global__ void __launch_bounds__(kTcThreads, (K <= 4 && DP <= 16) ? 3 : 2)
   }
 }
 
-// Per query: merge the splits' candidate lists (3xTF32 distances) into its
-// K best, rescore those in the CUDA-core kernel's arithmetic (xn, yn and
-// the cross term as fmaf chains over the features in order, then
-// fmaxf(xn + yn - 2 cross, 0)) and keep the k best under (dist, g). So the
-// distances returned are the CUDA-core kernel's bits.
 // the K best of query qi's partial lists (splits of K each), under (dist, g)
 template <int K>
 __device__ __forceinline__ void merge_parts(const float* __restrict__ part_d,
@@ -702,9 +790,17 @@ __device__ __forceinline__ void merge_parts(const float* __restrict__ part_d,
   }
 }
 
-template <int K, int DP>
+// Per query: merge the splits' candidate lists (3xTF32 distances) into its
+// K best, rescore those in the CUDA-core kernel's arithmetic (xn, yn and
+// the cross term as fmaf chains over the features in order, then
+// fmaxf(xn + yn - 2 cross, 0), the keys read through key_at) and keep the
+// k best under (dist, g). So the distances returned are the CUDA-core
+// kernel's bits.
+template <typename KT, int K, int DP>
 __global__ void topk_merge_kernel(const float* __restrict__ q,
-                                  const float* __restrict__ keys,
+                                  const KT* __restrict__ keys,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ zero,
                                   const float* __restrict__ part_d,
                                   const int* __restrict__ part_i, int splits,
                                   float* __restrict__ out_d,
@@ -736,7 +832,7 @@ __global__ void topk_merge_kernel(const float* __restrict__ q,
     float yn = 0.f, cross = 0.f;
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
-      const float y = f < d ? keys[(size_t)g * d + f] : 0.f;
+      const float y = f < d ? key_at<KT>(keys, (size_t)g * d + f, f, scale, zero) : 0.f;
       yn = fmaf(y, y, yn);
       cross = fmaf(xq[f], y, cross);
     }
@@ -759,32 +855,37 @@ long long tc_scratch_bytes(int nq, int p, int d, int k) {
   return (long long)nq * tc_splits(nq, p) * tc_list_len(k) * 8;
 }
 
-template <int K, int DP>
-cudaError_t launch_tc(const float* q, const float* keys, const unsigned char* valid,
-                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
-                      int d, int k, void* scratch, cudaStream_t stream) {
+#define REPRO_ROUTE_ARGS \
+  q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, stream
+#define REPRO_ROUTE_PARAMS                                                         \
+  const float *q, const KT *keys, const float *scale, const float *zero,           \
+      const unsigned char *valid, const int *q_gidx, float *out_d, int *out_i,     \
+      int nq, int p, int d, int k, void *scratch, cudaStream_t stream
+
+template <typename KT, int K, int DP>
+cudaError_t launch_tc(REPRO_ROUTE_PARAMS) {
   const int splits = tc_splits(nq, p);
   const int per = tc_keys_per_split(p, splits);
   float* part_d = static_cast<float*>(scratch);
   int* part_i = reinterpret_cast<int*>(part_d + (size_t)nq * splits * K);
   const dim3 grid((nq + kTcQ - 1) / kTcQ, splits);
-  topk_tc_kernel<K, DP><<<grid, kTcThreads, 0, stream>>>(
-      q, keys, valid, q_gidx, part_d, part_i, nq, p, d, per, splits);
+  topk_tc_kernel<KT, K, DP><<<grid, kTcThreads, 0, stream>>>(
+      q, keys, scale, zero, valid, q_gidx, part_d, part_i, nq, p, d, per, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  topk_merge_kernel<K, DP><<<(nq + 127) / 128, 128, 0, stream>>>(
-      q, keys, part_d, part_i, splits, out_d, out_i, nq, d, k);
+  // a thread per query; blocks of 64 spread a serve-sized launch (5,000
+  // queries) over most SMs
+  topk_merge_kernel<KT, K, DP><<<(nq + 63) / 64, 64, 0, stream>>>(
+      q, keys, scale, zero, part_d, part_i, splits, out_d, out_i, nq, d, k);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_tc_k(const float* q, const float* keys, const unsigned char* valid,
-                        const int* q_gidx, float* out_d, int* out_i, int nq, int p,
-                        int d, int k, void* scratch, cudaStream_t stream) {
+template <typename KT, int DP>
+cudaError_t launch_tc_k(REPRO_ROUTE_PARAMS) {
   switch (tc_list_len(k)) {
-    case 4: return launch_tc<4, DP>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, stream);
-    case 8: return launch_tc<8, DP>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, stream);
-    default: return launch_tc<12, DP>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, stream);
+    case 4: return launch_tc<KT, 4, DP>(REPRO_ROUTE_ARGS);
+    case 8: return launch_tc<KT, 8, DP>(REPRO_ROUTE_ARGS);
+    default: return launch_tc<KT, 12, DP>(REPRO_ROUTE_ARGS);
   }
 }
 
@@ -798,10 +899,23 @@ constexpr int kSpStride = kSpF + 4;          // floats a staged row
 constexpr int kSpDStride = kSpKeys + 4;      // floats a row of the distance tile
 constexpr int kSpLanes = 4;                  // threads that scan a query's row
 constexpr int kSpBlocksWanted = 132 * 2;     // one wave of two blocks an SM
-constexpr size_t kSpSmem =
-    sizeof(float) * (2 * kSpQ * kSpStride + 2 * kSpKeys * kSpStride + kSpKeys + kSpQ);
-static_assert(kSpQ * kSpDStride <= 2 * kSpKeys * kSpStride,
-              "the distance tile fits the key buffers");
+
+// Shared memory of a split block, in floats: the query chunks [2][kSpQ]
+// [kSpStride], then a region that holds the f32 key tiles (f32 keys: two,
+// double-buffered; bf16 and int8 keys: one, then the raw chunks [2]
+// [kSpKeys][kSpF] of KT) and, between passes, the distance tile [kSpQ]
+// [kSpDStride]; then the key and query norms.
+template <typename KT>
+struct SpSmem {
+  static constexpr bool kRaw = !std::is_same<KT, float>::value;
+  static constexpr size_t kQ = 2 * kSpQ * kSpStride;
+  static constexpr size_t kKeyTiles = (kRaw ? 1 : 2) * (size_t)kSpKeys * kSpStride;
+  static constexpr size_t kRawFloats = kRaw ? 2 * kSpKeys * kSpF * sizeof(KT) / 4 : 0;
+  static constexpr size_t kDist = (size_t)kSpQ * kSpDStride;
+  static constexpr size_t kRegion =
+      kKeyTiles + kRawFloats > kDist ? kKeyTiles + kRawFloats : kDist;
+  static constexpr size_t kBytes = sizeof(float) * (kQ + kRegion + kSpKeys + kSpQ);
+};
 
 bool sp_route(int d, int k) { return d > kTcMaxD && k >= 1 && k <= kTcMaxK; }
 
@@ -865,19 +979,65 @@ __device__ __forceinline__ void sp_stage(float* dst, const float* src, int rows,
   }
 }
 
+// Copy the raw elements [c0, c0 + kSpF) of rows [g0, g0 + rows) of src (n
+// rows of d elements of KT) into dst ([rows][kSpF]); rows past g_end and
+// elements past d are left as they are or zero-filled (the conversion
+// writes 0 there). ``vec``: d * sizeof(KT) % 16 == 0 and src 16-byte
+// aligned, so 16-byte cp.async copies; else the elements are loaded and
+// stored one by one.
+template <typename KT>
+__device__ __forceinline__ void sp_stage_raw(KT* dst, const KT* src, int rows, int g0,
+                                             int g_end, int c0, int d, bool vec) {
+  constexpr int kPer = 16 / (int)sizeof(KT);  // elements a 16-byte copy
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (kSpF / kPer); e += kThreads) {
+      const int r = e / (kSpF / kPer), f = kPer * (e % (kSpF / kPer));
+      const int g = g0 + r;
+      const bool ok = g < g_end && c0 + f < d;
+      const unsigned a = (unsigned)__cvta_generic_to_shared(dst + r * kSpF + f);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+                   "l"(ok ? src + (size_t)g * d + c0 + f : src), "r"(ok ? 16 : 0));
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * kSpF; e += kThreads) {
+      const int r = e / kSpF, f = e % kSpF;
+      const int g = g0 + r;
+      if (g < g_end && c0 + f < d) dst[r * kSpF + f] = src[(size_t)g * d + c0 + f];
+    }
+  }
+}
+
+// Widen or dequantize a raw chunk (rows [0, rows), features [c0, c0 +
+// kSpF)) into the f32 key tile; rows past ``rows`` and features past d
+// become 0, as the f32 staging zero-fills them.
+template <typename KT>
+__device__ __forceinline__ void sp_convert(float* dst, const KT* raw, int rows, int c0,
+                                           int d, const float* scale, const float* zero) {
+  for (int e = threadIdx.x; e < kSpKeys * kSpF; e += kThreads) {
+    const int r = e / kSpF, f = e % kSpF;
+    dst[r * kSpStride + f] = (r < rows && c0 + f < d)
+                                 ? key_at<KT>(raw, (size_t)r * kSpF + f, c0 + f, scale, zero)
+                                 : 0.f;
+  }
+}
+
 // One block per (64-query tile, key range): the K best keys of the range
 // for each query, under (dist, g), to part_d / part_i [nq][splits][K].
-template <int K>
+// ``vec``: the queries take 16-byte copies; ``kvec``: the keys do.
+template <typename KT, int K>
 __global__ void __launch_bounds__(kThreads, 2)
-    topk_split_kernel(const float* __restrict__ q, const float* __restrict__ keys,
+    topk_split_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
+                      const float* __restrict__ scale, const float* __restrict__ zero,
                       const unsigned char* __restrict__ valid,
                       const int* __restrict__ q_gidx, float* __restrict__ part_d,
                       int* __restrict__ part_i, int nq, int p, int d,
-                      int keys_per_split, int splits, int vec) {
+                      int keys_per_split, int splits, int vec, int kvec) {
+  using L = SpSmem<KT>;
   extern __shared__ __align__(16) float sp_smem[];
   float* sQ = sp_smem;                       // [2][kSpQ][kSpStride]
-  float* sK = sQ + 2 * kSpQ * kSpStride;     // [2][kSpKeys][kSpStride]
-  float* sYn = sK + 2 * kSpKeys * kSpStride; // [kSpKeys]
+  float* sK = sQ + L::kQ;                    // f32 key tile(s) [kSpKeys][kSpStride]
+  KT* sRaw = reinterpret_cast<KT*>(sK + L::kKeyTiles);  // [2][kSpKeys][kSpF]
+  float* sYn = sK + L::kRegion;              // [kSpKeys]
   float* sXn = sYn + kSpKeys;                // [kSpQ]
   float* sD = sK;                            // [kSpQ][kSpDStride] between passes
 
@@ -888,7 +1048,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int kbeg = split * keys_per_split;
   const int kend = min(p, kbeg + keys_per_split);
   const int nchunks = (d + kSpF - 1) / kSpF;
-  const bool v16 = vec != 0;
+  const bool v16 = vec != 0, k16 = kvec != 0;
 
   // the scan: thread tid offers keys l, l + 4, ... of query q0 + tid / 4
   const int sq = tid / kSpLanes, sl = tid % kSpLanes;
@@ -916,8 +1076,18 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
     float yn = 0.f;  // the norm of key base + tid
 
+    // the key chunk c: f32 keys straight into the tile buffer c & 1,
+    // other types raw into the staging buffer c & 1
+    auto stage_keys = [&](int c) {
+      if constexpr (L::kRaw)
+        sp_stage_raw<KT>(sRaw + (c & 1) * kSpKeys * kSpF, keys, ntiles * 64, base,
+                         base + nk, c * kSpF, d, k16);
+      else
+        sp_stage(sK + (c & 1) * kSpKeys * kSpStride, keys, ntiles * 64, base, base + nk,
+                 c * kSpF, d, k16);
+    };
     sp_stage(sQ, q, kSpQ, q0, nq, 0, d, v16);
-    sp_stage(sK, keys, ntiles * 64, base, base + nk, 0, d, v16);
+    stage_keys(0);
     cp_async_commit();
     for (int c = 0; c < nchunks; ++c) {
       const int buf = c & 1;
@@ -925,8 +1095,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         // the other buffer was last read before the previous iteration's
         // closing barrier
         sp_stage(sQ + (buf ^ 1) * kSpQ * kSpStride, q, kSpQ, q0, nq, (c + 1) * kSpF, d, v16);
-        sp_stage(sK + (buf ^ 1) * kSpKeys * kSpStride, keys, ntiles * 64, base, base + nk,
-                 (c + 1) * kSpF, d, v16);
+        stage_keys(c + 1);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -934,7 +1103,15 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       __syncthreads();
       const float* cq = sQ + buf * kSpQ * kSpStride;
-      const float* ck = sK + buf * kSpKeys * kSpStride;
+      const float* ck = sK;
+      if constexpr (L::kRaw) {
+        // the single f32 tile was last read before the previous closing
+        // barrier
+        sp_convert<KT>(sK, sRaw + buf * kSpKeys * kSpF, nk, c * kSpF, d, scale, zero);
+        __syncthreads();
+      } else {
+        ck = sK + buf * kSpKeys * kSpStride;
+      }
       // norms: fmaf chains in ascending feature order
       if (tid < ntiles * 64) {
         const float4* row = reinterpret_cast<const float4*>(ck + tid * kSpStride);
@@ -1056,22 +1233,22 @@ long long sp_scratch_bytes(int nq, int p, int d, int k) {
   return (long long)nq * sp_splits(nq, p) * sp_list_len(k) * 8;
 }
 
-template <int K>
-cudaError_t launch_sp(const float* q, const float* keys, const unsigned char* valid,
-                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
-                      int d, int k, void* scratch, cudaStream_t stream) {
+template <typename KT, int K>
+cudaError_t launch_sp(REPRO_ROUTE_PARAMS) {
   const int splits = sp_splits(nq, p);
   const int per = sp_keys_per_split(p, splits);
   float* part_d = static_cast<float*>(scratch);
   int* part_i = reinterpret_cast<int*>(part_d + (size_t)nq * splits * K);
-  const bool vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(keys) % 16 == 0);
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const bool kvec = (d * sizeof(KT)) % 16 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0;
+  constexpr size_t smem = SpSmem<KT>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_split_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSpSmem);
+      topk_split_kernel<KT, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + kSpQ - 1) / kSpQ, splits);
-  topk_split_kernel<K><<<grid, kThreads, kSpSmem, stream>>>(
-      q, keys, valid, q_gidx, part_d, part_i, nq, p, d, per, splits, vec ? 1 : 0);
+  topk_split_kernel<KT, K><<<grid, kThreads, smem, stream>>>(
+      q, keys, scale, zero, valid, q_gidx, part_d, part_i, nq, p, d, per, splits,
+      vec ? 1 : 0, kvec ? 1 : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   topk_split_merge_kernel<K><<<(nq + 127) / 128, 128, 0, stream>>>(
@@ -1079,59 +1256,79 @@ cudaError_t launch_sp(const float* q, const float* keys, const unsigned char* va
   return cudaGetLastError();
 }
 
-#endif  // REPRO_TOPK_KEYS == 0
 
 // D == 0 selects the chunked kernel (any d)
-template <typename QT, typename KT, int K, int D>
-cudaError_t launch(const QT* q, const KT* keys, const float* scale,
+template <typename KT, int K, int D>
+cudaError_t launch(const float* q, const KT* keys, const float* scale,
                    const float* zero, const unsigned char* valid,
                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                    int d, int k, cudaStream_t stream) {
   const int blocks = (nq + kQPB - 1) / kQPB;
   if constexpr (D == 0)
-    topk_chunked_kernel<QT, KT, K><<<blocks, kThreads, 0, stream>>>(
+    topk_chunked_kernel<KT, K><<<blocks, kThreads, 0, stream>>>(
         q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq, p, d, k);
   else
-    topk_kernel<QT, KT, K, D><<<blocks, kThreads, 0, stream>>>(
+    topk_kernel<KT, K, D><<<blocks, kThreads, 0, stream>>>(
         q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq, p, d, k);
   return cudaGetLastError();
 }
 
 #define REPRO_TOPK_ARGS q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq, p, d, k, stream
 
-template <typename QT, typename KT, int D>
-cudaError_t launch_k(const QT* q, const KT* keys, const float* scale,
+template <typename KT, int D>
+cudaError_t launch_k(const float* q, const KT* keys, const float* scale,
                      const float* zero, const unsigned char* valid,
                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                      int d, int k, cudaStream_t stream) {
   // the first k of a top-K list (K >= k) are the top-k under the same order
-  if constexpr (std::is_same<QT, float>::value && std::is_same<KT, float>::value) {
-    // k <= 8 takes the tensor-core route (d <= 32) or the split route
-    if (k <= 16) return launch<QT, KT, 16, D>(REPRO_TOPK_ARGS);
-  } else {
-    if (k <= 1) return launch<QT, KT, 1, D>(REPRO_TOPK_ARGS);
-    if (k <= 8) return launch<QT, KT, 8, D>(REPRO_TOPK_ARGS);
-  }
-  return launch<QT, KT, 32, D>(REPRO_TOPK_ARGS);
+  if (k <= 16) return launch<KT, 16, D>(REPRO_TOPK_ARGS);
+  return launch<KT, 32, D>(REPRO_TOPK_ARGS);
 }
 
-template <typename QT, typename KT>
-cudaError_t launch_d(const QT* q, const KT* keys, const float* scale,
+// the CUDA-core kernels: lists longer than kTcMaxK (k <= 8 takes the
+// tensor-core route at d <= 32 and the split route above)
+template <typename KT>
+cudaError_t launch_d(const float* q, const KT* keys, const float* scale,
                      const float* zero, const unsigned char* valid,
                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                      int d, int k, cudaStream_t stream) {
-  if (nq < 0 || p < 0 || d < 1 || k < 1 || k > 32) return cudaErrorInvalidValue;
+  if (nq < 0 || p < 0 || d < 1 || k <= kTcMaxK || k > 32) return cudaErrorInvalidValue;
   if (nq == 0) return cudaSuccess;
-  if constexpr (std::is_same<QT, float>::value && std::is_same<KT, float>::value) {
-    // the tensor-core and split routes, which the f32 entry point launches
-    if (k <= kTcMaxK) return cudaErrorInvalidValue;
-  }
-  if (d <= 4) return launch_k<QT, KT, 4>(REPRO_TOPK_ARGS);
-  if (d <= 8) return launch_k<QT, KT, 8>(REPRO_TOPK_ARGS);
-  if (d <= 32) return launch_k<QT, KT, 32>(REPRO_TOPK_ARGS);
-  if (d <= 128) return launch_k<QT, KT, 128>(REPRO_TOPK_ARGS);
-  return launch_k<QT, KT, 0>(REPRO_TOPK_ARGS);
+  if (d <= 4) return launch_k<KT, 4>(REPRO_TOPK_ARGS);
+  if (d <= 8) return launch_k<KT, 8>(REPRO_TOPK_ARGS);
+  if (d <= 32) return launch_k<KT, 32>(REPRO_TOPK_ARGS);
+  if (d <= 128) return launch_k<KT, 128>(REPRO_TOPK_ARGS);
+  return launch_k<KT, 0>(REPRO_TOPK_ARGS);
 }
+
+// Every route of one key type: the tensor-core route (d <= 32, k <= 8), the
+// split route (d > 32, k <= 8), the CUDA-core kernels (k > 8).
+template <typename KT>
+cudaError_t launch_route(REPRO_ROUTE_PARAMS) {
+  if (nq > 0 && tc_route(d, k)) {
+    if (p < 0 || scratch == nullptr) return cudaErrorInvalidValue;
+    switch (tc_width(d)) {
+      case 8: return launch_tc_k<KT, 8>(REPRO_ROUTE_ARGS);
+      case 16: return launch_tc_k<KT, 16>(REPRO_ROUTE_ARGS);
+      case 32: return launch_tc_k<KT, 32>(REPRO_ROUTE_ARGS);
+      default: return launch_tc_k<KT, 40>(REPRO_ROUTE_ARGS);
+    }
+  }
+  if (nq > 0 && sp_route(d, k)) {
+    if (p < 0 || scratch == nullptr) return cudaErrorInvalidValue;
+    switch (sp_list_len(k)) {
+      case 1: return launch_sp<KT, 1>(REPRO_ROUTE_ARGS);
+      case 2: return launch_sp<KT, 2>(REPRO_ROUTE_ARGS);
+      case 4: return launch_sp<KT, 4>(REPRO_ROUTE_ARGS);
+      default: return launch_sp<KT, 8>(REPRO_ROUTE_ARGS);
+    }
+  }
+  return launch_d<KT>(q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq, p, d, k,
+                      stream);
+}
+
+#undef REPRO_ROUTE_PARAMS
+#undef REPRO_ROUTE_ARGS
 
 #undef REPRO_TOPK_ARGS
 
@@ -1145,59 +1342,41 @@ extern "C" {
 
 int repro_topk_max_k() { return 32; }
 
-#if REPRO_TOPK_KEYS == 0
-
-// the route of (d, k): 1 the tensor-core route (3xTF32 cross term), 2 the
-// CUDA-core split route, 0 the CUDA-core kernels
+// the route of (d, k), the same for every key type: 1 the tensor-core
+// route (3xTF32 cross term), 2 the CUDA-core split route, 0 the CUDA-core
+// kernels
 int repro_topk_route(int d, int k) { return tc_route(d, k) ? 1 : sp_route(d, k) ? 2 : 0; }
 
 // key axis splits of the CUDA-core split route for nq queries and p keys
 int repro_topk_split_count(int nq, int p) { return sp_splits(nq, p); }
 
-// bytes of scratch repro_topk_f32 needs (the TC and split routes' partial
-// lists)
+// bytes of scratch this build's entry point needs (the TC and split
+// routes' partial lists; 0 on the CUDA-core kernels)
 long long repro_topk_scratch_bytes(int nq, int p, int d, int k) {
   return tc_route(d, k) ? tc_scratch_bytes(nq, p, d, k) : sp_scratch_bytes(nq, p, d, k);
 }
 
+#if REPRO_TOPK_KEYS == 0
 // q (nq, d) f32, keys (p, d) f32, valid (p,) u8 or null, q_gidx (nq,) i32 or
 // null, scratch of repro_topk_scratch_bytes -> out_d (nq, k) f32, out_i
 // (nq, k) i32. Returns a cudaError_t.
 int repro_topk_f32(const float* q, const float* keys, const unsigned char* valid,
                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                    int d, int k, void* scratch, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nq > 0 && tc_route(d, k)) {
-    if (p < 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
-    switch (tc_width(d)) {
-      case 8: return (int)launch_tc_k<8>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
-      case 16: return (int)launch_tc_k<16>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
-      case 32: return (int)launch_tc_k<32>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
-      default: return (int)launch_tc_k<40>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
-    }
-  }
-  if (nq > 0 && sp_route(d, k)) {
-    if (p < 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
-    switch (sp_list_len(k)) {
-      case 1: return (int)launch_sp<1>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
-      case 2: return (int)launch_sp<2>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
-      case 4: return (int)launch_sp<4>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
-      default: return (int)launch_sp<8>(q, keys, valid, q_gidx, out_d, out_i, nq, p, d, k, scratch, st);
-    }
-  }
-  return (int)launch_d<float, float>(q, keys, nullptr, nullptr, valid, q_gidx,
-                                     out_d, out_i, nq, p, d, k, st);
+  return (int)launch_route<float>(q, keys, nullptr, nullptr, valid, q_gidx, out_d, out_i,
+                                  nq, p, d, k, scratch, static_cast<cudaStream_t>(stream));
 }
 #endif
 
 #if REPRO_TOPK_KEYS == 1
-// q (nq, d) bf16, keys (p, d) bf16. As above.
-int repro_topk_bf16(const __nv_bfloat16* q, const __nv_bfloat16* keys,
+// q (nq, d) f32 (bf16 queries widened), keys (p, d) bf16. As above.
+int repro_topk_bf16(const float* q, const __nv_bfloat16* keys,
                     const unsigned char* valid, const int* q_gidx, float* out_d,
-                    int* out_i, int nq, int p, int d, int k, void* stream) {
-  return (int)launch_d<__nv_bfloat16, __nv_bfloat16>(
-      q, keys, nullptr, nullptr, valid, q_gidx, out_d, out_i, nq, p, d, k,
-      static_cast<cudaStream_t>(stream));
+                    int* out_i, int nq, int p, int d, int k, void* scratch,
+                    void* stream) {
+  return (int)launch_route<__nv_bfloat16>(q, keys, nullptr, nullptr, valid, q_gidx, out_d,
+                                          out_i, nq, p, d, k, scratch,
+                                          static_cast<cudaStream_t>(stream));
 }
 #endif
 
@@ -1207,11 +1386,10 @@ int repro_topk_bf16(const __nv_bfloat16* q, const __nv_bfloat16* keys,
 int repro_topk_int8(const float* q, const int8_t* keys, const float* scale,
                     const float* zero, const unsigned char* valid,
                     const int* q_gidx, float* out_d, int* out_i, int nq, int p,
-                    int d, int k, void* stream) {
+                    int d, int k, void* scratch, void* stream) {
   if (scale == nullptr || zero == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch_d<float, int8_t>(q, keys, scale, zero, valid, q_gidx, out_d,
-                                      out_i, nq, p, d, k,
-                                      static_cast<cudaStream_t>(stream));
+  return (int)launch_route<int8_t>(q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq,
+                                   p, d, k, scratch, static_cast<cudaStream_t>(stream));
 }
 #endif
 

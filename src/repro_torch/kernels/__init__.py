@@ -4,8 +4,10 @@ Each kernel wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches`` (K1 counts its bf16 and int8 key instances apart,
 in ``.launches_bf16`` and ``.launches_int8``; K5 counts every launch and,
 apart, those of its split-kv decode route in ``.launches_decode``);
-:func:`launch_counts` reads them all and :func:`reset_launch_counts`
-zeroes them, so a run can show which kernels the main path went through.
+:func:`launch_counts` reads them all, :func:`route_counts` the launches
+of K1 and K5 per route (K5's tensor-core prefill route is "K5/tiled_mma"
+there), and :func:`reset_launch_counts` zeroes them all,
+so a run can show which kernels the main path went through.
 """
 from __future__ import annotations
 
@@ -29,11 +31,25 @@ COUNTERS = {
     "K5-decode": (_flash_attention.flash_attention, "launches_decode"),
 }
 
+#: wrappers that count their launches per route in ``.route_launches``
+_ROUTED = {"K1": _fused_assign.fused_topk, "K5": _flash_attention.flash_attention}
+
 
 def launch_counts() -> Dict[str, int]:
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
+def route_counts() -> Dict[str, int]:
+    """Launches per route: "K1-int8/tc3xtf32", "K5/tiled_mma", ..."""
+    out = {}
+    for kid, fn in _ROUTED.items():
+        for key, n in fn.route_launches.items():
+            out[key if "/" in key else f"{kid}/{key}"] = n
+    return dict(sorted(out.items()))
+
+
 def reset_launch_counts() -> None:
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    for fn in _ROUTED.values():
+        fn.route_launches = {}

@@ -10,8 +10,9 @@ of one function:
     ``csrc/flash_attention.cu``. It takes grouped-query heads as they are
     (kv head ``h // (hq / hkv)``), so k and v are never repeated. A call
     with few query rows per kv head (every decode step) takes the split-kv
-    route, the rest the tiled kernel (:func:`route`). For a CPU tensor it
-    runs :func:`flash_attention_plain`.
+    route, a bf16 call at head_dim 64/128/256 (every prefill of the LM) the
+    tensor-core tiled route, the rest the tiled kernel (:func:`route`).
+    For a CPU tensor it runs :func:`flash_attention_plain`.
   * :func:`flash_attention_plain` — repeats the kv heads, as the
     reference's ``ops.flash_attention`` does, and runs the dense softmax
     of :func:`repro_torch.kernels.ref.flash_attention`.
@@ -32,12 +33,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_MAX_ROWS, SPLIT_MIN_KEYS, SPLIT_MAX_SPLITS = 8, 64, 32
 
 
-def route(hq: int, hkv: int, lq: int) -> str:
+#: head_dims of the tensor-core tiled route (bf16 q, k and v)
+MMA_HEAD_DIMS = (64, 128, 256)
+
+
+def route(hq: int, hkv: int, lq: int, dtype: torch.dtype = torch.float32,
+          dh: int = 0) -> str:
     """Which kernel of ``csrc/flash_attention.cu`` a call takes: "split_kv"
     (the key axis split across blocks, then a combine kernel) when the
     hq / hkv query heads of a kv head times lq rows fit SPLIT_MAX_ROWS —
-    every decode step — else "tiled" (one block per 64 packed rows)."""
-    return "split_kv" if (hq // hkv) * lq <= SPLIT_MAX_ROWS else "tiled"
+    every decode step; else "tiled_mma" (128 packed rows a block, bf16
+    ``mma.sync`` for q·k and for p·v with p split into two bf16) for bf16
+    at a head_dim of MMA_HEAD_DIMS — every prefill of the LM; else "tiled"
+    (64 packed rows a block, f32 on the CUDA cores)."""
+    if (hq // hkv) * lq <= SPLIT_MAX_ROWS:
+        return "split_kv"
+    if dtype == torch.bfloat16 and dh in MMA_HEAD_DIMS:
+        return "tiled_mma"
+    return "tiled"
 
 
 def split_keys(lk: int) -> int:
@@ -89,10 +102,10 @@ def flash_attention(
     visible keys all carry a −1e30 bias has none either: every logit it
     sees is −1e30, so each version averages v over the keys it happens to
     visit — the Pallas kernel over its padded 128-key blocks, the dense
-    plain version over the visible keys, the tiled kernel over its 32-key
-    tiles up to the block's causal end, the split-kv kernel over all lk
-    keys. The LM path forms no such row: the slot being decoded is always
-    visible with a finite bias."""
+    plain version over the visible keys, the tiled kernels over their
+    32- or 64-key tiles up to the block's causal end, the split-kv kernel
+    over all lk keys. The LM path forms no such row: the slot being
+    decoded is always visible with a finite bias."""
     _check(q, k, v, kv_bias, causal)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, kv_bias, causal=causal,
@@ -110,6 +123,11 @@ def flash_attention(
     qc = q.contiguous()
     kc = k.to(q.dtype).contiguous()
     vc = v.to(q.dtype).contiguous()
+    way = route(hq, hkv, lq, q.dtype, dh)
+    if way == "tiled_mma":
+        # its 16-byte copies need 16-byte aligned rows (a view may start
+        # anywhere)
+        qc, kc, vc = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (qc, kc, vc))
     bc = None if kv_bias is None else kv_bias.to(torch.float32).contiguous()
     out = torch.empty_like(qc)
     s = 1.0 / dh ** 0.5 if scale is None else float(scale)
@@ -125,14 +143,17 @@ def flash_attention(
                    float(logit_softcap), _cuda.ptr(scratch), _cuda.stream(dev))
     if out.numel():
         flash_attention.launches += 1
-        if route(hq, hkv, lq) == "split_kv":
+        if way == "split_kv":
             flash_attention.launches_decode += 1
+        flash_attention.route_launches[way] = flash_attention.route_launches.get(way, 0) + 1
     return out
 
 
-#: every launch, and (``launches_decode``) those of the split-kv route
+#: every launch, those of the split-kv route (``launches_decode``), and
+#: per route (``route_launches``)
 flash_attention.launches = 0
 flash_attention.launches_decode = 0
+flash_attention.route_launches = {}
 
 
 def flash_attention_plain(

@@ -34,8 +34,8 @@ from repro_torch.runtime import active
 RESCORE_K = 8
 
 #: the tensor-core route of ``csrc/topk.cu`` (the cross term as 3xTF32
-#: products): f32 queries and keys, d <= TC_MAX_D, k <= TC_MAX_K; above
-#: TC_MAX_D the same (f32, k) take the CUDA-core split route
+#: products): every key type, d <= TC_MAX_D, k <= TC_MAX_K; above TC_MAX_D
+#: the same k take the CUDA-core split route
 TC_MAX_D, TC_MAX_K = 32, 8
 
 #: the CUDA-core split route's blocks: SPLIT_Q queries against whole
@@ -44,20 +44,31 @@ SPLIT_Q, SPLIT_BLOCKS_WANTED = 64, 132 * 2
 
 
 def route(q_dtype: torch.dtype, keys_dtype: torch.dtype, d: int, k: int) -> str:
-    """Which kernel of ``csrc/topk.cu`` a launch takes: "tc3xtf32" (the
-    tensor-core cross term, keys split across blocks; f32, d <= 32,
-    k <= 8), "cuda_core_split" (the register-tiled f32 FMA kernel, keys
-    split across blocks; f32, d > 32, k <= 8) or "cuda_core" (the f32 FMA
-    pair loop; every bf16 and int8 key launch, and k > 8). Float keys
-    other than bf16 are widened to f32, and so are the queries, as
-    :func:`launch_topk` does."""
-    f32_keys = keys_dtype.is_floating_point and keys_dtype != torch.bfloat16
-    if f32_keys and 1 <= k <= TC_MAX_K:
+    """Which kernel of ``csrc/topk.cu`` a launch takes, whatever the key
+    type (f32, bf16 or int8; the queries are read as f32): "tc3xtf32" (the
+    tensor-core cross term, keys split across blocks, an exact rescore;
+    d <= 32, k <= 8), "cuda_core_split" (the register-tiled f32 FMA
+    kernel, keys split across blocks; d > 32, k <= 8) or "cuda_core" (the
+    f32 FMA pair loop; k > 8). Each key type is widened or dequantized to
+    f32 as it is staged, so the route follows the shape alone."""
+    if 1 <= k <= TC_MAX_K:
         if 1 <= d <= TC_MAX_D:
             return "tc3xtf32"
         if d > TC_MAX_D:
             return "cuda_core_split"
     return "cuda_core"
+
+
+#: kernel id of each key type -> (its library of csrc/topk.cu, the attribute
+#: of fused_topk that counts its launches)
+KEY_TYPES = {"K1": ("topk", "launches"), "K1-bf16": ("topk_bf16", "launches_bf16"),
+             "K1-int8": ("topk_int8", "launches_int8")}
+
+
+def key_type(keys_dtype: torch.dtype) -> str:
+    """The kernel id of a key type (a key of KEY_TYPES): "K1" for float
+    keys (widened to f32), "K1-bf16", "K1-int8"."""
+    return {torch.bfloat16: "K1-bf16", torch.int8: "K1-int8"}.get(keys_dtype, "K1")
 
 
 def split_plan(nq: int, p: int) -> Tuple[int, int]:
@@ -102,10 +113,12 @@ def launch_topk(
     keys_zero: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/topk.cu`` (shared by the K1 and K2 wrappers): the f32,
-    bf16 or int8 key instance, chosen by ``keys.dtype``."""
+    bf16 or int8 key instance, chosen by ``keys.dtype``, on the route of
+    :func:`route`. The queries go in as f32 (bf16 widens exactly)."""
     dev = _cuda.require_cuda("topk", q, keys, key_valid, q_gidx, keys_scale,
                              keys_zero)
-    lib = _cuda.library("topk")
+    name = KEY_TYPES[key_type(keys.dtype)][0]
+    lib = _cuda.library(name)
     if q.ndim != 2 or keys.ndim != 2 or q.shape[1] != keys.shape[1]:
         raise ValueError(f"topk: want q (nq, d) and keys (p, d), got "
                          f"{tuple(q.shape)} and {tuple(keys.shape)}")
@@ -127,30 +140,22 @@ def launch_topk(
     g = _cuda.index(q_gidx, torch.int32)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    args = (_cuda.ptr(v), _cuda.ptr(g), _cuda.ptr(out_d), _cuda.ptr(out_i),
-            nq, p, d, k)
-    stream = _cuda.stream(dev)
+    # bf16 queries widen to f32 exactly (every instance reads f32 queries)
+    qf = _cuda.f32(q)
+    kc = keys.contiguous() if name != "topk" else _cuda.f32(keys)
+    scale_zero = ()
+    if name == "topk_int8":
+        scale_zero = (_cuda.ptr(_cuda.contiguous_as(keys_scale, torch.float32)),
+                      _cuda.ptr(_cuda.contiguous_as(keys_zero, torch.float32)))
+    # the tensor-core and split routes' per-split candidate lists (0 bytes
+    # on the CUDA-core route)
+    nbytes = lib.repro_topk_scratch_bytes(nq, p, d, k)
+    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+               if nbytes else None)
     with torch.cuda.device(dev):
-        if keys.dtype == torch.int8:
-            # bf16 queries widen to f32 exactly (the int8 instance reads f32)
-            qf = _cuda.f32(q)
-            s = _cuda.contiguous_as(keys_scale, torch.float32)
-            z = _cuda.contiguous_as(keys_zero, torch.float32)
-            kc = keys.contiguous()
-            _cuda.call("topk_int8", _cuda.ptr(qf), _cuda.ptr(kc), _cuda.ptr(s),
-                       _cuda.ptr(z), *args, stream)
-        elif keys.dtype == torch.bfloat16:
-            qc, kc = q.contiguous(), keys.contiguous()
-            _cuda.call("topk_bf16", _cuda.ptr(qc), _cuda.ptr(kc), *args, stream)
-        else:
-            qf, kf = _cuda.f32(q), _cuda.f32(keys)
-            # the tensor-core and split routes' per-split candidate lists
-            # (0 bytes on the CUDA-core route)
-            nbytes = lib.repro_topk_scratch_bytes(nq, p, d, k)
-            scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-                       if nbytes else None)
-            _cuda.call("topk", _cuda.ptr(qf), _cuda.ptr(kf), *args,
-                       _cuda.ptr(scratch), stream)
+        _cuda.call(name, _cuda.ptr(qf), _cuda.ptr(kc), *scale_zero,
+                   _cuda.ptr(v), _cuda.ptr(g), _cuda.ptr(out_d), _cuda.ptr(out_i),
+                   nq, p, d, k, _cuda.ptr(scratch), _cuda.stream(dev))
     return out_d, out_i
 
 
@@ -182,7 +187,8 @@ def fused_topk(
     Returns:
       (dists (nq, k) f32 ascending, idx (nq, k) int32; unfilled slots
       inf/-1). Launches count per key type: ``fused_topk.launches`` (f32),
-      ``.launches_bf16`` and ``.launches_int8``.
+      ``.launches_bf16`` and ``.launches_int8``; and per key type and
+      route in ``.route_launches`` ("K1-int8/tc3xtf32": n, ...).
     """
     if not q.is_cuda:
         return fused_topk_plain(q, keys, k, key_valid, q_gidx=q_gidx,
@@ -190,18 +196,18 @@ def fused_topk(
                                 block_k=block_k)
     out = launch_topk(q, keys, k, key_valid, q_gidx, keys_scale, keys_zero)
     if q.shape[0]:
-        if keys.dtype == torch.int8:
-            fused_topk.launches_int8 += 1
-        elif keys.dtype == torch.bfloat16:
-            fused_topk.launches_bf16 += 1
-        else:
-            fused_topk.launches += 1
+        kid = key_type(keys.dtype)
+        attr = KEY_TYPES[kid][1]
+        setattr(fused_topk, attr, getattr(fused_topk, attr) + 1)
+        key = f"{kid}/{route(q.dtype, keys.dtype, q.shape[1], k)}"
+        fused_topk.route_launches[key] = fused_topk.route_launches.get(key, 0) + 1
     return out
 
 
 fused_topk.launches = 0
 fused_topk.launches_bf16 = 0
 fused_topk.launches_int8 = 0
+fused_topk.route_launches = {}
 
 
 def fused_topk_plain(

@@ -259,6 +259,7 @@ def test_cuda_launch_refuses_cpu_tensors_and_counts_nothing(rng):
     assert tkernels.launch_counts() == {"K1": 0, "K1-bf16": 0, "K1-int8": 0,
                                         "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                                         "K5-decode": 0}
+    assert tkernels.route_counts() == {}
 
 
 def test_merge_topk_tie_rule():

@@ -256,17 +256,19 @@ def test_large_magnitude_at_low_d_is_bound_by_the_formula():
     (torch.float32, torch.float32, 256, 1, "cuda_core_split"),
     (torch.float32, torch.float32, 6, 9, "cuda_core"),
     (torch.float32, torch.float32, 6, 32, "cuda_core"),
-    (torch.bfloat16, torch.bfloat16, 6, 8, "cuda_core"),
-    (torch.float32, torch.int8, 6, 8, "cuda_core"),
-    (torch.float32, torch.int8, 6, 1, "cuda_core"),
+    # bf16 and int8 keys take the same routes (widened or dequantized as
+    # they are staged)
+    (torch.bfloat16, torch.bfloat16, 6, 8, "tc3xtf32"),
+    (torch.float32, torch.int8, 6, 8, "tc3xtf32"),
+    (torch.float32, torch.int8, 6, 1, "tc3xtf32"),
     # the CUDA-core split route: f32, d > 32, k <= 8
     (torch.float32, torch.float32, 256, 8, "cuda_core_split"),
     (torch.float32, torch.float32, 512, 2, "cuda_core_split"),
     (torch.float64, torch.float32, 64, 4, "cuda_core_split"),  # widened to f32
     (torch.float32, torch.float32, 256, 9, "cuda_core"),
     (torch.float32, torch.float32, 33, 32, "cuda_core"),
-    (torch.bfloat16, torch.bfloat16, 256, 1, "cuda_core"),
-    (torch.float32, torch.int8, 256, 1, "cuda_core"),
+    (torch.bfloat16, torch.bfloat16, 256, 1, "cuda_core_split"),
+    (torch.float32, torch.int8, 256, 1, "cuda_core_split"),
 ])
 def test_dispatch_rule(q_dtype, k_dtype, d, k, want):
     assert fa.route(q_dtype, k_dtype, d, k) == want
