@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time K5's decode and prefill calls, K2's compression call, K1's
-quantized shortlist calls and K1 f32 at the main path's shapes of one
+quantized shortlist calls, K1 f32 and K4 at the main path's shapes of one
 checkout on a GPU.
 
-    python3 chip_ab.py ROOT      # ROOT: a checkout holding src/repro_torch
+    python3 chip_ab.py ROOT          # ROOT: a checkout holding src/repro_torch
+    python3 chip_ab.py ROOT --k4     # K4 alone
 
 Builds that checkout's top-k and flash-attention kernels (into
 ROOT/build/repro_torch/), then, at the shapes of ``chip_smoke.py``'s lm and
@@ -14,7 +15,10 @@ k 1; K1-bf16 and K1-int8: 5000 queries against the 5,393-row stand-in
 index, d 6, k 8, the keys packed as the index packs them; K1 f32: the
 fit's level 0, 8192 x 581,632, d 6, k 2, the stream's block, 8192 x
 131,072, k 2, the serve shape at k 1 and at k 8, and the headline's 8192
-x 10^6, d 2, k 1), prints one line ``AB {...}``: each call's median time
+x 10^6, d 2, k 1; K4: k-means over 2390 prototypes and 7 centres, d 6,
+and 15,625 against 3, d 2, HAC's 4,096^2 at d 2 and DBSCAN's 50,000^2 at
+d 6, each output's bytes also hashed with SHA-1, so that two trees' K4
+can be compared bit for bit), prints one line ``AB {...}``: each call's median time
 between CUDA events (``ms``), its device time with the calls queued behind
 a spin kernel (``device_ms``), its largest error against the plain version
 (at the K1 f32 shapes on the first 512 queries: the plain version takes
@@ -22,25 +26,73 @@ seconds there), and the card's name and power limit. To compare two commits on o
 this one (``git archive``) and run the two in turns on that card: parent,
 change, change, parent.
 """
+import hashlib
 import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 
 
+def sha1(t: torch.Tensor) -> str:
+    """SHA-1 of a tensor's bytes, copied to the host 256 MB at a time."""
+    h = hashlib.sha1()
+    flat = t.reshape(-1)
+    step = 1 << 26
+    for i in range(0, flat.numel(), step):
+        h.update(flat[i:i + step].cpu().numpy())
+    return h.hexdigest()
+
+
+def k4_rows(out: dict) -> None:
+    """K4 at the four shapes of chip_smoke.py's kernels phase."""
+    from repro_torch.data import gmm_sample
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    x, _ = cs._analog(cs.SIZES["covertype"])
+    npro, mc = cs.SIZES["protos"], cs.SIZES["centres"]
+    g1 = cs.dev(gmm_sample(cs.SIZES["lloyd_n"] + 3, seed=1)[0])
+    g2 = cs.dev(gmm_sample(cs.HAC["budget"], seed=2)[0])
+    xd = cs._dbscan_data()
+    cases = {"k4_fit": (x[:npro].contiguous(), x[npro:npro + mc].contiguous(), None),
+             "k4_lloyd": (g1[:-3].contiguous(), g1[-3:].contiguous(),
+                          cs.dev(np.array([True, True, True]))),
+             "k4_hac": (g2, g2, None), "k4_dbscan": (xd, xd, None)}
+    for name, (a, b, v) in cases.items():
+        def k4(a=a, b=b, v=v):
+            return pw.pairwise_sq_l2(a, b, v)
+
+        out[name] = {"n": a.shape[0], "m": b.shape[0], "d": a.shape[1],
+                     "sha1": sha1(k4()), "ms": cs.cuda_ms(k4, reps=10),
+                     "device_ms": cs.device_ms(k4, reps=10)}
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    args = sys.argv[1:]
+    k4_only = "--k4" in args
+    args = [a for a in args if a != "--k4"]
+    if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
-    sys.path.insert(0, sys.argv[1] + "/src")
+    sys.path.insert(0, args[0] + "/src")
     from repro_torch.kernels import _cuda
 
-    _cuda.SOURCES = {n: _cuda.SOURCES[n]
-                     for n in ("topk", "topk_bf16", "topk_int8", "flash_attention")}
+    keep = ("pairwise_l2",) if k4_only else (
+        "topk", "topk_bf16", "topk_int8", "flash_attention", "pairwise_l2")
+    _cuda.SOURCES = {n: _cuda.SOURCES[n] for n in keep}
     build_s = _cuda.build_all()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    if k4_only:
+        out = {"tree": args[0], "build_s": build_s, "card": card}
+        k4_rows(out)
+        print("AB " + json.dumps(out), flush=True)
+        return 0
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_assign, knn_topk, ref
 
@@ -72,10 +124,7 @@ def main() -> int:
     rd = ref.knn(x, 1, valid=valid)[0]
     ok = torch.isfinite(rd)
     err2 = float((gd[ok] - rd[ok]).abs().max())
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    out = {"tree": sys.argv[1], "build_s": build_s, "card": card,
+    out = {"tree": args[0], "build_s": build_s, "card": card,
            "k5_decode": {"ms": cs.cuda_ms(k5, reps=50),
                          "device_ms": cs.device_ms(k5, reps=100), "max_abs_err": err5},
            "k2_compress": {"ms": cs.cuda_ms(k2, reps=50),
@@ -141,6 +190,7 @@ def main() -> int:
         out[name] = {"nq": q1.shape[0], "p": keys.shape[0], "d": q1.shape[1], "k": kk,
                      "ms": cs.cuda_ms(k1, reps=20), "device_ms": cs.device_ms(k1, reps=50),
                      "max_abs_err": float((k1()[0][:m] - rd).abs().max())}
+    k4_rows(out)
     print("AB " + json.dumps(out), flush=True)
     return 0
 

@@ -27,7 +27,12 @@ Phases, each printing one JSON line:
                then awkward shapes on a dyadic grid, where kernel and plain
                version must agree bit for bit, tie-breaking included, and
                the edge cases of K1's tensor-core and split routes (every
-               key type), of K3's paths and of K5's routes;
+               key type), of K3's paths, of K4's two instances (bit for
+               bit up to n * m > 2^31) and of K5's routes; K4 at its
+               paths' four shapes: k-means over 2,390 x 7 and 15,625 x 3,
+               HAC's 4,096^2 and DBSCAN's 50,000^2 (there the error is read
+               on the first 4,096 and the last 1,024 rows), with its time
+               on the device and torch.cdist's beside it;
   fit          the main path: repro_torch.fit on a covertype-sized
                Gaussian-mixture analog (n = 581,012, d = 6, 7 components,
                standardized), t = 3, m = 5, k-means k = 7;
@@ -39,6 +44,22 @@ Phases, each printing one JSON line:
                kernels phase times K1 at its three level sizes);
   determinism  n = 65,536: the kernel path twice (bitwise equal labels) and
                the plain path once (label agreement >= 0.999);
+  hac          IHTC + ward HAC on the paper's GMM at n = 1,000,000, t = 2,
+               k = 3, m the first level whose prototype count fits the
+               reference's 4,096-prototype HAC budget (a probe fit counts
+               each level's), then m + 1 and m + 2: accuracy >=
+               MIN_HAC_ACCURACY at each; then HAC alone on the fit's
+               prototypes in all four linkages, kernel path against plain
+               path (labels >= 0.999 equal after best matching; where the
+               merge sequences part, a near-tie within DIST_TOL), and the
+               merge loop once under torch.cuda.set_sync_debug_mode("error");
+  dbscan       IHTC + DBSCAN on the covertype analog cut to 50,000 rows
+               (eps the median 4-NN distance of a 1,000-row subsample,
+               min_pts 16, t = 2, m = 0, 1, 2: the paper's Table 9): walls,
+               clusters, noise share, BSS/TSS, peak memory, propagation
+               rounds; then DBSCAN alone on the m = 2 prototypes, kernel
+               path against plain path (labels >= 0.999 equal; with no pair
+               whose two distances lie on opposite sides of eps², bitwise);
   online       the online loop: a 10,485,760-point blobs stream (d = 6, 7
                blobs, 80 chunks of 131,072) folded by an OnlineFitter
                (t = 3, m = 4, k-means k = 7, prefetch depth 2), its snapshot
@@ -75,15 +96,19 @@ Phases, each printing one JSON line:
 
 The kernel launch counts are set to 0 just before the fit and read after
 the fit and after the serve phase, set to 0 again just before the
-headline fit and read after it, set to 0 again just before the online
-phase's stream and read after its refresh, and again just before the lm
-phase's generate and read right after it; every kernel of each path must
-have launched (K1-K4 in fit and serve; K1 and its bf16 and int8 key
+headline fit and read after it, just before the hac fit and read after
+it, just before the three dbscan fits and read after them, just before
+the online phase's stream and read after its refresh, and again just
+before the lm phase's generate and read right after it; every kernel of
+each path must have launched (K1-K4 in fit and serve; K1, K3 and K4 in
+hac, K4 on its tiled instance for the (n, n) matrices of HAC and DBSCAN,
+and in every dbscan fit; K1 and its bf16 and int8 key
 instances, K3 and K4 in online, the quantized ones never on the CUDA-core
 route at k <= 8; K2, K3 and K5 in lm, K5 once per global layer of the
 prefill on its tensor-core tiled route (route count K5/tiled_mma), and
 once per layer of every decode step on its split-kv route, counted apart
-as K5-decode). The online and lm lines also list the launches per route.
+as K5-decode). The hac, dbscan, online and lm lines also list the
+launches per route, and the kernels line K4's per path and instance.
 Then one JSON line lists every kernel and variant (launches summed over
 the paths),
 the card's name and power limit are printed, and the last line is
@@ -111,7 +136,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "headline",
-                  "determinism", "online", "lm")
+                  "determinism", "hac", "dbscan", "online", "lm")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
 ALL_PHASES = DEFAULT_PHASES + ("profile", "basins")
@@ -184,6 +209,31 @@ MIN_QUANT_AGREEMENT = 0.999
 SEED_RESTARTS = 16
 MIN_BLOB_ACCURACY = 0.97
 MAX_INERTIA_GAP = 0.05
+
+#: the hac phase: IHTC + ward HAC on the paper's GMM (n = SIZES["gmm"]), t 2,
+#: k 3, m the first level whose prototype count fits the reference's HAC
+#: budget (benchmarks/bench_table2_hac.py), found by a probe fit to probe_m
+#: levels, then m + 1 and m + 2 as that benchmark's rows; accuracy >=
+#: MIN_HAC_ACCURACY at each. Ward HAC's top merges move with the prototypes:
+#: on an H100 the fit at m = 6 reads 0.896474, and the JAX package's HAC on
+#: the same 2,470 prototypes gives the same labels (tests/
+#: hac_reference_check.py on the --save-hac file), while m = 7 and 8 read
+#: 0.9289 and 0.9137 (PERF.md). The JAX package on the CPU read
+#: 0.9299 at n 8,000, m 2 and 0.9345 at n 20,000, m 3; the paper's k-means
+#: headline 0.9239. The limit keeps the reference's own answer at m = 6 and
+#: fails a broken linkage (complete reads 0.79 and single 0.50 there).
+HAC = dict(t=2, k=3, linkage="ward", budget=4096, probe_m=8, extra_levels=2)
+MIN_HAC_ACCURACY = 0.89
+#: the dbscan phase: the covertype analog cut to 50,000 rows, eps the
+#: median 4-NN distance of a 1,000-row subsample, min_pts 16, t 2, m 0-2
+#: (benchmarks/bench_table9_dbscan.py)
+DBSCAN = dict(n=50_000, t=2, ms=(0, 1, 2), min_pts=16.0, eps_rows=1000)
+#: kernel path vs plain path labels of HAC (after best matching) and DBSCAN
+MIN_BACKEND_AGREEMENT = 0.999
+#: K4's edge cases past 32-bit offsets (n * m > 2^31), (n, m, d): the tiled
+#: instance at 46,341^2 and the small-m one at 2^27 + 1000 rows x 16, each
+#: about 8.6 GB of output
+K4_BEYOND_2_31 = ((46_341, 46_341, 2), ((1 << 27) + 1000, 16, 1))
 
 KERNEL_META = {
     "K1": ("fused_topk", "src/repro_torch/csrc/topk.cu",
@@ -400,7 +450,6 @@ def _analog(n: int, seed: int = 0):
 
 def phase_kernels(results: dict) -> None:
     from repro_torch.kernels import fused_assign, knn_topk, ops, ref
-    from repro_torch.kernels import pairwise_l2 as pw
 
     t0 = time.perf_counter()
     gen = np.random.default_rng(1)
@@ -487,23 +536,25 @@ def phase_kernels(results: dict) -> None:
     _k3_row("lloyd", g2, dev(gen.integers(0, 3, size=g2.shape[0])), 3,
             dev(gen.integers(1, 9, size=g2.shape[0]).astype(np.float32)))
 
-    # K4: k-means++/Lloyd distances, 2390 prototypes against 7 centres
+    # K4 at the four shapes its paths give it: k-means++/Lloyd over the
+    # covertype fit's 2390 prototypes (7 centres) and over the headline's
+    # 15,625 (3 centres); HAC's (n, n) matrix at the reference's 4,096-
+    # prototype budget (bench_table2_hac.py); DBSCAN's at m = 0 on the
+    # 50,000-row covertype analog (bench_table9_dbscan.py's max_n)
+    from repro_torch.data import gmm_sample
+
     n, m = npro, SIZES["centres"]
-    xs = x[:n].contiguous()
-    cs_ = x[n:n + m].contiguous()
-    got = pw.pairwise_sq_l2(xs, cs_)
-    want = ref.pairwise_sq_l2(xs, cs_)
-    sync()
-    err = float((got - want).abs().max())
-    check(torch.allclose(got, want, **DIST_TOL), f"K4 distances off: {err}")
-    ms = cuda_ms(lambda: pw.pairwise_sq_l2(xs, cs_))
-    plain = cuda_ms(lambda: ref.pairwise_sq_l2(xs, cs_))
-    b_ms, b_by = bound(n * m * (2 * 6 + 3) + 2 * (n + m) * 6,
-                       (n + m) * 6 * 4 + n * m * 4)
-    results["K4"] = dict(kernel="K4", n=n, m=m, d=6, max_abs_err=err, ms=ms,
-                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None)
-    emit("kernels", **results["K4"])
+    _k4_row("fit", x[:n].contiguous(), x[n:n + m].contiguous(), None)
+    g = dev(gmm_sample(SIZES["lloyd_n"] + 3, seed=1)[0])
+    _k4_row("lloyd", g[:-3].contiguous(), g[-3:].contiguous(),
+            dev(np.array([True, True, True])))
+    g = dev(gmm_sample(HAC["budget"], seed=2)[0])
+    _k4_row("hac", g, g, None)
+    del g
+    xd = _dbscan_data()
+    results["K4"] = _k4_row("dbscan", xd, xd, None)
+    del xd
+    torch.cuda.empty_cache()
     _k3_compression()
     _k5_path_shapes(results)
     _edge_checks(gen)
@@ -552,6 +603,68 @@ def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
                library_ms=None)
     emit("kernels", **row)
     return row
+
+
+def _k4_row(path: str, x, y, valid) -> dict:
+    """K4 at one of its paths' shapes against its plain version: distances
+    within DIST_TOL (at n * m above 2^26 on row slices: the first 4,096
+    rows and the last 1,024, whose offsets pass 2^31 at the DBSCAN shape),
+    a repeat bitwise; its time between events and on the device, the plain
+    version's, torch.cdist's (the square root of the same distances: a
+    yardstick the port never calls) and the bound."""
+    from repro_torch.kernels import _cuda, ref
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    n, d = x.shape
+    m = y.shape[0]
+    route = pw.route(m, d)
+    c_route = _cuda.library("pairwise_l2").repro_pairwise_sq_l2_route(m, d)
+    check(("small_m", "tiled")[c_route] == route,
+          f"K4: the wrapper's route {route} is not the kernel's ({c_route})")
+    got = pw.pairwise_sq_l2(x, y, valid)
+    if n * m <= 1 << 26:
+        slices, rows = [slice(0, n)], "all"
+    else:
+        slices, rows = [slice(0, 4096), slice(n - 1024, n)], "first 4096, last 1024"
+    err = 0.0
+    for sl in slices:
+        want = ref.pairwise_sq_l2(x[sl], y, y_valid=valid)
+        check(torch.allclose(got[sl], want, **DIST_TOL),
+              f"K4 distances off at {path} rows {sl}")
+        err = max(err, float((got[sl] - want).abs().max()))
+        del want
+    check(torch.equal(pw.pairwise_sq_l2(x, y, valid), got), f"K4 repeat differs at {path}")
+    del got
+    torch.cuda.empty_cache()
+    reps = 10 if n * m <= 1 << 26 else 5
+
+    def k4():
+        return pw.pairwise_sq_l2(x, y, valid)
+
+    ms = cuda_ms(k4, reps=reps)
+    dev_ms = device_ms(k4, reps=reps)
+    plain = cuda_ms(lambda: ref.pairwise_sq_l2(x, y, y_valid=valid), reps=reps, warmup=1)
+    torch.cuda.empty_cache()
+    lib = cuda_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist"),
+                  reps=reps, warmup=1)
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(n * m * (2 * d + 3) + 2 * (n + m) * d,
+                       (n + m) * d * 4 + n * m * 4 + (m if valid is not None else 0))
+    row = dict(kernel="K4", path=path, variant=route, n=n, m=m, d=d,
+               max_abs_err=err, err_rows=rows, bitwise_repeat=True, ms=ms,
+               device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib, library="torch.cdist (use_mm_for_euclid_dist)")
+    emit("kernels", **row)
+    return row
+
+
+def _dbscan_data() -> torch.Tensor:
+    """The DBSCAN phase's rows on the device: the covertype analog cut to
+    50,000 rows, unstandardized (bench_table9_dbscan.py)."""
+    from repro_torch.data import PAPER_DATASETS, dataset_analog
+
+    spec = next(s for s in PAPER_DATASETS if s.name == "covertype")
+    return dev(dataset_analog(spec, seed=0, max_n=DBSCAN["n"]))
 
 
 def _stream_chunk():
@@ -893,7 +1006,6 @@ def _edge_checks(gen) -> None:
     bit, tie-breaking included: d = 1 and d > 32, k = 1 and k = 32, k > p,
     masked keys, self-exclusion, out-of-range segment ids."""
     from repro_torch.kernels import fused_assign, knn_topk, ops, ref
-    from repro_torch.kernels import pairwise_l2 as pw
 
     def grid(*shape):
         return dev((gen.integers(-16, 17, size=shape) * 0.25).astype(np.float32))
@@ -934,15 +1046,49 @@ def _edge_checks(gen) -> None:
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"K3 differs from its plain version at {(n, d, s)}")
         cases += 1
-    for n, m, d in ((7, 9, 1), (100, 7, 6), (33, 65, 40)):
-        x, y = grid(n, d), grid(m, d)
-        valid = dev(gen.random(m) > 0.3)
-        check(torch.equal(pw.pairwise_sq_l2(x, y, valid),
-                          ref.pairwise_sq_l2(x, y, y_valid=valid)),
-              f"K4 differs from its plain version at {(n, m, d)}")
-        cases += 1
+    cases += _k4_edges(gen, grid)
     sync()
     emit("kernels_edges", cases=cases, bitwise=True)
+
+
+def _k4_edges(gen, grid) -> int:
+    """K4 against its plain version, bit for bit, on dyadic grids: m in
+    {1, 3, 7, 8, 9, 16, 17} x d in {1, 2, 6, 37, 64, 65, 200} (both
+    instances and their boundary; m not a multiple of 4 leaves rows off the
+    float4 alignment), tile edges, every key invalid, and n * m > 2^31 on
+    each instance, compared on the first and the last rows."""
+    from repro_torch.kernels import pairwise_l2 as pw
+    from repro_torch.kernels import ref
+
+    def same(x, y, valid, rows=None):
+        got = pw.pairwise_sq_l2(x, y, valid)
+        for sl in rows or [slice(0, x.shape[0])]:
+            check(torch.equal(got[sl], ref.pairwise_sq_l2(x[sl], y, y_valid=valid)),
+                  f"K4 differs from its plain version at {(x.shape[0], y.shape[0], x.shape[1])}"
+                  f" rows {sl}")
+        return 1
+
+    cases = 0
+    for m in (1, 3, 7, 8, 9, 16, 17):
+        for d in (1, 2, 6, 37, 64, 65, 200):
+            x, y = grid(37, d), grid(m, d)
+            cases += same(x, y, None) + same(x, y, dev(gen.random(m) > 0.3))
+    for n, m, d in ((64, 128, 6), (65, 129, 6), (130, 131, 3), (1, 257, 2),
+                    (200, 18, 33), (7, 9, 1), (100, 7, 6), (33, 65, 40),
+                    (300, 1000, 2)):
+        cases += same(grid(n, d), grid(m, d), dev(gen.random(m) > 0.3))
+    for n, m, d in ((50, 5, 3), (70, 300, 6)):
+        got = pw.pairwise_sq_l2(grid(n, d), grid(m, d), dev(np.zeros(m, bool)))
+        check(bool(torch.isinf(got).all()), "K4: an invalid key got a finite distance")
+        cases += 1
+    g = torch.Generator(device=DEV).manual_seed(11)
+    for n, m, d in K4_BEYOND_2_31:
+        x = torch.randint(-16, 17, (n, d), generator=g, device=DEV).float() * 0.25
+        y = x[:m].clone() if m == n else grid(m, d)
+        cases += same(x, y, None, rows=[slice(0, 1024), slice(n - 1024, n)])
+        del x, y
+        torch.cuda.empty_cache()
+    return cases
 
 
 def _k1_tc_edges(gen, grid) -> int:
@@ -1414,6 +1560,248 @@ def phase_determinism() -> None:
          assignments_equal=[bool(torch.equal(p, q)) for p, q in
                             zip(runs[0].assignments, plain.assignments)],
          seconds=round(time.perf_counter() - t0, 3))
+
+
+def _no_backend(x, *, valid=None, weights=None, key=None, impl=None, **_):
+    """A backend that labels every prototype 0: the hac phase's probe fit,
+    which only counts each level's prototypes."""
+    return torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+
+
+def _valid_protos(res):
+    """(prototypes, masses) of a fit's valid final rows."""
+    keep = torch.nonzero(res.proto_valid).squeeze(1)
+    return res.protos[keep].contiguous(), res.proto_mass[keep].contiguous()
+
+
+def _hac_near_tie(p, w, merges, s0, pick_k, pick_p, linkage) -> dict:
+    """Whether the kernel's and the plain path's picks at merge ``s0`` (the
+    first where they part; the merges before it are the same) are a
+    near-tie. Both picks' linkage heights are recomputed in float64 from
+    the clusters' members (as tests/test_cluster_oracle.py defines them)
+    and their gap is read in the units K4 computes, squared distances:
+    for ward, the gap over the larger pair's mass factor w_a w_b / (w_a +
+    w_b); for the other linkages, the gap between the squared heights. A
+    near-tie is a gap within DIST_TOL of those squared distances."""
+    x = p.double().cpu().numpy()
+    mass = w.double().cpu().numpy()
+    root = np.arange(x.shape[0])
+
+    def find(i):
+        while root[i] != i:
+            i = root[i]
+        return i
+
+    for i, j in merges[:s0].tolist():
+        root[find(j)] = find(i)
+    members = {}
+    for i in range(x.shape[0]):
+        members.setdefault(find(i), []).append(i)
+
+    def height(pair):
+        a, b = (members[find(int(v))] for v in pair)
+        wa, wb = mass[a], mass[b]
+        if linkage == "ward":
+            ca = (x[a] * wa[:, None]).sum(0) / wa.sum()
+            cb = (x[b] * wb[:, None]).sum(0) / wb.sum()
+            factor = wa.sum() * wb.sum() / (wa.sum() + wb.sum())
+            return factor * float(((ca - cb) ** 2).sum()), factor
+        dist = np.sqrt(((x[a][:, None, :] - x[b][None, :, :]) ** 2).sum(-1))
+        if linkage == "single":
+            return float(dist.min()), 1.0
+        if linkage == "complete":
+            return float(dist.max()), 1.0
+        return float((wa[:, None] * wb[None, :] * dist).sum() / (wa.sum() * wb.sum())), 1.0
+
+    (hk, fk), (hp, fp) = height(pick_k), height(pick_p)
+    if linkage == "ward":
+        scale = max(fk, fp)
+        gap, sq = abs(hk - hp) / scale, max(hk / fk, hp / fp)
+    else:
+        gap, sq = abs(hk * hk - hp * hp), max(hk * hk, hp * hp)
+    return dict(kernel_pair=[int(v) for v in pick_k], plain_pair=[int(v) for v in pick_p],
+                kernel_height64=hk, plain_height64=hp, gap_sq_units=gap,
+                near_tie=bool(gap <= DIST_TOL["atol"] + DIST_TOL["rtol"] * sq))
+
+
+def phase_hac(state: dict, save: str = "") -> None:
+    """IHTC + ward HAC on the paper's GMM at n = 10^6: m is the first level
+    whose prototype count fits the HAC budget (and m + 1, m + 2); accuracy
+    >= MIN_HAC_ACCURACY (``save``: an .npz of the fit's prototypes and
+    labels, for tests/hac_reference_check.py). Then HAC alone on that
+    fit's prototypes in all four linkages, kernel path (K4) and plain path;
+    the merge loop once under sync debug mode "error"."""
+    import repro_torch
+    from repro_torch import kernels, prng
+    from repro_torch.cluster import hac as hac_mod
+    from repro_torch.cluster.metrics import clustering_accuracy
+    from repro_torch.data import gmm_sample
+
+    h = HAC
+    t0 = time.perf_counter()
+    x, comp = gmm_sample(SIZES["gmm"], seed=0)
+    xd = dev(x)
+    # each level draws the next key of one split chain, so a level's
+    # prototypes do not depend on how many levels follow: one probe fit
+    # counts them all
+    probe = repro_torch.fit(xd, h["t"], h["probe_m"], _no_backend,
+                            key=prng.PRNGKey(0), device=DEV)
+    after = list(probe.info["n_valid"][1:]) + [int(probe.n_prototypes)]
+    m = next((i + 1 for i, c in enumerate(after) if c <= h["budget"]), None)
+    check(m is not None, f"no level of {h['probe_m']} fits the HAC budget: {after}")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    res = repro_torch.fit(xd, h["t"], m, "hac", k=h["k"], linkage=h["linkage"],
+                          key=prng.PRNGKey(0), device=DEV)
+    sync()
+    wall = time.perf_counter() - t1
+    counts, routes = kernels.launch_counts(), kernels.route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state.update(hac_counts=counts, hac_routes=routes)
+    n_protos = int(res.n_prototypes)
+    check(n_protos == after[m - 1] <= h["budget"],
+          f"hac fit: {n_protos} prototypes, the probe counted {after[m - 1]}")
+    for kid in ("K1", "K3", "K4"):
+        check(counts[kid] > 0, f"{kid} was not launched by the hac path")
+    check(routes.get("K4/tiled", 0) > 0, "K4's tiled instance did not run on HAC")
+    if save:
+        np.savez(save, protos=res.protos.cpu().numpy(), mass=res.proto_mass.cpu().numpy(),
+                 valid=res.proto_valid.cpu().numpy(),
+                 proto_labels=res.proto_labels.cpu().numpy(),
+                 labels=res.labels.cpu().numpy(), n=SIZES["gmm"], m=m)
+    # the reference benchmark's rows: the first level that fits, and the
+    # next two
+    accuracy = {m: clustering_accuracy(comp, res.labels, h["k"])}
+    for mm in range(m + 1, m + 1 + h["extra_levels"]):
+        r = repro_torch.fit(xd, h["t"], mm, "hac", k=h["k"], linkage=h["linkage"],
+                            key=prng.PRNGKey(0), device=DEV)
+        accuracy[mm] = clustering_accuracy(comp, r.labels, h["k"])
+    for mm, acc in accuracy.items():
+        check(acc >= MIN_HAC_ACCURACY,
+              f"IHTC + HAC accuracy {acc} < {MIN_HAC_ACCURACY} at m = {mm}")
+    acc = accuracy[m]
+
+    # HAC alone on the fit's prototypes: kernel path against plain path
+    p, w = _valid_protos(res)
+    linkages = {}
+    for linkage in ("single", "complete", "average", "ward"):
+        t2 = time.perf_counter()
+        a = hac_mod.hac(p, h["k"], weights=w, linkage=linkage, impl="cuda")
+        sync()
+        sec = time.perf_counter() - t2
+        b = hac_mod.hac(p, h["k"], weights=w, linkage=linkage, impl="ref")
+        agree = clustering_accuracy(b.labels, a.labels, h["k"])
+        row = dict(seconds=sec, agreement=agree, n_merges=int(a.n_merges))
+        parted = (a.merges != b.merges).any(dim=1).nonzero()
+        if parted.numel():
+            s0 = int(parted[0, 0])
+            tie = _hac_near_tie(p, w, a.merges, s0, a.merges[s0], b.merges[s0], linkage)
+            row.update(first_parting_merge=s0, kernel_height=float(a.heights[s0]),
+                       plain_height=float(b.heights[s0]), **tie)
+            check(tie["near_tie"], f"HAC {linkage}: the paths part at merge {s0} "
+                  f"on no near-tie: {tie}")
+        check(agree >= MIN_BACKEND_AGREEMENT,
+              f"HAC {linkage}: kernel vs plain agreement {agree}")
+        linkages[linkage] = row
+        if linkage == h["linkage"]:
+            ward = a
+
+    # the merge loop alone under sync debug mode "error": no merge reads
+    # the device
+    d0 = hac_mod._initial_matrix(p, w, h["linkage"], "cuda")
+    merges = int(ward.n_merges)
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, pairs, _ = hac_mod.merge_loop(d0, w, h["linkage"], merges)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(torch.equal(pairs, ward.merges), "the merge loop under sync debug differs")
+    emit("hac", n=SIZES["gmm"], t=h["t"], m=m, k=h["k"], linkage=h["linkage"],
+         budget=h["budget"], prototypes_per_level=after, n_prototypes=n_protos,
+         seconds=wall, n_merges=int(res.backend_result.n_merges), accuracy=acc,
+         accuracy_by_m={str(k): v for k, v in accuracy.items()},
+         max_memory_allocated=peak, launches={kid: counts[kid] for kid in
+                                              ("K1", "K2", "K3", "K4")},
+         launches_by_route=routes, linkages=linkages, sync_free_merge_loop=True,
+         phase_seconds=time.perf_counter() - t0)
+
+
+def _calibrate_eps(x: torch.Tensor, rows: int, seed: int = 0) -> float:
+    """bench_table9_dbscan.calibrate_eps with the port's kNN: the median
+    4-NN distance of a ``rows``-row subsample."""
+    from repro_torch.core.knn import knn_graph
+
+    rng = np.random.default_rng(seed)
+    sub = x[dev(rng.choice(x.shape[0], size=min(rows, x.shape[0]), replace=False))]
+    d, _ = knn_graph(sub.contiguous(), 4)
+    return float(np.sqrt(np.median(d.cpu().numpy()[:, -1])))
+
+
+def phase_dbscan(state: dict) -> None:
+    """IHTC + DBSCAN on the 50,000-row covertype analog at m = 0, 1, 2
+    (the paper's Table 9): walls, clusters, noise share, BSS/TSS, peak
+    memory, propagation rounds. Then DBSCAN alone on the m = 2 fit's
+    prototypes, kernel path against plain path."""
+    import repro_torch
+    from repro_torch import kernels, prng
+    from repro_torch.cluster import dbscan as dbscan_mod
+    from repro_torch.cluster.metrics import bss_tss
+    from repro_torch.kernels import ops
+
+    c = DBSCAN
+    t0 = time.perf_counter()
+    x = _dbscan_data()
+    eps = _calibrate_eps(x, c["eps_rows"])
+    sync()
+    kernels.reset_launch_counts()
+    fits, rows = {}, []
+    for m in c["ms"]:
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        res = repro_torch.fit(x, c["t"], m, "dbscan", eps=eps, min_pts=c["min_pts"],
+                              key=prng.PRNGKey(2), device=DEV)
+        sync()
+        rows.append(dict(m=m, seconds=time.perf_counter() - t1,
+                         n_prototypes=int(res.n_prototypes),
+                         rounds=res.backend_result.rounds,
+                         max_memory_allocated=torch.cuda.max_memory_allocated()))
+        fits[m] = res
+    counts, routes = kernels.launch_counts(), kernels.route_counts()
+    state.update(dbscan_counts=counts, dbscan_routes=routes)
+    check(counts["K4"] >= len(c["ms"]), "K4 was not launched by every dbscan fit")
+    check(routes.get("K4/tiled", 0) > 0, "K4's tiled instance did not run on DBSCAN")
+    for row in rows:
+        lab = fits[row["m"]].labels
+        check(lab.shape == (x.shape[0],), "dbscan labels shape")
+        k_found = int(lab.max()) + 1
+        row.update(clusters=k_found, noise_share=float((lab < 0).float().mean()),
+                   bss_tss=float(bss_tss(x, lab, max(k_found, 1))))
+        check(np.isfinite(row["bss_tss"]), "non-finite BSS/TSS")
+
+    # kernel path against plain path on the m = 2 fit's prototypes: where
+    # labels differ, some pair's kernel and plain distances lie on opposite
+    # sides of eps²; with no such pair the two must agree bit for bit
+    p, w = _valid_protos(fits[max(c["ms"])])
+    a = dbscan_mod.dbscan(p, eps, c["min_pts"], weights=w, impl="cuda")
+    b = dbscan_mod.dbscan(p, eps, c["min_pts"], weights=w, impl="ref")
+    agree = float((a.labels == b.labels).float().mean())
+    eps2 = dbscan_mod._f32(dbscan_mod._f32(eps) ** 2)
+    across = int(((ops.pairwise_sq_l2(p, p, impl="cuda") <= eps2)
+                  != (ops.pairwise_sq_l2(p, p, impl="ref") <= eps2)).sum())
+    check(agree >= MIN_BACKEND_AGREEMENT, f"DBSCAN kernel vs plain agreement {agree}")
+    if across == 0:
+        check(torch.equal(a.labels, b.labels) and torch.equal(a.is_core, b.is_core),
+              "DBSCAN paths differ with the same eps-graph")
+    emit("dbscan", n=x.shape[0], d=x.shape[1], t=c["t"], eps=eps,
+         min_pts=c["min_pts"], fits=rows,
+         plain_vs_kernel=dict(m=max(c["ms"]), prototypes=p.shape[0], agreement=agree,
+                              core_agreement=float((a.is_core == b.is_core).float().mean()),
+                              pairs_across_eps2=across, rounds=[a.rounds, b.rounds]),
+         launches={kid: counts[kid] for kid in ("K1", "K2", "K3", "K4")},
+         launches_by_route=routes, seconds=time.perf_counter() - t0)
 
 
 def _pct(values, q) -> float:
@@ -2051,6 +2439,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
+    ap.add_argument("--save-hac", default="", metavar="PATH",
+                    help="write the hac fit's prototypes and labels to PATH (.npz)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
@@ -2083,6 +2473,10 @@ def main() -> int:
         phase_headline(state)
     if "determinism" in phases:
         phase_determinism()
+    if "hac" in phases:
+        phase_hac(state, args.save_hac)
+    if "dbscan" in phases:
+        phase_dbscan(state)
     if "online" in phases:
         phase_online(results, state)
     if "lm" in phases:
@@ -2094,10 +2488,14 @@ def main() -> int:
     if results:
         paths = {"fit_serve": state.get("main_counts", state.get("fit_counts", {})),
                  "headline": state.get("headline_counts", {}),
+                 "hac": state.get("hac_counts", {}),
+                 "dbscan": state.get("dbscan_counts", {}),
                  "online": state.get("online_counts", {}),
                  "lm": state.get("lm_counts", {})}
         routes = {"fit_serve": state.get("main_routes", {}),
                   "headline": state.get("headline_routes", {}),
+                  "hac": state.get("hac_routes", {}),
+                  "dbscan": state.get("dbscan_routes", {}),
                   "online": state.get("online_routes", {}),
                   "lm": state.get("lm_routes", {})}
         line = []
@@ -2111,14 +2509,19 @@ def main() -> int:
             if kid in ("K5", "K5-prefill"):  # one route's kernel alone
                 key = "K5/tiled" if kid == "K5" else "K5/tiled_mma"
                 by_path = {p: routes[p].get(key, 0) for p in by_path}
-            line.append({"name": name, "route": "cuda",
-                         "variant": r.get("variant", "cuda_core"),
-                         "source": source, "replaces": replaces,
-                         "launches": sum(by_path.values()) if by_path else None,
-                         "launches_by_path": by_path,
-                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            entry = {"name": name, "route": "cuda",
+                     "variant": r.get("variant", "cuda_core"),
+                     "source": source, "replaces": replaces,
+                     "launches": sum(by_path.values()) if by_path else None,
+                     "launches_by_path": by_path,
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            if kid == "K4":  # launches of each instance, per path
+                entry["launches_by_route"] = {
+                    p: {k: v for k, v in routes[p].items() if k.startswith("K4/")}
+                    for p in by_path}
+            line.append(entry)
         print(json.dumps({"kernels": line}), flush=True)
     emit("total", seconds=round(time.perf_counter() - t_start, 3))
     if device is None:

@@ -7,8 +7,8 @@ Every backend satisfies one contract::
       -> (n,) int32 labels (-1 for invalid/noise rows),
          or a result with a ``.labels`` field (the planner keeps it)
 
-checked by signature inspection at registration. Only k-means is ported
-so far; HAC and DBSCAN wait.
+checked by signature inspection at registration. The built-in backends
+are k-means, HAC and DBSCAN, as in the reference.
 """
 from __future__ import annotations
 
@@ -64,7 +64,8 @@ def register_backend(name: str) -> Callable[[BackendFn], BackendFn]:
 
 
 def _ensure_builtin_backends() -> None:
-    from repro_torch.cluster import kmeans  # noqa: F401  (registers itself)
+    # importing the modules runs their @register_backend decorators
+    from repro_torch.cluster import dbscan, hac, kmeans  # noqa: F401
 
 
 def resolve_backend(backend: Union[str, BackendFn]) -> BackendFn:

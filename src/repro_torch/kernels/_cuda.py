@@ -68,6 +68,7 @@ _TOPK_HELPERS = {"repro_topk_scratch_bytes": ([_I, _I, _I, _I], _L),
 _HELPERS = {
     "topk": _TOPK_HELPERS, "topk_bf16": _TOPK_HELPERS, "topk_int8": _TOPK_HELPERS,
     "segment_sum": {"repro_segment_sum_scratch_bytes": ([_L, _I, _I, _I, _I], _L)},
+    "pairwise_l2": {"repro_pairwise_sq_l2_route": ([_I, _I], _I)},
     "flash_attention": {
         "repro_flash_attention_route": ([_I, _I, _I, _I, _I], _I),
         "repro_flash_attention_split_keys": ([_I], _I),

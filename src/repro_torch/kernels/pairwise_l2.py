@@ -1,9 +1,13 @@
-"""Dense squared-L2 distance matrix (K4) — k-means++ and Lloyd distances.
+"""Dense squared-L2 distance matrix (K4) — k-means++ and Lloyd distances,
+and the (n, n) matrices of HAC and DBSCAN.
 
-The port of ``repro.kernels.pairwise_l2``: ``csrc/pairwise_l2.cu`` tiles
-the (n, m) output, computes both norms and the cross term in f32 in the
-kernel, clamps at 0 and writes +inf for invalid keys. For a CPU tensor the
-wrapper runs the plain version, :func:`repro_torch.kernels.ref.pairwise_sq_l2`.
+The port of ``repro.kernels.pairwise_l2``: ``csrc/pairwise_l2.cu`` computes
+both norms and the cross term in f32 on the CUDA cores, clamps at 0 and
+writes +inf for invalid keys, in one of two instances (:func:`route`):
+"small_m" (m ≤ 16 centres and d ≤ 32: a thread a row, the centres in
+shared memory) or "tiled" (64 × 128 output tiles, streaming float4
+stores). Both give the same bits. For a CPU tensor the wrapper runs the
+plain version, :func:`repro_torch.kernels.ref.pairwise_sq_l2`.
 """
 from __future__ import annotations
 
@@ -13,8 +17,15 @@ import torch
 
 from repro_torch.kernels import _cuda, ref
 
-#: rows the kernel's grid can cover (grid.y ≤ 65535 tiles of 32 rows)
-MAX_ROWS = 65535 * 32
+#: the small-m instance of ``csrc/pairwise_l2.cu``: at most this many keys
+#: and features
+SMALL_M, SMALL_D = 16, 32
+
+
+def route(m: int, d: int) -> str:
+    """Which instance of ``csrc/pairwise_l2.cu`` a launch takes: "small_m"
+    (m ≤ 16 and d ≤ 32, the k-means shapes) or "tiled"."""
+    return "small_m" if m <= SMALL_M and d <= SMALL_D else "tiled"
 
 
 def pairwise_sq_l2(
@@ -22,7 +33,8 @@ def pairwise_sq_l2(
     y: torch.Tensor,
     y_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(n, d) × (m, d) → (n, m) f32 distances; invalid keys → +inf."""
+    """(n, d) × (m, d) → (n, m) f32 distances; invalid keys → +inf.
+    Launches count in ``.launches`` and per route in ``.route_launches``."""
     if not x.is_cuda:
         return ref.pairwise_sq_l2(x, y, y_valid=y_valid)
     dev = _cuda.require_cuda("pairwise_sq_l2", x, y, y_valid)
@@ -31,9 +43,9 @@ def pairwise_sq_l2(
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
     n, d = x.shape
     m = y.shape[0]
-    if n > MAX_ROWS:
-        raise ValueError(f"pairwise_sq_l2: n={n} exceeds the kernel's grid "
-                         f"({MAX_ROWS} rows)")
+    if max(n, m) >= 2 ** 31:
+        raise ValueError(f"pairwise_sq_l2: {n} x {m} rows exceed the kernel's "
+                         f"32-bit row counts")
     if y_valid is not None and tuple(y_valid.shape) != (m,):
         raise ValueError(f"pairwise_sq_l2: y_valid has shape "
                          f"{tuple(y_valid.shape)}, want ({m},)")
@@ -44,7 +56,10 @@ def pairwise_sq_l2(
                    _cuda.ptr(out), n, m, d, _cuda.stream(dev))
     if n and m:
         pairwise_sq_l2.launches += 1
+        way = route(m, d)
+        pairwise_sq_l2.route_launches[way] = pairwise_sq_l2.route_launches.get(way, 0) + 1
     return out
 
 
 pairwise_sq_l2.launches = 0
+pairwise_sq_l2.route_launches = {}

@@ -82,6 +82,6 @@ def test_fit_rejects_what_it_cannot_run(rng):
     with pytest.raises(ValueError, match="iterable of host chunks"):
         repro_torch.fit(x, 2, 1, executor="streaming", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        repro_torch.fit(x, 2, 1, "hac", device="cpu")
+        repro_torch.fit(x, 2, 1, "spectral", device="cpu")
     with pytest.raises(ValueError, match="unknown executor"):
         repro_torch.fit(x, 2, 1, executor="sharded", device="cpu")
