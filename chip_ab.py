@@ -5,6 +5,7 @@ checkout on a GPU.
 
     python3 chip_ab.py ROOT          # ROOT: a checkout holding src/repro_torch
     python3 chip_ab.py ROOT --k4     # K4 alone
+    python3 chip_ab.py ROOT --lm     # the lm phase's generate, its tokens hashed
 
 Builds that checkout's top-k and flash-attention kernels (into
 ROOT/build/repro_torch/), then, at the shapes of ``chip_smoke.py``'s lm and
@@ -18,7 +19,9 @@ fit's level 0, 8192 x 581,632, d 6, k 2, the stream's block, 8192 x
 x 10^6, d 2, k 1; K4: k-means over 2390 prototypes and 7 centres, d 6,
 and 15,625 against 3, d 2, HAC's 4,096^2 at d 2 and DBSCAN's 50,000^2 at
 d 6, each output's bytes also hashed with SHA-1, so that two trees' K4
-can be compared bit for bit), prints one line ``AB {...}``: each call's median time
+can be compared bit for bit; with ``--lm`` instead chip_smoke.py's lm-phase
+generate of the full gemma2-2b, the SHA-1 of its tokens and its walls, so
+that two trees' served tokens can be compared), prints one line ``AB {...}``: each call's median time
 between CUDA events (``ms``), its device time with the calls queued behind
 a spin kernel (``device_ms``), its largest error against the plain version
 (at the K1 f32 shapes on the first 512 queries: the plain version takes
@@ -71,10 +74,20 @@ def k4_rows(out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def lm_tokens(out: dict) -> None:
+    """chip_smoke.py's lm-phase generate, its tokens hashed."""
+    *_, engine, prompts = cs.lm_engine()
+    res = engine.generate({"tokens": prompts})
+    out["lm_tokens_sha1"] = hashlib.sha1(res["tokens"].cpu().numpy().tobytes()).hexdigest()
+    out["lm_prefill_ms"] = res["timings"]["prefill_s"] * 1e3
+    out["lm_decode_s"] = res["timings"]["decode_s"]
+
+
 def main() -> int:
     args = sys.argv[1:]
     k4_only = "--k4" in args
-    args = [a for a in args if a != "--k4"]
+    lm_only = "--lm" in args
+    args = [a for a in args if a not in ("--k4", "--lm")]
     if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -83,11 +96,18 @@ def main() -> int:
 
     keep = ("pairwise_l2",) if k4_only else (
         "topk", "topk_bf16", "topk_int8", "flash_attention", "pairwise_l2")
-    _cuda.SOURCES = {n: _cuda.SOURCES[n] for n in keep}
+    if not lm_only:  # the lm path runs every library
+        _cuda.SOURCES = {n: _cuda.SOURCES[n] for n in keep}
     build_s = _cuda.build_all()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke.py runs
+    if lm_only:
+        out = {"tree": args[0], "build_s": build_s, "card": card}
+        lm_tokens(out)
+        print("AB " + json.dumps(out), flush=True)
+        return 0
     if k4_only:
         out = {"tree": args[0], "build_s": build_s, "card": card}
         k4_rows(out)
@@ -96,7 +116,6 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_assign, knn_topk, ref
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(7)
     B, hq, hkv, dh = cs.LM["batch"], 8, 4, 256
     P = (cs.LM["prompt"] + cs.LM["new_tokens"]) // cs.LM["t"]

@@ -32,7 +32,10 @@ Phases, each printing one JSON line:
                paths' four shapes: k-means over 2,390 x 7 and 15,625 x 3,
                HAC's 4,096^2 and DBSCAN's 50,000^2 (there the error is read
                on the first 4,096 and the last 1,024 rows), with its time
-               on the device and torch.cdist's beside it;
+               on the device and torch.cdist's beside it; K1-K4 at the
+               select phase's shapes (d 64: K1 8192 x 65,536, k 1, on the
+               split route; K2 at 8,192 rows; K3 65,536 into 32,768; K4
+               65,536 x 16,384);
   fit          the main path: repro_torch.fit on a covertype-sized
                Gaussian-mixture analog (n = 581,012, d = 6, 7 components,
                standardized), t = 3, m = 5, k-means k = 7;
@@ -75,6 +78,28 @@ Phases, each printing one JSON line:
                kernel path vs plain path level-0 maps agreement >= 0.999,
                both paths' prototypes as above, lowest inertias within
                5 %);
+  train        the trainer at the full gemma2-2b config through
+               repro_torch.launch.train's functions: f32 weights drawn from
+               a seeded generator, AdamW state in f32, b 8, s 256, remat
+               "block", 24 steps under warm-up 5 / decay 60 at peak lr 3e-4;
+               the mean of the last four losses must be below 0.92 x the
+               first four's (the reference test's criterion); the first 4
+               steps again from the seeded state must give the same losses
+               and parameters bit for bit; then 10 steps straight against
+               5 + checkpoint + restore + 5 at the smoke config, bit for
+               bit; step p50/p99, tokens/s, peak memory and AdamW's share
+               of a step (CUDA events); no kernel may launch (training
+               takes the plain route under autograd);
+  select       the paper's instance selection on a synth_tokens corpus of
+               65,536 examples of 257 tokens, featurized with the train
+               phase's embedding table (dim 64) under the reference's
+               default SelectionConfig (t* 2, m 2), and again at m 4 (its
+               8,192-row level runs K2): masses must sum to n within 1e-2;
+               the plain path on the card must agree on >= 0.999 of the
+               examples (prototype, medoid, mass), bit for bit unless the
+               two paths' level-0 kNN lists differ at a near-tie; then 8
+               weighted train steps on selected rows (loss finite, the
+               weight metric = sum of mass x labels);
   lm           the LM serving path at the full gemma2-2b config (random
                weights from a seeded generator): ServeEngine.generate with
                batch 4, prompt 2048, 160 new tokens, IHTC KV compression
@@ -86,6 +111,7 @@ Phases, each printing one JSON line:
                step) that must exceed it; then a second
                kernel-path run (bitwise equal tokens);
   profile      (only when asked for) the fit, the headline fit, (after
+               the train or select phase) one train step, (after
                the lm phase) one generate and (after the online phase) the
                stream's first 16 chunks again under torch.profiler: kernel
                time by name and the device busy share;
@@ -98,9 +124,12 @@ The kernel launch counts are set to 0 just before the fit and read after
 the fit and after the serve phase, set to 0 again just before the
 headline fit and read after it, just before the hac fit and read after
 it, just before the three dbscan fits and read after them, just before
-the online phase's stream and read after its refresh, and again just
+the online phase's stream and read after its refresh, just before the
+train phase's steps (none may launch), just before the select phase's
+two selections and read after them, and again just
 before the lm phase's generate and read right after it; every kernel of
-each path must have launched (K1-K4 in fit and serve; K1, K3 and K4 in
+each path must have launched (K1-K4 in fit and serve; K1-K4 in select;
+K1, K3 and K4 in
 hac, K4 on its tiled instance for the (n, n) matrices of HAC and DBSCAN,
 and in every dbscan fit; K1 and its bf16 and int8 key
 instances, K3 and K4 in online, the quantized ones never on the CUDA-core
@@ -122,6 +151,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import hashlib
 import json
 import re
 import shutil
@@ -136,7 +166,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "headline",
-                  "determinism", "hac", "dbscan", "online", "lm")
+                  "determinism", "hac", "dbscan", "online", "train", "select",
+                  "lm")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
 ALL_PHASES = DEFAULT_PHASES + ("profile", "basins")
@@ -234,6 +265,22 @@ MIN_BACKEND_AGREEMENT = 0.999
 #: instance at 46,341^2 and the small-m one at 2^27 + 1000 rows x 16, each
 #: about 8.6 GB of output
 K4_BEYOND_2_31 = ((46_341, 46_341, 2), ((1 << 27) + 1000, 16, 1))
+#: the train phase: gemma2-2b at full width, the launcher's b 8, s 256,
+#: remat "block", 24 steps under the reference test's schedule (warm-up 5,
+#: decay 60) at the default peak lr; the first repeat_steps again from the
+#: seeded state; a checkpoint resume at the smoke config (5 + 5 vs 10)
+TRAIN = dict(arch="gemma2-2b", seed=0, steps=24, repeat_steps=4, peak_lr=3e-4,
+             warmup=5, decay=60, resume_steps=10, resume_at=5)
+#: the reference test's criterion: the mean of the last four losses below
+#: this share of the mean of the first four
+MIN_LOSS_DROP = 0.92
+#: the select phase: a synth_tokens corpus of n examples of seq + 1 tokens
+#: (vocab 256,000), the reference's default SelectionConfig (t* 2, m 2,
+#: dim 64), a deeper selection at m_deep (its 8,192-row level runs K2), then
+#: `steps` weighted train steps of `batch` selected rows
+SELECT = dict(n=65_536, seq=256, seed=1, m_deep=4, steps=8, batch=8)
+#: kernel vs plain selection: per example, the same prototype, medoid and mass
+MIN_SELECT_AGREEMENT = 0.999
 
 KERNEL_META = {
     "K1": ("fused_topk", "src/repro_torch/csrc/topk.cu",
@@ -329,24 +376,31 @@ def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound(nq: int, p: int, d: int, k: int, nbytes: float, route: str,
-             bf16_operands: bool = False):
-    """(bound_ms, bound_by) of a top-k launch: the least time the card could
-    take. On the tensor-core route the larger of the cross term as three
-    TF32 products (3·2·d a pair at the TF32 peak; with ``bf16_operands``,
-    bf16 queries and keys, one bf16 product, 2·d a pair at the bf16 peak,
-    is exact), the epilogue's add, subtract and max (3 a pair at the f32
-    peak) and the bytes; on the CUDA cores d fma of the cross term plus
-    those 3 at the f32 peak, or the bytes."""
-    pairs = float(nq) * p
-    if route == "tc3xtf32":
-        t_cross = (2 * d * pairs / PEAK_BF16_FLOPS if bf16_operands
-                   else 3 * 2 * d * pairs / PEAK_TF32_FLOPS)
-        t_ops = max(t_cross, 3 * pairs / PEAK_F32_FLOPS)
-        t_bytes = nbytes / PEAK_BYTES
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes")
-    return bound(pairs * (2 * d + 3), nbytes)
+def distance_bound(pairs: float, d: int, nbytes: float, *, f32_flops: float = 0.0,
+                   bf16_operands: bool = False):
+    """(bound_ms, bound_by) of a function that forms ``pairs`` squared
+    distances max(‖x‖²+‖y‖²−2x·y, 0) of ``d`` features: the larger of the
+    bytes' time and the least time of the two ways the card can do the
+    operations, whatever route the kernel takes. On the CUDA cores d fma
+    of the cross term plus the add, subtract and max (2·d + 3 a pair) at
+    the f32 peak; on the tensor cores the cross term as three TF32
+    products (3·2·d a pair at the TF32 peak; with ``bf16_operands``, bf16
+    queries and keys, one bf16 product, 2·d a pair at the bf16 peak, is
+    exact) beside the 3 a pair at the f32 peak. ``f32_flops``: other work
+    at the f32 peak on either way (K4's norms)."""
+    t_cuda_core = (pairs * (2 * d + 3) + f32_flops) / PEAK_F32_FLOPS
+    t_cross = (2 * d * pairs / PEAK_BF16_FLOPS if bf16_operands
+               else 3 * 2 * d * pairs / PEAK_TF32_FLOPS)
+    t_ops = min(t_cuda_core, max(t_cross, (3 * pairs + f32_flops) / PEAK_F32_FLOPS))
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound(nq: int, p: int, d: int, nbytes: float, bf16_operands: bool = False):
+    """(bound_ms, bound_by) of a top-k launch of ``nq`` queries against
+    ``p`` keys (``distance_bound``)."""
+    return distance_bound(float(nq) * p, d, nbytes, bf16_operands=bf16_operands)
 
 
 def topk_mismatches(q, keys, got_d, got_i, ref_d, ref_i):
@@ -449,8 +503,6 @@ def _analog(n: int, seed: int = 0):
 
 
 def phase_kernels(results: dict) -> None:
-    from repro_torch.kernels import fused_assign, knn_topk, ops, ref
-
     t0 = time.perf_counter()
     gen = np.random.default_rng(1)
     x, _ = _analog(SIZES["covertype"])
@@ -507,22 +559,7 @@ def phase_kernels(results: dict) -> None:
 
     # K2: the one-shot TC graph (level 4 of the fit: 7172 rows, under the
     # 8192-row blocking threshold)
-    n, k = SIZES["knn_n"], 2
-    xs = x[:n].contiguous()
-    gd, gi = knn_topk.knn_topk(xs, k)
-    rd, ri = ref.knn(xs, k)
-    sync()
-    err = float((gd - rd).abs().max())
-    mism, bad = topk_mismatches(xs, xs, gd, gi, rd, ri)
-    check(torch.allclose(gd, rd, **DIST_TOL), f"K2 distances off: {err}")
-    check(bad == 0, f"K2: {bad} index mismatches that are not near-ties")
-    ms = cuda_ms(lambda: knn_topk.knn_topk(xs, k))
-    plain = cuda_ms(lambda: ref.knn(xs, k))
-    route = fused_assign.route(xs.dtype, xs.dtype, 6, k)
-    b_ms, b_by = k1_bound(n, n, 6, k, n * 6 * 4 + n * k * 8, route)
-    emit("kernels", kernel="K2", path="fit", variant=route, n=n, d=6, k=k,
-         max_abs_err=err, index_mismatches=mism, ms=ms, plain_ms=plain,
-         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    _k2_row("fit", x[:SIZES["knn_n"]].contiguous(), 2)
     _k2_compression(results)
 
     # K3: the level-0 prototype reduce, 8 blocks of 72,627 rows into
@@ -556,6 +593,7 @@ def phase_kernels(results: dict) -> None:
     del xd
     torch.cuda.empty_cache()
     _k3_compression()
+    _select_shapes()
     _k5_path_shapes(results)
     _edge_checks(gen)
     _attention_edges()
@@ -594,7 +632,7 @@ def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
     # bytes: queries, keys, valid, q_gidx in; distances and indices out
     nbytes = ((nq + p) * d * 4 + (0 if valid is None else p)
               + (0 if gidx is None else nq * 4) + nq * k * 8)
-    b_ms, b_by = k1_bound(nq, p, d, k, nbytes, route)
+    b_ms, b_by = k1_bound(nq, p, d, nbytes)
     dev_ms = device_ms(lambda: fa.fused_topk(q, keys, k, valid, q_gidx=gidx))
     row = dict(kernel="K1", path=path, variant=route, nq=nq, p=p, d=d, k=k,
                max_abs_err=err, index_mismatches=mism, ms=ms, device_ms=dev_ms,
@@ -603,6 +641,63 @@ def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
                library_ms=None)
     emit("kernels", **row)
     return row
+
+
+def _k2_row(path: str, x, k: int) -> dict:
+    """K2 (one-shot self-kNN, f32) at one of its paths' shapes against its
+    plain version: distances within DIST_TOL, index mismatches only at
+    near-ties; the kernel's time, the plain version's and the bound."""
+    from repro_torch.kernels import fused_assign, knn_topk, ref
+
+    n, d = x.shape
+    gd, gi = knn_topk.knn_topk(x, k)
+    rd, ri = ref.knn(x, k)
+    sync()
+    err = float((gd - rd).abs().max())
+    mism, bad = topk_mismatches(x, x, gd, gi, rd, ri)
+    check(torch.allclose(gd, rd, **DIST_TOL), f"K2 ({path}) distances off: {err}")
+    check(bad == 0, f"K2 ({path}): {bad} index mismatches that are not near-ties")
+    ms = cuda_ms(lambda: knn_topk.knn_topk(x, k))
+    plain = cuda_ms(lambda: ref.knn(x, k))
+    route = fused_assign.route(x.dtype, x.dtype, d, k)
+    b_ms, b_by = k1_bound(n, n, d, n * d * 4 + n * k * 8)
+    row = dict(kernel="K2", path=path, variant=route, n=n, d=d, k=k,
+               max_abs_err=err, index_mismatches=mism, ms=ms, plain_ms=plain,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    emit("kernels", **row)
+    return row
+
+
+def _select_shapes() -> None:
+    """K1-K4 at the select phase's shapes, on its kind of data: a
+    synth_tokens corpus of SELECT["n"] examples pooled through an N(0, 1)
+    table's first 64 columns (the train phase's table is drawn so) and
+    standardized. K1 at level 0 (an 8192-row block from the middle against
+    all rows, k = t* - 1 = 1, on the split route at d 64), K2 at the m 4
+    selection's 8,192-row level, K3 at the level-0 reduce (8 blocks into
+    n / 2 segments) and K4 at the medoid matrix (n x n / 4)."""
+    from repro_torch import prng
+    from repro_torch.core.prototypes import standardize
+    from repro_torch.data import DataConfig, synth_tokens
+    from repro_torch.data.instance_selection import featurize
+
+    n, bq = SELECT["n"], SIZES["blocked_q"]
+    vocab = 256_000
+    corpus = synth_tokens(prng.PRNGKey(SELECT["seed"]), n, SELECT["seq"], vocab,
+                          DataConfig(), device=DEV)
+    table = torch.randn((vocab, 64), generator=torch.Generator(DEV).manual_seed(0),
+                        device=DEV)
+    f = standardize(featurize(corpus, vocab, 64, embed_table=table))
+    del corpus, table
+    q0 = n // 2
+    _k1_row("select", f[q0:q0 + bq].contiguous(), f, None,
+            torch.arange(q0, q0 + bq, dtype=torch.int32, device=DEV), 1, 10)
+    _k2_row("select", f[:bq].contiguous(), 1)
+    g = torch.Generator(DEV).manual_seed(1)
+    ids = torch.randint(0, n // 2, (n,), generator=g, device=DEV, dtype=torch.int32)
+    _k3_row("select", f, ids, n // 2, torch.ones((n,), device=DEV))
+    _k4_row("select", f, f[:n // 4].contiguous(), None)
+    torch.cuda.empty_cache()
 
 
 def _k4_row(path: str, x, y, valid) -> dict:
@@ -648,8 +743,9 @@ def _k4_row(path: str, x, y, valid) -> dict:
     lib = cuda_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist"),
                   reps=reps, warmup=1)
     torch.cuda.empty_cache()
-    b_ms, b_by = bound(n * m * (2 * d + 3) + 2 * (n + m) * d,
-                       (n + m) * d * 4 + n * m * 4 + (m if valid is not None else 0))
+    b_ms, b_by = distance_bound(float(n) * m, d, (n + m) * d * 4 + n * m * 4
+                                + (m if valid is not None else 0),
+                                f32_flops=2 * (n + m) * d)
     row = dict(kernel="K4", path=path, variant=route, n=n, m=m, d=d,
                max_abs_err=err, err_rows=rows, bitwise_repeat=True, ms=ms,
                device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -791,9 +887,8 @@ def _k1_variants(results: dict, protos, valid, queries, path="kernels") -> None:
             # valid, scale and zero in, distances and indices out
             nbytes = (p * d * k_bytes + nq * d * q_bytes + p
                       + (2 * d * 4 if kw else 0) + nq * k * 8)
-            b_ms, b_by = k1_bound(nq, p, d, k, nbytes, route,
-                                  bf16_operands=kid == "K1-bf16")
-            cc_ms, _ = k1_bound(nq, p, d, k, nbytes, "cuda_core")
+            b_ms, b_by = k1_bound(nq, p, d, nbytes, bf16_operands=kid == "K1-bf16")
+            cc_ms, _ = bound(nq * p * (2 * d + 3), nbytes)
             row = dict(kernel=kid, path=label, variant=route, nq=nq, p=p, d=d, k=k,
                        max_abs_err=err, index_mismatches=mism, bitwise_repeat=True,
                        ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
@@ -843,7 +938,7 @@ def _k2_compression(results: dict) -> None:
     plain = cuda_ms(lambda: ref.knn(x, k, valid=valid))
     # per pair: d fma of the cross term + add, subtract, max; bytes: x and
     # valid in, distances and indices out
-    b_ms, b_by = k1_bound(n, n, d, k, n * d * 4 + n + n * k * 8, route)
+    b_ms, b_by = k1_bound(n, n, d, n * d * 4 + n + n * k * 8)
     results["K2"] = dict(kernel="K2", path="lm", variant=route, n=n, d=d, k=k,
                          splits=splits, keys_per_split=keys_per_split,
                          max_abs_err=err,
@@ -2196,6 +2291,320 @@ def phase_basins() -> None:
     emit("basins", run="done", seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------- training
+
+
+def _trainer(state: dict) -> dict:
+    """The train and select phases' trainer, built once: gemma2-2b at full
+    width, f32 trainable weights drawn from a seeded generator, zero AdamW
+    state, the launcher's batches (b 8, s 256) and a remat="block" step
+    under the reference test's schedule at the default peak lr."""
+    if "trainer" in state:
+        return state["trainer"]
+    from repro_torch.configs import ARCHS, SHAPES, ParallelConfig
+    from repro_torch.launch.train import batch_dims, batch_fn, init_state
+    from repro_torch.train import OptConfig, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = ARCHS[TRAIN["arch"]]
+    bundle, model, opt = init_state(cfg, device=DEV, seed=TRAIN["seed"])
+    opt_cfg = OptConfig(peak_lr=TRAIN["peak_lr"], warmup_steps=TRAIN["warmup"],
+                        decay_steps=TRAIN["decay"])
+    b, s = batch_dims(SHAPES["train_4k"])
+    sync()
+    state["trainer"] = dict(
+        cfg=cfg, bundle=bundle, model=model, opt=opt, b=b, s=s,
+        step=make_train_step(bundle, opt_cfg, ParallelConfig(remat="block")),
+        bfs=batch_fn(cfg, SHAPES["train_4k"], b, s, torch.device(DEV)),
+        init_s=time.perf_counter() - t0)
+    return state["trainer"]
+
+
+def _synced(step_fn):
+    """The step, ending in a synchronise: StepStats then times device work."""
+    def run(*args):
+        out = step_fn(*args)
+        sync()
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def _timed_adamw(times: list):
+    """While the block runs, each AdamW update of the train step is timed
+    with CUDA events (milliseconds appended to ``times`` at exit)."""
+    from repro_torch.train import train_step as ts
+
+    inner, events = ts.adamw_update, []
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(*args, **kw)
+        z.record()
+        events.append((a, z))
+        return out
+
+    ts.adamw_update = timed
+    try:
+        yield
+    finally:
+        ts.adamw_update = inner
+        sync()
+        times.extend(a.elapsed_time(z) for a, z in events)
+
+
+def _host_params(model) -> dict:
+    return {n: p.detach().to("cpu") for n, p in model.named_parameters()}
+
+
+def phase_train(state: dict) -> None:
+    """gemma2-2b at full width through the launcher's functions: 24 AdamW
+    steps (loss criterion), two repeats of 4 steps from the seeded state
+    (bitwise), then a checkpoint resume at the smoke config (bitwise)."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS, SHAPES, smoke_config
+    from repro_torch.launch.train import batch_fn, init_state
+    from repro_torch.train import CheckpointManager, OptConfig, make_train_step
+    from repro_torch.train.fault_tolerance import run_training
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.utils.tree import tree_bytes, tree_size
+
+    tr = _trainer(state)
+    model, cfg, n_rep = tr["model"], tr["cfg"], TRAIN["repeat_steps"]
+    step = _synced(tr["step"])
+    mets: list = []
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    adamw_ms: list = []
+    t0 = time.perf_counter()
+    with _timed_adamw(adamw_ms):
+        model, opt, st_a = run_training(
+            train_step=step, init_state=(model, tr["opt"]), batch_for_step=tr["bfs"],
+            n_steps=n_rep, on_metrics=lambda s, m: mets.append(m))
+        snap = _host_params(model)
+        model, opt, st_b = run_training(
+            train_step=step, init_state=(model, opt), batch_for_step=tr["bfs"],
+            n_steps=TRAIN["steps"], start_step=n_rep,
+            on_metrics=lambda s, m: mets.append(m))
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernels.launch_counts()
+    state["train_counts"] = counts
+    state["train_routes"] = kernels.route_counts()
+    n_params, state_bytes = tree_size(model), tree_bytes({"p": model, "o": opt})
+    times = st_a.times + st_b.times
+    losses = [float(m["loss"]) for m in mets]
+    gnorms = [float(m["grad_norm"]) for m in mets]
+    step_ms = [t * 1e3 for t in times]
+
+    # the first n_rep steps again from the seeded state: bitwise
+    tr["opt"] = opt = None
+    model.init_weights(torch.Generator(device=DEV).manual_seed(TRAIN["seed"]))
+    again: list = []
+    model, opt, _ = run_training(
+        train_step=step, init_state=(model, init_opt_state(model)),
+        batch_for_step=tr["bfs"], n_steps=n_rep,
+        on_metrics=lambda s, m: again.append(m))
+    tr["model"], tr["opt"] = model, opt
+    loss_repeat = all(torch.equal(a["loss"], b["loss"]) for a, b in zip(again, mets))
+    param_repeat = all(torch.equal(p.detach().to("cpu"), snap[n])
+                       for n, p in model.named_parameters())
+    del snap
+
+    # checkpoint resume at the smoke config: 10 straight vs 5 + save +
+    # restore + 5 (the reference test's setup)
+    scfg = smoke_config(ARCHS[TRAIN["arch"]])
+    rs, at = TRAIN["resume_steps"], TRAIN["resume_at"]
+    sbundle, _, _ = init_state(scfg, device=DEV)
+    sstep = make_train_step(sbundle, OptConfig(peak_lr=1e-2, warmup_steps=5,
+                                               decay_steps=60))
+    sbfs = batch_fn(scfg, SHAPES["train_4k"], 8, 32, torch.device(DEV))
+    _, pa, oa = init_state(scfg, device=DEV)
+    pa, _, _ = run_training(train_step=sstep, init_state=(pa, oa),
+                            batch_for_step=sbfs, n_steps=rs)
+    _, p5, o5 = init_state(scfg, device=DEV)
+    p5, o5, _ = run_training(train_step=sstep, init_state=(p5, o5),
+                             batch_for_step=sbfs, n_steps=at)
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d)
+        ck.save(at, {"params": p5, "opt": o5})
+        _, other, other_opt = init_state(scfg, device=DEV, seed=1)
+        rest = ck.restore(at, {"params": other, "opt": other_opt})
+    pb, _, _ = run_training(train_step=sstep, init_state=(rest["params"], rest["opt"]),
+                            batch_for_step=sbfs, n_steps=rs, start_step=at)
+    resume = all(torch.equal(a, b) for a, b in zip(pa.parameters(), pb.parameters(),
+                                                  strict=True))
+    sync()
+
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    tokens = tr["b"] * tr["s"] * len(times)
+    emit("train", arch=cfg.name, params=n_params, state_bytes=state_bytes,
+         batch=tr["b"], seq=tr["s"], steps=len(losses), remat="block",
+         init_s=round(tr["init_s"], 3), train_s=round(train_s, 3),
+         loss_first4=losses[:4], loss_last4=losses[-4:],
+         loss_ratio=last / first, grad_norms=gnorms,
+         step_ms_p50=float(np.quantile(step_ms, 0.5)),
+         step_ms_p99=float(np.quantile(step_ms, 0.99)),
+         tokens_per_s=tokens / sum(times),
+         tokens_per_s_at_p50=tr["b"] * tr["s"] / np.quantile(times, 0.5),
+         max_memory_allocated=peak,
+         adamw_ms_p50=float(np.median(adamw_ms)),
+         adamw_share=sum(adamw_ms) / sum(step_ms),
+         launches={k: v for k, v in counts.items() if v},
+         bitwise_repeat=bool(loss_repeat and param_repeat),
+         resume_bitwise=bool(resume), resume_arch=scfg.name)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          "non-finite loss or grad norm")
+    check(last < MIN_LOSS_DROP * first,
+          f"loss did not fall: mean of the last four {last} >= {MIN_LOSS_DROP} "
+          f"x mean of the first four {first}")
+    check(loss_repeat, "two repeats of the first steps differ in loss")
+    check(param_repeat, "two repeats of the first steps differ in parameters")
+    check(resume, "a resumed run differs from the straight run")
+    check(not any(counts.values()),
+          f"training launched kernels {counts}: it takes the plain route")
+
+
+def phase_select(state: dict) -> None:
+    """The paper's instance selection on a 65,536-example corpus with the
+    train phase's embedding table, kernel path against the plain path,
+    then weighted training steps on the selected corpus."""
+    from repro_torch import kernels, prng
+    from repro_torch.core.itis import level_sizes
+    from repro_torch.core.knn import knn_graph_blocked
+    from repro_torch.core.prototypes import standardize
+    from repro_torch.data import DataConfig, synth_tokens
+    from repro_torch.data.instance_selection import (
+        SelectionConfig,
+        featurize,
+        reduced_batch,
+        select_instances,
+    )
+    from repro_torch.train.fault_tolerance import run_training
+    from repro_torch.utils.tree import tree_bytes
+
+    tr = _trainer(state)
+    cfg, model = tr["cfg"], tr["model"]
+    n, s = SELECT["n"], SELECT["seq"]
+    scfg = SelectionConfig()
+    t, m = scfg.threshold, scfg.iterations
+    sizes = level_sizes(n, t, m)
+    k4_bytes = n * sizes[-1] * 4
+    resident = tree_bytes({"p": model, "o": tr["opt"]}) + 4 * sum(
+        p.numel() for p in model.parameters())  # params, moments, grads
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(resident + k4_bytes < total,
+          f"the trainer's {resident} bytes and K4's {k4_bytes} do not fit")
+    corpus = synth_tokens(prng.PRNGKey(SELECT["seed"]), n, s, cfg.vocab_size,
+                          DataConfig(), device=DEV)
+    table = model.embed.table
+    sync()
+    t0 = time.perf_counter()
+    featurize(corpus, cfg.vocab_size, scfg.feature_dim, embed_table=table)
+    sync()
+    feat_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sel = select_instances(corpus, cfg.vocab_size, scfg, embed_table=table)
+    sync()
+    select_s = time.perf_counter() - t0
+    deep_cfg = SelectionConfig(iterations=SELECT["m_deep"])
+    t0 = time.perf_counter()
+    deep = select_instances(corpus, cfg.vocab_size, deep_cfg, embed_table=table)
+    sync()
+    deep_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    routes = kernels.route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state["select_counts"], state["select_routes"] = counts, routes
+
+    def summary(r, mm):
+        valid = r.valid.cpu()
+        n_sel = int(valid.sum())
+        mass = float(torch.where(r.valid, r.weights, 0.0).double().sum())
+        idx = r.indices.cpu()[valid]
+        return dict(m=mm, selected=n_sel, reduction=n / n_sel, mass_sum=mass,
+                    distinct=len(set(idx.tolist())) == n_sel,
+                    assigned=bool((r.assignment >= 0).all()))
+
+    main_sum, deep_sum = summary(sel, m), summary(deep, SELECT["m_deep"])
+
+    # the plain path on the card, and the level-0 kNN of both paths
+    t0 = time.perf_counter()
+    ref = select_instances(corpus, cfg.vocab_size,
+                           SelectionConfig(impl="ref"), embed_table=table)
+    sync()
+    plain_s = time.perf_counter() - t0
+    feats = standardize(featurize(corpus, cfg.vocab_size, scfg.feature_dim,
+                                  embed_table=table))
+    kd, ki = knn_graph_blocked(feats, t - 1, impl="auto")
+    rd, ri = knn_graph_blocked(feats, t - 1, impl="ref")
+    knn_mism, knn_far = topk_mismatches(feats, feats, kd, ki, rd, ri)
+    a_k, a_r = sel.assignment.long(), ref.assignment.long()
+    agree = {
+        "assignment": float((a_k == a_r).double().mean()),
+        "indices": float((sel.indices[a_k] == ref.indices[a_r]).double().mean()),
+        "weights": float((sel.weights[a_k] == ref.weights[a_r]).double().mean()),
+    }
+    bitwise = all(torch.equal(getattr(sel, f), getattr(ref, f))
+                  for f in ("indices", "weights", "valid", "assignment"))
+
+    # weighted steps on the selected corpus (weights = masses)
+    rb = reduced_batch(corpus, sel)
+    bsz, n_steps = SELECT["batch"], SELECT["steps"]
+
+    def rows(step):
+        sl = slice(step * bsz, (step + 1) * bsz)
+        return {k: v[sl] for k, v in rb.items()}
+
+    wm: list = []
+    model, opt, _ = run_training(
+        train_step=_synced(tr["step"]), init_state=(model, tr["opt"]),
+        batch_for_step=rows, n_steps=n_steps, on_metrics=lambda st, mt: wm.append(mt))
+    tr["model"], tr["opt"] = model, opt
+    w_losses = [float(x["loss"]) for x in wm]
+    w_got = [float(x["weight"]) for x in wm]
+    w_want = [float((rows(i)["weights"].double()
+                     * (rows(i)["labels"] >= 0).sum(1).double()).sum())
+              for i in range(n_steps)]
+
+    emit("select", n=n, seq=s + 1, vocab=cfg.vocab_size,
+         feature_dim=scfg.feature_dim, t=t, level_sizes=sizes,
+         k4_matrix_bytes=k4_bytes, resident_bytes=resident,
+         reckoned_peak_bytes=resident + k4_bytes, card_bytes=total,
+         **main_sum, deep=deep_sum,
+         walls={"featurize_s": round(feat_s, 4), "select_s": round(select_s, 4),
+                "deep_select_s": round(deep_s, 4), "plain_select_s": round(plain_s, 4)},
+         max_memory_allocated=peak,
+         launches={k: v for k, v in counts.items() if v}, launches_by_route=routes,
+         agreement=agree, bitwise=bitwise, level0_knn_mismatches=knn_mism,
+         level0_knn_not_near_ties=knn_far,
+         weighted_losses=w_losses, weight_metric=w_got, weight_expected=w_want)
+    for sm in (main_sum, deep_sum):
+        check(abs(sm["mass_sum"] - n) < 1e-2,
+              f"m={sm['m']}: masses sum to {sm['mass_sum']}, want {n}")
+        check(sm["selected"] <= n // t ** sm["m"], f"m={sm['m']}: too many selected")
+        check(sm["distinct"] and sm["assigned"],
+              f"m={sm['m']}: selected examples repeat or an example has no prototype")
+    for kid in ("K1", "K2", "K3", "K4"):
+        check(counts[kid] > 0, f"{kid} was not launched by the select path")
+    check(counts["K5"] == 0, "the select path launched K5")
+    check(knn_far == 0, f"{knn_far} level-0 kNN mismatches are not near-ties")
+    check(min(agree.values()) >= MIN_SELECT_AGREEMENT,
+          f"kernel vs plain selection: agreement {agree}")
+    check(bitwise or knn_mism > 0,
+          "kernel and plain selection differ with no level-0 near-tie")
+    check(all(np.isfinite(w_losses)), f"weighted steps: losses {w_losses}")
+    check(np.allclose(w_got, w_want, rtol=1e-6, atol=0),
+          f"weighted steps: weight metric {w_got}, want {w_want}")
+
+
 def _logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
     """(b, vocab) logits of two paths: max |Δlogit|, its bound (LOGIT_ULPS
     bf16 ulps of the largest |logit|), top-1 agreement."""
@@ -2265,17 +2674,14 @@ def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
     return out, raw, start
 
 
-def phase_lm(state: dict) -> None:
-    """Serve the full gemma2-2b with IHTC KV compression, then hold the
-    kernel path against two plain paths and against itself."""
-    from repro_torch import kernels
+def lm_engine():
+    """The lm phase's serving set-up: the seeded full-width model, its
+    prompts and the engine that compresses the KV cache.
+    Returns (cfg, bundle, model, engine, prompts)."""
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build
     from repro_torch.serve import ServeConfig, ServeEngine
-    from repro_torch.serve.kv_compression import compress_model_caches
 
-    t0 = time.perf_counter()
     cfg = ARCHS[LM["arch"]]
     bundle = build(cfg)
     model = bundle.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
@@ -2284,6 +2690,18 @@ def phase_lm(state: dict) -> None:
     engine = ServeEngine(bundle, model, ServeConfig(
         max_new_tokens=LM["new_tokens"], compress=True, compress_t=LM["t"],
         compress_m=LM["m"], compress_tail=LM["tail"], impl="auto"))
+    return cfg, bundle, model, engine, prompts
+
+
+def phase_lm(state: dict) -> None:
+    """Serve the full gemma2-2b with IHTC KV compression, then hold the
+    kernel path against two plain paths and against itself."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    t0 = time.perf_counter()
+    cfg, bundle, model, engine, prompts = lm_engine()
     sync()
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -2327,6 +2745,7 @@ def phase_lm(state: dict) -> None:
                     "slots_after": c["slots_after"]} for c in tm["compress"]],
          decode_s=tm["decode_s"], decode_tok_per_s=n_tok / tm["decode_s"],
          compressions=out["compressions"], max_memory_allocated=peak,
+         tokens_sha1=hashlib.sha1(out["tokens"].cpu().numpy().tobytes()).hexdigest(),
          launches={k: counts[k] for k in ("K2", "K3", "K5", "K5-decode")},
          launches_by_route=routes, k5_expected=want_k5)
 
@@ -2479,6 +2898,16 @@ def main() -> int:
         phase_dbscan(state)
     if "online" in phases:
         phase_online(results, state)
+    if "train" in phases:
+        phase_train(state)
+    if "select" in phases:
+        phase_select(state)
+    if "profile" in phases and "trainer" in state:  # one more train step
+        tr = state["trainer"]
+        _profiled("train_gemma2_step",
+                  lambda: tr["step"](tr["model"], tr["opt"], tr["bfs"](0)))
+    state.pop("trainer", None)  # the lm phase serves its own model
+    torch.cuda.empty_cache()
     if "lm" in phases:
         phase_lm(state)
     if "profile" in phases:
@@ -2491,12 +2920,16 @@ def main() -> int:
                  "hac": state.get("hac_counts", {}),
                  "dbscan": state.get("dbscan_counts", {}),
                  "online": state.get("online_counts", {}),
+                 "train": state.get("train_counts", {}),
+                 "select": state.get("select_counts", {}),
                  "lm": state.get("lm_counts", {})}
         routes = {"fit_serve": state.get("main_routes", {}),
                   "headline": state.get("headline_routes", {}),
                   "hac": state.get("hac_routes", {}),
                   "dbscan": state.get("dbscan_routes", {}),
                   "online": state.get("online_routes", {}),
+                  "train": state.get("train_routes", {}),
+                  "select": state.get("select_routes", {}),
                   "lm": state.get("lm_routes", {})}
         line = []
         for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5", "K5-decode",

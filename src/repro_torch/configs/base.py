@@ -1,9 +1,16 @@
-"""Model architecture config — the port's copy of ``repro.configs.base``
-(``ModelConfig`` only; the shape, parallelism and run configs belong to
-the training and dry-run side, which is not ported yet)."""
+"""Configs — the port's copy of ``repro.configs.base``: model
+architectures, input shapes, parallelism knobs.
+
+``ParallelConfig`` keeps every field of the reference. The single-device
+trainer reads ``remat`` and ``microbatches``; ``zero_stage``,
+``shard_kv_seq``, ``compress_pod_grads`` and ``seq_shard_activations``
+are mesh knobs, stored and not read until the port runs on a mesh
+(ROADMAP.md, Queue 1, item 7).
+"""
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Tuple
 
 
@@ -125,3 +132,40 @@ class ModelConfig:
             total += attn_params() + mlp_params(ff) + 2 * d
             total += attn_params() + d  # decoder cross-attn + its norm
         return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Distribution knobs resolved by the launcher per (arch × shape × mesh)."""
+    remat: str = "block"             # none | block | dots
+    microbatches: int = 1
+    zero_stage: int = 1              # 0 = replicated opt state, 1 = sharded
+    shard_kv_seq: bool = True        # decode: shard KV-cache sequence over 'model'
+    compress_pod_grads: bool = True  # int8 error-feedback all-reduce on 'pod'
+    seq_shard_activations: bool = False  # prefill: sequence-shard activations
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,17 +1,102 @@
-"""Massive point streams for the streaming fit — the port's copy of the
-point-stream part of ``repro.data.pipeline`` (host numpy only, the same
-draws for the same seed).
+"""Deterministic synthetic data — the port of ``repro.data.pipeline``.
 
-A stream is a deterministic synthetic point cloud generated chunk by
-chunk: each chunk is a pure function of (seed, chunk index), so a stream
-is restartable and chunks can be made anywhere.
+Every training batch is a pure function of (seed, step): a restart at step
+k regenerates exactly the batches a healthy run would have seen, with no
+pipeline state to checkpoint. Tokens follow a Zipfian unigram mixed with
+a hidden Markov structure, so the LM loss has signal to descend. The keys
+and uniform bits are ``jax.random``'s (``repro_torch.prng``), so a batch
+holds the reference's tokens; batches are made on the host unless the
+caller names a device, and the caller moves them to the card.
+
+The clustering workload's point streams follow the same contract: each
+chunk is a pure function of (seed, chunk index), so a stream is
+restartable and chunks can be made anywhere. Feeding a stream onto a mesh
+(``stream_to_mesh``) waits for the port's mesh (ROADMAP.md, Queue 1,
+item 7).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    n_states: int = 16          # HMM hidden states
+    zipf_a: float = 1.3
+
+
+def _batch_key(seed: int, step: int) -> torch.Tensor:
+    return prng.fold_in(prng.PRNGKey(seed), step)
+
+
+def synth_tokens(key: torch.Tensor, batch: int, seq: int, vocab: int,
+                 dcfg: DataConfig, *, device=None) -> torch.Tensor:
+    """Markov-modulated Zipf tokens (b, s+1) int64: learnable structure,
+    stateless.
+
+    ``base`` truncates ``pareto·7`` to an integer; the port's ``exp`` and
+    ``log1p`` may differ from XLA's by an ulp, which changes a token only
+    where pareto·7 lies within an ulp of an integer."""
+    k1, k2, _ = prng.split(key, 3)
+    shape = (batch, seq + 1)
+    # hidden state per position: slow random walk
+    steps = prng.bernoulli(k1, 0.1, shape, device=device).to(torch.int64)
+    state = torch.cumsum(steps, dim=1) % dcfg.n_states
+    # per-state vocab offset makes next-token statistics state-dependent
+    ranks = prng.pareto(k2, dcfg.zipf_a, shape, device=device)
+    base = torch.clamp(ranks * 7.0, 0, vocab // 2 - 1).to(torch.int64)
+    offset = state * (vocab // (2 * dcfg.n_states))
+    return (base + offset) % vocab
+
+
+def _frontend_not_ported(cfg: ModelConfig) -> None:
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: batches of the {cfg.frontend!r} frontend are not "
+            f"ported yet (ROADMAP.md, Queue 1, item 8)")
+
+
+def make_batch(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    step: int,
+    *,
+    dcfg: DataConfig = DataConfig(),
+    batch_override: Optional[int] = None,
+    seq_override: Optional[int] = None,
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """Training batch at ``step`` (pure function): ``{"tokens", "labels"}``
+    (b, s) int64."""
+    _frontend_not_ported(cfg)
+    b = batch_override or shape.global_batch
+    s = seq_override or shape.seq_len
+    toks = synth_tokens(_batch_key(dcfg.seed, step), b, s, cfg.vocab_size, dcfg,
+                        device=device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def batch_iterator(
+    cfg: ModelConfig, shape: ShapeConfig, *, start_step: int = 0,
+    dcfg: DataConfig = DataConfig(), **kw,
+) -> Iterator[Dict[str, torch.Tensor]]:
+    step = start_step
+    while True:
+        yield make_batch(cfg, shape, step, dcfg=dcfg, **kw)
+        step += 1
+
+
+# ---------------------------------------------------------------------------
+# Massive point streams for the clustering pipeline
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

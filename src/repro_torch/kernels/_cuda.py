@@ -177,6 +177,24 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its kernel's route for ``t`` (a CUDA tensor)
+    rather than the plain version (a CPU tensor)."""
+    return t.is_cuda
+
+
+def forbid_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when a kernel is handed a tensor that requires grad while grad
+    mode is on: the kernels have no backward pass, so their output would
+    carry no gradient and training would silently lose it."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward pass and was handed a "
+            f"tensor that requires grad; train with impl=\"ref\" (the plain "
+            f"route under autograd), or call it under torch.no_grad()")
+
+
 def require_cuda(name: str, *tensors: Optional[torch.Tensor]) -> torch.device:
     """Check that every given tensor lies on one CUDA device; return it."""
     dev = None

@@ -107,9 +107,10 @@ def flash_attention(
     over all lk keys. The LM path forms no such row: the slot being
     decoded is always visible with a finite bias."""
     _check(q, k, v, kv_bias, causal)
-    if not q.is_cuda:
+    if not _cuda.on_card(q):
         return flash_attention_plain(q, k, v, kv_bias, causal=causal,
                                      scale=scale, logit_softcap=logit_softcap)
+    _cuda.forbid_grad("flash_attention", q, k, v, kv_bias)
     dev = _cuda.require_cuda("flash_attention", q, k, v, kv_bias)
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: the kernel takes f32 or bf16 q, "

@@ -190,10 +190,11 @@ def fused_topk(
       ``.launches_bf16`` and ``.launches_int8``; and per key type and
       route in ``.route_launches`` ("K1-int8/tc3xtf32": n, ...).
     """
-    if not q.is_cuda:
+    if not _cuda.on_card(q):
         return fused_topk_plain(q, keys, k, key_valid, q_gidx=q_gidx,
                                 keys_scale=keys_scale, keys_zero=keys_zero,
                                 block_k=block_k)
+    _cuda.forbid_grad("fused_topk", q, keys, keys_scale, keys_zero)
     out = launch_topk(q, keys, k, key_valid, q_gidx, keys_scale, keys_zero)
     if q.shape[0]:
         kid = key_type(keys.dtype)

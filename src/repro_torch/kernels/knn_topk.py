@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _cuda, ref
 from repro_torch.kernels.fused_assign import launch_topk
 
 
@@ -25,8 +25,9 @@ def knn_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dists (n, k) ascending sq-L2 f32, idx (n, k) int32; unfilled slots
     inf/-1)."""
-    if not x.is_cuda:
+    if not _cuda.on_card(x):
         return ref.knn(x, k, valid=valid, exclude_self=exclude_self)
+    _cuda.forbid_grad("knn_topk", x)
     gidx = (torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
             if exclude_self else None)
     out = launch_topk(x, x, k, valid, gidx)

@@ -35,8 +35,9 @@ def pairwise_sq_l2(
 ) -> torch.Tensor:
     """(n, d) × (m, d) → (n, m) f32 distances; invalid keys → +inf.
     Launches count in ``.launches`` and per route in ``.route_launches``."""
-    if not x.is_cuda:
+    if not _cuda.on_card(x):
         return ref.pairwise_sq_l2(x, y, y_valid=y_valid)
+    _cuda.forbid_grad("pairwise_sq_l2", x, y)
     dev = _cuda.require_cuda("pairwise_sq_l2", x, y, y_valid)
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1] or x.shape[1] < 1:
         raise ValueError(f"pairwise_sq_l2: want x (n, d) and y (m, d), got "

@@ -44,9 +44,10 @@ def blocked_segment_sum(
     """(sums (S, d) f32, masses (S,) f32) under the ``n_blocks`` fold; ids
     outside [0, S) are dropped. One kernel call, counted once in
     ``blocked_segment_sum.launches``."""
-    if not x.is_cuda:
+    if not _cuda.on_card(x):
         return ref.blocked_segment_sum(x, segment_ids, num_segments,
                                        weights=weights, n_blocks=n_blocks)
+    _cuda.forbid_grad("segment_sum", x, weights)
     dev = _cuda.require_cuda("segment_sum", x, segment_ids, weights)
     if x.ndim != 2 or x.shape[1] < 1:
         raise ValueError(f"segment_sum: want x (n, d>=1), got {tuple(x.shape)}")

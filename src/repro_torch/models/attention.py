@@ -142,17 +142,19 @@ def attend(
 class Attention(nn.Module):
     """QKV/O projections of one self-attention layer (weights (d_in, d_out))."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=COMPUTE_DTYPE,
+                 requires_grad: bool = False):
         super().__init__()
         hd, hq, hkv, d = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
-        self.wq = weight((d, hq * hd), device=device)
-        self.wk = weight((d, hkv * hd), device=device)
-        self.wv = weight((d, hkv * hd), device=device)
-        self.wo = weight((hq * hd, d), device=device)
+        kw = dict(device=device, dtype=dtype, requires_grad=requires_grad)
+        self.wq = weight((d, hq * hd), **kw)
+        self.wk = weight((d, hkv * hd), **kw)
+        self.wv = weight((d, hkv * hd), **kw)
+        self.wo = weight((hq * hd, d), **kw)
         if cfg.qkv_bias:
-            self.bq = weight((hq * hd,), device=device)
-            self.bk = weight((hkv * hd,), device=device)
-            self.bv = weight((hkv * hd,), device=device)
+            self.bq = weight((hq * hd,), **kw)
+            self.bk = weight((hkv * hd,), **kw)
+            self.bv = weight((hkv * hd,), **kw)
 
 
 def attention_apply(

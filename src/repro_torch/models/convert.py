@@ -1,18 +1,23 @@
-"""Carry the reference's parameters across into the port's model.
+"""Carry the reference's parameters and optimizer state across into the
+port.
 
 ``repro``'s ``bundle.init`` returns a pytree ``{"embed": {"table"[,
 "unembed"]}, "prefix": [layer dicts], "stack": [period layer dicts whose
 leaves carry a leading repeat axis], "ln_f"}``. :func:`params_from_tree`
 takes that tree with numpy leaves (``jax.tree_util.tree_map(np.asarray,
 params)``; nothing of JAX is imported here) and fills the port's per-layer
-modules: stack entry ``j`` at repeat ``r`` is layer
-``n_prefix + r·period + j`` under :func:`transformer.stack_plan`. Dense
-weights are stored in bf16, as the reference casts them at use; norm
-weights stay f32.
+modules through ``utils.tree.param_path``: stack entry ``j`` at repeat
+``r`` is layer ``n_prefix + r·period + j`` under
+:func:`transformer.stack_plan`. Serving weights are stored in bf16, as
+the reference casts them at use; ``trainable=True`` keeps them in f32
+with ``requires_grad``, as the reference trains them. Norm weights stay
+f32. :func:`opt_state_from_tree` carries the reference's AdamW state
+(``repro.train.optimizer.init_opt_state``'s ``{"m", "v", "step"[,
+"master"]}``) into the port's (``repro_torch.train.optimizer``).
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -20,6 +25,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.runtime import resolve_device
+from repro_torch.utils.tree import param_path
+
+
+def reference_value(tree: Mapping, path: str, repeat: Optional[int] = None):
+    """The leaf at ``path`` ("stack/0/attn/wq") of a reference tree, sliced
+    at ``repeat`` when the leaf is stacked."""
+    node = tree
+    for part in path.split("/"):
+        node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
+    return node if repeat is None else node[repeat]
 
 
 def _put(param: torch.Tensor, value) -> None:
@@ -31,32 +46,35 @@ def _put(param: torch.Tensor, value) -> None:
         param.copy_(torch.from_numpy(a).to(param.device, param.dtype))
 
 
-def _load_layer(blk: transformer.Block, lp: Mapping) -> None:
-    for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
-        if name in lp:
-            _put(getattr(blk, name), lp[name])
-    for name, value in lp["attn"].items():
-        _put(getattr(blk.attn, name), value)
-    for name, value in lp["mlp"].items():
-        _put(getattr(blk.mlp, name), value)
-
-
-def params_from_tree(cfg: ModelConfig, tree: Mapping, *,
-                     device=None) -> transformer.LM:
+def params_from_tree(cfg: ModelConfig, tree: Mapping, *, device=None,
+                     trainable: bool = False) -> transformer.LM:
     """A port ``LM`` holding the reference's parameters (numpy leaves)."""
-    model = transformer.LM(cfg, device=resolve_device(device))
-    n_prefix, period, rep = transformer.stack_plan(cfg)
-    _put(model.embed.table, tree["embed"]["table"])
-    if not cfg.tie_embeddings:
-        _put(model.embed.unembed, tree["embed"]["unembed"])
-    _put(model.ln_f, tree["ln_f"])
-    for l in range(n_prefix):
-        _load_layer(model.layers[l], tree["prefix"][l])
-    for j in range(period if rep else 0):
-        group = tree["stack"][j]
-        for r in range(rep):
-            sliced = {k: ({kk: vv[r] for kk, vv in v.items()}
-                          if isinstance(v, Mapping) else v[r])
-                      for k, v in group.items()}
-            _load_layer(model.layers[n_prefix + r * period + j], sliced)
+    model = transformer.LM(cfg, device=resolve_device(device),
+                           trainable=trainable)
+    for name, param in model.named_parameters():
+        _put(param, reference_value(tree, *param_path(cfg, name)))
     return model
+
+
+def opt_state_from_tree(model: transformer.LM, tree: Mapping) -> dict:
+    """The port's optimizer state (f32 moments keyed by parameter name on
+    the model's device, an int32 step) from the reference's ``{"m", "v",
+    "step"[, "master"]}`` with numpy leaves."""
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+
+    def moments(sub: Mapping) -> dict:
+        out = {}
+        for name, p in model.named_parameters():
+            a = np.array(reference_value(sub, *param_path(cfg, name)), np.float32)
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {a.shape}, want {tuple(p.shape)}")
+            out[name] = torch.from_numpy(a).to(dev)
+        return out
+
+    state = {"m": moments(tree["m"]), "v": moments(tree["v"]),
+             "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                                  device=dev)}
+    if "master" in tree:
+        state["master"] = moments(tree["master"])
+    return state

@@ -1,11 +1,14 @@
 """Shared layers of the LM — the port of ``repro.models.layers``.
 
 Weights keep the reference's layout (a dense weight is (d_in, d_out) and
-applies as ``x @ w``) and are stored in the compute dtype, bf16, once:
-the reference keeps them in f32 and casts them to bf16 at every use,
-which gives the same values. Norm weights stay f32, as the reference
-applies them. Activations are bf16 between layers; norms, rope and the
-final logits work in f32.
+applies as ``x @ w``). Serving stores them frozen in the compute dtype,
+bf16, once: the reference keeps them in f32 and casts them to bf16 at
+every use, which gives the same values. Training stores them as the
+reference does, f32 and trainable (``dtype=torch.float32,
+requires_grad=True``); every use is a cast at use, so an f32 weight meets
+the activations in bf16, the reference's arithmetic. Norm weights stay
+f32, as the reference applies them. Activations are bf16 between layers;
+norms, rope and the final logits work in f32.
 """
 from __future__ import annotations
 
@@ -19,10 +22,12 @@ from repro_torch.configs.base import ModelConfig
 COMPUTE_DTYPE = torch.bfloat16
 
 
-def weight(shape, *, dtype=COMPUTE_DTYPE, device=None) -> nn.Parameter:
-    """An uninitialised inference weight (filled by ``init`` or ``convert``)."""
+def weight(shape, *, dtype=COMPUTE_DTYPE, device=None,
+           requires_grad: bool = False) -> nn.Parameter:
+    """An uninitialised weight (filled by ``init`` or ``convert``): frozen
+    bf16 for serving, f32 with ``requires_grad`` for training."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=requires_grad)
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator,
@@ -66,15 +71,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 class MLP(nn.Module):
     """swiglu (gate, up, down) | relu2 | gelu (up, down), in bf16."""
 
-    def __init__(self, d: int, ff: int, kind: str, *, device=None):
+    def __init__(self, d: int, ff: int, kind: str, *, device=None,
+                 dtype=COMPUTE_DTYPE, requires_grad: bool = False):
         super().__init__()
         if kind not in ("swiglu", "relu2", "gelu"):
             raise ValueError(f"unknown mlp kind {kind!r}")
         self.kind = kind
-        self.up = weight((d, ff), device=device)
-        self.down = weight((ff, d), device=device)
+        kw = dict(device=device, dtype=dtype, requires_grad=requires_grad)
+        self.up = weight((d, ff), **kw)
+        self.down = weight((ff, d), **kw)
         if kind == "swiglu":
-            self.gate = weight((d, ff), device=device)
+            self.gate = weight((d, ff), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -92,13 +99,15 @@ class MLP(nn.Module):
 class Embed(nn.Module):
     """Token table (padded vocab) and, untied, the unembedding."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=COMPUTE_DTYPE,
+                 requires_grad: bool = False):
         super().__init__()
         self.cfg = cfg
         v = cfg.padded_vocab_size
-        self.table = weight((v, cfg.d_model), device=device)
+        kw = dict(device=device, dtype=dtype, requires_grad=requires_grad)
+        self.table = weight((v, cfg.d_model), **kw)
         if not cfg.tie_embeddings:
-            self.unembed = weight((cfg.d_model, v), device=device)
+            self.unembed = weight((cfg.d_model, v), **kw)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.table.to(COMPUTE_DTYPE)[tokens]

@@ -7,6 +7,9 @@
     logits, caches = bundle.prefill(model, caches, {"tokens": prompts})
     logits, caches = bundle.decode_step(model, caches, {"tokens": tok[:, None]})
 
+    model = bundle.init(gen, trainable=True)        # f32, requires_grad
+    logits, aux = bundle.forward(model, {"tokens": tokens}, remat="block")
+
 ``init`` builds the model on ``device`` (default: the runtime config's,
 "cuda" unless the caller asks for the CPU; a missing GPU raises). The
 dense family only (``transformer.check_supported``).
@@ -28,6 +31,7 @@ from repro_torch.runtime import resolve_device
 class ModelBundle:
     cfg: ModelConfig
     init: Callable[..., transformer.LM]
+    forward: Callable[..., Any]       # (logits (b, s, V) f32, aux)
     prefill: Callable[..., Any]       # (logits (b, 1, V), caches)
     decode_step: Callable[..., Any]   # (logits (b, 1, V), caches)
     init_caches: Callable[..., dict]
@@ -37,12 +41,16 @@ def build(cfg: ModelConfig) -> ModelBundle:
     transformer.check_supported(cfg)
 
     def init(generator: Optional[torch.Generator] = None, *,
-             device=None) -> transformer.LM:
+             device=None, trainable: bool = False) -> transformer.LM:
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        model = transformer.LM(cfg, device=dev)
+        model = transformer.LM(cfg, device=dev, trainable=trainable)
         return model.init_weights(generator)
+
+    def forward(model, batch, *, impl="ref", remat="none"):
+        logits, _ = model(batch["tokens"], impl=impl, remat=remat)
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
     def prefill(model, caches, batch, *, impl=None):
         return model(batch["tokens"], caches=caches, impl=impl, last_only=True)
@@ -56,4 +64,4 @@ def build(cfg: ModelConfig) -> ModelBundle:
         return transformer.init_lm_caches(cfg, batch, max_len, dtype=dtype,
                                           device=resolve_device(device))
 
-    return ModelBundle(cfg, init, prefill, decode_step, init_caches)
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_caches)

@@ -4,18 +4,26 @@ dense family (attention + dense MLP layers, with gemma2's post-norms).
 The reference stacks the repeated layer group on a leading axis and scans
 it; here the model is a plain list of per-layer modules. :func:`stack_plan`
 is kept: it says how the reference's parameters and caches are laid out
-(``convert.py`` unstacks them) and which PRNG key the KV compression gives
-each layer (``serve/kv_compression.py``).
+(``convert.py`` and ``utils/tree.py`` map them), which PRNG key the KV
+compression gives each layer (``serve/kv_compression.py``) and which
+layers one rematerialised group of training holds.
+
+``LM(cfg)`` is the frozen bf16 serving model; ``LM(cfg, trainable=True)``
+holds f32 weights with ``requires_grad``, as the reference trains them;
+:meth:`LM.forward` with ``remat`` gives the full (b, s, padded_vocab)
+logits under autograd with the reference's rematerialisation policies.
 
 MoE, Mamba2, hybrid, VLM and enc-dec families are not ported yet
 (ROADMAP.md, Queue 1, slice 8): building one raises NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -84,18 +92,20 @@ class Block(nn.Module):
     """Pre-norm attention and MLP sub-blocks (post-norms with
     ``cfg.post_norm``); norm weights in f32, zero-initialised (1 + w)."""
 
-    def __init__(self, cfg: ModelConfig, layer: int, *, device=None):
+    def __init__(self, cfg: ModelConfig, layer: int, *, device=None,
+                 dtype=COMPUTE_DTYPE, requires_grad: bool = False):
         super().__init__()
         self.cfg, self.layer = cfg, layer
         d = cfg.d_model
 
         def norm():
             return nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device),
-                                requires_grad=False)
+                                requires_grad=requires_grad)
 
+        kw = dict(device=device, dtype=dtype, requires_grad=requires_grad)
         self.ln1, self.ln2 = norm(), norm()
-        self.attn = attn.Attention(cfg, device=device)
-        self.mlp = MLP(d, dense_ff(cfg, layer), cfg.mlp, device=device)
+        self.attn = attn.Attention(cfg, **kw)
+        self.mlp = MLP(d, dense_ff(cfg, layer), cfg.mlp, **kw)
         if cfg.post_norm:
             self.ln1_post, self.ln2_post = norm(), norm()
 
@@ -117,25 +127,37 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Embedding → blocks → final norm → (soft-capped) logits."""
+    """Embedding → blocks → final norm → (soft-capped) logits.
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    ``trainable=False`` (serving): frozen bf16 weights. ``trainable=True``:
+    f32 weights and norms with ``requires_grad``, as the reference trains.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None, trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.embed = Embed(cfg, device=device)
-        self.layers = nn.ModuleList(Block(cfg, l, device=device)
+        kw = dict(device=device, requires_grad=trainable,
+                  dtype=torch.float32 if trainable else COMPUTE_DTYPE)
+        self.embed = Embed(cfg, **kw)
+        self.layers = nn.ModuleList(Block(cfg, l, **kw)
                                     for l in range(cfg.n_layers))
         self.ln_f = nn.Parameter(torch.zeros(cfg.d_model, dtype=torch.float32,
-                                             device=device), requires_grad=False)
+                                             device=device), requires_grad=trainable)
 
+    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "LM":
         """Random weights drawn from ``generator`` (f32 normals scaled as
-        the reference's init, stored in bf16); norms stay 0."""
+        the reference's init, stored in the weights' dtype); norms and
+        biases are set to 0, so a trained model is reset to the draw."""
         dense_init_(self.embed.table, generator, scale=1.0)
+        self.ln_f.zero_()
         if not self.cfg.tie_embeddings:
             dense_init_(self.embed.unembed, generator)
         for blk in self.layers:
+            for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
+                if hasattr(blk, name):
+                    getattr(blk, name).zero_()
             a = blk.attn
             for w in (a.wq, a.wk, a.wv, a.wo):
                 dense_init_(w, generator)
@@ -155,27 +177,79 @@ class LM(nn.Module):
         start_pos: Optional[int] = None,      # decode offset
         impl: Optional[str] = None,
         last_only: bool = False,
+        remat: str = "none",
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         """(logits (b, s or 1, padded_vocab) f32, caches). ``last_only``
         unembeds only the last position (prefill: the reference keeps
-        ``logits[:, -1:]`` of the full set, the same numbers)."""
+        ``logits[:, -1:]`` of the full set, the same numbers).
+
+        ``remat`` as the reference's ``lm_apply`` (training, no caches):
+        "none" keeps every activation; "block" recomputes each prefix
+        layer and each group of ``period`` stacked layers in the backward
+        pass (the reference's ``jax.checkpoint`` of a layer and of its
+        scanned group); "dots" recomputes the same groups but keeps the
+        outputs of matrix products without batch dimensions (``x @ w``:
+        ``aten.mm``), the counterpart of
+        ``dots_with_no_batch_dims_saveable``. The values do not depend on
+        ``remat``. Training takes ``impl`` "ref", the reference's "xla"
+        route: the kernels have no backward pass.
+        """
+        if remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+        if remat != "none" and caches is not None:
+            raise ValueError("remat is for training, which passes no caches")
         cfg = self.cfg
         x = self.embed.embed(tokens).to(COMPUTE_DTYPE)
         b, s, _ = x.shape
         offset = 0 if start_pos is None else int(start_pos)
         positions = (offset + torch.arange(s, device=x.device)).expand(b, s)
-        layer_caches: List[Optional[dict]] = (
-            caches["layers"] if caches is not None else [None] * cfg.n_layers)
-        new_layers = []
-        for blk, c in zip(self.layers, layer_caches, strict=True):
-            x, nc = blk(x, positions, c, impl)
-            new_layers.append(nc)
+        new_caches = None
+        if remat == "none":
+            layer_caches: List[Optional[dict]] = (
+                caches["layers"] if caches is not None else [None] * cfg.n_layers)
+            new_layers = []
+            for blk, c in zip(self.layers, layer_caches, strict=True):
+                x, nc = blk(x, positions, c, impl)
+                new_layers.append(nc)
+            if caches is not None:
+                new_caches = {**caches, "layers": new_layers}
+        else:
+            def group(h: torch.Tensor, ids: range) -> torch.Tensor:
+                for l in ids:
+                    h, _ = self.layers[l](h, positions, None, impl)
+                return h
+
+            ctx = _dots_context if remat == "dots" else ckpt.noop_context_fn
+            for ids in layer_groups(cfg):
+                x = ckpt.checkpoint(functools.partial(group, ids=ids), x,
+                                    use_reentrant=False, context_fn=ctx)
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
-        logits = self.embed.logits(x)
-        new_caches = None if caches is None else {**caches, "layers": new_layers}
-        return logits, new_caches
+        return self.embed.logits(x), new_caches
+
+
+#: the rematerialisation policies of training (``ParallelConfig.remat``)
+REMATS = ("none", "block", "dots")
+
+
+def layer_groups(cfg: ModelConfig) -> List[range]:
+    """The layers one rematerialised unit holds: each prefix layer alone,
+    then each repeat of the stacked ``period``-layer group."""
+    n_prefix, period, rep = stack_plan(cfg)
+    return ([range(l, l + 1) for l in range(n_prefix)]
+            + [range(n_prefix + r * period, n_prefix + (r + 1) * period)
+               for r in range(rep)])
+
+
+def _save_mm(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_save_mm)
 
 
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -14,7 +14,12 @@ using a ``torch.Generator``:
   * :func:`categorical` is Gumbel-argmax with ``-log(-log(u))`` noise (the
     reference's default low-range mode). Its ``log`` may differ from
     XLA's by an ulp, so draws agree wherever no two noisy logits tie
-    within an ulp.
+    within an ulp;
+  * :func:`normal` (√2·erfinv(u), u on [nextafter(−1, 0), 1)),
+    :func:`exponential` (−log1p(−u)), :func:`pareto` (exp(e / b)) and
+    :func:`bernoulli` (u < p) are jax's formulas on the same uniform
+    bits; ``erfinv``, ``log1p`` and ``exp`` may differ from XLA's by an
+    ulp, as ``log`` does.
 
 The counters are computed on the device the caller names; keys stay on
 the CPU, so reading a key never synchronises with the card.
@@ -138,3 +143,31 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     (Gumbel-argmax; the first maximum wins a tie)."""
     noise = gumbel(key, tuple(logits.shape), device=logits.device)
     return torch.argmax(noise.to(logits.dtype) + logits, dim=-1)
+
+
+def normal(key: torch.Tensor, shape: Shape, *, device=None) -> torch.Tensor:
+    """float32 standard normals: ``sqrt(2) * erfinv(u)`` with u uniform on
+    [nextafter(-1, 0), 1), as ``jax.random.normal``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, minval=lo, maxval=1.0, device=device)
+    return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)), device=u.device)
+
+
+def exponential(key: torch.Tensor, shape: Shape, *, device=None) -> torch.Tensor:
+    """float32 Exp(1) draws: ``-log1p(-u)``, u uniform on [0, 1)."""
+    return -torch.log1p(-uniform(key, shape, device=device))
+
+
+def pareto(key: torch.Tensor, b: float, shape: Shape, *, device=None
+           ) -> torch.Tensor:
+    """float32 Pareto(b) draws: ``exp(e / b)`` with e from
+    :func:`exponential` and b rounded to f32 first."""
+    e = exponential(key, shape, device=device)
+    return torch.exp(e / torch.tensor(b, dtype=torch.float32, device=e.device))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Shape, *, device=None
+              ) -> torch.Tensor:
+    """Boolean draws: ``u < p`` with p rounded to f32 (jax's low mode)."""
+    u = uniform(key, shape, device=device)
+    return u < torch.tensor(p, dtype=torch.float32, device=u.device)

@@ -52,6 +52,8 @@ def test_port_imports_without_jax():
         "import repro_torch.serve.engine, repro_torch.serve.kv_compression\n"
         "import repro_torch.kernels.flash_attention, repro_torch.launch.serve\n"
         "import repro_torch.core.streaming, repro_torch.data.pipeline\n"
+        "import repro_torch.train, repro_torch.launch.train, repro_torch.utils.tree\n"
+        "import repro_torch.data.instance_selection, repro_torch.train.compression\n"
         "from repro_torch.serve import (AsyncClusterService, IndexStore,\n"
         "    OnlineFitter, RefreshDriver, RefreshPolicy)\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') for m in sys.modules)\n"

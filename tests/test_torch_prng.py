@@ -1,10 +1,13 @@
 """The port's threefry bridge against ``jax.random``: keys, splits and
 uniform draws bit for bit; categorical draws equal wherever no two noisy
-logits tie within an ulp (the two frameworks' ``log`` may differ by one)."""
+logits tie within an ulp (the two frameworks' ``log`` may differ by one);
+normal, exponential and Pareto draws within their ulp budgets of the
+float64 value of the same uniform bits, Bernoulli draws bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.special as scipy_special
 import torch
 
 from repro_torch import prng
@@ -123,3 +126,56 @@ def test_fold_in_bitexact(seed):
     np.testing.assert_array_equal(
         prng.uniform(prng.fold_in(tk, 7), (64,)).numpy(),
         np.asarray(jax.random.uniform(jax.random.fold_in(k, 7), (64,))))
+
+
+def _ulps_of(x64):
+    return np.spacing(np.abs(x64).astype(np.float32)).astype(np.float64)
+
+
+#: the draws of jax's formulas on the same uniform bits, each side held
+#: against the float64 value of those bits: (port's draw, jax's draw,
+#: float64 truth from the f32 uniform bits, budget in output ulps for the
+#: port, for jax). XLA:CPU's erf_inv is a polynomial whose error reaches
+#: about 85 ulps in the tails (|u| near 1), PyTorch's is within 2; Pareto
+#: carries exp's conditioning (e / b up to ~12: an ulp of e is ~12 of the
+#: output) on both sides
+def _draws(seed, n=20_000):
+    k, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    u_n = prng.uniform(tk, n, minval=lo, maxval=1.0).numpy()
+    u = prng.uniform(tk, n).numpy()
+    e64 = -np.log1p(-u.astype(np.float64))
+    b = np.float64(np.float32(1.3))
+    return {
+        "normal": (prng.normal(tk, n).numpy(), np.asarray(jax.random.normal(k, (n,))),
+                   np.sqrt(2) * scipy_special.erfinv(u_n.astype(np.float64)), 4, 128),
+        "exponential": (prng.exponential(tk, n).numpy(),
+                        np.asarray(jax.random.exponential(k, (n,))), e64, 2, 2),
+        "pareto": (prng.pareto(tk, 1.3, n).numpy(),
+                   np.asarray(jax.random.pareto(k, 1.3, (n,))), np.exp(e64 / b), 16, 16),
+    }
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**31 - 1])
+def test_normal_exponential_pareto_within_ulps(seed):
+    """The uniform bits under each draw are the reference's bit for bit;
+    each side stays within its budget of the float64 value of those bits."""
+    k, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    np.testing.assert_array_equal(
+        prng.uniform(tk, 20_000, minval=lo, maxval=1.0).numpy().view(np.uint32),
+        np.asarray(jax.random.uniform(k, (20_000,), minval=lo,
+                                      maxval=1.0)).view(np.uint32))
+    for name, (got, want, x64, port_ulps, jax_ulps) in _draws(seed).items():
+        ulp = _ulps_of(x64)
+        for side, g, budget in (("port", got, port_ulps), ("jax", want, jax_ulps)):
+            err = np.abs(g.astype(np.float64) - x64) / ulp
+            assert err.max() <= budget, f"{name} {side}: {err.max():.1f} ulps"
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**31 - 1])
+def test_bernoulli_bitexact(seed):
+    for p in (0.1, 0.5, 0.9):
+        want = np.asarray(jax.random.bernoulli(jax.random.PRNGKey(seed), p, (4, 999)))
+        got = prng.bernoulli(prng.PRNGKey(seed), p, (4, 999)).numpy()
+        np.testing.assert_array_equal(got, want)
