@@ -23,7 +23,9 @@ Phases, each printing one JSON line:
                times (CUDA events, median of 10 after a warm-up; the plain
                version at the fit's largest K1 shapes, one call; K1 in each
                key type, K2 at d 256, K3 and K5 also their device time
-               alone);
+               alone); the lm_moe phase's shapes: K2 and K3 at d 128, K5's
+               bf16 prefill and decode at head_dim 128 without softcap,
+               with scaled_dot_product_attention timed beside them;
                then awkward shapes on a dyadic grid, where kernel and plain
                version must agree bit for bit, tie-breaking included, and
                the edge cases of K1's tensor-core and split routes (every
@@ -110,6 +112,31 @@ Phases, each printing one JSON line:
                LOGIT_ULPS, with a planted fault (K5's bias dropped for one
                step) that must exceed it; then a second
                kernel-path run (bitwise equal tokens);
+  lm_moe       the lm phase's serving, compression and parity on
+               deepseek-moe-16b whole (28 layers, MHA 16 x 128, 64 routed
+               experts top-6 + 2 shared; 16.4e9 random bf16 parameters):
+               K5 at head_dim 128 without softcap, K2 and K3 at d 128;
+               slots dropped for capacity at the prefill (none may drop at
+               decode); the parity runs 32 teacher-forced steps, and the
+               two plain paths run with every MoE call's routing pinned to
+               the kernel path's (RoutingPin: a step function of the
+               router probabilities that would otherwise turn last-bit
+               differences into whole experts; the tokens pinned within
+               2^-5 of their top-k boundary and beyond it reported, with
+               the largest gap), top-1 agreement read over all rows of the
+               prefill and the steps; every K5 call of the kernel path
+               (each layer's prefill and every step) is held against K5's
+               plain version on its own inputs (ATTN_TOL_BF16); the
+               planted fault is read on the logits, or, where zeroing
+               every attention output moves the logits less than the
+               bound, at K5's output against the plain version;
+  lm_hybrid    the same on jamba-v0.1-52b at full width cut to one period
+               of 8 layers (attention at layer 4, GQA 32/8, Mamba at the
+               other seven, MoE 16 experts top-2 at the odd layers); then
+               mamba2-370m whole: its prefill and 32 teacher-forced decode
+               steps against its full forward within LOGIT_ULPS, no kernel
+               launched, compress=True refused; each phase first frees
+               what the earlier phases hold and prints its seconds;
   profile      (only when asked for) the fit, the headline fit, (after
                the train or select phase) one train step, (after
                the lm phase) one generate and (after the online phase) the
@@ -127,16 +154,19 @@ it, just before the three dbscan fits and read after them, just before
 the online phase's stream and read after its refresh, just before the
 train phase's steps (none may launch), just before the select phase's
 two selections and read after them, and again just
-before the lm phase's generate and read right after it; every kernel of
+before the generate of each of the lm, lm_moe and lm_hybrid phases and
+read right after it; every kernel of
 each path must have launched (K1-K4 in fit and serve; K1-K4 in select;
 K1, K3 and K4 in
 hac, K4 on its tiled instance for the (n, n) matrices of HAC and DBSCAN,
 and in every dbscan fit; K1 and its bf16 and int8 key
 instances, K3 and K4 in online, the quantized ones never on the CUDA-core
-route at k <= 8; K2, K3 and K5 in lm, K5 once per global layer of the
-prefill on its tensor-core tiled route (route count K5/tiled_mma), and
-once per layer of every decode step on its split-kv route, counted apart
-as K5-decode). The hac, dbscan, online and lm lines also list the
+route at k <= 8; K2, K3 and K5 in lm, lm_moe and lm_hybrid, K5 once per
+global attention layer of the prefill on its tensor-core tiled route
+(route count K5/tiled_mma), and once per attention layer of every decode
+step on its split-kv route, counted apart as K5-decode, K2 once per
+attention layer, sequence and kv head of each compression). The hac,
+dbscan, online and lm lines also list the
 launches per route, and the kernels line K4's per path and instance.
 Then one JSON line lists every kernel and variant (launches summed over
 the paths),
@@ -167,7 +197,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
-                  "lm")
+                  "lm", "lm_moe", "lm_hybrid")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
 ALL_PHASES = DEFAULT_PHASES + ("profile", "basins")
@@ -215,6 +245,18 @@ SIZES = dict(covertype=581_012, segments=193_670, blocked_q=8192,
 #: after the first compress), 8 teacher-forced steps in the parity check
 LM = dict(arch="gemma2-2b", batch=4, prompt=2048, new_tokens=160, t=2, m=1,
           tail=128, forced_steps=8)
+#: the lm_moe and lm_hybrid phases: the lm phase's traffic on
+#: deepseek-moe-16b whole (28 layers, MHA 16 x 128, 64 experts top-6 + 2
+#: shared) and on jamba-v0.1-52b at full width cut to its first 8 layers
+#: (one period of its layer pattern: attention at layer 4, Mamba at the
+#: other seven, MoE 16 experts top-2 at the odd layers: 26.5 GB of bf16
+#: weights, where all 32 layers would be 104 GB), 32 teacher-forced steps
+#: in the parity check (132 rows for the top-1 agreement); the hybrid phase
+#: also serves mamba2-370m whole (no attention), its prefill and ssm_steps
+#: teacher-forced decode steps held against its full forward
+LM_MOE = dict(LM, arch="deepseek-moe-16b", forced_steps=32)
+LM_HYBRID = dict(LM_MOE, arch="jamba-v0.1-52b", layers=8, ssm_arch="mamba2-370m",
+                 ssm_steps=32)
 #: the online phase: the blobs stream, its fit, the serve ladder and
 #: request sizes, the refresh (a drifted stream: the shift of
 #: benchmarks/bench_lifecycle.py), the open-loop traffic around it, and the
@@ -561,6 +603,7 @@ def phase_kernels(results: dict) -> None:
     # 8192-row blocking threshold)
     _k2_row("fit", x[:SIZES["knn_n"]].contiguous(), 2)
     _k2_compression(results)
+    _k2_compression(results, d=128, path="lm_moe")
 
     # K3: the level-0 prototype reduce, 8 blocks of 72,627 rows into
     # 193,670 segments (ids include dropped ones); then the headline fit's
@@ -595,6 +638,7 @@ def phase_kernels(results: dict) -> None:
     _k3_compression()
     _select_shapes()
     _k5_path_shapes(results)
+    _k5_head_dim_128()
     _edge_checks(gen)
     _attention_edges()
     emit("kernels_done", seconds=round(time.perf_counter() - t0, 3))
@@ -904,14 +948,15 @@ def _head_keys(n: int, d: int, seed: int) -> torch.Tensor:
     return torch.randn((n, d), generator=g, device=DEV).bfloat16().float()
 
 
-def _k2_compression(results: dict) -> None:
-    """K2 at the lm phase's compression shape: one (batch, kv-head) cache
-    of 2208 slots of width head_dim = 256, the first 2048 written (valid),
-    k = t - 1 = 1, on the CUDA-core split route (its key ranges as the
-    library counts them). This is K2's entry in the kernels line."""
+def _k2_compression(results: dict, d: int = 256, path: str = "lm") -> None:
+    """K2 at a compression shape: one (batch, kv-head) cache of 2208 slots
+    of width head_dim ``d`` (256: the lm phase's, K2's entry in the kernels
+    line; 128: the lm_moe and lm_hybrid phases'), the first 2048 written
+    (valid), k = t - 1 = 1, on the CUDA-core split route (its key ranges
+    as the library counts them)."""
     from repro_torch.kernels import _cuda, fused_assign, knn_topk, ref
 
-    n, d, k = LM["prompt"] + LM["new_tokens"], 256, LM["t"] - 1
+    n, k = LM["prompt"] + LM["new_tokens"], LM["t"] - 1
     route = fused_assign.route(torch.float32, torch.float32, d, k)
     lib = _cuda.library("topk")
     splits, keys_per_split = fused_assign.split_plan(n, n)
@@ -929,29 +974,32 @@ def _k2_compression(results: dict) -> None:
     ok = torch.isfinite(rd)
     err = float((gd[ok] - rd[ok]).abs().max())
     mism, bad = topk_mismatches(x, x, gd, gi, rd, ri)
-    check(torch.equal(torch.isfinite(gd), ok), "K2 (d 256): filled slots differ")
+    check(torch.equal(torch.isfinite(gd), ok), f"K2 (d {d}): filled slots differ")
     check(torch.allclose(gd[ok], rd[ok], rtol=1e-5, atol=1e-3),
-          f"K2 (d 256) distances off: {err}")
-    check(bad == 0, f"K2 (d 256): {bad} index mismatches that are not near-ties")
+          f"K2 (d {d}) distances off: {err}")
+    check(bad == 0, f"K2 (d {d}): {bad} index mismatches that are not near-ties")
     ms = cuda_ms(lambda: knn_topk.knn_topk(x, k, valid))
     dev_ms = device_ms(lambda: knn_topk.knn_topk(x, k, valid))
     plain = cuda_ms(lambda: ref.knn(x, k, valid=valid))
     # per pair: d fma of the cross term + add, subtract, max; bytes: x and
     # valid in, distances and indices out
     b_ms, b_by = k1_bound(n, n, d, n * d * 4 + n + n * k * 8)
-    results["K2"] = dict(kernel="K2", path="lm", variant=route, n=n, d=d, k=k,
-                         splits=splits, keys_per_split=keys_per_split,
-                         max_abs_err=err,
-                         index_mismatches=mism, ms=ms, device_ms=dev_ms,
-                         plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    emit("kernels", **results["K2"])
+    row = dict(kernel="K2", path=path, variant=route, n=n, d=d, k=k,
+               splits=splits, keys_per_split=keys_per_split,
+               max_abs_err=err,
+               index_mismatches=mism, ms=ms, device_ms=dev_ms,
+               plain_ms=plain,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    if d == 256:
+        results["K2"] = row
+    emit("kernels", **row)
 
 
 def _k3_compression() -> None:
-    """K3 at the lm phase's compression shapes: the keys (d 256) and the
-    [k||v] payload (d 512) of one head, 2208 rows into 1104 prototypes,
-    through the 8-block fold."""
+    """K3 at the compression shapes: the keys (d 256) and the [k||v]
+    payload (d 512) of one head of the lm phase, and the keys of one head
+    of the lm_moe and lm_hybrid phases (d 128; their [k||v] is d 256), 2208
+    rows into 1104 prototypes, through the 8-block fold."""
     gen = np.random.default_rng(4)
     n, S = LM["prompt"] + LM["new_tokens"], (LM["prompt"] + LM["new_tokens"]) // LM["t"]
     ids = dev(np.where(np.arange(n) < LM["prompt"], gen.integers(0, S, size=n), -1)
@@ -959,6 +1007,7 @@ def _k3_compression() -> None:
     w = torch.ones(n, device=DEV)
     for d in (256, 512):
         _k3_row("lm", _head_keys(n, d, d), ids, S, w)
+    _k3_row("lm_moe", _head_keys(n, 128, 128), ids, S, w)
 
 
 def _attention_work(b, hq, hkv, lq, lk, dh, causal, elt, bias_heads):
@@ -1092,6 +1141,80 @@ def _k5_path_shapes(results: dict) -> None:
                    bound_by=b_by, causal_half_counted=False, library_ms=None)
         emit("kernels", **row)
         results[kid] = row
+
+
+def _k5_head_dim_128() -> None:
+    """K5 at the lm_moe and lm_hybrid phases' shapes (head_dim 128, no
+    softcap): the bf16 prefill of one layer (causal, the tensor-core tiled
+    route) at deepseek-moe-16b's MHA 16 x 16 and at jamba's GQA 32 x 8,
+    and deepseek's decode step over the compressed cache (P = 1104
+    prototypes with log-mass bias, one written tail slot, the rest
+    masked; the split-kv route), each against its plain version, a repeat
+    bitwise. Without a softcap one PyTorch call computes the same
+    function: ``scaled_dot_product_attention`` (kv heads shared with
+    ``enable_gqa``; the decode's bias as a bf16 ``attn_mask``, so its
+    output is not the same bits); it is timed as the library column, and
+    its largest difference from the plain version reported."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, dh = LM_MOE["batch"], 128
+    S, P = LM_MOE["prompt"], (LM_MOE["prompt"] + LM_MOE["new_tokens"]) // LM_MOE["t"]
+    lk_dec = P + LM_MOE["tail"]
+    bias = torch.full((B, 16, lk_dec), -1e30, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    bias[..., :P] = torch.log(torch.randint(1, 5, (B, 16, P), generator=g,
+                                            device=DEV).float())
+    bias[..., P] = 0.0
+    scale = 1.0 / dh ** 0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for kid, label, path, hq, hkv, lq, lk, causal, kb, want_route in (
+            ("K5-prefill", "prefill_dh128", "lm_moe", 16, 16, S, S, True, None,
+             "tiled_mma"),
+            ("K5-prefill", "prefill_dh128_gqa", "lm_hybrid", 32, 8, S, S, True, None,
+             "tiled_mma"),
+            ("K5-decode", "decode_dh128", "lm_moe", 16, 16, 1, lk_dec, False, bias,
+             "split_kv")):
+        variant = fa.route(hq, hkv, lq, torch.bfloat16, dh)
+        check(variant == want_route, f"{kid} {label}: route {variant}")
+        q, k, v, _ = _attn_inputs(B, hq, hkv, lq, lk, dh, torch.bfloat16, 10)
+        kw = dict(causal=causal, scale=scale, logit_softcap=0.0)
+        got = fa.flash_attention(q, k, v, kb, **kw)
+        again = fa.flash_attention(q, k, v, kb, **kw)
+        want = fa.flash_attention_plain(q, k, v, kb, **kw)
+        mask = None if kb is None else kb[:, :, None, :].to(torch.bfloat16)
+        lib = lambda: sdpa(q, k, v, attn_mask=mask, is_causal=causal,  # noqa: E731
+                           scale=scale, enable_gqa=hq != hkv)
+        lib_err = float((lib().float() - want.float()).abs().max())
+        sync()
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, again), f"{kid} {label}: a repeat differs")
+        check(bool(torch.isfinite(got.float()).all()), f"{kid} {label}: non-finite")
+        check(torch.allclose(got.float(), want.float(), **ATTN_TOL_BF16),
+              f"{kid} {label} off: {err}")
+        del got, again, want
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kb, **kw))
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, kb, **kw))
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, kb, **kw))
+        library = cuda_ms(lib)
+        lib_dev = device_ms(lib)
+        flops, tc_flops, nbytes = _attention_work(
+            B, hq, hkv, lq, lk, dh, causal, 2, 0 if kb is None else kb.shape[1])
+        b_ms, b_by = bound(flops, nbytes, bf16_flops=tc_flops)
+        row = dict(kernel=kid, path=path, shape=label, variant=variant,
+                   q=list(q.shape), kv=list(k.shape), causal=causal,
+                   bias=kb is not None, dtype="bfloat16", max_abs_err=err,
+                   bitwise_repeat=True, library_max_abs_err=lib_err)
+        if variant == "tiled_mma":
+            mma_tc, mma_f32 = _mma_attention_work(B, hq, lq, lk, dh, causal)
+            row["bound_ms_f32_pv"] = b_ms
+            b_ms, b_by = bound(mma_f32, nbytes, bf16_flops=mma_tc)
+        else:
+            row.update(split_keys=fa.split_keys(lk), splits=-(-lk // fa.split_keys(lk)))
+        row.update(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, causal_half_counted=False, library_ms=library,
+                   library_device_ms=lib_dev)
+        emit("kernels", **row)
+        del q, k, v
 
 
 def _edge_checks(gen) -> None:
@@ -2621,6 +2744,8 @@ def _slot_agreement(a: dict, b: dict) -> float:
     caches of the same model."""
     agree = total = 0
     for ca, cb in zip(a["layers"], b["layers"], strict=True):
+        if "k" not in ca:  # a Mamba layer's state: not compressed
+            continue
         P = ca["pos"]
         check(P == cb["pos"], "compressed caches of different sizes")
         ok = torch.isclose(ca["mass"][..., :P], cb["mass"][..., :P], **SUM_TOL)
@@ -2650,19 +2775,23 @@ def _attention_as(fn):
 
 
 def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
-                  attention=None):
+                  attention=None, traffic=LM, held=None):
     """One route through prefill, compression and teacher-forced decode:
     (last-position f32 logits of the prefill and of each step, the prefill
-    caches, a copy of the compressed caches as the steps found them)."""
+    caches, a copy of the compressed caches as the steps found them).
+    ``held``: a list that receives, for every windowless attention call
+    of the route, its output held against K5's plain version on the same
+    inputs (``_attention_held``)."""
     from repro_torch.serve.kv_compression import compress_model_caches
 
     B, S = tok.shape
-    with torch.inference_mode(), _attention_as(attention):
-        raw = bundle.init_caches(B, S + LM["new_tokens"], device=DEV)
+    with torch.inference_mode(), _attention_as(attention), \
+            (_attention_held(held) if held is not None else contextlib.nullcontext()):
+        raw = bundle.init_caches(B, S + traffic["new_tokens"], device=DEV)
         logits, raw = bundle.prefill(model, raw, {"tokens": tok}, impl=impl)
         out = [logits[:, -1].float()]
-        comp = compress_model_caches(raw, LM["t"], LM["m"], tail=LM["tail"],
-                                     impl=compress_impl)
+        comp = compress_model_caches(raw, traffic["t"], traffic["m"],
+                                     tail=traffic["tail"], impl=compress_impl)
         start = {**comp, "layers": [{n: (a.clone() if torch.is_tensor(a) else a)
                                      for n, a in c.items()}
                                     for c in comp["layers"]]}
@@ -2672,6 +2801,50 @@ def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
                                               impl=impl)
             out.append(logits[:, -1].float())
     return out, raw, start
+
+
+@contextlib.contextmanager
+def _attention_held(held: list):
+    """While the block runs, every windowless attention call (through
+    ``ops.flash_attention``, whatever stands there) is held against K5's
+    plain version on the same inputs: ``held`` receives one entry a call,
+    its query length, the largest |difference| and its ratio to the
+    tolerance (ATTN_TOL_BF16, or ATTN_TOL_F32 for f32: at most 1 where
+    ``torch.allclose`` holds)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    inner = ops.flash_attention
+
+    def checked(q, k, v, *, kv_bias=None, impl=None, causal=True, scale=None,
+                logit_softcap=0.0):
+        out = inner(q, k, v, kv_bias=kv_bias, impl=impl, causal=causal,
+                    scale=scale, logit_softcap=logit_softcap)
+        want = fa.flash_attention_plain(q, k, v, kv_bias, causal=causal, scale=scale,
+                                        logit_softcap=logit_softcap).float()
+        tol = ATTN_TOL_BF16 if q.dtype == torch.bfloat16 else ATTN_TOL_F32
+        diff = (out.float() - want).abs()
+        held.append({"lq": q.shape[2], "err": float(diff.max()),
+                     "ratio": float((diff / (tol["atol"] + tol["rtol"] * want.abs())
+                                     ).max())})
+        return out
+
+    ops.flash_attention = checked
+    try:
+        yield held
+    finally:
+        ops.flash_attention = inner
+
+
+def _held_summary(held: list) -> dict:
+    """The worst prefill call and the worst decode call of ``_attention_held``."""
+    out = {}
+    for name, calls in (("prefill", [h for h in held if h["lq"] > 1]),
+                        ("decode", [h for h in held if h["lq"] == 1])):
+        if calls:
+            w = max(calls, key=lambda h: h["ratio"])
+            out[name] = {"calls": len(calls), "err": w["err"], "ratio": w["ratio"]}
+    return out
 
 
 def lm_engine():
@@ -2806,6 +2979,419 @@ def phase_lm(state: dict) -> None:
     check(repeat, "two kernel-path generations differ")
 
 
+def _family_logit_diff(got: torch.Tensor, want: torch.Tensor, vocab: int) -> dict:
+    """``_logit_diff`` over the first ``vocab`` columns (the padding
+    columns hold -1e30)."""
+    return _logit_diff(got[..., :vocab], want[..., :vocab])
+
+
+def _top1_over_rows(errs: list) -> float:
+    """Top-1 agreement over every row of a route's prefill and steps (each
+    step has the same batch). At batch 4 a single step reads 0.75 as soon
+    as one row's two best logits lie nearer than the difference between
+    the paths, which random-init logits often do; over 132 rows the share
+    reads the rate of such flips."""
+    return float(np.mean([e["top1"] for e in errs]))
+
+
+class RoutingPin:
+    """Hold two runs of one MoE model to the same routing, for comparing
+    them. While a block runs it stands in for
+    ``repro_torch.models.moe.top_k`` (a module attribute: one comparison
+    at a time in a process).
+
+    Routing is a step function of the router probabilities: where a
+    token's k-th and (k+1)-th probabilities nearly tie, a last-bit
+    difference upstream (another attention kernel, another framework)
+    picks another expert and moves that token's output by a whole
+    expert's share. ``record()`` keeps the (T, k) top-k indices of every
+    MoE call of one run in ``calls``, in call order (a caller may fill
+    ``calls`` from another package's run instead). In ``replay()`` a
+    second run of the same calls compares its own choice with the
+    recorded one, token by token. A token whose choice differs only among
+    experts within a relative ``BAND`` (2^-5) of its own top-k boundary
+    (the mean of its k-th and (k+1)-th probabilities) takes the recorded
+    choice and counts in ``near``; any other differing token counts in
+    ``far`` and takes the recorded choice only with ``pin_far``.
+    ``pinned`` counts the tokens that took the recorded choice;
+    ``worst_gap`` is the largest relative distance from the boundary of an
+    expert a pinned token swapped.
+
+        pin = RoutingPin()
+        with pin.record():  run_a()
+        with pin.replay():  run_b()      # then require pin.far == 0
+    """
+
+    BAND = 2.0 ** -5
+
+    def __init__(self, pin_far: bool = False):
+        self.pin_far = pin_far
+        self.calls: list = []
+        self._i = 0
+        self._counts: list = []
+
+    @contextlib.contextmanager
+    def _standing_in(self, fn):
+        from repro_torch.models import moe
+
+        real = moe.top_k
+        moe.top_k = fn
+        try:
+            yield self
+        finally:
+            moe.top_k = real
+
+    def record(self):
+        """While the block runs, keep each call's (T, k) indices."""
+        from repro_torch.models import moe
+
+        real = moe.top_k
+        self.calls = []
+
+        def rec(probs, k):
+            vals, idx = real(probs, k)
+            self.calls.append(idx.clone())
+            return vals, idx
+        return self._standing_in(rec)
+
+    def replay(self):
+        """While the block runs, take the recorded choices (class doc)."""
+        from repro_torch.models import moe
+
+        real = moe.top_k
+        self._i, self._counts = 0, []
+
+        def rep(probs, k):
+            vals, idx = real(probs, k)
+            want = self.calls[self._i]
+            want = (want if torch.is_tensor(want) else torch.tensor(want)).to(
+                idx.device, torch.long)
+            self._i += 1
+            e = probs.shape[-1]
+            own = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, idx, True)
+            rec = torch.zeros_like(own).scatter_(-1, want, True)
+            differ = own ^ rec
+            rows = differ.any(dim=-1)
+            if k < e:
+                srt = torch.sort(probs, dim=-1, descending=True).values
+                edge = 0.5 * (srt[:, k - 1] + srt[:, k])
+            else:  # every expert is chosen: no boundary
+                edge = torch.ones_like(probs[:, 0])
+            gap = torch.where(differ, (probs - edge[:, None]).abs()
+                              / edge[:, None], torch.zeros_like(probs)).amax(dim=-1)
+            near = rows & (gap <= self.BAND)
+            far = rows & ~near
+            take = rows if self.pin_far else near
+            self._counts.append((near.sum(), far.sum(), take.sum(),
+                                 torch.where(take, gap, 0.0).amax()))
+            pick = torch.where(take[:, None], want, idx)
+            return torch.gather(probs, -1, pick), pick
+        return self._standing_in(rep)
+
+    @property
+    def near(self) -> int:
+        return int(sum(int(c[0]) for c in self._counts))
+
+    @property
+    def far(self) -> int:
+        return int(sum(int(c[1]) for c in self._counts))
+
+    @property
+    def pinned(self) -> int:
+        return int(sum(int(c[2]) for c in self._counts))
+
+    @property
+    def worst_gap(self) -> float:
+        return max((float(c[3]) for c in self._counts), default=0.0)
+
+    def summary(self) -> dict:
+        return {"pinned": self.pinned, "near": self.near, "far": self.far,
+                "band": self.BAND, "worst_gap": self.worst_gap}
+
+
+@contextlib.contextmanager
+def _moe_drops():
+    """While the block runs, each MoE call appends the number of valid
+    token slots its dispatch dropped for capacity (a device scalar, read
+    afterwards): ``moe.dispatch_indices`` is wrapped, and its ``ok`` mask
+    read (top-k ids are always valid)."""
+    from repro_torch.models import moe
+
+    real = moe.dispatch_indices
+    drops: list = []
+
+    def counted(expert_ids, n_experts, capacity):
+        flat, ok = real(expert_ids, n_experts, capacity)
+        drops.append((~ok).sum())
+        return flat, ok
+
+    moe.dispatch_indices = counted
+    try:
+        yield drops
+    finally:
+        moe.dispatch_indices = real
+
+
+def _free_models(state: dict) -> None:
+    """Drop what earlier phases hold on the card before a large model
+    loads (the lm phase's engine; main drops the train phase's state)."""
+    import gc
+
+    state.pop("lm_engine", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_family(state: dict, which: str) -> None:
+    """Serve deepseek-moe-16b whole (``lm_moe``) or jamba at full width cut
+    to one 8-layer period (``lm_hybrid``) with IHTC KV compression, as the
+    lm phase serves gemma2-2b; then hold the kernel path against the two
+    plain paths with the MoE routing pinned to the kernel path's, every K5
+    call of the kernel path against its plain version, the planted fault,
+    the compressed slots and a repeat. The
+    hybrid phase then serves mamba2-370m whole against its full forward."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    tr = LM_MOE if which == "lm_moe" else LM_HYBRID
+    _free_models(state)
+    t0 = time.perf_counter()
+    cfg = ARCHS[tr["arch"]]
+    if "layers" in tr:
+        cfg = dataclasses.replace(cfg, n_layers=tr["layers"])
+    bundle = build(cfg)
+    model = bundle.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(tr["batch"], tr["prompt"]))
+    engine = ServeEngine(bundle, model, ServeConfig(
+        max_new_tokens=tr["new_tokens"], compress=True, compress_t=tr["t"],
+        compress_m=tr["m"], compress_tail=tr["tail"], impl="auto"))
+    sync()
+    init_s = time.perf_counter() - t0
+    n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.n_layers))
+    n_moe = sum(cfg.layer_is_moe(l) for l in range(cfg.n_layers))
+    check(all(cfg.attn_type(l) == "global" for l in range(cfg.n_layers)),
+          f"{cfg.name}: a windowed layer (its prefill would not run K5)")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _moe_drops() as drops:
+        out = engine.generate({"tokens": prompts})
+    sync()
+    counts = kernels.launch_counts()
+    routes = kernels.route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    drops = [int(d) for d in drops]
+    prefill_drops, decode_drops = sum(drops[:n_moe]), sum(drops[n_moe:])
+    tm = out["timings"]
+    want_k5 = n_attn + n_attn * tr["new_tokens"]
+    want_k2 = n_attn * tr["batch"] * cfg.n_kv_heads * len(tm["compress"])
+    check(out["compressions"] >= 1, "no in-flight recompression")
+    check(tuple(out["tokens"].shape) == (tr["batch"], tr["new_tokens"]),
+          f"{which} output shape")
+    check(bool(((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()),
+          "tokens outside the vocabulary")
+    check(counts["K5"] == want_k5,
+          f"K5 launched {counts['K5']} times, want {want_k5} ({n_attn} prefill "
+          f"layers + {n_attn} per decode step)")
+    check(counts["K5-decode"] == n_attn * tr["new_tokens"],
+          f"K5's split-kv route launched {counts['K5-decode']} times, want "
+          f"{n_attn * tr['new_tokens']}")
+    check(routes.get("K5/tiled_mma") == n_attn and "K5/tiled" not in routes,
+          f"K5's prefill took routes {routes}, want {n_attn} calls on tiled_mma")
+    check(counts["K2"] == want_k2,
+          f"K2 launched {counts['K2']} times, want {want_k2} (one per attention "
+          f"layer, sequence, kv head and compression)")
+    check(counts["K3"] > 0, f"K3 was not launched by the {which} phase")
+    check(len(drops) == n_moe * (1 + tr["new_tokens"]),
+          f"{len(drops)} MoE calls, want {n_moe} a forward")
+    check(decode_drops == 0, f"decode steps dropped {decode_drops} slots")
+    state[f"{which}_counts"] = counts
+    state[f"{which}_routes"] = routes
+    n_tok = tr["batch"] * out["n_steps"]
+    emit(which, arch=cfg.name, layers=cfg.n_layers, params=n_params,
+         batch=tr["batch"], prompt=tr["prompt"], new_tokens=out["n_steps"],
+         init_s=round(init_s, 3), prefill_ms=tm["prefill_s"] * 1e3,
+         compress=[{"ms": c["seconds"] * 1e3, "slots_before": c["slots_before"],
+                    "slots_after": c["slots_after"]} for c in tm["compress"]],
+         decode_s=tm["decode_s"], decode_tok_per_s=n_tok / tm["decode_s"],
+         compressions=out["compressions"], max_memory_allocated=peak,
+         moe_layers=n_moe, prefill_dropped_slots=prefill_drops,
+         prefill_slots=n_moe * tr["batch"] * tr["prompt"] * cfg.n_experts_per_tok,
+         decode_dropped_slots=decode_drops,
+         tokens_sha1=hashlib.sha1(out["tokens"].cpu().numpy().tobytes()).hexdigest(),
+         launches={k: counts[k] for k in ("K2", "K3", "K5", "K5-decode")},
+         launches_by_route=routes, k5_expected=want_k5, k2_expected=want_k2)
+
+    # the kernel path against the plain paths, every MoE call of the plain
+    # paths pinned to the kernel path's routing (the MoE code is the same on
+    # every path, so a routing that parts follows from hidden states that
+    # part, which the logits read; the choices beyond 2^-5 of their top-k
+    # boundary are counted apart); every K5 call of the kernel path held
+    # against its plain version on its own inputs
+    t1 = time.perf_counter()
+    tok = torch.from_numpy(prompts).to(DEV)
+    steps = out["tokens"][:, :tr["forced_steps"]].to(DEV, torch.int64)
+    pin = RoutingPin(pin_far=True)
+    held, f_held = [], []
+    with pin.record():
+        kern, raw, start = _forced_route(bundle, model, tok, steps, impl="auto",
+                                         compress_impl="auto", traffic=tr,
+                                         held=held)
+    with torch.inference_mode():
+        slots = _slot_agreement(start, compress_model_caches(
+            raw, tr["t"], tr["m"], tail=tr["tail"], impl="ref"))
+        del raw
+        # the planted fault: the first step again with K5's bias dropped
+        with _attention_as(lambda q, k, v, kv_bias, **kw:
+                           fa.flash_attention(q, k, v, None, **kw)), \
+                _attention_held(f_held):
+            fault, _ = bundle.decode_step(model, start, {"tokens": steps[:, :1]},
+                                          impl="auto")
+        # how far the attention layers move the logits at all: the first
+        # step with every attention output zeroed
+        with _attention_as(lambda q, k, v, kv_bias, **kw: torch.zeros_like(q)):
+            no_attn, _ = bundle.decode_step(model, start, {"tokens": steps[:, :1]},
+                                            impl="auto")
+        del start
+    pinned = {}
+    with pin.replay():
+        plain = _forced_route(bundle, model, tok, steps, impl="auto",
+                              compress_impl="ref", attention=fa.flash_attention_plain,
+                              traffic=tr)[0]
+    pinned["plain"] = pin.summary()
+    with pin.replay():
+        route = _forced_route(bundle, model, tok, steps, impl="ref",
+                              compress_impl="ref", traffic=tr)[0]
+    pinned["route"] = pin.summary()
+    sync()
+    v = cfg.vocab_size
+    errs = {"plain": [_family_logit_diff(a, b, v) for a, b in zip(kern, plain)],
+            "route": [_family_logit_diff(a, b, v) for a, b in zip(kern, route)]}
+    top1 = {name: _top1_over_rows(es) for name, es in errs.items()}
+    planted = _family_logit_diff(fault[:, -1].float(), plain[1], v)
+    reach = _family_logit_diff(no_attn[:, -1].float(), kern[1], v)
+    att = _held_summary(held)
+    att_fault = _held_summary(f_held)["decode"]
+    # the planted fault is read on the logits, unless even zeroed attention
+    # outputs stay within the logit bound: then at K5's output
+    level = "logits" if reach["err"] > reach["bound"] else "attention"
+    parity_s = time.perf_counter() - t1
+
+    again = engine.generate({"tokens": prompts})
+    repeat = bool(torch.equal(again["tokens"], out["tokens"]))
+    del engine, again
+
+    def rounded(e):
+        return {k: round(v, 6) if isinstance(v, float) else v for k, v in e.items()}
+
+    emit(f"{which}_parity", logit_ulps=LOGIT_ULPS,
+         steps={name: [rounded(e) for e in es] for name, es in errs.items()},
+         top1_over_rows=top1, pinned_routing=pinned, planted_fault=rounded(planted),
+         zeroed_attention=rounded(reach), planted_level=level,
+         attention_vs_plain=att, attention_planted_fault=att_fault,
+         compressed_slot_agreement=slots, bitwise_repeat=repeat,
+         parity_s=round(parity_s, 3))
+    for name, es in errs.items():
+        for i, e in enumerate(es):  # step 0 is the prefill
+            check(e["finite"], f"{name} step {i}: non-finite logits")
+            check(e["err"] <= e["bound"],
+                  f"{name} step {i}: max |dlogit| {e['err']} > {e['bound']}")
+        check(top1[name] >= MIN_TOP1,
+              f"{name}: top-1 agreement over the rows {top1[name]}")
+    n_steps = 1 + tr["forced_steps"]
+    check(att.get("prefill", {}).get("calls") == n_attn
+          and att.get("decode", {}).get("calls") == n_attn * tr["forced_steps"],
+          f"K5 held against its plain version in {att} calls, want {n_attn} "
+          f"prefill and {n_attn * tr['forced_steps']} decode ({n_steps} forwards)")
+    for name, a in att.items():
+        check(a["ratio"] <= 1.0,
+              f"K5's {name} on the {which} path against its plain version: {a}")
+    if level == "logits":
+        check(planted["err"] > planted["bound"],
+              f"K5 with its bias dropped stays within the logit bound "
+              f"({planted['err']} <= {planted['bound']})")
+    else:
+        check(att_fault["ratio"] > 1.0,
+              f"K5 with its bias dropped stays within the tolerance of the plain "
+              f"version at its output ({att_fault})")
+    check(slots >= MIN_SLOT_AGREEMENT,
+          f"kernel vs plain compression: slot agreement {slots}")
+    check(repeat, "two kernel-path generations differ")
+    del model, bundle, kern, plain, route, fault, no_attn
+    if which == "lm_hybrid":
+        _free_models(state)
+        _ssm_whole(tr)
+    emit(f"{which}_done", seconds=round(time.perf_counter() - t0, 3))
+
+
+def _ssm_whole(tr: dict) -> None:
+    """mamba2-370m whole: the prefill and ``ssm_steps`` teacher-forced
+    decode steps (the recurrence) against the full forward (the chunked
+    scan) at the same positions, within LOGIT_ULPS, top-1 over every row
+    at least MIN_TOP1; no kernel may launch (no layer attends), and
+    compress=True must refuse the model."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = ARCHS[tr["ssm_arch"]]
+    bundle = build(cfg)
+    model = bundle.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    B, S, N = tr["batch"], tr["prompt"], tr["ssm_steps"]
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(B, S + N))).to(DEV)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        full, _ = bundle.forward(model, {"tokens": toks}, impl="auto")
+        sync()
+        t1 = time.perf_counter()
+        caches = bundle.init_caches(B, S + N, device=DEV)
+        lg, caches = bundle.prefill(model, caches, {"tokens": toks[:, :S]})
+        v = cfg.vocab_size
+        errs = [_family_logit_diff(lg[:, -1].float(), full[:, S - 1], v)]
+        sync()
+        t2 = time.perf_counter()
+        for i in range(N):
+            lg, caches = bundle.decode_step(model, caches,
+                                            {"tokens": toks[:, S + i:S + i + 1]})
+            errs.append(_family_logit_diff(lg[:, -1].float(), full[:, S + i], v))
+        sync()
+        t3 = time.perf_counter()
+    counts = kernels.launch_counts()
+    try:
+        ServeEngine(bundle, model, ServeConfig(max_new_tokens=2, compress=True)
+                    ).generate({"tokens": toks[:1, :8].cpu().numpy()})
+        refused = False
+    except ValueError as e:
+        refused = cfg.name in str(e)
+    worst = max(errs, key=lambda e: e["err"] / e["bound"])
+    top1 = _top1_over_rows(errs)
+    emit("lm_ssm", arch=cfg.name, layers=cfg.n_layers,
+         params=sum(p.numel() for p in model.parameters()), batch=B, prompt=S,
+         decode_steps=N, prefill_ms=(t2 - t1) * 1e3,
+         decode_tok_per_s=B * N / (t3 - t2),
+         worst_step={k: round(v, 6) if isinstance(v, float) else v
+                     for k, v in worst.items()}, top1_over_rows=top1,
+         launches={k: v for k, v in counts.items() if v}, compress_refused=refused,
+         seconds=round(time.perf_counter() - t0, 3))
+    for i, e in enumerate(errs):
+        check(e["finite"] and e["err"] <= e["bound"],
+              f"mamba2 decode step {i} against the forward: {e}")
+    check(top1 >= MIN_TOP1, f"mamba2 decode against the forward: top-1 {top1}")
+    check(not any(counts.values()), f"a kernel launched on an attention-free "
+          f"model: {counts}")
+    check(refused, "compress=True did not refuse a model without attention")
+
+
 def _profiled(label: str, fn) -> None:
     """Run ``fn`` under torch.profiler; emit wall time, total kernel time,
     the busy share and the kernels that took most of the device time."""
@@ -2914,6 +3500,9 @@ def main() -> int:
         phase_profile(state)
     if "basins" in phases:
         phase_basins()
+    for family in ("lm_moe", "lm_hybrid"):
+        if family in phases:
+            phase_lm_family(state, family)
     if results:
         paths = {"fit_serve": state.get("main_counts", state.get("fit_counts", {})),
                  "headline": state.get("headline_counts", {}),
@@ -2922,7 +3511,9 @@ def main() -> int:
                  "online": state.get("online_counts", {}),
                  "train": state.get("train_counts", {}),
                  "select": state.get("select_counts", {}),
-                 "lm": state.get("lm_counts", {})}
+                 "lm": state.get("lm_counts", {}),
+                 "lm_moe": state.get("lm_moe_counts", {}),
+                 "lm_hybrid": state.get("lm_hybrid_counts", {})}
         routes = {"fit_serve": state.get("main_routes", {}),
                   "headline": state.get("headline_routes", {}),
                   "hac": state.get("hac_routes", {}),
@@ -2930,7 +3521,9 @@ def main() -> int:
                   "online": state.get("online_routes", {}),
                   "train": state.get("train_routes", {}),
                   "select": state.get("select_routes", {}),
-                  "lm": state.get("lm_routes", {})}
+                  "lm": state.get("lm_routes", {}),
+                  "lm_moe": state.get("lm_moe_routes", {}),
+                  "lm_hybrid": state.get("lm_hybrid_routes", {})}
         line = []
         for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5", "K5-decode",
                     "K5-prefill"):

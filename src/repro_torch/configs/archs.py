@@ -2,7 +2,9 @@
 them (exact configs from public literature; sources in brackets).
 
 Each is selectable via ``--arch <id>`` in ``repro_torch.launch.serve``;
-the port builds the dense families (see ``repro_torch.models``).
+the port builds the dense, MoE, SSM and hybrid families (see
+``repro_torch.models``); ``configs/<arch>.py`` gives ``CONFIG`` and
+``SMOKE`` for the MoE, SSM and hybrid ones, as the reference does.
 """
 from __future__ import annotations
 

@@ -3,6 +3,14 @@ on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.serve --arch gemma2-2b --compress
     python -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b --compress
+    python -m repro_torch.launch.serve --arch mamba2-370m --smoke --device cpu
+
+``--arch`` takes the dense, MoE (deepseek-moe-16b, llama4-scout), SSM
+(mamba2-370m) and hybrid (jamba) families; ``--compress`` needs an
+attention layer (mamba2-370m has none: the engine refuses it). Full-width
+jamba (104 GB of bf16 weights) and llama4-scout (218 GB) do not fit one
+80 GB card: run them with ``--smoke``.
 
 Weights are random, drawn from ``--seed`` (no checkpoint is loaded); the
 prompts are ``--batch`` rows of ``--prompt-len`` ids drawn uniformly over

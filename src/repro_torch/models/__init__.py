@@ -1,4 +1,5 @@
-"""The LM side of the port: dense decoder-only models (``transformer``),
-their layers and attention, the bundle registry and the carry-across of
-the reference's parameters (``convert``)."""
+"""The LM side of the port: decoder-only models (``transformer``) of the
+dense, MoE, SSM and hybrid families, their layers, attention, MoE
+(``moe``) and Mamba-2 (``mamba2``) blocks, the bundle registry and the
+carry-across of the reference's parameters (``convert``)."""
 from repro_torch.models.registry import ModelBundle, build  # noqa: F401

@@ -8,7 +8,9 @@ takes that tree with numpy leaves (``jax.tree_util.tree_map(np.asarray,
 params)``; nothing of JAX is imported here) and fills the port's per-layer
 modules through ``utils.tree.param_path``: stack entry ``j`` at repeat
 ``r`` is layer ``n_prefix + r·period + j`` under
-:func:`transformer.stack_plan`. Serving weights are stored in bf16, as
+:func:`transformer.stack_plan`. Every family the port builds is carried
+the same way: attention and Mamba blocks, MoE layers (the f32 router,
+the (E, d, f) experts, the shared MLP), dense MLPs. Serving weights are stored in bf16, as
 the reference casts them at use; ``trainable=True`` keeps them in f32
 with ``requires_grad``, as the reference trains them. Norm weights stay
 f32. :func:`opt_state_from_tree` carries the reference's AdamW state

@@ -12,7 +12,8 @@
 
 ``init`` builds the model on ``device`` (default: the runtime config's,
 "cuda" unless the caller asks for the CPU; a missing GPU raises). The
-dense family only (``transformer.check_supported``).
+dense, MoE, SSM and hybrid families (``transformer.check_supported``);
+``forward``'s aux is the MoE layers' load-balancing loss (0 without MoE).
 """
 from __future__ import annotations
 
@@ -49,8 +50,9 @@ def build(cfg: ModelConfig) -> ModelBundle:
         return model.init_weights(generator)
 
     def forward(model, batch, *, impl="ref", remat="none"):
-        logits, _ = model(batch["tokens"], impl=impl, remat=remat)
-        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+        logits, _, aux = model(batch["tokens"], impl=impl, remat=remat,
+                               with_aux=True)
+        return logits, aux
 
     def prefill(model, caches, batch, *, impl=None):
         return model(batch["tokens"], caches=caches, impl=impl, last_only=True)

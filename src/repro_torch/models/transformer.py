@@ -1,5 +1,6 @@
-"""Decoder-only LM — the port of ``repro.models.transformer``, for the
-dense family (attention + dense MLP layers, with gemma2's post-norms).
+"""Decoder-only LM — the port of ``repro.models.transformer``: the dense,
+MoE, SSM and hybrid families (a layer is attention or Mamba, then a MoE,
+a dense MLP or, in a pure-Mamba block, no FFN; gemma2's post-norms).
 
 The reference stacks the repeated layer group on a leading axis and scans
 it; here the model is a plain list of per-layer modules. :func:`stack_plan`
@@ -13,8 +14,8 @@ holds f32 weights with ``requires_grad``, as the reference trains them;
 :meth:`LM.forward` with ``remat`` gives the full (b, s, padded_vocab)
 logits under autograd with the reference's rematerialisation policies.
 
-MoE, Mamba2, hybrid, VLM and enc-dec families are not ported yet
-(ROADMAP.md, Queue 1, slice 8): building one raises NotImplementedError.
+The VLM and enc-dec families are not ported yet (ROADMAP.md, Queue 1,
+item 8): building one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     MLP,
@@ -73,24 +76,19 @@ def stack_plan(cfg: ModelConfig, max_period: int = 8) -> Tuple[int, int, int]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families the port does not build yet."""
-    if cfg.family != "dense" or cfg.frontend or cfg.n_enc_layers:
+    if cfg.family in ("vlm", "encdec-audio") or cfg.frontend or cfg.n_enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port builds the dense attention + MLP LMs (ROADMAP.md, Queue 1, "
-            f"slice 8)")
-    for layer in range(cfg.n_layers):
-        if cfg.layer_kind(layer) != "attn" or cfg.layer_is_moe(layer):
-            raise NotImplementedError(
-                f"{cfg.name}: layer {layer} is not attention + dense MLP; "
-                f"MoE and Mamba layers are not ported yet (ROADMAP.md, "
-                f"Queue 1, slice 8)")
-        if dense_ff(cfg, layer) <= 0:
-            raise NotImplementedError(f"{cfg.name}: layer {layer} has no FFN")
+            f"port builds the dense, MoE, SSM and hybrid LMs (ROADMAP.md, "
+            f"Queue 1, item 8)")
 
 
 class Block(nn.Module):
-    """Pre-norm attention and MLP sub-blocks (post-norms with
-    ``cfg.post_norm``); norm weights in f32, zero-initialised (1 + w)."""
+    """One decoder layer: pre-norm attention or Mamba, then (after ``ln2``)
+    a MoE or a dense MLP; a pure-Mamba block (``dense_ff`` 0, not MoE) has
+    no FFN sub-block and no ``ln2``, as in the reference's ``init_layer``.
+    Post-norms with ``cfg.post_norm``; norm weights in f32,
+    zero-initialised (1 + w)."""
 
     def __init__(self, cfg: ModelConfig, layer: int, *, device=None,
                  dtype=COMPUTE_DTYPE, requires_grad: bool = False):
@@ -103,27 +101,46 @@ class Block(nn.Module):
                                 requires_grad=requires_grad)
 
         kw = dict(device=device, dtype=dtype, requires_grad=requires_grad)
-        self.ln1, self.ln2 = norm(), norm()
-        self.attn = attn.Attention(cfg, **kw)
-        self.mlp = MLP(d, dense_ff(cfg, layer), cfg.mlp, **kw)
+        self.ln1 = norm()
+        if cfg.layer_kind(layer) == "attn":
+            self.attn = attn.Attention(cfg, **kw)
+        else:
+            self.mamba = mamba2.Mamba(cfg, **kw)
+        if cfg.layer_is_moe(layer):
+            self.moe = moe_mod.MoE(cfg, **kw)
+        elif dense_ff(cfg, layer) > 0:
+            self.mlp = MLP(d, dense_ff(cfg, layer), cfg.mlp, **kw)
+        if hasattr(self, "moe") or hasattr(self, "mlp"):
+            self.ln2 = norm()
         if cfg.post_norm:
             self.ln1_post, self.ln2_post = norm(), norm()
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict], impl: Optional[str]
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
+                ) -> Tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
+        """(x, the layer's new cache, the MoE aux loss or None)."""
         cfg = self.cfg
+        aux = None
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        y, new_cache = attn.attention_apply(self.attn, h, cfg, layer=self.layer,
-                                            positions=positions, cache=cache,
-                                            impl=impl)
+        if hasattr(self, "attn"):
+            y, new_cache = attn.attention_apply(self.attn, h, cfg, layer=self.layer,
+                                                positions=positions, cache=cache,
+                                                impl=impl)
+        else:
+            y, new_cache = mamba2.mamba_apply(self.mamba, h, cfg, cache=cache)
         if cfg.post_norm:
             y = rms_norm(y, self.ln1_post, cfg.norm_eps)
         x = x + y
-        y2 = self.mlp(rms_norm(x, self.ln2, cfg.norm_eps))
-        if cfg.post_norm:
-            y2 = rms_norm(y2, self.ln2_post, cfg.norm_eps)
-        return x + y2, new_cache
+        if hasattr(self, "ln2"):
+            h2 = rms_norm(x, self.ln2, cfg.norm_eps)
+            if hasattr(self, "moe"):
+                y2, aux = moe_mod.moe_apply(self.moe, h2, cfg)
+            else:
+                y2 = self.mlp(h2)
+            if cfg.post_norm:
+                y2 = rms_norm(y2, self.ln2_post, cfg.norm_eps)
+            x = x + y2
+        return x, new_cache, aux
 
 
 class LM(nn.Module):
@@ -148,8 +165,10 @@ class LM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "LM":
         """Random weights drawn from ``generator`` (f32 normals scaled as
-        the reference's init, stored in the weights' dtype); norms and
-        biases are set to 0, so a trained model is reset to the draw."""
+        the reference's init, stored in the weights' dtype; routed experts
+        at their own fan-in, see below); norms and biases are set to 0 (and
+        Mamba's ``D`` to 1, ``dt_bias`` to -2, as the reference), so a
+        trained model is reset to the draw."""
         dense_init_(self.embed.table, generator, scale=1.0)
         self.ln_f.zero_()
         if not self.cfg.tie_embeddings:
@@ -158,15 +177,39 @@ class LM(nn.Module):
             for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
                 if hasattr(blk, name):
                     getattr(blk, name).zero_()
-            a = blk.attn
-            for w in (a.wq, a.wk, a.wv, a.wo):
-                dense_init_(w, generator)
-            for name in ("bq", "bk", "bv"):
-                if hasattr(a, name):
-                    getattr(a, name).zero_()
-            for name in ("gate", "up", "down"):
-                if hasattr(blk.mlp, name):
-                    dense_init_(getattr(blk.mlp, name), generator)
+            if hasattr(blk, "attn"):
+                a = blk.attn
+                for w in (a.wq, a.wk, a.wv, a.wo):
+                    dense_init_(w, generator)
+                for name in ("bq", "bk", "bv"):
+                    if hasattr(a, name):
+                        getattr(a, name).zero_()
+            else:
+                mb = blk.mamba
+                for w in (mb.wz, mb.wx, mb.wB, mb.wC, mb.wdt):
+                    dense_init_(w, generator)
+                dense_init_(mb.conv_w, generator, scale=0.5)
+                dense_init_(mb.out, generator)
+                mb.conv_b.zero_()
+                mb.A_log.zero_()      # A = -exp(A_log) = -1
+                mb.D.fill_(1.0)
+                mb.dt_bias.fill_(-2.0)  # softplus(-2) ~ 0.13
+                mb.norm.zero_()
+            mlps = [blk.mlp] if hasattr(blk, "mlp") else []
+            if hasattr(blk, "moe"):
+                dense_init_(blk.moe.router, generator)
+                # each expert at its own fan-in, d_in of (E, d_in, d_out): the
+                # reference's _dense_init takes shape[0], the expert count,
+                # which makes a deep random MoE amplify last-bit differences
+                # (ROADMAP.md, Queue 3)
+                for w in (blk.moe.gate, blk.moe.up, blk.moe.down):
+                    dense_init_(w, generator, scale=w.shape[1] ** -0.5)
+                if hasattr(blk.moe, "shared"):
+                    mlps.append(blk.moe.shared)
+            for mlp in mlps:
+                for name in ("gate", "up", "down"):
+                    if hasattr(mlp, name):
+                        dense_init_(getattr(mlp, name), generator)
         return self
 
     def forward(
@@ -178,10 +221,13 @@ class LM(nn.Module):
         impl: Optional[str] = None,
         last_only: bool = False,
         remat: str = "none",
-    ) -> Tuple[torch.Tensor, Optional[dict]]:
-        """(logits (b, s or 1, padded_vocab) f32, caches). ``last_only``
-        unembeds only the last position (prefill: the reference keeps
-        ``logits[:, -1:]`` of the full set, the same numbers).
+        with_aux: bool = False,
+    ):
+        """(logits (b, s or 1, padded_vocab) f32, caches), and with
+        ``with_aux`` the sum of the MoE layers' aux losses () f32 after
+        them, as the reference's ``lm_apply``. ``last_only`` unembeds only
+        the last position (prefill: the reference keeps ``logits[:, -1:]``
+        of the full set, the same numbers).
 
         ``remat`` as the reference's ``lm_apply`` (training, no caches):
         "none" keeps every activation; "block" recomputes each prefix
@@ -203,30 +249,40 @@ class LM(nn.Module):
         b, s, _ = x.shape
         offset = 0 if start_pos is None else int(start_pos)
         positions = (offset + torch.arange(s, device=x.device)).expand(b, s)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = None
         if remat == "none":
             layer_caches: List[Optional[dict]] = (
                 caches["layers"] if caches is not None else [None] * cfg.n_layers)
             new_layers = []
             for blk, c in zip(self.layers, layer_caches, strict=True):
-                x, nc = blk(x, positions, c, impl)
+                x, nc, aux = blk(x, positions, c, impl)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 new_layers.append(nc)
             if caches is not None:
                 new_caches = {**caches, "layers": new_layers}
         else:
-            def group(h: torch.Tensor, ids: range) -> torch.Tensor:
+            def group(h: torch.Tensor, ids: range):
+                a = torch.zeros((), dtype=torch.float32, device=h.device)
                 for l in ids:
-                    h, _ = self.layers[l](h, positions, None, impl)
-                return h
+                    h, _, aux = self.layers[l](h, positions, None, impl)
+                    if aux is not None:
+                        a = a + aux
+                return h, a
 
             ctx = _dots_context if remat == "dots" else ckpt.noop_context_fn
             for ids in layer_groups(cfg):
-                x = ckpt.checkpoint(functools.partial(group, ids=ids), x,
-                                    use_reentrant=False, context_fn=ctx)
+                x, aux = ckpt.checkpoint(functools.partial(group, ids=ids), x,
+                                         use_reentrant=False, context_fn=ctx)
+                aux_total = aux_total + aux
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
-        return self.embed.logits(x), new_caches
+        logits = self.embed.logits(x)
+        if with_aux:
+            return logits, new_caches, aux_total
+        return logits, new_caches
 
 
 #: the rematerialisation policies of training (``ParallelConfig.remat``)
@@ -255,18 +311,23 @@ def _dots_context():
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                    dtype=COMPUTE_DTYPE, device=None) -> dict:
     """``{"layers": [per-layer cache], "n_prefix", "period"}`` — the layer
-    list with the reference's stack plan beside it."""
+    list (an attention layer's KV cache or a Mamba layer's state) with the
+    reference's stack plan beside it."""
     n_prefix, period, _ = stack_plan(cfg)
     return {
         "layers": [attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
-                   for _ in range(cfg.n_layers)],
+                   if cfg.layer_kind(l) == "attn"
+                   else mamba2.init_mamba_cache(cfg, batch, dtype=dtype,
+                                                device=device)
+                   for l in range(cfg.n_layers)],
         "n_prefix": n_prefix,
         "period": period,
     }
 
 
 def cache_start_pos(caches: dict) -> int:
-    """Current decode position: the first attention cache's ``pos``."""
+    """Current decode position: the first attention cache's ``pos`` (0
+    without one: a Mamba layer reads no position)."""
     for c in caches["layers"]:
         if c is not None and "pos" in c:
             return int(c["pos"])

@@ -90,6 +90,10 @@ class ServeEngine:
         _sync(dev)
         t0 = time.perf_counter()
         caches = self.bundle.init_caches(b, total, device=dev)
+        if scfg.compress and next(find_attention_caches(caches), None) is None:
+            raise ValueError(
+                f"{self.bundle.cfg.name}: compress=True compresses attention "
+                f"KV caches, and this model has none (every layer is Mamba)")
         logits, caches = self.bundle.prefill(self.model, caches,
                                              {"tokens": prompt}, impl=scfg.impl)
         _sync(dev)
@@ -149,6 +153,6 @@ class ServeEngine:
 
     @staticmethod
     def _cache_size(caches) -> int:
-        """Sequence capacity of the first attention cache (shape metadata,
-        no device read)."""
+        """Sequence capacity of the first attention cache, Mamba layers
+        skipped (shape metadata, no device read)."""
         return next(find_attention_caches(caches))["k"].shape[2]

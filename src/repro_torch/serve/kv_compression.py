@@ -118,7 +118,9 @@ def layer_keys(caches, key: torch.Tensor) -> list:
     """The key each layer's compression draws with, as the reference
     derives it: a stand-alone layer i gets ``fold_in(key, i)``; every
     repeat of sublayer j of the stacked group gets ``fold_in(key, 100 + j)``
-    (the reference folds the repeat axis into the batch)."""
+    (the reference folds the repeat axis into the batch). The index counts
+    every layer, Mamba ones too: in a hybrid whose group mixes Mamba and
+    attention, the attention sublayer j keeps its own key."""
     if isinstance(caches, dict):
         n_prefix, period = caches["n_prefix"], caches["period"]
         return [prng.fold_in(key, l) if l < n_prefix
@@ -130,7 +132,8 @@ def layer_keys(caches, key: torch.Tensor) -> list:
 def compress_model_caches(caches, t: int = 2, m: int = 1, *, tail: int = 128,
                           key: Optional[torch.Tensor] = None,
                           impl: Optional[str] = None):
-    """Compress every attention layer's cache (other entries untouched).
+    """Compress every attention layer's cache; Mamba states (and any other
+    entry) pass through untouched, as the same objects.
 
     Takes the LM layout ``{"layers": [...], "n_prefix", "period"}``
     (``transformer.init_lm_caches``) or a plain per-layer list."""

@@ -185,9 +185,7 @@ def test_full_sequence_logits_match_last_only(rng):
     np.testing.assert_array_equal(full[:, -1:].numpy(), last.numpy())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-370m",
-                                  "jamba-v0.1-52b", "seamless-m4t-large-v2",
-                                  "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "phi-3-vision-4.2b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(smoke_config(ARCHS[arch]))
