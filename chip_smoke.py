@@ -25,7 +25,13 @@ Phases, each printing one JSON line:
                key type, K2 at d 256, K3 and K5 also their device time
                alone); the lm_moe phase's shapes: K2 and K3 at d 128, K5's
                bf16 prefill and decode at head_dim 128 without softcap,
-               with scaled_dot_product_attention timed beside them;
+               with scaled_dot_product_attention timed beside them; the
+               lm_vlm and lm_encdec phases' shapes the same way: K2 and K3
+               at d 96 (K3 also 192) over phi-3-vision's 2,464-slot cache,
+               K5's prefill at head_dim 96 on the tensor-core route and, in
+               f32, on the tiled route, its decode at head_dim 96, and
+               seamless's encoder, cross-attention prefill and cross
+               decode calls at head_dim 64;
                then awkward shapes on a dyadic grid, where kernel and plain
                version must agree bit for bit, tie-breaking included, and
                the edge cases of K1's tensor-core and split routes (every
@@ -137,6 +143,26 @@ Phases, each printing one JSON line:
                steps against its full forward within LOGIT_ULPS, no kernel
                launched, compress=True refused; each phase first frees
                what the earlier phases hold and prints its seconds;
+  lm_vlm       phi-3-vision-4.2b whole (32 layers, MHA 32 x 96; random bf16
+               parameters) at batch 2, each row the stubbed vision tower's
+               256-token patch prefix and a 2048-token prompt, 160 new
+               tokens, compressed at t = 2, m = 1, tail 128: K5 at head_dim
+               96 (tiled_mma prefill, split-kv decode with the
+               position-and-mass bias), K2 and K3 at d 96 / 192; the kernel
+               path against the plain paths over the prefill and 32
+               teacher-forced steps, every K5 call against its plain
+               version, K5's bias dropped as the planted fault, the
+               compressed slots and a repeat, as lm_moe;
+  lm_encdec    seamless-m4t-large-v2 whole (24 encoder and 24 decoder
+               layers, MHA 16 x 64) at batch 4 over 2048 encoder frames (the
+               stubbed speech encoder's output), a 128-token decoder prompt
+               and 160 new tokens, no compression (an enc-dec cache is not
+               compressed): K5 on the non-causal encoder calls, the causal
+               decoder calls and the non-causal cross-attention calls
+               (tiled_mma at head_dim 64 in the prefill, split-kv at decode,
+               the cross decode without a bias); the same checks, the
+               planted fault the encoder's and the cross calls made causal,
+               read at the prefill;
   profile      (only when asked for) the fit, the headline fit, (after
                the train or select phase) one train step, (after
                the lm phase) one generate and (after the online phase) the
@@ -154,8 +180,9 @@ it, just before the three dbscan fits and read after them, just before
 the online phase's stream and read after its refresh, just before the
 train phase's steps (none may launch), just before the select phase's
 two selections and read after them, and again just
-before the generate of each of the lm, lm_moe and lm_hybrid phases and
-read right after it; every kernel of
+before the generate of each of the lm, lm_moe, lm_hybrid, lm_vlm and
+lm_encdec phases and read right after it (lm_encdec: K5 alone, 72
+prefill calls and 48 a step); every kernel of
 each path must have launched (K1-K4 in fit and serve; K1-K4 in select;
 K1, K3 and K4 in
 hac, K4 on its tiled instance for the (n, n) matrices of HAC and DBSCAN,
@@ -197,7 +224,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
-                  "lm", "lm_moe", "lm_hybrid")
+                  "lm", "lm_moe", "lm_hybrid", "lm_vlm", "lm_encdec")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
 ALL_PHASES = DEFAULT_PHASES + ("profile", "basins")
@@ -257,6 +284,20 @@ LM = dict(arch="gemma2-2b", batch=4, prompt=2048, new_tokens=160, t=2, m=1,
 LM_MOE = dict(LM, arch="deepseek-moe-16b", forced_steps=32)
 LM_HYBRID = dict(LM_MOE, arch="jamba-v0.1-52b", layers=8, ssm_arch="mamba2-370m",
                  ssm_steps=32)
+#: the lm_vlm and lm_encdec phases: phi-3-vision-4.2b whole (32 layers, MHA
+#: 32 x 96) at batch 2, each row the 256-token patch prefix of the stubbed
+#: vision tower (VISION_PREFIX, repro_torch.models.frontends) and a 2048-
+#: token prompt, 160 new tokens, compressed at t = 2, m = 1, tail 128 (2,304
+#: valid of 2,464 slots, 1,360 after the first compress, one in flight;
+#: batch 2, not 4: a compression is one TC per layer, sequence and kv head,
+#: 2,048 at batch 2); seamless-m4t-large-v2 whole (24 + 24 layers, MHA 16 x
+#: 64) at batch 4 over 2048 encoder frames (the stubbed speech encoder's
+#: output), a 128-token decoder prompt and 160 new tokens, no compression
+#: (an enc-dec cache is not compressed); 32 teacher-forced steps each
+VISION_PREFIX = 256
+LM_VLM = dict(LM, arch="phi-3-vision-4.2b", batch=2, forced_steps=32)
+LM_ENCDEC = dict(LM, arch="seamless-m4t-large-v2", batch=4, prompt=128, frames=2048,
+                 forced_steps=32)
 #: the online phase: the blobs stream, its fit, the serve ladder and
 #: request sizes, the refresh (a drifted stream: the shift of
 #: benchmarks/bench_lifecycle.py), the open-loop traffic around it, and the
@@ -604,6 +645,9 @@ def phase_kernels(results: dict) -> None:
     _k2_row("fit", x[:SIZES["knn_n"]].contiguous(), 2)
     _k2_compression(results)
     _k2_compression(results, d=128, path="lm_moe")
+    _k2_compression(results, d=96, path="lm_vlm",
+                    n=VISION_PREFIX + LM_VLM["prompt"] + LM_VLM["new_tokens"],
+                    n_valid=VISION_PREFIX + LM_VLM["prompt"])
 
     # K3: the level-0 prototype reduce, 8 blocks of 72,627 rows into
     # 193,670 segments (ids include dropped ones); then the headline fit's
@@ -639,6 +683,7 @@ def phase_kernels(results: dict) -> None:
     _select_shapes()
     _k5_path_shapes(results)
     _k5_head_dim_128()
+    _k5_vlm_encdec()
     _edge_checks(gen)
     _attention_edges()
     emit("kernels_done", seconds=round(time.perf_counter() - t0, 3))
@@ -948,15 +993,18 @@ def _head_keys(n: int, d: int, seed: int) -> torch.Tensor:
     return torch.randn((n, d), generator=g, device=DEV).bfloat16().float()
 
 
-def _k2_compression(results: dict, d: int = 256, path: str = "lm") -> None:
-    """K2 at a compression shape: one (batch, kv-head) cache of 2208 slots
-    of width head_dim ``d`` (256: the lm phase's, K2's entry in the kernels
-    line; 128: the lm_moe and lm_hybrid phases'), the first 2048 written
-    (valid), k = t - 1 = 1, on the CUDA-core split route (its key ranges
-    as the library counts them)."""
+def _k2_compression(results: dict, d: int = 256, path: str = "lm",
+                    n: int = LM["prompt"] + LM["new_tokens"],
+                    n_valid: int = LM["prompt"]) -> None:
+    """K2 at a compression shape: one (batch, kv-head) cache of ``n``
+    slots (2208: the lm phase's, K2's entry in the kernels line at d 256;
+    the lm_moe and lm_hybrid phases' at d 128; phi-3-vision's 2464 at d 96)
+    of width head_dim ``d``, the first ``n_valid`` written (valid), k = t -
+    1 = 1, on the CUDA-core split route (its key ranges as the library
+    counts them)."""
     from repro_torch.kernels import _cuda, fused_assign, knn_topk, ref
 
-    n, k = LM["prompt"] + LM["new_tokens"], LM["t"] - 1
+    k = LM["t"] - 1
     route = fused_assign.route(torch.float32, torch.float32, d, k)
     lib = _cuda.library("topk")
     splits, keys_per_split = fused_assign.split_plan(n, n)
@@ -967,7 +1015,7 @@ def _k2_compression(results: dict, d: int = 256, path: str = "lm") -> None:
           f"{lib.repro_topk_route(d, k)}, splits {lib.repro_topk_split_count(n, n)} "
           f"against {splits}")
     x = _head_keys(n, d, 3)
-    valid = torch.arange(n, device=DEV) < LM["prompt"]
+    valid = torch.arange(n, device=DEV) < n_valid
     gd, gi = knn_topk.knn_topk(x, k, valid)
     rd, ri = ref.knn(x, k, valid=valid)
     sync()
@@ -999,7 +1047,8 @@ def _k3_compression() -> None:
     """K3 at the compression shapes: the keys (d 256) and the [k||v]
     payload (d 512) of one head of the lm phase, and the keys of one head
     of the lm_moe and lm_hybrid phases (d 128; their [k||v] is d 256), 2208
-    rows into 1104 prototypes, through the 8-block fold."""
+    rows into 1104 prototypes; phi-3-vision's keys (d 96) and [k||v] (d
+    192), 2464 rows into 1232; through the 8-block fold."""
     gen = np.random.default_rng(4)
     n, S = LM["prompt"] + LM["new_tokens"], (LM["prompt"] + LM["new_tokens"]) // LM["t"]
     ids = dev(np.where(np.arange(n) < LM["prompt"], gen.integers(0, S, size=n), -1)
@@ -1008,6 +1057,16 @@ def _k3_compression() -> None:
     for d in (256, 512):
         _k3_row("lm", _head_keys(n, d, d), ids, S, w)
     _k3_row("lm_moe", _head_keys(n, 128, 128), ids, S, w)
+    # phi-3-vision's: 2464 slots (prefix, prompt and new tokens), 2304
+    # written, into 1232 prototypes; the keys (d 96) and [k||v] (d 192)
+    n, valid = VISION_PREFIX + LM_VLM["prompt"] + LM_VLM["new_tokens"], \
+        VISION_PREFIX + LM_VLM["prompt"]
+    S = n // LM_VLM["t"]
+    ids = dev(np.where(np.arange(n) < valid, gen.integers(0, S, size=n), -1)
+              .astype(np.int32))
+    w = torch.ones(n, device=DEV)
+    for d in (96, 192):
+        _k3_row("lm_vlm", _head_keys(n, d, d), ids, S, w)
 
 
 def _attention_work(b, hq, hkv, lq, lk, dh, causal, elt, bias_heads):
@@ -1143,53 +1202,99 @@ def _k5_path_shapes(results: dict) -> None:
         results[kid] = row
 
 
+def _decode_bias(b: int, h: int, P: int, tail: int, seed: int) -> torch.Tensor:
+    """A decode step's bias over a compressed cache: log-masses of P
+    prototypes, one written tail slot (0), the rest of the tail masked."""
+    bias = torch.full((b, h, P + tail), -1e30, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    bias[..., :P] = torch.log(torch.randint(1, 5, (b, h, P), generator=g,
+                                            device=DEV).float())
+    bias[..., P] = 0.0
+    return bias
+
+
 def _k5_head_dim_128() -> None:
     """K5 at the lm_moe and lm_hybrid phases' shapes (head_dim 128, no
     softcap): the bf16 prefill of one layer (causal, the tensor-core tiled
     route) at deepseek-moe-16b's MHA 16 x 16 and at jamba's GQA 32 x 8,
     and deepseek's decode step over the compressed cache (P = 1104
     prototypes with log-mass bias, one written tail slot, the rest
-    masked; the split-kv route), each against its plain version, a repeat
-    bitwise. Without a softcap one PyTorch call computes the same
-    function: ``scaled_dot_product_attention`` (kv heads shared with
-    ``enable_gqa``; the decode's bias as a bf16 ``attn_mask``, so its
-    output is not the same bits); it is timed as the library column, and
-    its largest difference from the plain version reported."""
-    from repro_torch.kernels import flash_attention as fa
-
+    masked; the split-kv route)."""
     B, dh = LM_MOE["batch"], 128
     S, P = LM_MOE["prompt"], (LM_MOE["prompt"] + LM_MOE["new_tokens"]) // LM_MOE["t"]
-    lk_dec = P + LM_MOE["tail"]
-    bias = torch.full((B, 16, lk_dec), -1e30, device=DEV)
-    g = torch.Generator(device=DEV).manual_seed(9)
-    bias[..., :P] = torch.log(torch.randint(1, 5, (B, 16, P), generator=g,
-                                            device=DEV).float())
-    bias[..., P] = 0.0
-    scale = 1.0 / dh ** 0.5
+    bias = _decode_bias(B, 16, P, LM_MOE["tail"], 9)
+    _k5_library_rows((
+        ("K5-prefill", "prefill_dh128", "lm_moe", B, 16, 16, S, S, dh, True, None,
+         "tiled_mma"),
+        ("K5-prefill", "prefill_dh128_gqa", "lm_hybrid", B, 32, 8, S, S, dh, True,
+         None, "tiled_mma"),
+        ("K5-decode", "decode_dh128", "lm_moe", B, 16, 16, 1, P + LM_MOE["tail"], dh,
+         False, bias, "split_kv")), seed=10)
+
+
+def _k5_vlm_encdec() -> None:
+    """K5 at the lm_vlm and lm_encdec phases' shapes (no softcap): phi-3-
+    vision's prefill of one layer (q 2 x 32 x 2304 x 96: the 256-token
+    patch prefix and the 2048-token prompt, causal) on the tensor-core
+    route and, in f32, on the tiled route (where a bf16 call at head_dim
+    96 went before it had a tensor-core instance), and its decode step at
+    head_dim 96 over the compressed cache (P = 1232 prototypes with
+    log-mass bias, one written tail slot, the rest masked); seamless's
+    encoder call (4 x 16 x 2048 x 64, non-causal), its cross-attention
+    prefill (128 queries over the 2048 encoder frames, non-causal) and
+    decode (one query over them, no bias)."""
+    v, e = LM_VLM, LM_ENCDEC
+    S = VISION_PREFIX + v["prompt"]
+    P = (S + v["new_tokens"]) // v["t"]
+    bias = _decode_bias(v["batch"], 32, P, v["tail"], 11)
+    F, T = e["frames"], e["prompt"]
+    _k5_library_rows((
+        ("K5-prefill", "prefill_dh96", "lm_vlm", v["batch"], 32, 32, S, S, 96, True,
+         None, "tiled_mma"),
+        ("K5", "prefill_dh96_f32", "lm_vlm", v["batch"], 32, 32, S, S, 96, True,
+         None, "tiled"),
+        ("K5-decode", "decode_dh96", "lm_vlm", v["batch"], 32, 32, 1, P + v["tail"],
+         96, False, bias, "split_kv"),
+        ("K5-prefill", "encoder_dh64", "lm_encdec", e["batch"], 16, 16, F, F, 64,
+         False, None, "tiled_mma"),
+        ("K5-prefill", "cross_prefill_dh64", "lm_encdec", e["batch"], 16, 16, T, F,
+         64, False, None, "tiled_mma"),
+        ("K5-decode", "cross_decode_dh64", "lm_encdec", e["batch"], 16, 16, 1, F, 64,
+         False, None, "split_kv")), seed=12)
+
+
+def _k5_library_rows(cases, seed: int) -> None:
+    """Each case (kernel id, label, path, b, hq, hkv, lq, lk, dh, causal,
+    bias, route), bf16 unless the route is "tiled" (f32): K5 against its
+    plain version, a repeat bitwise, then its time, the plain version's
+    and, without a softcap, one PyTorch call's that computes the same
+    function: ``scaled_dot_product_attention`` (kv heads shared with
+    ``enable_gqa``; a bias as an ``attn_mask`` in q's type, so its output
+    is not the same bits), timed as the library column, its largest
+    difference from the plain version reported."""
+    from repro_torch.kernels import flash_attention as fa
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for kid, label, path, hq, hkv, lq, lk, causal, kb, want_route in (
-            ("K5-prefill", "prefill_dh128", "lm_moe", 16, 16, S, S, True, None,
-             "tiled_mma"),
-            ("K5-prefill", "prefill_dh128_gqa", "lm_hybrid", 32, 8, S, S, True, None,
-             "tiled_mma"),
-            ("K5-decode", "decode_dh128", "lm_moe", 16, 16, 1, lk_dec, False, bias,
-             "split_kv")):
-        variant = fa.route(hq, hkv, lq, torch.bfloat16, dh)
+    for kid, label, path, B, hq, hkv, lq, lk, dh, causal, kb, want_route in cases:
+        dt = torch.float32 if want_route == "tiled" else torch.bfloat16
+        variant = fa.route(hq, hkv, lq, dt, dh)
         check(variant == want_route, f"{kid} {label}: route {variant}")
-        q, k, v, _ = _attn_inputs(B, hq, hkv, lq, lk, dh, torch.bfloat16, 10)
+        q, k, v, _ = _attn_inputs(B, hq, hkv, lq, lk, dh, dt, seed)
+        scale = 1.0 / dh ** 0.5
         kw = dict(causal=causal, scale=scale, logit_softcap=0.0)
         got = fa.flash_attention(q, k, v, kb, **kw)
         again = fa.flash_attention(q, k, v, kb, **kw)
         want = fa.flash_attention_plain(q, k, v, kb, **kw)
-        mask = None if kb is None else kb[:, :, None, :].to(torch.bfloat16)
+        mask = None if kb is None else kb[:, :, None, :].to(dt)
         lib = lambda: sdpa(q, k, v, attn_mask=mask, is_causal=causal,  # noqa: E731
                            scale=scale, enable_gqa=hq != hkv)
         lib_err = float((lib().float() - want.float()).abs().max())
         sync()
         err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL_BF16 if dt == torch.bfloat16 else ATTN_TOL_F32
         check(torch.equal(got, again), f"{kid} {label}: a repeat differs")
         check(bool(torch.isfinite(got.float()).all()), f"{kid} {label}: non-finite")
-        check(torch.allclose(got.float(), want.float(), **ATTN_TOL_BF16),
+        check(torch.allclose(got.float(), want.float(), **tol),
               f"{kid} {label} off: {err}")
         del got, again, want
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kb, **kw))
@@ -1197,18 +1302,19 @@ def _k5_head_dim_128() -> None:
         plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, kb, **kw))
         library = cuda_ms(lib)
         lib_dev = device_ms(lib)
+        elt = 2 if dt == torch.bfloat16 else 4
         flops, tc_flops, nbytes = _attention_work(
-            B, hq, hkv, lq, lk, dh, causal, 2, 0 if kb is None else kb.shape[1])
+            B, hq, hkv, lq, lk, dh, causal, elt, 0 if kb is None else kb.shape[1])
         b_ms, b_by = bound(flops, nbytes, bf16_flops=tc_flops)
         row = dict(kernel=kid, path=path, shape=label, variant=variant,
                    q=list(q.shape), kv=list(k.shape), causal=causal,
-                   bias=kb is not None, dtype="bfloat16", max_abs_err=err,
-                   bitwise_repeat=True, library_max_abs_err=lib_err)
+                   bias=kb is not None, dtype=str(dt).replace("torch.", ""),
+                   max_abs_err=err, bitwise_repeat=True, library_max_abs_err=lib_err)
         if variant == "tiled_mma":
             mma_tc, mma_f32 = _mma_attention_work(B, hq, lq, lk, dh, causal)
             row["bound_ms_f32_pv"] = b_ms
             b_ms, b_by = bound(mma_f32, nbytes, bf16_flops=mma_tc)
-        else:
+        elif variant == "split_kv":
             row.update(split_keys=fa.split_keys(lk), splits=-(-lk // fa.split_keys(lk)))
         row.update(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, causal_half_counted=False, library_ms=library,
@@ -1579,10 +1685,14 @@ def _attention_edges() -> None:
     and 256) a block that straddles two query heads, g 1, 2, 4 and 16, a
     bias per kv and per query head, softcap 0, 30 and 50, the first kv tile
     wholly masked, no causal mask, one query row per head, one head of the
-    LM's prefill in batch 1; on the split-kv route (lq 1 and 2) a split wholly
-    masked in the middle of the keys beside a masked tail, lk below one
-    split and one key past it, a bias per query head. Within the stated
-    tolerance, no NaN, and a second call gives the same bits."""
+    LM's prefill in batch 1; at head_dim 96 causal, non-causal with lq <
+    lk, GQA, a bias per kv and per query head, lk off the 64-key tile and
+    one head of phi-3-vision's prefill; seamless's non-causal self and
+    cross calls at head_dim 64; on the split-kv route (lq 1 and 2) a split
+    wholly masked in the middle of the keys beside a masked tail, lk below
+    one split and one key past it, a bias per query head, head_dim 96 and
+    64 without a bias. Within the stated tolerance, no NaN, and a second
+    call gives the same bits."""
     from repro_torch.kernels import flash_attention as fa
 
     cases = (
@@ -1613,6 +1723,24 @@ def _attention_edges() -> None:
         (1, 8, 4, 1, 300, 256, False, "q_heads", 50.0, torch.float32),
         (1, 8, 4, 2, 150, 64, True, "kv", 50.0, torch.float32),
         (1, 2, 2, 1, 100, 100, False, "kv", 0.0, torch.float32),
+        # head_dim 96 on the tensor-core route (phi-3-vision): causal,
+        # non-causal with lq < lk, GQA, a bias per kv and per query head,
+        # lk not a multiple of the 64-key tile
+        (1, 4, 4, 130, 130, 96, True, None, 0.0, torch.bfloat16),
+        (2, 4, 4, 70, 300, 96, False, "kv", 0.0, torch.bfloat16),
+        (1, 8, 2, 77, 201, 96, True, "q_heads", 30.0, torch.bfloat16),
+        (1, 4, 4, 64, 190, 96, True, "first_tile64", 0.0, torch.bfloat16),
+        (1, 2, 2, 2304, 2304, 96, True, None, 0.0, torch.bfloat16),
+        # seamless's calls at head_dim 64: non-causal self and cross
+        (1, 4, 4, 200, 200, 64, False, None, 0.0, torch.bfloat16),
+        (1, 4, 4, 33, 257, 64, False, None, 0.0, torch.bfloat16),
+        # the split-kv route at head_dim 96 (its DH 128 instance) and 64:
+        # no bias, a bias, lk not a multiple of 64
+        (2, 4, 4, 1, 300, 96, False, None, 0.0, torch.bfloat16),
+        (2, 4, 4, 1, 1360, 96, False, "masked_split", 0.0, torch.bfloat16),
+        (1, 4, 4, 1, 77, 96, False, "kv", 0.0, torch.bfloat16),
+        (2, 4, 4, 1, 2048, 64, False, None, 0.0, torch.bfloat16),
+        (1, 4, 4, 1, 131, 64, False, None, 0.0, torch.float32),
     )
     worst = 0.0
     routes = {}
@@ -2774,27 +2902,44 @@ def _attention_as(fn):
         ops.flash_attention = real
 
 
+def _cloned(c):
+    """A copy of a cache tree whose tensors are cloned (the decode steps
+    write the caches in place)."""
+    if torch.is_tensor(c):
+        return c.clone()
+    if isinstance(c, dict):
+        return {n: _cloned(a) for n, a in c.items()}
+    if isinstance(c, list):
+        return [_cloned(a) for a in c]
+    return c
+
+
 def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
-                  attention=None, traffic=LM, held=None):
+                  attention=None, traffic=LM, held=None, inputs=None,
+                  cache_kw=None, compress=True):
     """One route through prefill, compression and teacher-forced decode:
     (last-position f32 logits of the prefill and of each step, the prefill
     caches, a copy of the compressed caches as the steps found them).
     ``held``: a list that receives, for every windowless attention call
     of the route, its output held against K5's plain version on the same
-    inputs (``_attention_held``)."""
+    inputs (``_attention_held``). ``inputs``: the prefill's other batch
+    entries (a VLM's ``patch_embeds``, an enc-dec model's ``frames``, with
+    its ``enc_len`` in ``cache_kw``); ``compress=False`` decodes from the
+    raw caches (then the copy is of those)."""
     from repro_torch.serve.kv_compression import compress_model_caches
 
     B, S = tok.shape
     with torch.inference_mode(), _attention_as(attention), \
             (_attention_held(held) if held is not None else contextlib.nullcontext()):
-        raw = bundle.init_caches(B, S + traffic["new_tokens"], device=DEV)
-        logits, raw = bundle.prefill(model, raw, {"tokens": tok}, impl=impl)
+        raw = bundle.init_caches(B, S + traffic["new_tokens"], device=DEV,
+                                 **(cache_kw or {}))
+        logits, raw = bundle.prefill(model, raw, {"tokens": tok, **(inputs or {})},
+                                     impl=impl)
         out = [logits[:, -1].float()]
-        comp = compress_model_caches(raw, traffic["t"], traffic["m"],
-                                     tail=traffic["tail"], impl=compress_impl)
-        start = {**comp, "layers": [{n: (a.clone() if torch.is_tensor(a) else a)
-                                     for n, a in c.items()}
-                                    for c in comp["layers"]]}
+        comp = (compress_model_caches(raw, traffic["t"], traffic["m"],
+                                      tail=traffic["tail"], impl=compress_impl)
+                if compress else raw)
+        start = _cloned(comp)
         for i in range(steps.shape[1]):
             logits, comp = bundle.decode_step(model, comp,
                                               {"tokens": steps[:, i:i + 1]},
@@ -2956,12 +3101,9 @@ def phase_lm(state: dict) -> None:
     again = engine.generate({"tokens": prompts})
     repeat = bool(torch.equal(again["tokens"], out["tokens"]))
 
-    def rounded(e):
-        return {k: round(v, 6) if isinstance(v, float) else v for k, v in e.items()}
-
     emit("lm_parity", logit_ulps=LOGIT_ULPS,
-         steps={name: [rounded(e) for e in es] for name, es in errs.items()},
-         planted_fault=rounded(planted), compressed_slot_agreement=slots,
+         steps={name: [_rounded(e) for e in es] for name, es in errs.items()},
+         planted_fault=_rounded(planted), compressed_slot_agreement=slots,
          bitwise_repeat=repeat, parity_s=round(parity_s, 3),
          seconds=round(time.perf_counter() - t0, 3))
     for name, es in errs.items():
@@ -2977,6 +3119,11 @@ def phase_lm(state: dict) -> None:
     check(slots >= MIN_SLOT_AGREEMENT,
           f"kernel vs plain compression: slot agreement {slots}")
     check(repeat, "two kernel-path generations differ")
+
+
+def _rounded(e: dict) -> dict:
+    """A reading's floats to 6 decimals, for its JSON line."""
+    return {k: round(v, 6) if isinstance(v, float) else v for k, v in e.items()}
 
 
 def _family_logit_diff(got: torch.Tensor, want: torch.Tensor, vocab: int) -> dict:
@@ -3130,6 +3277,43 @@ def _moe_drops():
         yield drops
     finally:
         moe.dispatch_indices = real
+
+
+def _parity_checks(which: str, errs: dict, top1: dict, att: dict, want_calls,
+                   planted: dict, level: str, att_fault: dict, slots, repeat: bool
+                   ) -> None:
+    """The verdict of a family phase's parity run: every route's logits
+    finite and within the bound at the prefill and each step, top-1 over
+    the rows; K5 held in ``want_calls`` (prefill, decode) calls, each
+    within its tolerance; the planted fault beyond the bound at its
+    ``level``; the compressed slots (``slots`` None: no compression); a
+    bitwise repeat."""
+    for name, es in errs.items():
+        for i, e in enumerate(es):  # step 0 is the prefill
+            check(e["finite"], f"{name} step {i}: non-finite logits")
+            check(e["err"] <= e["bound"],
+                  f"{name} step {i}: max |dlogit| {e['err']} > {e['bound']}")
+        check(top1[name] >= MIN_TOP1,
+              f"{name}: top-1 agreement over the rows {top1[name]}")
+    got = (att.get("prefill", {}).get("calls"), att.get("decode", {}).get("calls"))
+    check(got == tuple(want_calls),
+          f"K5 held against its plain version in {att} calls, want {want_calls[0]} "
+          f"prefill and {want_calls[1]} decode")
+    for name, a in att.items():
+        check(a["ratio"] <= 1.0,
+              f"K5's {name} on the {which} path against its plain version: {a}")
+    if level == "logits":
+        check(planted["err"] > planted["bound"],
+              f"the planted fault stays within the logit bound "
+              f"({planted['err']} <= {planted['bound']})")
+    else:
+        check(att_fault["ratio"] > 1.0,
+              f"the planted fault stays within the tolerance of the plain "
+              f"version at K5's output ({att_fault})")
+    if slots is not None:
+        check(slots >= MIN_SLOT_AGREEMENT,
+              f"kernel vs plain compression: slot agreement {slots}")
+    check(repeat, "two kernel-path generations differ")
 
 
 def _free_models(state: dict) -> None:
@@ -3288,46 +3472,191 @@ def phase_lm_family(state: dict, which: str) -> None:
     repeat = bool(torch.equal(again["tokens"], out["tokens"]))
     del engine, again
 
-    def rounded(e):
-        return {k: round(v, 6) if isinstance(v, float) else v for k, v in e.items()}
-
     emit(f"{which}_parity", logit_ulps=LOGIT_ULPS,
-         steps={name: [rounded(e) for e in es] for name, es in errs.items()},
-         top1_over_rows=top1, pinned_routing=pinned, planted_fault=rounded(planted),
-         zeroed_attention=rounded(reach), planted_level=level,
+         steps={name: [_rounded(e) for e in es] for name, es in errs.items()},
+         top1_over_rows=top1, pinned_routing=pinned, planted_fault=_rounded(planted),
+         zeroed_attention=_rounded(reach), planted_level=level,
          attention_vs_plain=att, attention_planted_fault=att_fault,
          compressed_slot_agreement=slots, bitwise_repeat=repeat,
          parity_s=round(parity_s, 3))
-    for name, es in errs.items():
-        for i, e in enumerate(es):  # step 0 is the prefill
-            check(e["finite"], f"{name} step {i}: non-finite logits")
-            check(e["err"] <= e["bound"],
-                  f"{name} step {i}: max |dlogit| {e['err']} > {e['bound']}")
-        check(top1[name] >= MIN_TOP1,
-              f"{name}: top-1 agreement over the rows {top1[name]}")
-    n_steps = 1 + tr["forced_steps"]
-    check(att.get("prefill", {}).get("calls") == n_attn
-          and att.get("decode", {}).get("calls") == n_attn * tr["forced_steps"],
-          f"K5 held against its plain version in {att} calls, want {n_attn} "
-          f"prefill and {n_attn * tr['forced_steps']} decode ({n_steps} forwards)")
-    for name, a in att.items():
-        check(a["ratio"] <= 1.0,
-              f"K5's {name} on the {which} path against its plain version: {a}")
-    if level == "logits":
-        check(planted["err"] > planted["bound"],
-              f"K5 with its bias dropped stays within the logit bound "
-              f"({planted['err']} <= {planted['bound']})")
-    else:
-        check(att_fault["ratio"] > 1.0,
-              f"K5 with its bias dropped stays within the tolerance of the plain "
-              f"version at its output ({att_fault})")
-    check(slots >= MIN_SLOT_AGREEMENT,
-          f"kernel vs plain compression: slot agreement {slots}")
-    check(repeat, "two kernel-path generations differ")
+    _parity_checks(which, errs, top1, att, (n_attn, n_attn * tr["forced_steps"]),
+                   planted, level, att_fault, slots, repeat)
     del model, bundle, kern, plain, route, fault, no_attn
     if which == "lm_hybrid":
         _free_models(state)
         _ssm_whole(tr)
+    emit(f"{which}_done", seconds=round(time.perf_counter() - t0, 3))
+
+
+def _all_causal(q, k, v, kv_bias, *, causal=True, **kw):
+    """K5 with every call made causal: lm_encdec's planted fault (the
+    encoder's and the cross-attention's calls are the non-causal ones)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return fa.flash_attention(q, k, v, kv_bias, causal=True, **kw)
+
+
+def phase_lm_frontend(state: dict, which: str) -> None:
+    """Serve phi-3-vision-4.2b whole with its patch prefix and IHTC KV
+    compression (``lm_vlm``) or seamless-m4t-large-v2 whole over encoder
+    frames (``lm_encdec``); then hold the kernel path against the two plain
+    paths over the prefill and the teacher-forced steps, every K5 call of
+    the kernel path against its plain version on its own inputs, a planted
+    fault (lm_vlm: K5's bias dropped at the first step; lm_encdec: the
+    encoder's and the cross-attention's calls made causal at the prefill),
+    the compressed slots (lm_vlm) and a repeat."""
+    from repro_torch import kernels, prng
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import frontend_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build, frontends
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    vlm = which == "lm_vlm"
+    tr = LM_VLM if vlm else LM_ENCDEC
+    _free_models(state)
+    t0 = time.perf_counter()
+    cfg = ARCHS[tr["arch"]]
+    check(frontends.VISION_PREFIX_TOKENS == VISION_PREFIX,
+          f"the patch prefix is {frontends.VISION_PREFIX_TOKENS} tokens")
+    bundle = build(cfg)
+    model = bundle.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    n_params = sum(p.numel() for p in model.parameters())
+    B = tr["batch"]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                size=(B, tr["prompt"]))
+    # the stubbed front end's output, drawn as make_batch draws it
+    inputs = frontend_batch(cfg, prng.PRNGKey(0), B, tr.get("frames", tr["prompt"]),
+                            device=DEV)
+    cache_kw = {} if vlm else {"enc_len": tr["frames"]}
+    engine = ServeEngine(bundle, model, ServeConfig(
+        max_new_tokens=tr["new_tokens"], compress=vlm, compress_t=tr["t"],
+        compress_m=tr["m"], compress_tail=tr["tail"], impl="auto"))
+    sync()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = engine.generate({"tokens": prompts, **inputs}, **cache_kw)
+    sync()
+    counts = kernels.launch_counts()
+    routes = kernels.route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tm = out["timings"]
+    L, N = cfg.n_layers, tr["new_tokens"]
+    # K5 calls: the prefill's (phi-3: one a layer; seamless: each encoder
+    # layer, and each decoder layer's self and cross attention) on
+    # tiled_mma, and each decode step's (self, and seamless's cross) on
+    # split-kv
+    n_prefill = L if vlm else cfg.n_enc_layers + 2 * L
+    n_step = L if vlm else 2 * L
+    want_k5 = n_prefill + n_step * N
+    want_k2 = L * B * cfg.n_kv_heads * len(tm["compress"])
+    check(tuple(out["tokens"].shape) == (B, N), f"{which} output shape")
+    check(bool(((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()),
+          "tokens outside the vocabulary")
+    check(counts["K5"] == want_k5,
+          f"K5 launched {counts['K5']} times, want {want_k5} ({n_prefill} prefill "
+          f"calls + {n_step} per decode step)")
+    check(counts["K5-decode"] == n_step * N,
+          f"K5's split-kv route launched {counts['K5-decode']} times, want "
+          f"{n_step * N}")
+    check(routes.get("K5/tiled_mma") == n_prefill and "K5/tiled" not in routes,
+          f"K5's prefill took routes {routes}, want {n_prefill} calls on tiled_mma")
+    if vlm:
+        check(out["compressions"] >= 1, "no in-flight recompression")
+        check(counts["K2"] == want_k2,
+              f"K2 launched {counts['K2']} times, want {want_k2} (one per layer, "
+              f"sequence, kv head and compression)")
+        check(counts["K3"] > 0, f"K3 was not launched by the {which} phase")
+    else:
+        check(not tm["compress"] and counts["K2"] == counts["K3"] == 0,
+              f"{which}: a compression ran ({counts})")
+    state[f"{which}_counts"] = counts
+    state[f"{which}_routes"] = routes
+    n_tok = B * out["n_steps"]
+    emit(which, arch=cfg.name, layers=L, enc_layers=cfg.n_enc_layers,
+         params=n_params, batch=B, prompt=tr["prompt"],
+         prefix=VISION_PREFIX if vlm else 0, frames=tr.get("frames", 0),
+         new_tokens=out["n_steps"], init_s=round(init_s, 3),
+         prefill_ms=tm["prefill_s"] * 1e3,
+         compress=[{"ms": c["seconds"] * 1e3, "slots_before": c["slots_before"],
+                    "slots_after": c["slots_after"]} for c in tm["compress"]],
+         decode_s=tm["decode_s"], decode_tok_per_s=n_tok / tm["decode_s"],
+         compressions=out["compressions"], max_memory_allocated=peak,
+         tokens_sha1=hashlib.sha1(out["tokens"].cpu().numpy().tobytes()).hexdigest(),
+         launches={k: counts[k] for k in ("K2", "K3", "K5", "K5-decode")},
+         launches_by_route=routes, k5_expected=want_k5,
+         k2_expected=want_k2 if vlm else 0)
+
+    # the kernel path against the plain paths; every K5 call of the kernel
+    # path held against its plain version on its own inputs
+    t1 = time.perf_counter()
+    tok = torch.from_numpy(prompts).to(DEV)
+    steps = out["tokens"][:, :tr["forced_steps"]].to(DEV, torch.int64)
+    route_kw = dict(traffic=tr, inputs=inputs, cache_kw=cache_kw, compress=vlm)
+    held, f_held = [], []
+    kern, raw, start = _forced_route(bundle, model, tok, steps, impl="auto",
+                                     compress_impl="auto", held=held, **route_kw)
+    with torch.inference_mode():
+        slots = (_slot_agreement(start, compress_model_caches(
+            raw, tr["t"], tr["m"], tail=tr["tail"], impl="ref")) if vlm else None)
+        del raw
+        if vlm:
+            # the planted fault: the first step again with K5's bias dropped
+            with _attention_as(lambda q, k, v, kv_bias, **kw:
+                               fa.flash_attention(q, k, v, None, **kw)), \
+                    _attention_held(f_held):
+                fault, _ = bundle.decode_step(model, start, {"tokens": steps[:, :1]},
+                                              impl="auto")
+            with _attention_as(lambda q, k, v, kv_bias, **kw: torch.zeros_like(q)):
+                no_attn, _ = bundle.decode_step(model, start,
+                                                {"tokens": steps[:, :1]}, impl="auto")
+        else:
+            # the planted fault: the prefill again with the encoder's and the
+            # cross-attention's calls (the non-causal ones) made causal
+            fresh = bundle.init_caches(B, tr["prompt"] + N, device=DEV, **cache_kw)
+            with _attention_as(_all_causal), _attention_held(f_held):
+                fault, _ = bundle.prefill(model, fresh, {"tokens": tok, **inputs},
+                                          impl="auto")
+            fresh = bundle.init_caches(B, tr["prompt"] + N, device=DEV, **cache_kw)
+            with _attention_as(lambda q, k, v, kv_bias, **kw: torch.zeros_like(q)):
+                no_attn, _ = bundle.prefill(model, fresh, {"tokens": tok, **inputs},
+                                            impl="auto")
+            del fresh
+        del start
+    plain = _forced_route(bundle, model, tok, steps, impl="auto", compress_impl="ref",
+                          attention=fa.flash_attention_plain, **route_kw)[0]
+    route = _forced_route(bundle, model, tok, steps, impl="ref", compress_impl="ref",
+                          **route_kw)[0]
+    sync()
+    v = cfg.vocab_size
+    errs = {"plain": [_family_logit_diff(a, b, v) for a, b in zip(kern, plain)],
+            "route": [_family_logit_diff(a, b, v) for a, b in zip(kern, route)]}
+    top1 = {name: _top1_over_rows(es) for name, es in errs.items()}
+    at = 1 if vlm else 0  # the fault's forward: the first step, or the prefill
+    planted = _family_logit_diff(fault[:, -1].float(), plain[at], v)
+    reach = _family_logit_diff(no_attn[:, -1].float(), kern[at], v)
+    att = _held_summary(held)
+    att_fault = _held_summary(f_held)["decode" if vlm else "prefill"]
+    level = "logits" if reach["err"] > reach["bound"] else "attention"
+    parity_s = time.perf_counter() - t1
+
+    again = engine.generate({"tokens": prompts, **inputs}, **cache_kw)
+    repeat = bool(torch.equal(again["tokens"], out["tokens"]))
+    del engine, again
+
+    emit(f"{which}_parity", logit_ulps=LOGIT_ULPS,
+         steps={name: [_rounded(e) for e in es] for name, es in errs.items()},
+         top1_over_rows=top1, planted_fault=_rounded(planted),
+         zeroed_attention=_rounded(reach), planted_level=level,
+         attention_vs_plain=att, attention_planted_fault=att_fault,
+         compressed_slot_agreement=slots, bitwise_repeat=repeat,
+         parity_s=round(parity_s, 3))
+    _parity_checks(which, errs, top1, att, (n_prefill, n_step * tr["forced_steps"]),
+                   planted, level, att_fault, slots, repeat)
+    del model, bundle, kern, plain, route, fault, no_attn
+    _free_models(state)
     emit(f"{which}_done", seconds=round(time.perf_counter() - t0, 3))
 
 
@@ -3503,6 +3832,9 @@ def main() -> int:
     for family in ("lm_moe", "lm_hybrid"):
         if family in phases:
             phase_lm_family(state, family)
+    for family in ("lm_vlm", "lm_encdec"):
+        if family in phases:
+            phase_lm_frontend(state, family)
     if results:
         paths = {"fit_serve": state.get("main_counts", state.get("fit_counts", {})),
                  "headline": state.get("headline_counts", {}),
@@ -3513,7 +3845,9 @@ def main() -> int:
                  "select": state.get("select_counts", {}),
                  "lm": state.get("lm_counts", {}),
                  "lm_moe": state.get("lm_moe_counts", {}),
-                 "lm_hybrid": state.get("lm_hybrid_counts", {})}
+                 "lm_hybrid": state.get("lm_hybrid_counts", {}),
+                 "lm_vlm": state.get("lm_vlm_counts", {}),
+                 "lm_encdec": state.get("lm_encdec_counts", {})}
         routes = {"fit_serve": state.get("main_routes", {}),
                   "headline": state.get("headline_routes", {}),
                   "hac": state.get("hac_routes", {}),
@@ -3523,7 +3857,9 @@ def main() -> int:
                   "select": state.get("select_routes", {}),
                   "lm": state.get("lm_routes", {}),
                   "lm_moe": state.get("lm_moe_routes", {}),
-                  "lm_hybrid": state.get("lm_hybrid_routes", {})}
+                  "lm_hybrid": state.get("lm_hybrid_routes", {}),
+                  "lm_vlm": state.get("lm_vlm_routes", {}),
+                  "lm_encdec": state.get("lm_encdec_routes", {})}
         line = []
         for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5", "K5-decode",
                     "K5-prefill"):

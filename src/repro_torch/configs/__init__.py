@@ -7,3 +7,9 @@ from repro_torch.configs.base import (  # noqa: F401
     RunConfig,
     ShapeConfig,
 )
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+    return ARCHS[name]

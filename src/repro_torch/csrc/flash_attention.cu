@@ -25,7 +25,7 @@
 // Three routes, chosen by the packed row count g * lq (g = hq / hkv) of a
 // kv head, the type and head_dim: at most kSplitMaxRows rows (every decode
 // call) take the split-kv route; the others the tensor-core tiled route
-// when q, k and v are bf16 at head_dim 64, 128 or 256 (every prefill of the
+// when q, k and v are bf16 at head_dim 64, 96, 128 or 256 (every prefill of the
 // served LM), else the tiled kernel.
 //
 // The split-kv route (split_kv_kernel, then split_combine_kernel). One
@@ -78,7 +78,7 @@
 // run on the CUDA cores in f32 with accurate expf and tanhf; no atomics, so
 // a launch is repeatable bit for bit.
 //
-// The tensor-core tiled route (flash_mma_kernel; bf16, dh 64/128/256). The
+// The tensor-core tiled route (flash_mma_kernel; bf16, dh 64/96/128/256). The
 // tiled kernel above stages bf16 as f32 (140 KB at dh 256) and runs both
 // products on the CUDA cores, where q.k and p.v (4 * dh flops a visible
 // pair) set its pace. Here the rows are packed and the causal future
@@ -103,7 +103,12 @@
 // layout is the next A fragment's, so p never goes to shared memory. The
 // sum l is taken of the f32 p. A warp carries 16 x dh f32 outputs (128
 // registers a thread at dh 256) and a 16 x 64 logit tile (32). The row
-// tiles run heaviest first. No atomics: a repeat is bitwise.
+// tiles run heaviest first. No atomics: a repeat is bitwise. At dh 96
+// (phi-3-vision's MHA 32 x 96) q.k takes 6 k-steps of 16 and p.v 12 n8
+// tiles, 48 output registers a thread, 78 KB of shared memory a block; the
+// padded row of 104 elements keeps the ldmatrix phases conflict-free. The
+// split-kv route serves dh 96 with its DH 128 instance (a lane's 4
+// features, element loads: dh != DH).
 //
 // Later work: wgmma over a 64-row warpgroup and TMA-fed kv tiles with a
 // producer warp (mma.sync issues a warp's 16 rows at a time).
@@ -345,10 +350,14 @@ constexpr int kMmaRows = 128;     // packed rows a block
 constexpr int kMmaKeys = 64;      // keys a kv tile
 
 // bf16 q, k and v at a head_dim the tensor-core tiles take whole
-bool mma_route(int dtype, int dh) { return dtype == 1 && (dh == 64 || dh == 128 || dh == 256); }
+bool mma_route(int dtype, int dh) {
+  return dtype == 1 && (dh == 64 || dh == 96 || dh == 128 || dh == 256);
+}
 
 // bf16 elements a staged row: DH plus 16 bytes, so the 8 rows an ldmatrix
-// phase reads start in 8 different bank quads
+// phase reads start in 8 different bank quads (row r at 4-byte word
+// r * (DH + 8) / 2: mod 32 that is 4 r, 20 r, 4 r and 4 r at DH 64, 96,
+// 128 and 256, eight distinct multiples of 4 for r = 0..7)
 template <int DH>
 __host__ __device__ constexpr int mma_stride() { return DH + 8; }
 
@@ -958,7 +967,7 @@ extern "C" {
 int repro_flash_attention_max_dh() { return 256; }
 
 // the route of a call: 1 split-kv (at most kSplitMaxRows packed rows a kv
-// head), 2 tiled_mma (bf16, head_dim 64, 128 or 256), 0 tiled
+// head), 2 tiled_mma (bf16, head_dim 64, 96, 128 or 256), 0 tiled
 int repro_flash_attention_route(int hq, int hkv, int lq, int dtype, int dh) {
   return split_route(hq, hkv, lq) ? 1 : mma_route(dtype, dh) ? 2 : 0;
 }
@@ -997,6 +1006,8 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   if (mma_route(dtype, dh)) {
     if (dh == 64)
       return (int)launch_mma<64>(q, k, v, bias, out, b, hq, hkv, lq, lk, bias_heads, causal, scale, softcap, s);
+    if (dh == 96)
+      return (int)launch_mma<96>(q, k, v, bias, out, b, hq, hkv, lq, lk, bias_heads, causal, scale, softcap, s);
     if (dh == 128)
       return (int)launch_mma<128>(q, k, v, bias, out, b, hq, hkv, lq, lk, bias_heads, causal, scale, softcap, s);
     return (int)launch_mma<256>(q, k, v, bias, out, b, hq, hkv, lq, lk, bias_heads, causal, scale, softcap, s);

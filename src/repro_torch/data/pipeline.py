@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models.frontends import VISION_PREFIX_TOKENS
 
 
 @dataclass(frozen=True)
@@ -57,11 +58,23 @@ def synth_tokens(key: torch.Tensor, batch: int, seq: int, vocab: int,
     return (base + offset) % vocab
 
 
-def _frontend_not_ported(cfg: ModelConfig) -> None:
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: batches of the {cfg.frontend!r} frontend are not "
-            f"ported yet (ROADMAP.md, Queue 1, item 8)")
+def frontend_batch(cfg: ModelConfig, key: torch.Tensor, b: int, s: int, *,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """The stubbed front end's part of a batch drawn from ``key``, as the
+    reference's ``make_batch`` draws it: a VLM's ``patch_embeds`` (b, 256,
+    d) from ``fold_in(key, 1)``, an enc-dec model's ``frames`` (b, s, d)
+    from ``fold_in(key, 2)``; N(0, 1) · 0.02 in f32, then bf16. Empty for
+    an arch without a front end; an unknown front end raises."""
+    if not cfg.frontend:
+        return {}
+    if cfg.frontend == "vision":
+        name, fold, shape = "patch_embeds", 1, (b, VISION_PREFIX_TOKENS, cfg.d_model)
+    elif cfg.frontend == "audio":
+        name, fold, shape = "frames", 2, (b, s, cfg.d_model)
+    else:
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
+    x = prng.normal(prng.fold_in(key, fold), shape, device=device) * 0.02
+    return {name: x.to(torch.bfloat16)}
 
 
 def make_batch(
@@ -75,13 +88,14 @@ def make_batch(
     device=None,
 ) -> Dict[str, torch.Tensor]:
     """Training batch at ``step`` (pure function): ``{"tokens", "labels"}``
-    (b, s) int64."""
-    _frontend_not_ported(cfg)
+    (b, s) int64, with the front end's ``patch_embeds`` or ``frames`` (bf16,
+    :func:`frontend_batch`) for the VLM and enc-dec families."""
     b = batch_override or shape.global_batch
     s = seq_override or shape.seq_len
-    toks = synth_tokens(_batch_key(dcfg.seed, step), b, s, cfg.vocab_size, dcfg,
-                        device=device)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    key = _batch_key(dcfg.seed, step)
+    toks = synth_tokens(key, b, s, cfg.vocab_size, dcfg, device=device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            **frontend_batch(cfg, key, b, s, device=device)}
 
 
 def batch_iterator(

@@ -10,7 +10,7 @@ of one function:
     ``csrc/flash_attention.cu``. It takes grouped-query heads as they are
     (kv head ``h // (hq / hkv)``), so k and v are never repeated. A call
     with few query rows per kv head (every decode step) takes the split-kv
-    route, a bf16 call at head_dim 64/128/256 (every prefill of the LM) the
+    route, a bf16 call at head_dim 64/96/128/256 (every prefill of the LM) the
     tensor-core tiled route, the rest the tiled kernel (:func:`route`).
     For a CPU tensor it runs :func:`flash_attention_plain`.
   * :func:`flash_attention_plain` — repeats the kv heads, as the
@@ -34,7 +34,7 @@ SPLIT_MAX_ROWS, SPLIT_MIN_KEYS, SPLIT_MAX_SPLITS = 8, 64, 32
 
 
 #: head_dims of the tensor-core tiled route (bf16 q, k and v)
-MMA_HEAD_DIMS = (64, 128, 256)
+MMA_HEAD_DIMS = (64, 96, 128, 256)
 
 
 def route(hq: int, hkv: int, lq: int, dtype: torch.dtype = torch.float32,

@@ -140,7 +140,7 @@ def attend(
 
 # ------------------------------------------------------------- module
 class Attention(nn.Module):
-    """QKV/O projections of one self-attention layer (weights (d_in, d_out))."""
+    """QKV/O projections of one attention layer (weights (d_in, d_out))."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=COMPUTE_DTYPE,
                  requires_grad: bool = False):
@@ -165,33 +165,46 @@ def attention_apply(
     layer: int,
     positions: torch.Tensor,
     cache: Optional[dict] = None,
+    causal: bool = True,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One self-attention block. x: (b, s, d) bf16.
+    """One attention block, self or cross. x: (b, s, d) bf16.
 
     With a cache, the new k/v go to slots [pos, pos + s). Decode (s = 1)
     attends over the whole buffer under a position mask; prefill (s > 1)
-    attends causally over the fresh k/v and only writes the cache (it
-    starts at pos = 0, as the serving engine does).
+    attends over the fresh k/v (causally unless ``causal=False``) and only
+    writes the cache (it starts at pos = 0, as the serving engine does).
+
+    ``cross_kv``: the keys and values of a cross-attention, already
+    projected and heads first, (b, hkv, s_kv, hd) each (the enc-dec
+    decoder's, from the encoder output; the reference passes them as
+    (b, s_kv, hkv, hd)). Then only q is projected, and neither q nor k is
+    rotated, as in the reference; a cross call passes no cache.
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
 
     q = x @ p.wq.to(dt)
-    k = x @ p.wk.to(dt)
-    v = x @ p.wv.to(dt)
     if cfg.qkv_bias:
         q = q + p.bq.to(dt)
-        k = k + p.bk.to(dt)
-        v = v + p.bv.to(dt)
-    q = rope(q.reshape(b, s, hq, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, s, hkv, hd)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (b, h, s, hd)
+    q = q.reshape(b, s, hq, hd)
+    if cross_kv is None:
+        k = x @ p.wk.to(dt)
+        v = x @ p.wv.to(dt)
+        if cfg.qkv_bias:
+            k = k + p.bk.to(dt)
+            v = v + p.bv.to(dt)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
+        v = v.reshape(b, s, hkv, hd)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (b, h, s, hd)
+    else:
+        q = q.transpose(1, 2)
+        k, v = cross_kv
 
     window = cfg.local_window if cfg.attn_type(layer) == "local" else 0
-    causal = True
     kv_bias = None
     new_cache = None
     if cache is not None:

@@ -10,7 +10,10 @@ modules through ``utils.tree.param_path``: stack entry ``j`` at repeat
 ``r`` is layer ``n_prefix + r·period + j`` under
 :func:`transformer.stack_plan`. Every family the port builds is carried
 the same way: attention and Mamba blocks, MoE layers (the f32 router,
-the (E, d, f) experts, the shared MLP), dense MLPs. Serving weights are stored in bf16, as
+the (E, d, f) experts, the shared MLP), dense MLPs. The enc-dec tree is
+``{"embed", "enc", "dec", "ln_enc", "ln_f"}`` with every layer of ``enc``
+and ``dec`` stacked (``self_attn``, ``ln_x``, ``cross_attn`` in the
+decoder's). Serving weights are stored in bf16, as
 the reference casts them at use; ``trainable=True`` keeps them in f32
 with ``requires_grad``, as the reference trains them. Norm weights stay
 f32. :func:`opt_state_from_tree` carries the reference's AdamW state
@@ -23,9 +26,10 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.runtime import resolve_device
 from repro_torch.utils.tree import param_path
 
@@ -49,16 +53,17 @@ def _put(param: torch.Tensor, value) -> None:
 
 
 def params_from_tree(cfg: ModelConfig, tree: Mapping, *, device=None,
-                     trainable: bool = False) -> transformer.LM:
-    """A port ``LM`` holding the reference's parameters (numpy leaves)."""
-    model = transformer.LM(cfg, device=resolve_device(device),
-                           trainable=trainable)
+                     trainable: bool = False) -> nn.Module:
+    """A port ``LM`` (``EncDec`` for the enc-dec family) holding the
+    reference's parameters (numpy leaves)."""
+    make = encdec.EncDec if cfg.family == "encdec-audio" else transformer.LM
+    model = make(cfg, device=resolve_device(device), trainable=trainable)
     for name, param in model.named_parameters():
         _put(param, reference_value(tree, *param_path(cfg, name)))
     return model
 
 
-def opt_state_from_tree(model: transformer.LM, tree: Mapping) -> dict:
+def opt_state_from_tree(model: nn.Module, tree: Mapping) -> dict:
     """The port's optimizer state (f32 moments keyed by parameter name on
     the model's device, an int32 step) from the reference's ``{"m", "v",
     "step"[, "master"]}`` with numpy leaves."""

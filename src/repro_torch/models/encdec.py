@@ -1,0 +1,203 @@
+"""Encoder-decoder (the seamless-m4t backbone) — the port of
+``repro.models.encdec``.
+
+The encoder takes precomputed frame embeddings (the speech front end is a
+stub, ``models/frontends.py``): pre-norm blocks of non-causal,
+rotary self-attention and a gelu MLP, then ``ln_enc``. The decoder is a
+causal LM whose blocks add a cross-attention into the encoder output
+between self-attention and MLP (``ln_x``), then ``ln_f`` and the
+unembedding. The reference stacks each side's layers on a leading axis and
+scans them; here each side is a plain list of layer modules, run in a
+loop, with the reference's float operations in its order.
+
+Caches are per layer: ``{"layers": [{"self": attention cache, "cross_k",
+"cross_v": (b, hkv, s_enc, hd)}, ...]}``. The cross k/v are projected once,
+in the prefill, from the encoder output, and reused by every decode step
+(the reference's ``_project_cross_kv``); they are kept heads first, the
+layout attention reads, where the reference keeps (b, s_enc, hkv, hd).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE,
+    MLP,
+    Embed,
+    dense_init_,
+    rms_norm,
+)
+
+
+def _norm(d: int, device, requires_grad: bool) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device),
+                        requires_grad=requires_grad)
+
+
+class EncLayer(nn.Module):
+    """ln1 → non-causal self-attention → ln2 → MLP, both residual."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, requires_grad=False,
+                 dtype=COMPUTE_DTYPE):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, requires_grad=requires_grad)
+        self.ln1 = _norm(cfg.d_model, device, requires_grad)
+        self.attn = attn.Attention(cfg, **kw)
+        self.ln2 = _norm(cfg.d_model, device, requires_grad)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, **kw)
+
+
+class DecLayer(nn.Module):
+    """ln1 → causal self-attention → ln_x → cross-attention → ln2 → MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, requires_grad=False,
+                 dtype=COMPUTE_DTYPE):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, requires_grad=requires_grad)
+        d = cfg.d_model
+        self.ln1 = _norm(d, device, requires_grad)
+        self.self_attn = attn.Attention(cfg, **kw)
+        self.ln_x = _norm(d, device, requires_grad)
+        self.cross_attn = attn.Attention(cfg, **kw)
+        self.ln2 = _norm(d, device, requires_grad)
+        self.mlp = MLP(d, cfg.d_ff, cfg.mlp, **kw)
+
+
+def project_cross_kv(p: attn.Attention, enc_out: torch.Tensor, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross k/v, (b, hkv, s_enc, hd) each, from the
+    (b, s_enc, d) encoder output: no bias, no rope (the reference's
+    ``_project_cross_kv``)."""
+    b, s, _ = enc_out.shape
+    dt = enc_out.dtype
+    k = (enc_out @ p.wk.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p.wv.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+
+class EncDec(nn.Module):
+    """Embedding, encoder and decoder stacks, ``ln_enc`` and ``ln_f``.
+
+    ``trainable=False`` (serving): frozen bf16 weights; ``trainable=True``:
+    f32 weights and norms with ``requires_grad``, as ``LM``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, trainable: bool = False):
+        super().__init__()
+        if cfg.family != "encdec-audio":
+            raise ValueError(f"{cfg.name}: EncDec builds the encdec-audio "
+                             f"family, not {cfg.family!r}")
+        self.cfg = cfg
+        kw = dict(device=device, requires_grad=trainable,
+                  dtype=torch.float32 if trainable else COMPUTE_DTYPE)
+        self.embed = Embed(cfg, **kw)
+        self.enc = nn.ModuleList(EncLayer(cfg, **kw) for _ in range(cfg.n_enc_layers))
+        self.dec = nn.ModuleList(DecLayer(cfg, **kw) for _ in range(cfg.n_layers))
+        self.ln_enc = _norm(cfg.d_model, device, trainable)
+        self.ln_f = _norm(cfg.d_model, device, trainable)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "EncDec":
+        """Random weights from ``generator`` at the reference's init
+        scales; norms set to 0."""
+        dense_init_(self.embed.table, generator, scale=1.0)
+        if not self.cfg.tie_embeddings:
+            dense_init_(self.embed.unembed, generator)
+        for name, p in self.named_parameters():
+            if name.startswith("embed."):
+                continue
+            if p.ndim == 1:  # norms (the attention biases are zero too)
+                p.zero_()
+            else:
+                dense_init_(p, generator)
+        return self
+
+    def encode(self, frames: torch.Tensor, *, impl: Optional[str] = None
+               ) -> torch.Tensor:
+        """frames (b, s_enc, d) → the encoder output (b, s_enc, d) bf16."""
+        cfg = self.cfg
+        x = frames.to(COMPUTE_DTYPE)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        for lp in self.enc:
+            h = rms_norm(x, lp.ln1, cfg.norm_eps)
+            y, _ = attn.attention_apply(lp.attn, h, cfg, layer=0,
+                                        positions=positions, causal=False,
+                                        impl=impl)
+            x = x + y
+            x = x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps))
+        return rms_norm(x, self.ln_enc, cfg.norm_eps)
+
+    def decode(
+        self,
+        tokens: torch.Tensor,                 # (b, s) integer ids
+        enc_out: Optional[torch.Tensor],      # (b, s_enc, d); None: from caches
+        *,
+        caches: Optional[dict] = None,
+        start_pos: Optional[int] = None,
+        impl: Optional[str] = None,
+        last_only: bool = False,
+    ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """(logits (b, s or 1, padded_vocab) f32, caches). A decode step
+        (s = 1 with caches) attends to the cached cross k/v; otherwise
+        each layer projects them from ``enc_out`` (and, with caches,
+        stores them)."""
+        cfg = self.cfg
+        x = self.embed.embed(tokens).to(COMPUTE_DTYPE)
+        b, s, _ = x.shape
+        offset = 0 if start_pos is None else int(start_pos)
+        positions = (offset + torch.arange(s, device=x.device)).expand(b, s)
+        reuse = caches is not None and s == 1
+        layer_caches = caches["layers"] if caches is not None else [None] * cfg.n_layers
+        new_layers = []
+        for lp, c in zip(self.dec, layer_caches, strict=True):
+            h = rms_norm(x, lp.ln1, cfg.norm_eps)
+            y, new_self = attn.attention_apply(
+                lp.self_attn, h, cfg, layer=0, positions=positions,
+                cache=c["self"] if c is not None else None, impl=impl)
+            x = x + y
+            hx = rms_norm(x, lp.ln_x, cfg.norm_eps)
+            if reuse:
+                cross = (c["cross_k"], c["cross_v"])  # decode: reuse
+            else:
+                cross = project_cross_kv(lp.cross_attn, enc_out, cfg)  # prefill
+            yx, _ = attn.attention_apply(lp.cross_attn, hx, cfg, layer=0,
+                                         positions=positions, causal=False,
+                                         cross_kv=cross, impl=impl)
+            x = x + yx
+            x = x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps))
+            if c is not None:
+                new_layers.append({"self": new_self, "cross_k": cross[0],
+                                   "cross_v": cross[1]})
+        x = rms_norm(x, self.ln_f, cfg.norm_eps)
+        if last_only:
+            x = x[:, -1:]
+        logits = self.embed.logits(x)
+        new_caches = {**caches, "layers": new_layers} if caches is not None else None
+        return logits, new_caches
+
+    def forward(self, frames: torch.Tensor, tokens: torch.Tensor, *,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """The full (b, s, padded_vocab) f32 logits of the decoder."""
+        return self.decode(tokens, self.encode(frames, impl=impl), impl=impl)[0]
+
+
+def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
+                       *, dtype=COMPUTE_DTYPE, device=None) -> dict:
+    """Per decoder layer: a self-attention cache of ``max_len`` slots and
+    zero cross k/v of ``enc_len`` (the prefill replaces them)."""
+    shape = (batch, cfg.n_kv_heads, enc_len, cfg.head_dim)
+    return {"layers": [
+        {"self": attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device),
+         "cross_k": torch.zeros(shape, dtype=dtype, device=device),
+         "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _ in range(cfg.n_layers)]}
+
+
+def cache_start_pos(caches: dict) -> int:
+    """The decode position: the first layer's self-attention ``pos``."""
+    return int(caches["layers"][0]["self"]["pos"])

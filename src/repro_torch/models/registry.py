@@ -10,10 +10,19 @@
     model = bundle.init(gen, trainable=True)        # f32, requires_grad
     logits, aux = bundle.forward(model, {"tokens": tokens}, remat="block")
 
+Batches follow the reference's conventions:
+
+  decoder-only:  {"tokens": (b, s)[, "labels"]}
+  vlm:           + "patch_embeds": (b, 256, d)   (prefill and forward)
+  audio enc-dec: {"frames": (b, s_enc, d), "tokens": (b, s)};
+                 ``init_caches(b, max_len, enc_len=s_enc)``
+  decode step:   {"tokens": (b, 1)}
+
 ``init`` builds the model on ``device`` (default: the runtime config's,
-"cuda" unless the caller asks for the CPU; a missing GPU raises). The
-dense, MoE, SSM and hybrid families (``transformer.check_supported``);
-``forward``'s aux is the MoE layers' load-balancing loss (0 without MoE).
+"cuda" unless the caller asks for the CPU; a missing GPU raises). Every
+family of ``transformer.FAMILIES``; ``forward``'s aux is the MoE layers'
+load-balancing loss (0 without MoE). The VLM's ``forward`` drops the
+prefix's logits; its prefill keeps the last position's.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
+from repro_torch.models.frontends import VISION_PREFIX_TOKENS
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.runtime import resolve_device
 
@@ -31,31 +41,40 @@ from repro_torch.runtime import resolve_device
 @dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelConfig
-    init: Callable[..., transformer.LM]
+    init: Callable[..., torch.nn.Module]
     forward: Callable[..., Any]       # (logits (b, s, V) f32, aux)
     prefill: Callable[..., Any]       # (logits (b, 1, V), caches)
     decode_step: Callable[..., Any]   # (logits (b, 1, V), caches)
     init_caches: Callable[..., dict]
 
 
-def build(cfg: ModelConfig) -> ModelBundle:
-    transformer.check_supported(cfg)
-
+def _initialiser(make: Callable[..., torch.nn.Module]):
     def init(generator: Optional[torch.Generator] = None, *,
-             device=None, trainable: bool = False) -> transformer.LM:
+             device=None, trainable: bool = False) -> torch.nn.Module:
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        model = transformer.LM(cfg, device=dev, trainable=trainable)
-        return model.init_weights(generator)
+        return make(device=dev, trainable=trainable).init_weights(generator)
+    return init
+
+
+def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
+    is_vlm = cfg.frontend == "vision"
+
+    def prefix_of(batch):
+        return batch.get("patch_embeds") if is_vlm else None
 
     def forward(model, batch, *, impl="ref", remat="none"):
-        logits, _, aux = model(batch["tokens"], impl=impl, remat=remat,
-                               with_aux=True)
+        prefix = prefix_of(batch)
+        logits, _, aux = model(batch["tokens"], prefix_embeds=prefix, impl=impl,
+                               remat=remat, with_aux=True)
+        if prefix is not None:
+            logits = logits[:, prefix.shape[1]:]
         return logits, aux
 
     def prefill(model, caches, batch, *, impl=None):
-        return model(batch["tokens"], caches=caches, impl=impl, last_only=True)
+        return model(batch["tokens"], prefix_embeds=prefix_of(batch),
+                     caches=caches, impl=impl, last_only=True)
 
     def decode_step(model, caches, batch, *, impl=None):
         start = transformer.cache_start_pos(caches)
@@ -63,7 +82,43 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
     def init_caches(batch: int, max_len: int, *, dtype=COMPUTE_DTYPE,
                     device=None) -> dict:
+        if is_vlm:  # room for the patch-embedding prefix
+            max_len = max_len + VISION_PREFIX_TOKENS
         return transformer.init_lm_caches(cfg, batch, max_len, dtype=dtype,
                                           device=resolve_device(device))
 
+    init = _initialiser(lambda **kw: transformer.LM(cfg, **kw))
     return ModelBundle(cfg, init, forward, prefill, decode_step, init_caches)
+
+
+def _encdec_bundle(cfg: ModelConfig) -> ModelBundle:
+    def forward(model, batch, *, impl="ref", remat="none"):
+        if remat != "none":
+            raise ValueError(f"{cfg.name}: remat is not ported for the "
+                             f"encoder-decoder (ROADMAP.md, Queue 1, item 8)")
+        logits = model(batch["frames"], batch["tokens"], impl=impl)
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+    def prefill(model, caches, batch, *, impl=None):
+        enc_out = model.encode(batch["frames"], impl=impl)
+        return model.decode(batch["tokens"], enc_out, caches=caches, impl=impl,
+                            last_only=True)
+
+    def decode_step(model, caches, batch, *, impl=None):
+        return model.decode(batch["tokens"], None, caches=caches,
+                            start_pos=encdec.cache_start_pos(caches), impl=impl)
+
+    def init_caches(batch: int, max_len: int, enc_len: Optional[int] = None, *,
+                    dtype=COMPUTE_DTYPE, device=None) -> dict:
+        return encdec.init_encdec_caches(cfg, batch, max_len, enc_len or max_len,
+                                         dtype=dtype, device=resolve_device(device))
+
+    init = _initialiser(lambda **kw: encdec.EncDec(cfg, **kw))
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_caches)
+
+
+def build(cfg: ModelConfig) -> ModelBundle:
+    transformer.check_supported(cfg)
+    if cfg.family == "encdec-audio":
+        return _encdec_bundle(cfg)
+    return _lm_bundle(cfg)

@@ -14,8 +14,8 @@ holds f32 weights with ``requires_grad``, as the reference trains them;
 :meth:`LM.forward` with ``remat`` gives the full (b, s, padded_vocab)
 logits under autograd with the reference's rematerialisation policies.
 
-The VLM and enc-dec families are not ported yet (ROADMAP.md, Queue 1,
-item 8): building one raises NotImplementedError.
+The VLM is this LM with a patch-embedding prefix (``prefix_embeds``);
+the enc-dec family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -74,13 +74,18 @@ def stack_plan(cfg: ModelConfig, max_period: int = 8) -> Tuple[int, int, int]:
     return n, 1, 0
 
 
+#: the families the port builds: decoder-only LMs (``LM``; the VLM with a
+#: patch-embedding prefix) and the audio encoder-decoder (``encdec.EncDec``)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec-audio")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not build yet."""
-    if cfg.family in ("vlm", "encdec-audio") or cfg.frontend or cfg.n_enc_layers:
+    """Raise for a family the port does not know (every arch of ``ARCHS``
+    is built)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port builds the dense, MoE, SSM and hybrid LMs (ROADMAP.md, "
-            f"Queue 1, item 8)")
+            f"{cfg.name}: the {cfg.family!r} family is not ported; the port "
+            f"builds {', '.join(FAMILIES)} (see ROADMAP.md)")
 
 
 class Block(nn.Module):
@@ -153,6 +158,9 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, trainable: bool = False):
         super().__init__()
         check_supported(cfg)
+        if cfg.family == "encdec-audio":
+            raise ValueError(f"{cfg.name}: an encoder-decoder is built by "
+                             f"models.encdec.EncDec, not LM")
         self.cfg = cfg
         kw = dict(device=device, requires_grad=trainable,
                   dtype=torch.float32 if trainable else COMPUTE_DTYPE)
@@ -216,6 +224,7 @@ class LM(nn.Module):
         self,
         tokens: torch.Tensor,                 # (b, s) integer ids
         *,
+        prefix_embeds: Optional[torch.Tensor] = None,  # (b, s_pre, d) VLM stub
         caches: Optional[dict] = None,
         start_pos: Optional[int] = None,      # decode offset
         impl: Optional[str] = None,
@@ -227,7 +236,9 @@ class LM(nn.Module):
         ``with_aux`` the sum of the MoE layers' aux losses () f32 after
         them, as the reference's ``lm_apply``. ``last_only`` unembeds only
         the last position (prefill: the reference keeps ``logits[:, -1:]``
-        of the full set, the same numbers).
+        of the full set, the same numbers). ``prefix_embeds`` (the VLM's
+        patch embeddings) stand before the embedded tokens, in bf16, and
+        the positions run over both; the logits cover both.
 
         ``remat`` as the reference's ``lm_apply`` (training, no caches):
         "none" keeps every activation; "block" recomputes each prefix
@@ -246,6 +257,8 @@ class LM(nn.Module):
             raise ValueError("remat is for training, which passes no caches")
         cfg = self.cfg
         x = self.embed.embed(tokens).to(COMPUTE_DTYPE)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.device, COMPUTE_DTYPE), x], dim=1)
         b, s, _ = x.shape
         offset = 0 if start_pos is None else int(start_pos)
         positions = (offset + torch.arange(s, device=x.device)).expand(b, s)

@@ -71,31 +71,43 @@ class ServeEngine:
         *,
         max_len: Optional[int] = None,
         key: Optional[torch.Tensor] = None,
+        **cache_kw,
     ) -> Dict[str, object]:
-        """batch: ``{"tokens": (b, s) prompt ids}``. Returns ``{"tokens":
-        (b, n_steps) int32, "n_steps", "compressions" (in-flight ones, after
-        the first), "timings": {"prefill_s", "decode_s", "compress":
-        [{"seconds", "slots_before", "slots_after"}, ...]}}``."""
+        """batch: the prompt inputs of the arch's family: ``{"tokens": (b,
+        s) prompt ids}``, with ``"patch_embeds"`` (b, 256, d) for a VLM or
+        ``"frames"`` (b, s_enc, d) for an enc-dec model (then pass
+        ``enc_len=s_enc``, which goes to ``init_caches`` with the rest of
+        ``cache_kw``). Returns ``{"tokens": (b, n_steps) int32, "n_steps",
+        "compressions" (in-flight ones, after the first), "timings":
+        {"prefill_s", "decode_s", "compress": [{"seconds", "slots_before",
+        "slots_after"}, ...]}}``."""
         scfg, dev = self.scfg, self.device
+        cfg = self.bundle.cfg
+        if scfg.compress and cfg.family == "encdec-audio":
+            # the reference's compress_model_caches cannot take an enc-dec
+            # cache either (ROADMAP.md, Queue 3)
+            raise ValueError(
+                f"{cfg.name}: compress=True is not supported on an "
+                f"encoder-decoder (its self-attention caches sit beside the "
+                f"cross k/v; the reference cannot compress them either)")
         if key is None:
             key = prng.PRNGKey(0)
-        tokens = batch["tokens"]
-        if not torch.is_tensor(tokens):
-            tokens = torch.from_numpy(np.asarray(tokens))
-        prompt = tokens.to(dev, torch.int64)
+        inputs = {name: (a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+                         ).to(dev) for name, a in batch.items()}
+        prompt = inputs["tokens"] = inputs["tokens"].to(torch.int64)
         b, s = prompt.shape
         total = max_len or (s + scfg.max_new_tokens)
         compress_log: List[dict] = []
 
         _sync(dev)
         t0 = time.perf_counter()
-        caches = self.bundle.init_caches(b, total, device=dev)
+        caches = self.bundle.init_caches(b, total, device=dev, **cache_kw)
         if scfg.compress and next(find_attention_caches(caches), None) is None:
             raise ValueError(
-                f"{self.bundle.cfg.name}: compress=True compresses attention "
+                f"{cfg.name}: compress=True compresses attention "
                 f"KV caches, and this model has none (every layer is Mamba)")
-        logits, caches = self.bundle.prefill(self.model, caches,
-                                             {"tokens": prompt}, impl=scfg.impl)
+        logits, caches = self.bundle.prefill(self.model, caches, inputs,
+                                             impl=scfg.impl)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
 
@@ -153,6 +165,7 @@ class ServeEngine:
 
     @staticmethod
     def _cache_size(caches) -> int:
-        """Sequence capacity of the first attention cache, Mamba layers
-        skipped (shape metadata, no device read)."""
+        """Sequence capacity of the first attention cache (Mamba layers
+        skipped; an enc-dec model's first self-attention cache): shape
+        metadata, no device read."""
         return next(find_attention_caches(caches))["k"].shape[2]

@@ -147,8 +147,11 @@ def compress_model_caches(caches, t: int = 2, m: int = 1, *, tail: int = 128,
 
 
 def find_attention_caches(caches) -> Iterator[dict]:
-    """Yield the attention-cache dicts of either layout."""
+    """Yield the attention-cache dicts of either layout (of an enc-dec
+    cache, each decoder layer's self-attention cache)."""
     layers = caches["layers"] if isinstance(caches, dict) else caches
     for c in layers:
+        if isinstance(c, dict) and "self" in c:
+            c = c["self"]
         if isinstance(c, dict) and "k" in c:
             yield c

@@ -9,7 +9,9 @@ the reference does:
   * :func:`param_path` gives a port parameter's reference path
     (``embed/table``, ``ln_f``, ``prefix/0/attn/wq``, ``stack/1/mlp/up``)
     and, for a stacked leaf, its repeat index: layer
-    ``n_prefix + r·period + j`` is stack entry ``j`` at repeat ``r``;
+    ``n_prefix + r·period + j`` is stack entry ``j`` at repeat ``r``; an
+    enc-dec model's layer ``i`` of ``enc`` or ``dec`` is repeat ``i`` of
+    ``enc/...`` or ``dec/...`` (``dec/cross_attn/wq``, ``ln_enc``);
   * :func:`tree_flatten_with_paths` flattens a tree of dicts, lists,
     tensors and LM modules into ``(path, parts)`` pairs in the reference's
     leaf order (dict keys sorted, list items in order). ``parts`` lists the
@@ -30,13 +32,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import stack_plan
 
 _LAYER = re.compile(r"layers\.(\d+)\.(.+)")
-_PARAM_NAME = re.compile(r"embed\.(table|unembed)|ln_f|layers\.\d+\..+")
+_ENCDEC_LAYER = re.compile(r"(enc|dec)\.(\d+)\.(.+)")
+_PARAM_NAME = re.compile(
+    r"embed\.(table|unembed)|ln_f|ln_enc|(layers|enc|dec)\.\d+\..+")
 
 Leaf = Tuple[str, List[Any]]
 
 
 def param_path(cfg: ModelConfig, name: str) -> Tuple[str, Optional[int]]:
     """(reference path, repeat index or None) of the port parameter ``name``."""
+    m = _ENCDEC_LAYER.fullmatch(name)
+    if m is not None:  # the enc-dec stacks: every layer is stacked
+        return f"{m.group(1)}/{m.group(3).replace('.', '/')}", int(m.group(2))
     m = _LAYER.fullmatch(name)
     if m is None:
         return name.replace(".", "/"), None
@@ -67,7 +74,8 @@ def param_layout(cfg: ModelConfig, names: Sequence[str]) -> List[Tuple[str, List
 
 
 def is_model(node) -> bool:
-    """Whether ``node`` is an LM module (an ``nn.Module`` with a model config)."""
+    """Whether ``node`` is a model (an ``nn.Module`` with a model config:
+    ``LM`` or ``EncDec``)."""
     return isinstance(node, torch.nn.Module) and isinstance(
         getattr(node, "cfg", None), ModelConfig)
 

@@ -13,6 +13,8 @@ assignment) on dyadic-grid tables; on the reference's topic corpora,
 whose features carry the rounding above, agreement >= 0.999 (every case
 here read 1.0). ``reduced_batch``: exact.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,8 +106,15 @@ def test_batches_have_learnable_structure():
 
 @pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-large-v2"])
 def test_frontend_batches_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        make_batch(smoke_config(ARCHS[arch]), SHAPES["train_4k"], 0,
+    """Both front ends' batches are ported (``test_torch_vlm_encdec.py``
+    holds them against the reference's); a front end the reference does not
+    define is refused."""
+    cfg = smoke_config(ARCHS[arch])
+    batch = make_batch(cfg, SHAPES["train_4k"], 0, batch_override=2, seq_override=16)
+    name = "patch_embeds" if cfg.frontend == "vision" else "frames"
+    assert set(batch) == {"tokens", "labels", name}
+    with pytest.raises(ValueError, match="unknown frontend"):
+        make_batch(dataclasses.replace(cfg, frontend="video"), SHAPES["train_4k"], 0,
                    batch_override=2, seq_override=16)
 
 

@@ -50,6 +50,9 @@ def test_port_imports_without_jax():
         "import repro_torch.kernels.ops, repro_torch.core.tc, repro_torch.prng\n"
         "import repro_torch.models.registry, repro_torch.models.convert\n"
         "import repro_torch.models.moe, repro_torch.models.mamba2\n"
+        "import repro_torch.models.encdec, repro_torch.models.frontends\n"
+        "import repro_torch.configs.phi_3_vision_4_2b, repro_torch.configs.gemma2_2b\n"
+        "from repro_torch.configs import get_config\n"
         "import repro_torch.configs.jamba_v0_1_52b, repro_torch.configs.mamba2_370m\n"
         "import repro_torch.serve.engine, repro_torch.serve.kv_compression\n"
         "import repro_torch.kernels.flash_attention, repro_torch.launch.serve\n"

@@ -67,7 +67,11 @@ FAMILIES = ["deepseek-moe-16b", "llama4-scout-17b-a16e", "mamba2-370m",
 CONFIG_MODULES = {"deepseek-moe-16b": "deepseek_moe_16b",
                   "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
                   "mamba2-370m": "mamba2_370m",
-                  "jamba-v0.1-52b": "jamba_v0_1_52b"}
+                  "jamba-v0.1-52b": "jamba_v0_1_52b",
+                  "gemma2-2b": "gemma2_2b", "granite-20b": "granite_20b",
+                  "minitron-8b": "minitron_8b", "qwen2.5-32b": "qwen2_5_32b",
+                  "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+                  "seamless-m4t-large-v2": "seamless_m4t_large_v2"}
 ROUTES = [("pallas", "auto"), ("xla", "ref")]
 
 
@@ -121,15 +125,52 @@ def assert_logits_close(got, want, what=""):
 
 
 # ------------------------------------------------------------ structure
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", sorted(CONFIG_MODULES))
 def test_config_modules_are_the_reference_s(arch):
+    """Every config module of the reference, and ``get_config`` with its
+    unknown-name KeyError."""
     import importlib
+
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
 
     mod = importlib.import_module(f"repro_torch.configs.{CONFIG_MODULES[arch]}")
     jmod = importlib.import_module(f"repro.configs.{CONFIG_MODULES[arch]}")
     assert dataclasses.asdict(mod.CONFIG) == dataclasses.asdict(jmod.CONFIG)
     assert dataclasses.asdict(mod.SMOKE) == dataclasses.asdict(jmod.SMOKE)
-    assert mod.CONFIG is ARCHS[arch]
+    assert mod.CONFIG is ARCHS[arch] is get_config(arch)
+    assert dataclasses.asdict(j_get_config(arch)) == dataclasses.asdict(get_config(arch))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(arch + "-x")
+
+
+def test_config_modules_cover_the_reference_s():
+    import repro.configs as jconfigs
+
+    jdir = Path(jconfigs.__file__).parent
+    mods = {p.stem for p in jdir.glob("*.py")} - {"__init__", "archs", "base"}
+    assert mods == set(CONFIG_MODULES.values())
+    assert set(CONFIG_MODULES) == set(ARCHS)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_arch_builds(arch):
+    """``build(smoke_config(cfg))`` for every arch: ``check_supported``
+    raises for none, and the model's forward gives finite logits."""
+    cfg = smoke_config(ARCHS[arch])
+    transformer.check_supported(cfg)
+    tb = build(cfg)
+    model = tb.init(torch.Generator().manual_seed(0), device="cpu")
+    b, s = 1, 6
+    batch = {"tokens": torch.arange(b * s).reshape(b, s) % cfg.vocab_size}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.zeros((b, 256, cfg.d_model))
+    if cfg.frontend == "audio":
+        batch["frames"] = torch.zeros((b, s, cfg.d_model))
+    with torch.inference_mode():
+        logits, _ = tb.forward(model, batch)
+    assert tuple(logits.shape) == (b, s, cfg.padded_vocab_size)
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -479,7 +520,9 @@ def test_engine_tokens_match_reference_on_jamba(jimpl, timpl, seed):
 @pytest.mark.parametrize("arch,extra", [
     ("deepseek-moe-16b", ["--compress", "--compress-tail", "8"]),
     ("mamba2-370m", []),
-    ("jamba-v0.1-52b", ["--compress", "--compress-tail", "8"])])
+    ("jamba-v0.1-52b", ["--compress", "--compress-tail", "8"]),
+    ("phi-3-vision-4.2b", ["--compress", "--compress-tail", "8"]),
+    ("seamless-m4t-large-v2", [])])
 def test_launch_serve_runs_the_family_on_the_cpu(arch, extra):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke",
