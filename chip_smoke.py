@@ -95,9 +95,10 @@ Phases, each printing one JSON line:
                steps again from the seeded state must give the same losses
                and parameters bit for bit; then 10 steps straight against
                5 + checkpoint + restore + 5 at the smoke config, bit for
-               bit; step p50/p99, tokens/s, peak memory and AdamW's share
-               of a step (CUDA events); no kernel may launch (training
-               takes the plain route under autograd);
+               bit; the first step's ms apart, step p50/p99 and tokens/s
+               over the others, peak memory and AdamW's share of a step
+               (CUDA events); no kernel may launch (training takes the
+               plain route under autograd);
   select       the paper's instance selection on a synth_tokens corpus of
                65,536 examples of 257 tokens, featurized with the train
                phase's embedding table (dim 64) under the reference's
@@ -108,6 +109,20 @@ Phases, each printing one JSON line:
                two paths' level-0 kNN lists differ at a near-tie; then 8
                weighted train steps on selected rows (loss finite, the
                weight metric = sum of mass x labels);
+  train_moe, train_ssm, train_hybrid, train_vlm, train_encdec
+               the train phase's set-up on the other families at full
+               width, 16 steps each (TRAIN_FAMILIES): deepseek-moe-16b cut
+               to 4 layers (1 dense + 3 MoE, top-6 of 64 + 2 shared),
+               mamba2-370m whole, jamba cut to 2 layers (Mamba + dense,
+               Mamba + MoE), phi-3-vision whole (each row the 256-token
+               patch prefix), seamless whole (256 encoder frames a row),
+               the depth cut where 16 B a parameter would not fit the card
+               (the line states the arithmetic); the same criterion,
+               finite grad norms at every step, a bitwise repeat (deepseek
+               at top-6 too), a bitwise resume at the family's smoke
+               config, peak memory, the MoE's aux losses and dropped slots,
+               the SSD scan's largest decay sum above the diagonal; with
+               profile, one more step under torch.profiler;
   lm           the LM serving path at the full gemma2-2b config (random
                weights from a seeded generator): ServeEngine.generate with
                batch 4, prompt 2048, 160 new tokens, IHTC KV compression
@@ -178,7 +193,8 @@ the fit and after the serve phase, set to 0 again just before the
 headline fit and read after it, just before the hac fit and read after
 it, just before the three dbscan fits and read after them, just before
 the online phase's stream and read after its refresh, just before the
-train phase's steps (none may launch), just before the select phase's
+steps of the train phase and of each train_* phase (none may launch),
+just before the select phase's
 two selections and read after them, and again just
 before the generate of each of the lm, lm_moe, lm_hybrid, lm_vlm and
 lm_encdec phases and read right after it (lm_encdec: K5 alone, 72
@@ -224,7 +240,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
-                  "lm", "lm_moe", "lm_hybrid", "lm_vlm", "lm_encdec")
+                  "train_moe", "train_ssm", "train_hybrid", "train_vlm",
+                  "train_encdec", "lm", "lm_moe", "lm_hybrid", "lm_vlm",
+                  "lm_encdec")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
 ALL_PHASES = DEFAULT_PHASES + ("profile", "basins")
@@ -357,6 +375,28 @@ TRAIN = dict(arch="gemma2-2b", seed=0, steps=24, repeat_steps=4, peak_lr=3e-4,
 #: the reference test's criterion: the mean of the last four losses below
 #: this share of the mean of the first four
 MIN_LOSS_DROP = 0.92
+#: the train_moe, train_ssm, train_hybrid, train_vlm and train_encdec
+#: phases: each family at full width with the train phase's set-up (random
+#: f32 weights from TRAIN's seed, AdamW under its schedule, remat "block",
+#: the launcher's s 256), `steps` steps, the first repeat_steps again, a
+#: resume at the family's smoke config. Depth is cut where 16 B a parameter
+#: (f32 weights and gradients, AdamW's two moments) would not fit one
+#: 80 GB card: deepseek-moe-16b to 4 layers (1 dense + 3 MoE, 64 experts
+#: top-6 + 2 shared; 28 layers would be 262 GB), jamba to 2 (Mamba + dense,
+#: Mamba + MoE 16 experts top-2; the first cut holding its attention layer
+#: is 5 layers, 114 GB: its attention trains at smoke_config on the CPU
+#: until ROADMAP Queue 1 item 7). The batch is 8, cut to 4 for a phase
+#: whose predicted peak passes 75 GB (none: PERF.md)
+TRAIN_FAMILY = dict(steps=16, seq=256, batch=8)
+#: log of the largest f32: exp overflows past it
+EXP_F32_MAX_ARG = float(np.log(np.finfo(np.float32).max))
+TRAIN_FAMILIES = {
+    "train_moe": dict(arch="deepseek-moe-16b", layers=4, batch=8),
+    "train_ssm": dict(arch="mamba2-370m", layers=0, batch=8),
+    "train_hybrid": dict(arch="jamba-v0.1-52b", layers=2, batch=8),
+    "train_vlm": dict(arch="phi-3-vision-4.2b", layers=0, batch=8),
+    "train_encdec": dict(arch="seamless-m4t-large-v2", layers=0, batch=8),
+}
 #: the select phase: a synth_tokens corpus of n examples of seq + 1 tokens
 #: (vocab 256,000), the reference's default SelectionConfig (t* 2, m 2,
 #: dim 64), a deeper selection at m_deep (its 8,192-row level runs K2), then
@@ -2607,68 +2647,76 @@ def _timed_adamw(times: list):
 
 
 def _host_params(model) -> dict:
-    return {n: p.detach().to("cpu") for n, p in model.named_parameters()}
+    """A host copy of every parameter, pinned where the host allows it."""
+    out = {}
+    for n, p in model.named_parameters():
+        try:
+            h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+        except RuntimeError:  # no page-locked memory left: a pageable copy
+            h = torch.empty(p.shape, dtype=p.dtype)
+        out[n] = h.copy_(p.detach(), non_blocking=True)
+    sync()
+    return out
 
 
-def phase_train(state: dict) -> None:
-    """gemma2-2b at full width through the launcher's functions: 24 AdamW
-    steps (loss criterion), two repeats of 4 steps from the seeded state
-    (bitwise), then a checkpoint resume at the smoke config (bitwise)."""
-    import tempfile
-
-    from repro_torch import kernels
-    from repro_torch.configs import ARCHS, SHAPES, smoke_config
-    from repro_torch.launch.train import batch_fn, init_state
-    from repro_torch.train import CheckpointManager, OptConfig, make_train_step
+def _steps_timed(step, model, opt, bfs, n_rep: int, n_steps: int) -> dict:
+    """``n_steps`` synchronised steps from (model, opt), a host copy of the
+    parameters taken after the first ``n_rep`` (outside the step times);
+    each AdamW update timed with CUDA events."""
     from repro_torch.train.fault_tolerance import run_training
-    from repro_torch.train.optimizer import init_opt_state
-    from repro_torch.utils.tree import tree_bytes, tree_size
 
-    tr = _trainer(state)
-    model, cfg, n_rep = tr["model"], tr["cfg"], TRAIN["repeat_steps"]
-    step = _synced(tr["step"])
     mets: list = []
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
     adamw_ms: list = []
     t0 = time.perf_counter()
     with _timed_adamw(adamw_ms):
         model, opt, st_a = run_training(
-            train_step=step, init_state=(model, tr["opt"]), batch_for_step=tr["bfs"],
+            train_step=step, init_state=(model, opt), batch_for_step=bfs,
             n_steps=n_rep, on_metrics=lambda s, m: mets.append(m))
+        t_snap = time.perf_counter()
         snap = _host_params(model)
+        snapshot_s = time.perf_counter() - t_snap
         model, opt, st_b = run_training(
-            train_step=step, init_state=(model, opt), batch_for_step=tr["bfs"],
-            n_steps=TRAIN["steps"], start_step=n_rep,
-            on_metrics=lambda s, m: mets.append(m))
-    train_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    counts = kernels.launch_counts()
-    state["train_counts"] = counts
-    state["train_routes"] = kernels.route_counts()
-    n_params, state_bytes = tree_size(model), tree_bytes({"p": model, "o": opt})
-    times = st_a.times + st_b.times
-    losses = [float(m["loss"]) for m in mets]
-    gnorms = [float(m["grad_norm"]) for m in mets]
-    step_ms = [t * 1e3 for t in times]
+            train_step=step, init_state=(model, opt), batch_for_step=bfs,
+            n_steps=n_steps, start_step=n_rep, on_metrics=lambda s, m: mets.append(m))
+    return dict(model=model, opt=opt, mets=mets, snap=snap, adamw_ms=adamw_ms,
+                times=st_a.times + st_b.times, train_s=time.perf_counter() - t0,
+                snapshot_s=snapshot_s)
 
-    # the first n_rep steps again from the seeded state: bitwise
-    tr["opt"] = opt = None
-    model.init_weights(torch.Generator(device=DEV).manual_seed(TRAIN["seed"]))
+
+def _repeat_from_seed(run: dict, step, bfs, seed: int, n_rep: int):
+    """The first ``n_rep`` steps again from the seeded draw and a fresh
+    AdamW state: (model, opt, losses equal, parameters equal), bit for bit
+    against the first run's metrics and host copy."""
+    from repro_torch.train.fault_tolerance import run_training
+    from repro_torch.train.optimizer import init_opt_state
+
+    model = run.pop("model")
+    run.pop("opt")  # its moments go before the fresh ones are made
+    model.init_weights(torch.Generator(device=DEV).manual_seed(seed))
     again: list = []
     model, opt, _ = run_training(
         train_step=step, init_state=(model, init_opt_state(model)),
-        batch_for_step=tr["bfs"], n_steps=n_rep,
-        on_metrics=lambda s, m: again.append(m))
-    tr["model"], tr["opt"] = model, opt
-    loss_repeat = all(torch.equal(a["loss"], b["loss"]) for a, b in zip(again, mets))
-    param_repeat = all(torch.equal(p.detach().to("cpu"), snap[n])
+        batch_for_step=bfs, n_steps=n_rep, on_metrics=lambda s, m: again.append(m))
+    snap = run.pop("snap")
+    loss_repeat = all(torch.equal(a["loss"], b["loss"])
+                      for a, b in zip(again, run["mets"]))
+    param_repeat = all(torch.equal(p.detach(), snap[n].to(p.device, non_blocking=True))
                        for n, p in model.named_parameters())
-    del snap
+    return model, opt, loss_repeat, param_repeat
 
-    # checkpoint resume at the smoke config: 10 straight vs 5 + save +
-    # restore + 5 (the reference test's setup)
-    scfg = smoke_config(ARCHS[TRAIN["arch"]])
+
+def _resume_at_smoke(arch: str):
+    """A checkpoint resume at the smoke config of ``arch`` (the reference
+    test's set-up): 10 steps straight against 5 + save + restore (into a
+    model drawn from another seed) + 5, bit for bit. (equal, config name)"""
+    import tempfile
+
+    from repro_torch.configs import ARCHS, SHAPES, smoke_config
+    from repro_torch.launch.train import batch_fn, init_state
+    from repro_torch.train import CheckpointManager, OptConfig, make_train_step
+    from repro_torch.train.fault_tolerance import run_training
+
+    scfg = smoke_config(ARCHS[arch])
     rs, at = TRAIN["resume_steps"], TRAIN["resume_at"]
     sbundle, _, _ = init_state(scfg, device=DEV)
     sstep = make_train_step(sbundle, OptConfig(peak_lr=1e-2, warmup_steps=5,
@@ -2687,37 +2735,255 @@ def phase_train(state: dict) -> None:
         rest = ck.restore(at, {"params": other, "opt": other_opt})
     pb, _, _ = run_training(train_step=sstep, init_state=(rest["params"], rest["opt"]),
                             batch_for_step=sbfs, n_steps=rs, start_step=at)
-    resume = all(torch.equal(a, b) for a, b in zip(pa.parameters(), pb.parameters(),
-                                                  strict=True))
     sync()
+    return all(torch.equal(a, b) for a, b in zip(pa.parameters(), pb.parameters(),
+                                                 strict=True)), scfg.name
+
+
+def _step_fields(times: list, tokens_per_step: int, adamw_ms: list) -> dict:
+    """The first step apart (warm-up: allocator, cuBLAS handles), then
+    p50/p99, tokens/s and AdamW's median and share over steps 2..n."""
+    step_ms = [t * 1e3 for t in times]
+    steady = step_ms[1:]
+    return dict(step_ms_first=step_ms[0],
+                step_ms_p50=float(np.quantile(steady, 0.5)),
+                step_ms_p99=float(np.quantile(steady, 0.99)),
+                tokens_per_s=tokens_per_step * len(steady) * 1e3 / sum(steady),
+                tokens_per_s_at_p50=tokens_per_step * 1e3 / np.quantile(steady, 0.5),
+                adamw_ms_p50=float(np.median(adamw_ms[1:])),
+                adamw_share=sum(adamw_ms[1:]) / sum(steady))
+
+
+def _train_checks(which: str, losses: list, gnorms: list, loss_repeat: bool,
+                  param_repeat: bool, resume: bool, counts: dict) -> None:
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{which}: non-finite loss or grad norm")
+    check(last < MIN_LOSS_DROP * first,
+          f"{which}: loss did not fall: mean of the last four {last} >= "
+          f"{MIN_LOSS_DROP} x mean of the first four {first}")
+    check(loss_repeat, f"{which}: two repeats of the first steps differ in loss")
+    check(param_repeat, f"{which}: two repeats of the first steps differ in parameters")
+    check(resume, f"{which}: a resumed run differs from the straight run")
+    check(not any(counts.values()),
+          f"{which}: training launched kernels {counts}: it takes the plain route")
+
+
+def phase_train(state: dict) -> None:
+    """gemma2-2b at full width through the launcher's functions: 24 AdamW
+    steps (loss criterion), two repeats of 4 steps from the seeded state
+    (bitwise), then a checkpoint resume at the smoke config (bitwise)."""
+    from repro_torch import kernels
+    from repro_torch.utils.tree import tree_bytes, tree_size
+
+    tr = _trainer(state)
+    n_rep = TRAIN["repeat_steps"]
+    step = _synced(tr["step"])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = _steps_timed(step, tr["model"], tr["opt"], tr["bfs"], n_rep, TRAIN["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernels.launch_counts()
+    state["train_counts"] = counts
+    state["train_routes"] = kernels.route_counts()
+    n_params = tree_size(run["model"])
+    state_bytes = tree_bytes({"p": run["model"], "o": run["opt"]})
+    losses = [float(m["loss"]) for m in run["mets"]]
+    gnorms = [float(m["grad_norm"]) for m in run["mets"]]
+
+    tr["opt"] = None
+    tr["model"], tr["opt"], loss_repeat, param_repeat = _repeat_from_seed(
+        run, step, tr["bfs"], TRAIN["seed"], n_rep)
+    resume, resume_arch = _resume_at_smoke(TRAIN["arch"])
 
     first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
-    tokens = tr["b"] * tr["s"] * len(times)
-    emit("train", arch=cfg.name, params=n_params, state_bytes=state_bytes,
+    emit("train", arch=tr["cfg"].name, params=n_params, state_bytes=state_bytes,
          batch=tr["b"], seq=tr["s"], steps=len(losses), remat="block",
-         init_s=round(tr["init_s"], 3), train_s=round(train_s, 3),
+         init_s=round(tr["init_s"], 3), train_s=round(run["train_s"], 3),
+         snapshot_s=round(run["snapshot_s"], 3),
          loss_first4=losses[:4], loss_last4=losses[-4:],
          loss_ratio=last / first, grad_norms=gnorms,
-         step_ms_p50=float(np.quantile(step_ms, 0.5)),
-         step_ms_p99=float(np.quantile(step_ms, 0.99)),
-         tokens_per_s=tokens / sum(times),
-         tokens_per_s_at_p50=tr["b"] * tr["s"] / np.quantile(times, 0.5),
+         **_step_fields(run["times"], tr["b"] * tr["s"], run["adamw_ms"]),
          max_memory_allocated=peak,
-         adamw_ms_p50=float(np.median(adamw_ms)),
-         adamw_share=sum(adamw_ms) / sum(step_ms),
          launches={k: v for k, v in counts.items() if v},
          bitwise_repeat=bool(loss_repeat and param_repeat),
-         resume_bitwise=bool(resume), resume_arch=scfg.name)
-    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
-          "non-finite loss or grad norm")
-    check(last < MIN_LOSS_DROP * first,
-          f"loss did not fall: mean of the last four {last} >= {MIN_LOSS_DROP} "
-          f"x mean of the first four {first}")
-    check(loss_repeat, "two repeats of the first steps differ in loss")
-    check(param_repeat, "two repeats of the first steps differ in parameters")
-    check(resume, "a resumed run differs from the straight run")
-    check(not any(counts.values()),
-          f"training launched kernels {counts}: it takes the plain route")
+         resume_bitwise=bool(resume), resume_arch=resume_arch)
+    _train_checks("train", losses, gnorms, loss_repeat, param_repeat, resume, counts)
+
+
+@contextlib.contextmanager
+def _segsum_diffs():
+    """While the block runs, each SSD chunk's largest decay sum above the
+    diagonal is appended as a device scalar (``mamba2.segsum_exp`` is
+    wrapped). Past EXP_F32_MAX_ARG the reference's exp-then-mask overflows
+    there and its backward gives NaN; the port masks first."""
+    from repro_torch.models import mamba2
+
+    real = mamba2.segsum_exp
+    diffs: list = []
+
+    def watched(a):
+        cs = torch.cumsum(a.detach(), dim=-2).transpose(-1, -2)
+        q = cs.shape[-1]
+        upper = torch.triu(torch.ones(q, q, dtype=torch.bool, device=a.device), 1)
+        diff = cs[..., :, None] - cs[..., None, :]
+        diffs.append(torch.where(upper, diff, -torch.inf).amax())
+        return real(a)
+
+    mamba2.segsum_exp = watched
+    try:
+        yield diffs
+    finally:
+        mamba2.segsum_exp = real
+
+
+def _draws_on_card(cfg, bfs) -> dict:
+    """The card's draws against the host's, bit for bit (the host's are
+    ``jax.random``'s: tests/test_torch_prng.py): 2^20 normal,
+    exponential, Gumbel and Pareto draws, and the phase's first batch."""
+    from repro_torch import prng
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import make_batch
+
+    key, n = prng.PRNGKey(7), 1 << 20
+    out = {}
+    for name, draw in (("normal", prng.normal), ("exponential", prng.exponential),
+                       ("gumbel", prng.gumbel),
+                       ("pareto", lambda k, s, **kw: prng.pareto(k, 1.3, s, **kw))):
+        out[name] = torch.equal(draw(key, n, device=DEV).cpu(), draw(key, n))
+    card = bfs(0)
+    b, s = card["tokens"].shape
+    host = make_batch(cfg, SHAPES["train_4k"], 0, batch_override=b, seq_override=s)
+    out["batch"] = set(card) == set(host) and all(
+        torch.equal(card[k].cpu(), host[k]) for k in host)
+    return out
+
+
+def _train_cut(full, cfg, n_params: int, full_params: int, per_param: int) -> str:
+    gb = per_param / 1e9
+    if cfg.n_layers == full.n_layers:
+        return (f"whole: {n_params / 1e9:.3f}e9 parameters x {per_param} B = "
+                f"{n_params * gb:.1f} GB of f32 weights, gradients and AdamW moments")
+    return (f"{cfg.n_layers} of {full.n_layers} layers at full width: "
+            f"{n_params / 1e9:.3f}e9 parameters x {per_param} B = {n_params * gb:.1f} "
+            f"GB of f32 weights, gradients and AdamW moments; all "
+            f"{full.n_layers} would be {full_params / 1e9:.2f}e9 x {per_param} B = "
+            f"{full_params * gb:.1f} GB, more than one card")
+
+
+def phase_train_family(state: dict, which: str, profile: bool = False) -> None:
+    """One non-dense family trained at full width as the train phase trains
+    gemma2-2b (TRAIN_FAMILIES): its steps, a bitwise repeat of the first
+    four, a bitwise resume at its smoke config; the MoE's aux losses and
+    dropped slots, the SSD scan's largest decay sum above the diagonal.
+    ``profile``: one more step under torch.profiler before the repeat."""
+    import dataclasses
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS, SHAPES, ParallelConfig
+    from repro_torch.launch.train import (
+        STATE_BYTES_PER_PARAM,
+        batch_fn,
+        check_fits,
+        init_state,
+        param_count,
+    )
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.utils.tree import tree_bytes, tree_size
+
+    _free_models(state)
+    spec = TRAIN_FAMILIES[which]
+    full = ARCHS[spec["arch"]]
+    cfg = dataclasses.replace(full, n_layers=spec["layers"]) if spec["layers"] else full
+    check_fits(cfg, torch.device(DEV))
+    b, s, n_rep = spec["batch"], TRAIN_FAMILY["seq"], TRAIN["repeat_steps"]
+    t_phase = time.perf_counter()
+    bundle, model, opt = init_state(cfg, device=DEV, seed=TRAIN["seed"])
+    step = _synced(make_train_step(
+        bundle, OptConfig(peak_lr=TRAIN["peak_lr"], warmup_steps=TRAIN["warmup"],
+                          decay_steps=TRAIN["decay"]), ParallelConfig(remat="block")))
+    bfs = batch_fn(cfg, SHAPES["train_4k"], b, s, torch.device(DEV))
+    sync()
+    init_s = time.perf_counter() - t_phase
+    n_moe = sum(cfg.layer_is_moe(l) for l in range(cfg.n_layers)) if cfg.n_experts else 0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _moe_drops() as drops, _segsum_diffs() as diffs:
+        run = _steps_timed(step, model, opt, bfs, n_rep, TRAIN_FAMILY["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernels.launch_counts()
+    state[f"{which}_counts"] = counts
+    state[f"{which}_routes"] = kernels.route_counts()
+    del model, opt
+    if profile:
+        _profiled(f"{which}_step", lambda: step(run["model"], run["opt"],
+                                                 bfs(TRAIN_FAMILY["steps"])))
+    n_params = tree_size(run["model"])
+    state_bytes = tree_bytes({"p": run["model"], "o": run["opt"]})
+    mets = run["mets"]
+    losses = [float(m["loss"]) for m in mets]
+    gnorms = [float(m["grad_norm"]) for m in mets]
+    n_steps = len(mets)
+    extra: dict = {}
+    if n_moe:
+        # remat recomputes each forward in the backward: the same slots
+        # drop again, so a forward's drops are the share of its calls
+        per_fwd = n_moe * n_steps / max(len(drops), 1)
+        dropped = float(sum(int(d) for d in drops)) * per_fwd / n_steps
+        slots = b * s * cfg.n_experts_per_tok * n_moe
+        extra.update(aux_losses=[float(m["aux_loss"]) for m in mets],
+                     moe_layers=n_moe, top_k=cfg.n_experts_per_tok,
+                     n_experts=cfg.n_experts, slots_dropped_per_step=dropped,
+                     dropped_share=dropped / slots)
+    if diffs:
+        d = torch.stack(diffs).float().cpu()
+        extra.update(max_segsum_diff=float(d.amax()),
+                     segsum_calls=len(diffs),
+                     segsum_calls_past_exp_range=int((d > EXP_F32_MAX_ARG).sum()))
+    prefix = 256 if cfg.frontend == "vision" else 0
+    extra["positions_per_step"] = b * (s + prefix) + (b * s if cfg.n_enc_layers else 0)
+    if cfg.frontend:  # its batches carry draws of jax.random.normal
+        extra["draws_card_vs_host_bitwise"] = _draws_on_card(cfg, bfs)
+
+    t0 = time.perf_counter()
+    model, opt, loss_repeat, param_repeat = _repeat_from_seed(
+        run, step, bfs, TRAIN["seed"], n_rep)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    repeat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resume, resume_arch = _resume_at_smoke(spec["arch"])
+    resume_s = time.perf_counter() - t0
+
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    cut = _train_cut(full, cfg, n_params, param_count(full), STATE_BYTES_PER_PARAM)
+    emit(which, arch=cfg.name, layers=cfg.n_layers, full_layers=full.n_layers,
+         cut=cut, params=n_params, state_bytes=state_bytes, batch=b, seq=s,
+         batch_cut=spec["batch"] != TRAIN_FAMILY["batch"], steps=n_steps,
+         remat="block", init_s=round(init_s, 3), train_s=round(run["train_s"], 3),
+         loss_first4=losses[:4], loss_last4=losses[-4:], loss_ratio=last / first,
+         grad_norms=gnorms,
+         **_step_fields(run["times"], b * s, run["adamw_ms"]),
+         max_memory_allocated=peak,
+         card_bytes=torch.cuda.get_device_properties(0).total_memory,
+         launches={k: v for k, v in counts.items() if v},
+         bitwise_repeat=bool(loss_repeat and param_repeat),
+         resume_bitwise=bool(resume), resume_arch=resume_arch,
+         snapshot_s=round(run["snapshot_s"], 3), repeat_s=round(repeat_s, 3),
+         resume_s=round(resume_s, 3), phase_s=round(time.perf_counter() - t_phase, 3),
+         **extra)
+    _train_checks(which, losses, gnorms, loss_repeat, param_repeat, resume, counts)
+    for name, same in extra.get("draws_card_vs_host_bitwise", {}).items():
+        check(same, f"{which}: the card's {name} draws differ from the host's")
+    if n_moe:
+        check(len(drops) % (n_moe * n_steps) == 0,
+              f"{which}: {len(drops)} MoE dispatches for {n_moe} layers x {n_steps} "
+              f"steps")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_select(state: dict) -> None:
@@ -3823,6 +4089,9 @@ def main() -> int:
                   lambda: tr["step"](tr["model"], tr["opt"], tr["bfs"](0)))
     state.pop("trainer", None)  # the lm phase serves its own model
     torch.cuda.empty_cache()
+    for which in TRAIN_FAMILIES:
+        if which in phases:
+            phase_train_family(state, which, profile="profile" in phases)
     if "lm" in phases:
         phase_lm(state)
     if "profile" in phases:
@@ -3843,6 +4112,7 @@ def main() -> int:
                  "online": state.get("online_counts", {}),
                  "train": state.get("train_counts", {}),
                  "select": state.get("select_counts", {}),
+                 **{w: state.get(f"{w}_counts", {}) for w in TRAIN_FAMILIES},
                  "lm": state.get("lm_counts", {}),
                  "lm_moe": state.get("lm_moe_counts", {}),
                  "lm_hybrid": state.get("lm_hybrid_counts", {}),
@@ -3855,6 +4125,7 @@ def main() -> int:
                   "online": state.get("online_routes", {}),
                   "train": state.get("train_routes", {}),
                   "select": state.get("select_routes", {}),
+                  **{w: state.get(f"{w}_routes", {}) for w in TRAIN_FAMILIES},
                   "lm": state.get("lm_routes", {}),
                   "lm_moe": state.get("lm_moe_routes", {}),
                   "lm_hybrid": state.get("lm_hybrid_routes", {}),

@@ -41,11 +41,7 @@ def _batch_key(seed: int, step: int) -> torch.Tensor:
 def synth_tokens(key: torch.Tensor, batch: int, seq: int, vocab: int,
                  dcfg: DataConfig, *, device=None) -> torch.Tensor:
     """Markov-modulated Zipf tokens (b, s+1) int64: learnable structure,
-    stateless.
-
-    ``base`` truncates ``pareto·7`` to an integer; the port's ``exp`` and
-    ``log1p`` may differ from XLA's by an ulp, which changes a token only
-    where pareto·7 lies within an ulp of an integer."""
+    stateless; the reference's tokens (its Pareto draws bit for bit)."""
     k1, k2, _ = prng.split(key, 3)
     shape = (batch, seq + 1)
     # hidden state per position: slow random walk

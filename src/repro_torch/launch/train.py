@@ -2,27 +2,40 @@
 unless ``--device cpu``.
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --layers 4
+    python -m repro_torch.launch.train --arch seamless-m4t-large-v2 --smoke --device cpu
 
-The reference's flags: ``--shape`` sets the batch and sequence (cut to at
-most 8 × 256 unless ``--batch`` / ``--seq`` say otherwise), ``--remat``
-and ``--microbatches`` the step, ``--ckpt-dir`` / ``--ckpt-every`` /
-``--resume`` the checkpoints. The trainer is single-device: ``--mesh``
-takes ``single``; the reference's ``debug``, ``pod1`` and ``pod2`` meshes
-wait for ROADMAP.md, Queue 1, item 7. Weights are random from a seeded
+Every arch of ``ARCHS`` trains: dense, MoE, SSM, hybrid, the VLM (its
+batches carry the stubbed 256-token patch prefix) and the audio
+encoder-decoder (its batches carry encoder frames). The reference's flags:
+``--shape`` sets the batch and sequence (cut to at most 8 × 256 unless
+``--batch`` / ``--seq`` say otherwise), ``--remat`` and ``--microbatches``
+the step, ``--ckpt-dir`` / ``--ckpt-every`` / ``--resume`` the
+checkpoints. Added here: ``--smoke`` takes the arch's ``smoke_config``
+(CPU-sized), ``--layers`` keeps the first N decoder layers at full width.
+
+The trainer is single-device: ``--mesh`` takes ``single``; the
+reference's ``debug``, ``pod1`` and ``pod2`` meshes wait for ROADMAP.md,
+Queue 1, item 7. Training holds 16 bytes a parameter (f32 weights and
+gradients, AdamW's two f32 moments); a model whose state exceeds the
+card's memory (llama4-scout, jamba, deepseek-moe-16b, granite-20b,
+minitron-8b and qwen2.5-32b at full depth) raises before it is built:
+cut its depth or wait for item 7. Weights are random from a seeded
 generator, in f32; the batches are the pure-function synthetic pipeline.
 A missing GPU raises; nothing falls back to the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.configs import ARCHS, SHAPES, smoke_config
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.data import make_batch
-from repro_torch.models import build
+from repro_torch.models import build, encdec, transformer
 from repro_torch.runtime import resolve_device
 from repro_torch.train import (
     CheckpointManager,
@@ -33,6 +46,8 @@ from repro_torch.train import (
 from repro_torch.train.fault_tolerance import StepStats, run_training
 
 MESHES = ("single", "debug", "pod1", "pod2")
+#: training state a parameter: f32 weights and gradients, AdamW's m and v
+STATE_BYTES_PER_PARAM = 16
 
 
 def check_mesh(mesh: str) -> None:
@@ -42,6 +57,29 @@ def check_mesh(mesh: str) -> None:
             f"meshes wait for ROADMAP.md, Queue 1, item 7")
 
 
+def param_count(cfg: ModelConfig) -> int:
+    """The trainable model's parameters, counted on the meta device."""
+    make = encdec.EncDec if cfg.family == "encdec-audio" else transformer.LM
+    return sum(p.numel() for p in make(cfg, device="meta", trainable=True).parameters())
+
+
+def check_fits(cfg: ModelConfig, device: torch.device) -> None:
+    """Raise if the training state of ``cfg`` exceeds the card's memory."""
+    if device.type != "cuda":
+        return
+    n = param_count(cfg)
+    need, have = STATE_BYTES_PER_PARAM * n, torch.cuda.get_device_properties(
+        device).total_memory
+    if need > have:
+        raise ValueError(
+            f"{cfg.name} at {cfg.n_layers} layers: training holds "
+            f"{need / 1e9:.1f} GB ({n / 1e9:.2f}e9 parameters x "
+            f"{STATE_BYTES_PER_PARAM} B of f32 weights, gradients and AdamW "
+            f"moments), more than the card's {have / 1e9:.1f} GB; cut the "
+            f"depth (--layers) or train across devices (ROADMAP.md, Queue 1, "
+            f"item 7)")
+
+
 def batch_dims(shape: ShapeConfig, batch: int = 0, seq: int = 0) -> Tuple[int, int]:
     """The launcher's (batch, seq): the shape's, cut to 8 × 256 unless given."""
     return batch or min(shape.global_batch, 8), seq or min(shape.seq_len, 256)
@@ -49,10 +87,11 @@ def batch_dims(shape: ShapeConfig, batch: int = 0, seq: int = 0) -> Tuple[int, i
 
 def batch_fn(cfg: ModelConfig, shape: ShapeConfig, b: int, s: int,
              device: torch.device) -> Callable[[int], dict]:
-    """step -> the step's batch on ``device`` (a pure function of step)."""
+    """step -> the step's batch, drawn on ``device`` (a pure function of
+    step: the draws are the same bits on every device)."""
     def bfs(step: int) -> dict:
-        batch = make_batch(cfg, shape, step, batch_override=b, seq_override=s)
-        return {k: v.to(device) for k, v in batch.items()}
+        return make_batch(cfg, shape, step, batch_override=b, seq_override=s,
+                          device=device)
     return bfs
 
 
@@ -82,6 +121,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, steps: int, batch: int = 0,
     ``OptConfig(decay_steps=max(steps, 100))``). Returns (model,
     opt_state, stats, start step)."""
     check_mesh(mesh)
+    check_fits(cfg, resolve_device(device))
     bundle, model, opt = init_state(cfg, device=device)
     dev = next(model.parameters()).device
     opt_cfg = opt_cfg or OptConfig(decay_steps=max(steps, 100))
@@ -115,10 +155,17 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N decoder layers (full width)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    cfg = smoke_config(ARCHS[args.arch]) if args.smoke else ARCHS[args.arch]
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     _, _, stats, start = train(
-        ARCHS[args.arch], SHAPES[args.shape], steps=args.steps, batch=args.batch,
+        cfg, SHAPES[args.shape], steps=args.steps, batch=args.batch,
         seq=args.seq, microbatches=args.microbatches, remat=args.remat,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, resume=args.resume,
         mesh=args.mesh, device=args.device)

@@ -10,6 +10,12 @@ unembedding. The reference stacks each side's layers on a leading axis and
 scans them; here each side is a plain list of layer modules, run in a
 loop, with the reference's float operations in its order.
 
+Training: ``remat`` "block" or "dots" recomputes each encoder block and
+each decoder block in the backward pass (``torch.utils.checkpoint``), as
+the reference's ``jax.checkpoint`` of each scanned block; the reference
+gives the enc-dec no policy, so "dots" is the same plain checkpoint as
+"block" here. The values do not depend on ``remat``.
+
 Caches are per layer: ``{"layers": [{"self": attention cache, "cross_k",
 "cross_v": (b, hkv, s_enc, hd)}, ...]}``. The cross k/v are projected once,
 in the prefill, from the encoder output, and reused by every decode step
@@ -22,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -32,6 +39,7 @@ from repro_torch.models.layers import (
     dense_init_,
     rms_norm,
 )
+from repro_torch.models.transformer import REMATS
 
 
 def _norm(d: int, device, requires_grad: bool) -> nn.Parameter:
@@ -116,21 +124,51 @@ class EncDec(nn.Module):
                 dense_init_(p, generator)
         return self
 
-    def encode(self, frames: torch.Tensor, *, impl: Optional[str] = None
-               ) -> torch.Tensor:
-        """frames (b, s_enc, d) → the encoder output (b, s_enc, d) bf16."""
+    def _enc_block(self, lp: EncLayer, x: torch.Tensor, positions: torch.Tensor,
+                   impl: Optional[str]) -> torch.Tensor:
         cfg = self.cfg
+        h = rms_norm(x, lp.ln1, cfg.norm_eps)
+        y, _ = attn.attention_apply(lp.attn, h, cfg, layer=0, positions=positions,
+                                    causal=False, impl=impl)
+        x = x + y
+        return x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps))
+
+    def encode(self, frames: torch.Tensor, *, impl: Optional[str] = None,
+               remat: str = "none") -> torch.Tensor:
+        """frames (b, s_enc, d) → the encoder output (b, s_enc, d) bf16."""
+        _check_remat(remat)
         x = frames.to(COMPUTE_DTYPE)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         for lp in self.enc:
-            h = rms_norm(x, lp.ln1, cfg.norm_eps)
-            y, _ = attn.attention_apply(lp.attn, h, cfg, layer=0,
-                                        positions=positions, causal=False,
-                                        impl=impl)
-            x = x + y
-            x = x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps))
-        return rms_norm(x, self.ln_enc, cfg.norm_eps)
+            x = _run(self._enc_block, remat, lp, x, positions, impl)
+        return rms_norm(x, self.ln_enc, self.cfg.norm_eps)
+
+    def _dec_block(self, lp: DecLayer, x: torch.Tensor, positions: torch.Tensor,
+                   cache: Optional[dict], enc_out: Optional[torch.Tensor],
+                   impl: Optional[str]):
+        """(x, the layer's new cache or None). A decode step (s = 1 with a
+        cache) attends to the cached cross k/v; otherwise the layer
+        projects them from ``enc_out``."""
+        cfg = self.cfg
+        h = rms_norm(x, lp.ln1, cfg.norm_eps)
+        y, new_self = attn.attention_apply(
+            lp.self_attn, h, cfg, layer=0, positions=positions,
+            cache=cache["self"] if cache is not None else None, impl=impl)
+        x = x + y
+        hx = rms_norm(x, lp.ln_x, cfg.norm_eps)
+        if cache is not None and x.shape[1] == 1:
+            cross = (cache["cross_k"], cache["cross_v"])  # decode: reuse
+        else:
+            cross = project_cross_kv(lp.cross_attn, enc_out, cfg)  # prefill
+        yx, _ = attn.attention_apply(lp.cross_attn, hx, cfg, layer=0,
+                                     positions=positions, causal=False,
+                                     cross_kv=cross, impl=impl)
+        x = x + yx
+        x = x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps))
+        if cache is None:
+            return x, None
+        return x, {"self": new_self, "cross_k": cross[0], "cross_v": cross[1]}
 
     def decode(
         self,
@@ -141,38 +179,29 @@ class EncDec(nn.Module):
         start_pos: Optional[int] = None,
         impl: Optional[str] = None,
         last_only: bool = False,
+        remat: str = "none",
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         """(logits (b, s or 1, padded_vocab) f32, caches). A decode step
         (s = 1 with caches) attends to the cached cross k/v; otherwise
         each layer projects them from ``enc_out`` (and, with caches,
-        stores them)."""
+        stores them). ``remat`` (training) takes no caches."""
+        _check_remat(remat)
+        if remat != "none" and caches is not None:
+            raise ValueError("remat is for training, which passes no caches")
         cfg = self.cfg
         x = self.embed.embed(tokens).to(COMPUTE_DTYPE)
         b, s, _ = x.shape
         offset = 0 if start_pos is None else int(start_pos)
         positions = (offset + torch.arange(s, device=x.device)).expand(b, s)
-        reuse = caches is not None and s == 1
         layer_caches = caches["layers"] if caches is not None else [None] * cfg.n_layers
         new_layers = []
         for lp, c in zip(self.dec, layer_caches, strict=True):
-            h = rms_norm(x, lp.ln1, cfg.norm_eps)
-            y, new_self = attn.attention_apply(
-                lp.self_attn, h, cfg, layer=0, positions=positions,
-                cache=c["self"] if c is not None else None, impl=impl)
-            x = x + y
-            hx = rms_norm(x, lp.ln_x, cfg.norm_eps)
-            if reuse:
-                cross = (c["cross_k"], c["cross_v"])  # decode: reuse
+            if c is None:
+                x, _ = _run(self._dec_block, remat, lp, x, positions, None,
+                            enc_out, impl)
             else:
-                cross = project_cross_kv(lp.cross_attn, enc_out, cfg)  # prefill
-            yx, _ = attn.attention_apply(lp.cross_attn, hx, cfg, layer=0,
-                                         positions=positions, causal=False,
-                                         cross_kv=cross, impl=impl)
-            x = x + yx
-            x = x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps))
-            if c is not None:
-                new_layers.append({"self": new_self, "cross_k": cross[0],
-                                   "cross_v": cross[1]})
+                x, nc = self._dec_block(lp, x, positions, c, enc_out, impl)
+                new_layers.append(nc)
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
@@ -181,9 +210,22 @@ class EncDec(nn.Module):
         return logits, new_caches
 
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor, *,
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None, remat: str = "none") -> torch.Tensor:
         """The full (b, s, padded_vocab) f32 logits of the decoder."""
-        return self.decode(tokens, self.encode(frames, impl=impl), impl=impl)[0]
+        enc_out = self.encode(frames, impl=impl, remat=remat)
+        return self.decode(tokens, enc_out, impl=impl, remat=remat)[0]
+
+
+def _check_remat(remat: str) -> None:
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+
+
+def _run(block, remat: str, *args):
+    """``block(*args)``, checkpointed unless ``remat`` is "none"."""
+    if remat == "none":
+        return block(*args)
+    return ckpt.checkpoint(block, *args, use_reentrant=False)
 
 
 def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,

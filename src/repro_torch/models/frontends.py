@@ -3,7 +3,7 @@
 The audio and vision configs exercise the transformer backbone; their front
 ends (a speech encoder, a CLIP tower) are stubs in the reference too, whose
 output is drawn from a seed. The draw here is the reference's bit for bit:
-``prng.normal`` (jax's threefry and ``erfinv``) in f32, rounded to bf16,
+``prng.normal`` (jax's threefry and XLA's ``erf_inv``) in f32, rounded to bf16,
 times 0.02 in bf16.
 """
 from __future__ import annotations

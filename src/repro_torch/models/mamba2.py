@@ -67,13 +67,20 @@ class Mamba(nn.Module):
 
 def segsum_exp(a: torch.Tensor) -> torch.Tensor:
     """exp of the pairwise within-chunk decay sums. a: (..., q, h) per-step
-    log decay → (..., h, q, q) lower-triangular L[i, j] = exp(Σ_{j<k≤i} a_k)."""
+    log decay → (..., h, q, q) lower-triangular L[i, j] = exp(Σ_{j<k≤i} a_k).
+
+    The upper triangle is masked before the exp, not after it as in the
+    reference (``repro.models.mamba2._segsum_exp``): there the sums are
+    positive, and past ~88.7 within a chunk exp overflows, and the masked
+    backward multiplies 0 by inf, giving NaN gradients (seen on the card
+    training mamba2-370m; ROADMAP.md, Queue 3). The forward bits are the
+    same, exp(-inf) being the zero the reference puts there."""
     q = a.shape[-2]
     cs = torch.cumsum(a, dim=-2).transpose(-1, -2)        # (..., h, q)
     diff = cs[..., :, None] - cs[..., None, :]            # (..., h, q, q)
     iq = torch.arange(q, device=a.device)
     mask = iq[:, None] >= iq[None, :]
-    return torch.where(mask, torch.exp(diff), torch.zeros((), device=a.device))
+    return torch.exp(torch.where(mask, diff, float("-inf")))
 
 
 def ssd_chunked(

@@ -57,6 +57,18 @@ def dispatch_indices(expert_ids: torch.Tensor, n_experts: int, capacity: int
     return flat, ok
 
 
+def token_slots(xt: torch.Tensor, k: int) -> torch.Tensor:
+    """(T, d) tokens → (T·k, d) slot rows, token i's k slots contiguous.
+
+    A broadcast, not an indexed gather: its backward sums each token's k
+    slot gradients over k in a fixed order (in f32, rounded once), where a
+    gather's (``index_put_`` with accumulate) adds them with atomics on the
+    card, in a new order every run, so a top-6 router's training would not
+    repeat bit for bit."""
+    t, d = xt.shape
+    return xt.reshape(t, 1, d).expand(t, k, d).reshape(t * k, d)
+
+
 def capacity_of(cfg: ModelConfig, tokens: int, capacity_factor: Optional[float] = None
                 ) -> Tuple[int, int]:
     """(groups, capacity) of a call over ``tokens`` tokens: the reference's
@@ -117,8 +129,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     tg = t // ng
     flat, ok = dispatch_indices(topi.reshape(ng, tg * k), e, capacity)
     rows = e * capacity + 1                                     # + the sink row
-    tok_of_slot = torch.arange(tg, device=x.device).repeat_interleave(k)
-    src = xt.reshape(ng, tg, d)[:, tok_of_slot].reshape(ng * tg * k, d)
+    src = token_slots(xt, k)
     gidx = (flat + rows * torch.arange(ng, device=x.device)[:, None]).reshape(-1)
     buf = torch.zeros((ng * rows, d), dtype=dt, device=x.device)
     buf.index_copy_(0, gidx, src)  # dropped slots all land on the sink rows

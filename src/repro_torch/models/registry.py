@@ -93,10 +93,7 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
 
 def _encdec_bundle(cfg: ModelConfig) -> ModelBundle:
     def forward(model, batch, *, impl="ref", remat="none"):
-        if remat != "none":
-            raise ValueError(f"{cfg.name}: remat is not ported for the "
-                             f"encoder-decoder (ROADMAP.md, Queue 1, item 8)")
-        logits = model(batch["frames"], batch["tokens"], impl=impl)
+        logits = model(batch["frames"], batch["tokens"], impl=impl, remat=remat)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
     def prefill(model, caches, batch, *, impl=None):

@@ -11,15 +11,16 @@ using a ``torch.Generator``:
     output shape (high word, low word) with the key; :func:`fold_in`
     hashes the pair (0, data);
   * :func:`uniform` puts 23 random bits under a 1.0 exponent;
-  * :func:`categorical` is Gumbel-argmax with ``-log(-log(u))`` noise (the
-    reference's default low-range mode). Its ``log`` may differ from
-    XLA's by an ulp, so draws agree wherever no two noisy logits tie
-    within an ulp;
-  * :func:`normal` (√2·erfinv(u), u on [nextafter(−1, 0), 1)),
+  * :func:`gumbel` is ``-log(-log(u))`` (the reference's default
+    low-range mode) and :func:`categorical` Gumbel-argmax on it;
+  * :func:`normal` (√2·erf_inv(u), u on [nextafter(−1, 0), 1)),
     :func:`exponential` (−log1p(−u)), :func:`pareto` (exp(e / b)) and
     :func:`bernoulli` (u < p) are jax's formulas on the same uniform
-    bits; ``erfinv``, ``log1p`` and ``exp`` may differ from XLA's by an
-    ulp, as ``log`` does.
+    bits.
+
+``log``, ``log1p``, ``erf_inv`` and ``exp`` are XLA:CPU's own polynomials
+(``repro_torch.xla_math``), so every draw equals ``jax.random``'s bit for
+bit, on the CPU and on the card.
 
 The counters are computed on the device the caller names; keys stay on
 the CPU, so reading a key never synchronises with the card.
@@ -30,6 +31,8 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch import xla_math
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -135,7 +138,7 @@ def uniform(key: torch.Tensor, shape: Shape, *, minval: float = 0.0,
 def gumbel(key: torch.Tensor, shape: Shape, *, device=None) -> torch.Tensor:
     """float32 Gumbel noise, the reference's low-range mode."""
     u = uniform(key, shape, minval=_TINY_F32, maxval=1.0, device=device)
-    return -torch.log(-torch.log(u))
+    return -xla_math.log(-xla_math.log(u))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -146,16 +149,16 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 
 def normal(key: torch.Tensor, shape: Shape, *, device=None) -> torch.Tensor:
-    """float32 standard normals: ``sqrt(2) * erfinv(u)`` with u uniform on
+    """float32 standard normals: ``sqrt(2) * erf_inv(u)`` with u uniform on
     [nextafter(-1, 0), 1), as ``jax.random.normal``."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, minval=lo, maxval=1.0, device=device)
-    return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)), device=u.device)
+    return xla_math.erf_inv(u) * torch.tensor(np.float32(np.sqrt(2)), device=u.device)
 
 
 def exponential(key: torch.Tensor, shape: Shape, *, device=None) -> torch.Tensor:
     """float32 Exp(1) draws: ``-log1p(-u)``, u uniform on [0, 1)."""
-    return -torch.log1p(-uniform(key, shape, device=device))
+    return -xla_math.log1p(-uniform(key, shape, device=device))
 
 
 def pareto(key: torch.Tensor, b: float, shape: Shape, *, device=None
@@ -163,7 +166,9 @@ def pareto(key: torch.Tensor, b: float, shape: Shape, *, device=None
     """float32 Pareto(b) draws: ``exp(e / b)`` with e from
     :func:`exponential` and b rounded to f32 first."""
     e = exponential(key, shape, device=device)
-    return torch.exp(e / torch.tensor(b, dtype=torch.float32, device=e.device))
+    # a device tensor, not a Python scalar: the card divides by a host
+    # scalar as a product with its reciprocal
+    return xla_math.exp(e / torch.tensor(b, dtype=torch.float32, device=e.device))
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Shape, *, device=None

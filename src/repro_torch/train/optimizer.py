@@ -7,7 +7,10 @@ The state is a dict of tensors on the parameters' device: f32 moments
 ``m`` and ``v`` keyed by parameter name, an int32 ``step``, and with
 ``master=True`` an f32 copy of the parameters. The update is written as
 the reference writes it, ``base − lr·(m̂/(√v̂ + eps) + wd·base)``, one
-parameter at a time (no whole-model temporaries), and the parameters are
+parameter at a time (no whole-model temporaries), a large parameter in
+slices of ``SLICE`` elements (the arithmetic is elementwise, so the bits
+do not depend on the slicing; jamba's 3.8 GB f32 expert tensors would
+otherwise take about 15 GB of temporaries), and the parameters are
 updated in place. ``torch.optim.AdamW`` is not used: its decoupled decay
 and bias correction round differently. The schedule, clip scale and bias
 corrections stay 0-d device tensors, so a step never waits on the host.
@@ -22,6 +25,10 @@ import torch
 from torch import nn
 
 from repro_torch.utils.tree import global_norm
+
+
+#: elements of one slice of a parameter's update (256 MB in f32)
+SLICE = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -95,15 +102,26 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
     bc2 = 1 - torch.pow(b2, stepf)
     master: Optional[dict] = opt_state.get("master")
     for name, p in named.items():
-        g = grads[name].to(torch.float32) * scale
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        base = master[name] if master is not None else p.to(torch.float32)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * base
-        new = base - lr * delta
+        tensors = [grads[name], opt_state["m"][name], opt_state["v"][name], p]
         if master is not None:
-            master[name].copy_(new)
-        p.copy_(new)
+            tensors.append(master[name])
+        for g, m, v, p_s, *master_s in zip(*_slices(tensors), strict=True):
+            g = g.to(torch.float32) * scale
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g))
+            base = master_s[0] if master_s else p_s.to(torch.float32)
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * base
+            new = base - lr * delta
+            if master_s:
+                master_s[0].copy_(new)
+            p_s.copy_(new)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _slices(tensors):
+    """Each tensor as a list of views of at most SLICE elements, in the
+    same places (one whole-tensor piece each where one is not contiguous)."""
+    if all(t.is_contiguous() for t in tensors):
+        return [t.view(-1).split(SLICE) for t in tensors]
+    return [[t] for t in tensors]

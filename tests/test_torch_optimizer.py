@@ -153,7 +153,7 @@ def test_int8_quantization_roundtrip(rng):
     assert q.dtype == torch.int8
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2.5-32b"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_tree_paths_match_reference(arch):
     """The port's parameter names map onto the reference's leaf paths in
     the reference's flatten order, stacked leaves included, values equal;
@@ -180,4 +180,29 @@ def test_tree_paths_match_reference(arch):
     for name, _ in model.named_parameters():
         path, r = tree.param_path(cfg, name)
         assert name in dict(tree.param_layout(cfg, [name]))[path]
-        assert (r is None) == (not path.startswith("stack/"))
+        assert (r is None) == (not path.startswith(("stack/", "enc/", "dec/")))
+
+
+def test_adamw_slices_do_not_change_the_bits(rng, monkeypatch):
+    """A parameter's update taken in slices (``optimizer.SLICE``) equals
+    the whole-tensor update bit for bit, master copy included."""
+    from repro_torch.train import optimizer
+
+    shapes = {"layers.0.mlp.up": (37, 29), "layers.0.ln1": (29,), "embed.table": (5, 7, 3)}
+    params = {n: torch.from_numpy(rng.normal(size=s).astype(np.float32)) for n, s in shapes.items()}
+    grads = {n: torch.from_numpy(rng.normal(size=s).astype(np.float32)) for n, s in shapes.items()}
+    runs = []
+    for slice_len in (1 << 26, 7):
+        monkeypatch.setattr(optimizer, "SLICE", slice_len)
+        for master in (False, True):
+            p = {n: t.clone() for n, t in params.items()}
+            opt = init_opt_state(p, master=master)
+            for _ in range(3):
+                p, opt, mets = adamw_update(grads, opt, p, OptConfig(**SCHEDULES[0]))
+            runs.append((p, opt))
+    for (pa, oa), (pb, ob) in ((runs[0], runs[2]), (runs[1], runs[3])):
+        for n in shapes:
+            assert torch.equal(pa[n], pb[n]) and torch.equal(oa["m"][n], ob["m"][n])
+            assert torch.equal(oa["v"][n], ob["v"][n])
+            if "master" in oa:
+                assert torch.equal(oa["master"][n], ob["master"][n])

@@ -380,19 +380,11 @@ def test_compress_on_an_encdec_model_raises():
 # ------------------------------------------------------------ data
 def assert_same_bf16_draws(got: torch.Tensor, want):
     """bf16 stub draws: the same uniform bits under both (threefry bit for
-    bit), but ``jax.random.normal`` takes XLA's polynomial erfinv and the
-    port ``torch.erfinv`` (``tests/test_torch_prng.py`` holds both to their
-    ulp budgets of the float64 value), so a rare f32 pair straddles a bf16
-    rounding boundary: such an element may differ by one bf16 ulp, and at
-    most 2^-12 of the elements may (measured 1 in 32,768)."""
-    g = got.float().numpy()
-    w = np.asarray(want.astype(jnp.float32))
-    assert g.shape == w.shape
-    diff = g != w
-    assert diff.mean() <= 2.0 ** -12, diff.mean()
-    if diff.any():
-        ulp = 2.0 ** (np.floor(np.log2(np.abs(w[diff]))) - 7)
-        assert (np.abs(g[diff] - w[diff]) <= ulp).all()
+    bit) and the same f32 normals (the port follows XLA's ``erf_inv``,
+    ``repro_torch.xla_math``), so the bf16 values are equal."""
+    w = torch.from_numpy(np.asarray(want.astype(jnp.float32))).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == tuple(w.shape)
+    assert torch.equal(got, w)
 
 
 @pytest.mark.parametrize("arch,name", [(VLM, "patch_embeds"), (ENCDEC, "frames")])
