@@ -50,6 +50,28 @@ Phases, each printing one JSON line:
   serve        the main path, continued: ClusterIndex.build on that fit,
                ClusterService with buckets (32, 128, 512, 2048), requests of
                1, 100, 2048 and 5000 points, held against the plain path;
+  tune         the autotuner (repro_torch.tune) on the main path: the
+               CLI's populate into a temporary cache at the main path's
+               buckets (knn, knn_block and assign at the fit's 581,012 x 6,
+               k 2; assign at the serve shape; segment_sum at the level-0
+               reduce and the Lloyd statistics; pairwise_sq_l2 at the
+               k-means 2,390 x 7), every candidate's median ms; every
+               candidate route held against its plain version (K1/K2
+               within DIST_TOL, indices only at near-ties, at a cut
+               4,096 x 65,536 and the level-4 7,172 rows; the assign
+               cell's candidates at the serve shape, labels only at
+               near-ties; K3 bit for bit against the CPU fold; K4 within
+               DIST_TOL) with the rows where each differs from the default
+               route; the covertype fit under tune="cached" against the
+               fit phase's untuned one (label agreement >= 0.999, bitwise
+               when every winner is the default route) and again
+               (bitwise), with the plan's frozen fields, the launches per
+               route and the cache's hits and misses; the fit served
+               under "cached"; stale entries planted (a "pallas" winner,
+               a plain version under the card's kind, tc3xtf32 at d 64, a
+               3000-row block), warned about, pruned, and the fit on the
+               constants; one onthefly plan_fit on a miss, which measures
+               while its execution does not;
   headline     the paper's GMM at n = 1,000,000, t = 2, m = 3, k = 3:
                accuracy must be >= 0.90 (its launches are counted too; the
                kernels phase times K1 at its three level sizes);
@@ -189,7 +211,10 @@ Phases, each printing one JSON line:
                alone on each path's prototypes under 12 keys.
 
 The kernel launch counts are set to 0 just before the fit and read after
-the fit and after the serve phase, set to 0 again just before the
+the fit and after the serve phase, set to 0 again just before the tune
+phase's tuned fit and read after its serve (K1-K4 must launch, K1 and
+K2 on the plan's frozen route; K2 only where a level fits the plan's
+row block), set to 0 again just before the
 headline fit and read after it, just before the hac fit and read after
 it, just before the three dbscan fits and read after them, just before
 the online phase's stream and read after its refresh, just before the
@@ -222,23 +247,27 @@ It imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import ast
 import asyncio
 import contextlib
 import hashlib
+import io
 import json
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "headline",
+DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "tune", "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
                   "train_moe", "train_ssm", "train_hybrid", "train_vlm",
                   "train_encdec", "lm", "lm_moe", "lm_hybrid", "lm_vlm",
@@ -397,6 +426,15 @@ TRAIN_FAMILIES = {
     "train_vlm": dict(arch="phi-3-vision-4.2b", layers=0, batch=8),
     "train_encdec": dict(arch="seamless-m4t-large-v2", layers=0, batch=8),
 }
+#: the tune phase: timed runs per candidate of populate (the median is
+#: kept), the cut shape the K1 routes are held against the plain version
+#: at (queries x keys of the covertype analog), and the rows of the
+#: onthefly plan's fit
+TUNE = dict(repeats=3, check_q=4096, check_keys=65_536, onthefly_n=32_768)
+#: tuned vs untuned covertype fit: label agreement (bitwise when every
+#: winner is its kernel's default route)
+MIN_TUNED_AGREEMENT = 0.999
+
 #: the select phase: a synth_tokens corpus of n examples of seq + 1 tokens
 #: (vocab 256,000), the reference's default SelectionConfig (t* 2, m 2,
 #: dim 64), a deeper selection at m_deep (its 8,192-row level runs K2), then
@@ -1892,6 +1930,410 @@ def _owner(idx, q, impl):
 
     d, i = nearest_valid_prototype(q, idx.protos, idx.proto_valid, impl=impl)
     return d, i.long()
+
+
+#: a line of ``populate --verbose``: "#   <cell> <params> -> <ms> ms"
+_CANDIDATE_LINE = re.compile(r"^#   (\S+) (\{.*\}) -> ([0-9.]+) ms$")
+
+
+def _populate(path: str, p: int) -> tuple:
+    """Run ``python -m repro_torch.tune populate`` (its ``main``, in this
+    process) into ``path`` at the main path's buckets (``p``: the served
+    index's prototype rows). Returns the requested (cell, dims), the
+    candidates' median ms per cell, and the skipped candidates' lines."""
+    from repro_torch.tune.__main__ import main as tune_cli
+
+    n, d = SIZES["covertype"], 6
+    runs = (
+        ("knn,knn_block", f"{n}x{d}x2"),
+        ("assign", f"nq{n}:p{n}:d{d}:k2,nq5000:p{p}:d{d}:k1"),
+        ("segment_sum", f"n{n}:d{d}:s{SIZES['segments']},"
+                        f"n{SIZES['protos']}:d{d}:s{SIZES['centres']}"),
+        ("pairwise_sq_l2", f"n{SIZES['protos']}:m{SIZES['centres']}:d{d}"),
+    )
+    out = io.StringIO()
+    for kernels, shapes in runs:
+        with contextlib.redirect_stdout(out):
+            rc = tune_cli(["--cache", path, "populate", "--kernels", kernels,
+                           "--shapes", shapes, "--repeats", str(TUNE["repeats"]),
+                           "--verbose"])
+        check(rc == 0, f"populate --kernels {kernels} exited {rc}")
+    requested = [("knn", dict(n=n, d=d, k=2)), ("knn_block", dict(n=n, d=d, k=2)),
+                 ("assign", dict(nq=n, p=n, d=d, k=2)),
+                 ("assign", dict(nq=5000, p=p, d=d, k=1)),
+                 ("segment_sum", dict(n=n, d=d, s=SIZES["segments"])),
+                 ("segment_sum", dict(n=SIZES["protos"], d=d, s=SIZES["centres"])),
+                 ("pairwise_sq_l2", dict(n=SIZES["protos"], m=SIZES["centres"], d=d))]
+    timings, skipped, cells, current = {}, [], [], []
+    for line in out.getvalue().splitlines():
+        m = _CANDIDATE_LINE.match(line)
+        if m:
+            current.append((ast.literal_eval(m.group(2)), float(m.group(3))))
+        elif line.startswith("# tuned "):  # closes a cell
+            cells.append((line.split()[2], current))
+            current = []
+        elif line.startswith("# skipped"):
+            skipped.append(line[2:])
+    check(len(cells) == len(requested),
+          f"populate measured {len(cells)} cells, {len(requested)} requested")
+    for (kernel, dims), (name, cands) in zip(requested, cells):
+        check(name == kernel, f"populate's cell order: {name} where {kernel}")
+        timings[(kernel, tuple(sorted(dims.items())))] = cands
+    return requested, timings, skipped
+
+
+def _default_params(kernel: str, dims: dict) -> dict:
+    """What the hand-picked rules dispatch at ``dims`` on the card, in a
+    cell's terms (the routes of the call's own shape)."""
+    from repro_torch.core.knn import AUTO_KNN_BLOCK
+    from repro_torch.kernels import fused_assign, pairwise_l2
+    from repro_torch.kernels import segment_sum as seg
+
+    if kernel == "knn":
+        return {"impl": "cuda", "route": fused_assign.route(torch.float32, torch.float32,
+                                                            dims["d"], dims["k"])}
+    if kernel == "assign":
+        return {"impl": "fused", "route": fused_assign.route(torch.float32, torch.float32,
+                                                             dims["d"], dims["k"])}
+    if kernel == "knn_block":
+        return {"knn_block": AUTO_KNN_BLOCK}
+    if kernel == "pairwise_sq_l2":
+        return {"impl": "cuda", "route": pairwise_l2.route(dims["m"], dims["d"])}
+    return {"impl": "cuda", "route": seg.plan(dims["n"], dims["s"], 8)[0]}
+
+
+def _label_not_ties(idx, q, got, want) -> int:
+    """Of queries labelled ``got`` where the plain path says ``want``, how
+    many are not near-ties: the nearest valid prototype carrying each
+    label, in float64, farther apart than DIST_TOL."""
+    if q.shape[0] == 0:
+        return 0
+    dd = ((q.double()[:, None, :] - idx.protos.double()[None]) ** 2).sum(-1)
+    lab = torch.where(idx.proto_valid, idx.proto_labels, -2)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=q.device)
+    dg = torch.where(lab[None, :] == got[:, None], dd, inf).amin(1)
+    dw = torch.where(lab[None, :] == want[:, None], dd, inf).amin(1)
+    return int((~torch.isclose(dg, dw, **DIST_TOL)).sum())
+
+
+def _tune_candidate_checks(state: dict) -> dict:
+    """Every candidate route of the populated cells against its cell's
+    plain version at the main path's shapes (K1 at a cut 4,096 queries x
+    65,536 keys of the analog, d 6, k 2 and at the serve shape; K2 at the
+    level-4 7,172 rows; K3 at the level-0 reduce and the Lloyd statistics,
+    bit for bit against the CPU fold; K4 at 2,390 x 7), and the rows where
+    each differs from the default route."""
+    from repro_torch.core.index import ClusterIndex
+    from repro_torch.kernels import fused_assign as fa
+    from repro_torch.kernels import knn_topk, pairwise_l2, ref
+    from repro_torch.kernels import segment_sum as seg
+
+    x, res = state["x"], state["fit"]
+    out = {}
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    # K1: the TC's blocked kNN inner loop, cut; self-exclusion by index
+    rows = torch.randperm(TUNE["check_keys"], generator=gen)[:TUNE["check_q"]].to(DEV)
+    q, keys = x[rows], x[:TUNE["check_keys"]]
+    gidx = rows.to(torch.int32)
+    rd, ri = fa.fused_topk_plain(q, keys, 2, q_gidx=gidx, block_q=TUNE["check_q"],
+                                 block_k=TUNE["check_keys"])
+    base = fa.fused_topk(q, keys, 2, q_gidx=gidx)
+    for r in fa.ROUTES:
+        gd, gi = fa.fused_topk(q, keys, 2, q_gidx=gidx, route=r)
+        mism, bad = topk_mismatches(q, keys, gd, gi, rd, ri)
+        err = float((gd - rd).abs().max())
+        check(torch.allclose(gd, rd, **DIST_TOL), f"K1/{r} distances off: {err}")
+        check(bad == 0, f"K1/{r}: {bad} index mismatches that are not near-ties")
+        diff = int(((gd != base[0]) | (gi != base[1])).any(1).sum())
+        out[f"K1/{r}"] = dict(max_abs_err=err, index_mismatches=mism, rows_differ=diff)
+    # K2: the level-4 one-shot kNN
+    x4 = x[:SIZES["knn_n"]]
+    rd, ri = ref.knn(x4, 2)
+    base = knn_topk.knn_topk(x4, 2)
+    for r in fa.ROUTES:
+        gd, gi = knn_topk.knn_topk(x4, 2, route=r)
+        mism, bad = topk_mismatches(x4, x4, gd, gi, rd, ri)
+        err = float((gd - rd).abs().max())
+        check(torch.allclose(gd, rd, **DIST_TOL), f"K2/{r} distances off: {err}")
+        check(bad == 0, f"K2/{r}: {bad} index mismatches that are not near-ties")
+        diff = int(((gd != base[0]) | (gi != base[1])).any(1).sum())
+        out[f"K2/{r}"] = dict(max_abs_err=err, index_mismatches=mism, rows_differ=diff)
+    # the assign cell's candidates at the serve shape: labels against the
+    # plain path, a mismatch only where the nearest prototype of either
+    # label is (almost) equally near in float64
+    idx = ClusterIndex.build(res)
+    gq = np.random.default_rng(2)
+    qs = x[dev(gq.integers(0, x.shape[0], size=5000))] + dev(
+        gq.normal(scale=0.05, size=(5000, 6)).astype(np.float32))
+    want = idx.assign(qs, impl="ref")
+    base = idx.assign(qs, impl="fused")
+    cands = [("fused", r) for r in fa.ROUTES] + [("fused_bf16", None),
+                                                 ("fused_int8", None), ("cuda", None)]
+    for impl, r in cands:
+        got = idx.assign(qs, impl=impl, route=r)
+        diff = (got != want).nonzero()[:, 0]
+        not_ties = _label_not_ties(idx, qs[diff], got[diff], want[diff])
+        check(not_ties == 0, f"assign {impl}/{r}: {not_ties} label mismatches "
+                             f"that are not near-ties")
+        out[f"assign/{impl}" + (f"/{r}" if r else "")] = dict(
+            mismatches=int(diff.numel()), rows_differ=int((got != base).sum()))
+    # K3: both paths where they run, bit for bit against the CPU fold
+    lv0 = res.assignments[0].long()
+    ones = torch.ones(x.shape[0], device=DEV)
+    lloyd_x, lloyd_w = res.protos, res.proto_mass
+    lloyd_ids = torch.where(res.proto_valid, res.proto_labels.long(), -1)
+    for name, (xx, ids, S, w) in {
+            "level0": (x, lv0, SIZES["segments"], ones),
+            "lloyd": (lloyd_x, lloyd_ids, SIZES["centres"], lloyd_w)}.items():
+        cs, cm = ref.blocked_segment_sum(xx.cpu(), ids.cpu(), S, weights=w.cpu(),
+                                         n_blocks=8)
+        for r in seg.ROUTES:
+            if not seg.route_ok(r, S):
+                continue
+            gs, gm = seg.blocked_segment_sum(xx, ids, S, w, n_blocks=8, route=r)
+            check(torch.equal(gs.cpu(), cs) and torch.equal(gm.cpu(), cm),
+                  f"K3/{r} ({name}) differs from the CPU plain version's bits")
+            out[f"K3/{r}/{name}"] = dict(bit_equal_to_cpu_plain=True)
+    # a route asked for where it cannot run raises (never rerouted), and
+    # the wrappers' legality rule is the library's
+    from repro_torch.kernels import _cuda
+
+    lib = _cuda.library("topk")
+    rule = [(r, dd, kk) for r in fa.ROUTES for dd in (1, 6, 8, 31, 32, 33, 64, 300)
+            for kk in (1, 2, 8, 9, 32, 33)]
+    check(all(fa.route_ok(r, dd, kk) == bool(lib.repro_topk_route_ok(
+        fa.ROUTES.index(r), dd, kk)) for r, dd, kk in rule),
+        "K1's route rule differs from the library's")
+    refused = 0
+    for call in (lambda: fa.fused_topk(x[:64, :6].repeat(1, 11), x[:64, :6].repeat(1, 11),
+                                       2, route="tc3xtf32"),
+                 lambda: knn_topk.knn_topk(x[:64], 9, route="cuda_core_split"),
+                 lambda: pairwise_l2.pairwise_sq_l2(x[:64], x[:17], route="small_m"),
+                 lambda: seg.blocked_segment_sum(x[:64], torch.arange(64, device=DEV), 65,
+                                                 route="few")):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    check(refused == 4, f"{4 - refused} illegal routes ran")
+    out["illegal_routes_refused"] = refused
+    # K4: the k-means distances
+    cx = res.protos
+    cy = res.backend_result.centers
+    rdist = ref.pairwise_sq_l2(cx, cy)
+    base = pairwise_l2.pairwise_sq_l2(cx, cy)
+    for r in pairwise_l2.ROUTES:
+        got = pairwise_l2.pairwise_sq_l2(cx, cy, route=r)
+        err = float((got - rdist).abs().max())
+        check(torch.allclose(got, rdist, **DIST_TOL), f"K4/{r} distances off: {err}")
+        out[f"K4/{r}"] = dict(max_abs_err=err,
+                              rows_differ=int((got != base).any(1).sum()))
+    return out
+
+
+def _counted_lookups():
+    """Wrap TuningCache.lookup to count hits and misses (this phase only)."""
+    from repro_torch.tune.cache import TuningCache
+
+    counts = {"hits": 0, "misses": 0}
+    orig = TuningCache.lookup
+
+    def lookup(self, *args, **kwargs):
+        got = orig(self, *args, **kwargs)
+        counts["hits" if got is not None else "misses"] += 1
+        return got
+
+    @contextlib.contextmanager
+    def scope():
+        TuningCache.lookup = lookup
+        try:
+            yield counts
+        finally:
+            TuningCache.lookup = orig
+
+    return scope()
+
+
+_FROZEN = ("impl", "knn_block", "block_q", "block_k", "knn_route")
+
+
+def phase_tune(state: dict) -> None:
+    import repro_torch
+    from repro_torch import kernels, prng, runtime, tune
+    from repro_torch.cluster.metrics import clustering_accuracy
+    from repro_torch.core.index import ClusterIndex
+    from repro_torch.core.plan import execute_plan, plan_fit
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ClusterService
+    from repro_torch.tune import autotune
+
+    t0 = time.perf_counter()
+    if "fit" not in state:  # the untuned fit the tuned one is held against
+        phase_fit(state)
+    x, off = state["x"], state["fit"]
+    n, d = x.shape
+    kind = autotune.current_device_kind()
+    prev_cache = tune.get_cache()
+    key = prng.PRNGKey(0)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_tune_") as tmp:
+        path = str(Path(tmp) / "tune_cache.json")
+        t1 = time.perf_counter()
+        requested, timings, skipped = _populate(path, int(off.protos.shape[0]))
+        populate_s = time.perf_counter() - t1
+        cache = tune.set_cache(path)
+        check(len(cache) == len(requested),
+              f"{len(cache)} cache entries for {len(requested)} requested cells")
+        cells, all_default = [], True
+        for kernel, dims in requested:
+            bucket = tune.shape_bucket(**dims)
+            params = cache.lookup(kind, kernel, bucket)
+            check(params is not None, f"no {kind}|{kernel}|{bucket} entry")
+            why = tune._stale_reason(params, kernel, kind, dims)
+            check(why is None, f"{kernel}|{bucket}: the stale gate refuses "
+                               f"the populated winner: {why}")
+            default = _default_params(kernel, dims)
+            is_default = all(params.get(a) == v for a, v in default.items())
+            all_default &= is_default
+            rec = dict(cache.entries())[(kind, kernel, bucket, "float32")]
+            cells.append(dict(cell=kernel, dims=dims, bucket=bucket, winner=params,
+                              default=default, winner_is_default=is_default,
+                              seconds=rec["seconds"],
+                              candidates_ms={json.dumps(p, sort_keys=True): ms
+                                             for p, ms in timings[(kernel, tuple(
+                                                 sorted(dims.items())))]}))
+        t1 = time.perf_counter()
+        checks = _tune_candidate_checks(state)
+        checks_s = time.perf_counter() - t1
+
+        # the covertype fit under "cached", against the untuned fit
+        kernels.reset_launch_counts()
+        with runtime.configure(tune="cached"), _counted_lookups() as lookups:
+            sync()
+            t1 = time.perf_counter()
+            plan = plan_fit(x, 3, 5, "kmeans", k=7, key=key, device=DEV)
+            tuned = execute_plan(plan, x)
+            sync()
+            tuned_s = time.perf_counter() - t1
+            fit_lookups = dict(lookups)
+            again = repro_torch.fit(x, 3, 5, "kmeans", k=7, key=key, device=DEV)
+            before_serve = dict(lookups)
+            # served under "cached": the service's buckets and the whole
+            # 5000-point request (the populated serve shape)
+            idx = ClusterIndex.build(tuned).check_servable(expect_dim=d)
+            svc = ClusterService(idx, buckets=(32, 128, 512, 2048))
+            svc.warmup()
+            gen = np.random.default_rng(2)
+            agree = total = 0
+            for size in (1, 100, 2048, 5000):
+                q = x[dev(gen.integers(0, n, size=size))] + dev(
+                    gen.normal(scale=0.05, size=(size, d)).astype(np.float32))
+                for got in (svc.assign(q), idx.assign(q)):
+                    with runtime.configure(tune="off"):
+                        want = idx.assign(q, impl="ref")
+                    agree += int((got == want).sum())
+                    total += size
+            sync()
+            serve_lookups = {k: lookups[k] - before_serve[k] for k in lookups}
+        counts, routes = kernels.launch_counts(), kernels.route_counts()
+        state["tune_counts"], state["tune_routes"] = counts, routes
+        # the TC's kNN: blocked (K1) above the plan's row block, one-shot
+        # (K2) at or below it, on the frozen route when there is one
+        block = plan.knn_block or 8192
+        tc_sizes = off.info["level_sizes"][:-1]
+        want_k = {"K1": True,  # the serve's assign launches it in any case
+                  "K2": any(s <= block for s in tc_sizes), "K3": True, "K4": True}
+        for kid, want in want_k.items():
+            check((counts[kid] > 0) == want,
+                  f"{kid}: {counts[kid]} launches in the tuned fit and serve, "
+                  f"expected {'some' if want else 'none'} (row block {block})")
+        on_route = {"K1": any(s > block for s in tc_sizes), "K2": want_k["K2"]}
+        if plan.knn_route is not None:
+            for kid in ("K1", "K2"):
+                check(not on_route[kid] or routes.get(f"{kid}/{plan.knn_route}", 0) > 0,
+                      f"{kid} did not launch on the frozen route "
+                      f"{plan.knn_route}: {routes}")
+        winners = {c["cell"]: c["winner"] for c in cells[:3]}
+        raw = float((tuned.labels == off.labels).float().mean())
+        renamed = clustering_accuracy(off.labels, tuned.labels, 7)
+        bitwise = bool(torch.equal(tuned.labels, off.labels))
+        check(max(raw, renamed) >= MIN_TUNED_AGREEMENT,
+              f"tuned vs untuned label agreement {max(raw, renamed)} < "
+              f"{MIN_TUNED_AGREEMENT}")
+        if all_default:
+            check(bitwise, "every winner is the default route, yet the tuned "
+                           "fit's labels differ from the untuned fit's")
+        check(torch.equal(again.labels, tuned.labels)
+              and torch.equal(again.protos, tuned.protos),
+              "two tuned fits differ")
+        serve_rate = agree / total
+        check(serve_rate >= 0.999, f"tuned serve agreement {serve_rate} < 0.999")
+
+        # stale entries at the fit's keys (and tc3xtf32 at d 64): warned
+        # about, pruned, and the fit runs on the constants
+        stale = tune.set_cache(str(Path(tmp) / "stale.json"))
+        planted = [("knn", dict(n=n, d=d, k=2), {"impl": "pallas", "block_q": 256}),
+                   ("assign", dict(nq=n, p=n, d=d, k=2), {"impl": "ref"}),
+                   ("knn_block", dict(n=n, d=d, k=2), {"knn_block": 3000}),
+                   ("knn", dict(n=2048, d=64, k=2), {"impl": "cuda", "route": "tc3xtf32"})]
+        for kernel, dims, params in planted:
+            stale.record(kind, kernel, tune.shape_bucket(**dims), params)
+        x64 = torch.randn(2048, 64, generator=torch.Generator().manual_seed(3)).to(DEV)
+        with runtime.configure(tune="cached"), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            splan = plan_fit(x, 3, 5, "kmeans", k=7, key=key, device=DEV)
+            sfit = execute_plan(splan, x)
+            ops.knn(x64, 2)
+        stale_warnings = [str(w.message) for w in caught
+                          if "stale tuning-cache" in str(w.message)]
+        check(len(stale_warnings) == len(planted),
+              f"{len(stale_warnings)} stale warnings for {len(planted)} planted")
+        check(len(stale) == 0 and len(tune.TuningCache(stale.path)) == 0,
+              "stale entries were not pruned")
+        base_plan = plan_fit(x, 3, 5, "kmeans", k=7, key=key, device=DEV)
+        check(all(getattr(splan, f) == getattr(base_plan, f) for f in _FROZEN),
+              "a stale entry reached the plan")
+        check(torch.equal(sfit.labels, off.labels),
+              "the fit after the stale entries differs from the untuned fit")
+
+        # onthefly: plan_fit on a miss measures and persists, the execution
+        # (clamped to "cached") measures nothing
+        fly = tune.set_cache(str(Path(tmp) / "onthefly.json"))
+        xs = x[:TUNE["onthefly_n"]]
+        with runtime.configure(tune="onthefly"):
+            t1 = time.perf_counter()
+            fplan = plan_fit(xs, 3, 3, "kmeans", k=7, key=key, device=DEV)
+            fly_plan_s = time.perf_counter() - t1
+            after_plan = len(fly)
+            fres = execute_plan(fplan, xs)
+            sync()
+        check(after_plan == 3, f"onthefly plan_fit persisted {after_plan} "
+                               f"entries (knn, knn_block, assign expected)")
+        check(len(fly) == after_plan and len(tune.TuningCache(fly.path)) == after_plan,
+              "execution measured under onthefly")
+        check(bool(((fres.labels >= 0) & (fres.labels < 7)).all()),
+              "onthefly fit labels outside [0, 7)")
+        tune.set_cache(prev_cache)
+    emit("tune", device_kind=kind, repeats=TUNE["repeats"],
+         populate_seconds=round(populate_s, 3), cells=cells, skipped=skipped,
+         every_winner_default=all_default, candidate_checks=checks,
+         candidate_checks_seconds=round(checks_s, 3),
+         fit=dict(seconds=round(tuned_s, 3),
+                  frozen={f: getattr(plan, f) for f in _FROZEN},
+                  untuned_frozen={f: getattr(base_plan, f) for f in _FROZEN},
+                  agreement_with_untuned=raw, agreement_renamed=renamed,
+                  bitwise_with_untuned=bitwise, bitwise_repeat=True,
+                  lookups=fit_lookups, winners=winners),
+         serve=dict(agreement_with_plain=serve_rate, lookups=serve_lookups),
+         launches={kid: counts[kid] for kid in ("K1", "K1-bf16", "K1-int8", "K2",
+                                                "K3", "K4")},
+         launches_by_route=routes,
+         stale=dict(warned=len(stale_warnings), pruned=len(planted),
+                    fit_on_constants=True),
+         onthefly=dict(n=TUNE["onthefly_n"], entries_after_plan=after_plan,
+                       entries_after_execute=len(fly),
+                       plan_seconds=round(fly_plan_s, 3),
+                       frozen={f: getattr(fplan, f) for f in _FROZEN}),
+         seconds=round(time.perf_counter() - t0, 3))
 
 
 def phase_headline(state: dict) -> None:
@@ -4069,6 +4511,8 @@ def main() -> int:
         phase_fit(state)
         if "serve" in phases:
             phase_serve(state)
+    if "tune" in phases:
+        phase_tune(state)
     if "headline" in phases:
         phase_headline(state)
     if "determinism" in phases:
@@ -4106,6 +4550,7 @@ def main() -> int:
             phase_lm_frontend(state, family)
     if results:
         paths = {"fit_serve": state.get("main_counts", state.get("fit_counts", {})),
+                 "tune": state.get("tune_counts", {}),
                  "headline": state.get("headline_counts", {}),
                  "hac": state.get("hac_counts", {}),
                  "dbscan": state.get("dbscan_counts", {}),
@@ -4119,6 +4564,7 @@ def main() -> int:
                  "lm_vlm": state.get("lm_vlm_counts", {}),
                  "lm_encdec": state.get("lm_encdec_counts", {})}
         routes = {"fit_serve": state.get("main_routes", {}),
+                  "tune": state.get("tune_routes", {}),
                   "headline": state.get("headline_routes", {}),
                   "hac": state.get("hac_routes", {}),
                   "dbscan": state.get("dbscan_routes", {}),

@@ -20,7 +20,8 @@ def _execute_memory(plan: FitPlan, x: torch.Tensor) -> Reduction:
     key_itis, _ = plan.split_keys()
     r = itis(x, plan.t, plan.m, weights=plan.weights, key=key_itis,
              weighted=plan.weighted, impl=plan.impl, knn_block=plan.knn_block,
-             min_points=plan.min_points, n_blocks=plan.n_blocks)
+             min_points=plan.min_points, n_blocks=plan.n_blocks,
+             knn_route=plan.knn_route)
     info = {
         "level_sizes": plan.schedule(x.shape[0])[: len(r.assignments) + 1],
         "n_valid": list(r.n_valid),

@@ -197,6 +197,7 @@ class ClusterIndex(NamedTuple):
         block: int = 0,
         block_k: Optional[int] = None,
         rescore_k: int = RESCORE_K,
+        route: Optional[str] = None,
     ) -> torch.Tensor:
         """Label ``queries`` (nq, d) by their nearest valid prototype:
         (nq,) int32 backend labels on the index's device (-1 only if the
@@ -204,12 +205,18 @@ class ClusterIndex(NamedTuple):
         streams the prototypes in blocks on the composed paths; the fused
         path always streams. The quantized impls (``fused_bf16`` /
         ``fused_int8``) shortlist ``rescore_k`` candidates over the packed
-        buffer and rescore them in exact f32. Queries on the host are
-        moved to the index's device."""
+        buffer and rescore them in exact f32. The dispatch goes through
+        the ``"assign"`` tuning cell (``ops.resolve_nearest``): with tuning
+        on, its winner picks the impl under "auto", and its ``block_k``
+        and K1 ``route`` apply where none is passed. Queries on the host
+        are moved to the index's device."""
         cfg = active()
         q = as_device_tensor(queries, self.device)
         n_max = self.protos.shape[0]
-        r = ops.resolve(impl, q.device, fused=True)
+        r, tp = ops.resolve_nearest(impl, dtype=q.dtype, nq=q.shape[0], p=n_max,
+                                    d=self.dim, k=1, device=q.device)
+        block_k = block_k if block_k is not None else tp.get("block_k")
+        route = route if route is not None else tp.get("route")
         if r in ("fused_bf16", "fused_int8"):
             kw = {}
             if r == "fused_int8":
@@ -226,7 +233,7 @@ class ClusterIndex(NamedTuple):
                 qq = q.to(torch.bfloat16)
             shortlist = max(1, min(rescore_k, n_max))
             _, cand = fused_topk(qq, keys, shortlist, self.proto_valid,
-                                 block_k=block_k, **kw)
+                                 block_k=block_k, route=route, **kw)
             _, pid = rescore_top1(q, self.protos, self.proto_valid, cand)
         else:
             protos = self.protos
@@ -239,7 +246,7 @@ class ClusterIndex(NamedTuple):
                           else protos.to(torch.bfloat16))
             _, pid = nearest_valid_prototype(q, protos, self.proto_valid,
                                              impl=r, block=block,
-                                             block_k=block_k)
+                                             block_k=block_k, route=route)
         pid = pid.to(torch.int64)
         ok = pid >= 0
         return torch.where(ok, self.proto_labels[torch.where(ok, pid, 0)],
@@ -254,16 +261,21 @@ def nearest_valid_prototype(
     impl: Optional[str] = None,
     block: int = 0,
     block_k: Optional[int] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dist, proto_id) of each query's nearest valid prototype (-1 if
-    none). The fused policy streams (K1 on the card); the composed ones
-    fold prototype blocks into a running best list (``block`` > 0) or
-    take one dense (nq, n_max) tile."""
+    none). The fused policy streams (K1 on the card, on ``route``); the
+    composed ones fold prototype blocks into a running best list
+    (``block`` > 0) or take one dense (nq, n_max) tile. The dispatch goes
+    through the ``"assign"`` tuning cell, as :meth:`ClusterIndex.assign`'s."""
     nq, n_max = queries.shape[0], protos.shape[0]
-    r = ops.resolve(impl, queries.device, fused=True)
+    r, tp = ops.resolve_nearest(impl, dtype=queries.dtype, nq=nq, p=n_max,
+                                d=queries.shape[1], k=1, device=queries.device)
     if r in ops.FUSED_IMPLS:
-        bd, bi = ops.nearest_topk(queries, protos, 1, key_valid=valid,
-                                  impl="fused", block_k=block_k)
+        bd, bi = ops.nearest_topk(
+            queries, protos, 1, key_valid=valid, impl="fused",
+            block_k=block_k if block_k is not None else tp.get("block_k"),
+            route=route if route is not None else tp.get("route"))
         return bd[:, 0], bi[:, 0]
     if block and block < n_max:
         bd = torch.full((nq, 1), torch.inf, dtype=torch.float32,

@@ -86,13 +86,14 @@ def itis_step(
     knn_block: Optional[int] = None,
     n_out: Optional[int] = None,
     n_blocks: Optional[int] = None,
+    knn_route: Optional[str] = None,
 ) -> ITISLevelOut:
     """One ITIS level: TC on the valid points, reduce to ≤ n//t prototypes."""
     n = x.shape[0]
     if n_out is None:
         n_out = max(n // t, 1)
     tc = threshold_clustering(x, t, valid=valid, key=key, impl=impl,
-                              knn_block=knn_block)
+                              knn_block=knn_block, knn_route=knn_route)
     ps = reduce_to_prototypes(x, tc.labels, n_out, weights=mass,
                               weighted=weighted, impl=impl, n_blocks=n_blocks)
     return ITISLevelOut(ps.x, ps.mass, ps.valid, tc.labels, tc.n_clusters,
@@ -112,6 +113,7 @@ def itis(
     min_points: int = 4,
     pad_multiple: int = 1,
     n_blocks: Optional[int] = None,
+    knn_route: Optional[str] = None,
 ) -> ITISResult:
     """Run m ITIS levels on x's device (host driver). Stops early when
     fewer than ``max(min_points, 2*t)`` valid points remain."""
@@ -145,7 +147,7 @@ def itis(
         key, sub = prng.split(key)
         out = itis_step(cur_x, cur_m, cur_v, t, key=sub, weighted=weighted,
                         impl=impl, knn_block=knn_block, n_out=sizes[level + 1],
-                        n_blocks=n_blocks)
+                        n_blocks=n_blocks, knn_route=knn_route)
         assignments.append(out.assignment)
         rounds.append(out.mis_rounds)
         n_valid_seen.append(n_valid)

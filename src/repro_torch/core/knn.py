@@ -22,13 +22,25 @@ from repro_torch.kernels.ref import merge_topk
 from repro_torch.runtime import active
 
 #: what ``knn_block == 0`` ("auto") means: one-shot up to this row count,
-#: blocks of this size above
+#: blocks of this size above; with the tuning policy on, the measured
+#: winner of this device kind and shape bucket replaces it
 AUTO_KNN_BLOCK = 8192
 
 
-def resolve_auto_block(n: int, d: int = 0, k: int = 0) -> int:
-    """What ``knn_block == 0`` resolves to for an (n, d) problem (the
-    tuning cache of the reference is not ported: always the constant)."""
+def resolve_auto_block(n: int, d: int = 0, k: int = 0, dtype: str = "float32",
+                       device=None) -> int:
+    """What ``knn_block == 0`` ("auto") resolves to for an (n, d) problem
+    on ``device`` (default: the configured one): the ``"knn_block"``
+    cell's winner when the tuning policy is on and has one, else
+    :data:`AUTO_KNN_BLOCK`. ``dtype`` is the data's element type name, so
+    this lookup and ``plan_fit``'s key the cache identically."""
+    if active().tune != "off":
+        from repro_torch import tune  # no import cycle through core
+
+        tuned = tune.tuned_params("knn_block", dtype=dtype, device=device,
+                                  n=n, d=d, k=k)
+        if tuned.get("knn_block"):
+            return int(tuned["knn_block"])
     return AUTO_KNN_BLOCK
 
 
@@ -38,15 +50,18 @@ def knn_graph(
     *,
     valid: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact (dists, idx) of the k nearest valid neighbours of each row;
-    ``k`` may exceed the valid count (those slots are inf/-1) but not n."""
+    ``k`` may exceed the valid count (those slots are inf/-1) but not n.
+    ``route``: K2's route on the card (default: the tuned one, else its
+    shape rule)."""
     if k > x.shape[0]:
         raise ValueError(
             f"knn_graph: k={k} exceeds the number of rows n={x.shape[0]}; "
             f"slots beyond the valid count are padded with -1, but k itself "
             f"must be <= n")
-    return ops.knn(x, k, valid=valid, exclude_self=True, impl=impl)
+    return ops.knn(x, k, valid=valid, exclude_self=True, impl=impl, route=route)
 
 
 def knn_graph_blocked(
@@ -56,13 +71,17 @@ def knn_graph_blocked(
     valid: Optional[torch.Tensor] = None,
     block: Optional[int] = None,
     impl: Optional[str] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked exact kNN for n beyond one-shot range: query blocks of
-    ``block`` rows (default: the config's ``knn_block``, auto when 0)."""
+    ``block`` rows (default: the config's ``knn_block``, auto when 0).
+    ``route``: K1's route on the fused family (default: the tuned one,
+    else its shape rule)."""
     cfg = active()
     n = x.shape[0]
     if block is None:
-        block = cfg.knn_block or resolve_auto_block(n, x.shape[1], k)
+        block = cfg.knn_block or resolve_auto_block(
+            n, x.shape[1], k, ops.dtype_name(x.dtype), x.device)
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=x.device)
     r = ops.resolve(impl, x.device, fused=True)
@@ -79,7 +98,7 @@ def knn_graph_blocked(
             # query index
             bd, bi = ops.nearest_topk(q, xp, k, key_valid=vp,
                                       q_gidx=q_gidx.to(torch.int32),
-                                      impl="fused")
+                                      impl="fused", route=route)
         else:
             bd = torch.full((block, k), torch.inf, dtype=torch.float32,
                             device=x.device)

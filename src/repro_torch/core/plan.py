@@ -13,7 +13,10 @@ resident-array ("memory") and chunk-stream ("streaming") executors.
     a streamed fit backs its labels out chunk by chunk from a host
     :class:`LabelSpill`.
 
-Sharded and tuned fits are not ported yet.
+With the tuning policy on (``RuntimeConfig.tune``), ``plan_fit`` freezes
+the measured winners of the ``stream``, ``knn``, ``knn_block`` and
+``assign`` cells into the plan, as the reference does; explicit kwargs
+still win. Sharded fits are not ported yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch import prng
 from repro_torch.cluster.registry import BackendFn, resolve_backend
 from repro_torch.core.itis import level_sizes, validate_reduction_params
 from repro_torch.core.prototypes import compose_assignments
+from repro_torch.kernels.ops import dtype_name
 from repro_torch.runtime import active, configure, resolve_device
 
 ExecutorFn = Callable[["FitPlan", Any], "Reduction"]
@@ -267,6 +271,10 @@ class FitPlan:
     knn_block: int = 0
     block_q: int = 256
     block_k: int = 512
+    #: the TC kNN kernel's route on the card (the ``knn`` cell's frozen
+    #: winner, the counterpart of the reference's tuned tiles); None = the
+    #: shape rule
+    knn_route: Optional[str] = None
     n_blocks: int = 8
     chunk_n: int = 0
     reservoir_n: int = 0
@@ -317,6 +325,7 @@ def plan_fit(
     knn_block: Optional[int] = None,
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
+    knn_route: Optional[str] = None,
     n_blocks: Optional[int] = None,
     chunk_n: Optional[int] = None,
     reservoir_n: Optional[int] = None,
@@ -328,17 +337,26 @@ def plan_fit(
 ) -> FitPlan:
     """Resolve one :class:`FitPlan` from the call, the input and the active
     runtime config (explicit kwargs win). A chunk iterator streams, a
-    resident array stays in memory; inputs the chosen executor cannot
-    honour are refused loudly (``weights`` on a stream, ``prefetch_depth``
-    on the memory executor)."""
+    resident array stays in memory, unless ``executor=`` or the config's
+    executor names one; inputs the chosen executor cannot honour are
+    refused loudly (``weights`` on a stream, ``prefetch_depth`` on the
+    memory executor)."""
     cfg = active()
     dev = resolve_device(device)
     explicit_prefetch = prefetch_depth is not None
+    explicit_knn_block = knn_block is not None
+    auto_block_q, auto_block_k = block_q is None, block_k is None
+    impl = cfg.impl if impl is None else impl
+    knn_block = cfg.knn_block if knn_block is None else knn_block
+    block_q = cfg.block_q if block_q is None else block_q
+    block_k = cfg.block_k if block_k is None else block_k
     chunk_n = cfg.chunk_n if chunk_n is None else chunk_n
     reservoir_n = cfg.reservoir_n if reservoir_n is None else reservoir_n
     prefetch_depth = (cfg.prefetch_depth if prefetch_depth is None
                       else prefetch_depth)
     streaming_input = _is_chunk_stream(data)
+    if executor is None and cfg.executor != "auto":
+        executor = cfg.executor
     if executor is None:
         executor = "streaming" if streaming_input else "memory"
     resolve_executor(executor)  # unknown names fail here, loudly
@@ -366,6 +384,50 @@ def plan_fit(
             f"{executor!r} executor — only the streaming executor stages "
             f"chunks (a configured runtime prefetch_depth is ignored "
             f"elsewhere)")
+    # tuned dispatch: with the policy on, the auto knobs resolve through
+    # the measured winners of this device kind and shape bucket and are
+    # FROZEN into the plan, so dispatch stays fixed for the plan's life
+    # even if the cache changes mid-fit
+    if cfg.tune != "off":
+        from repro_torch import tune  # no import cycle through core
+
+        if streaming_input:
+            if chunk_n == 0 or (prefetch_depth == 0 and not explicit_prefetch):
+                ts = tune.tuned_params("stream", device=dev)
+                if chunk_n == 0:
+                    if ts.get("chunk_n"):
+                        chunk_n = int(ts["chunk_n"])
+                    if reservoir_n == 0 and ts.get("reservoir_n"):
+                        reservoir_n = int(ts["reservoir_n"])
+                # depth 0 is the serial default, not a measured choice
+                if (prefetch_depth == 0 and not explicit_prefetch
+                        and ts.get("prefetch_depth") is not None):
+                    prefetch_depth = int(ts["prefetch_depth"])
+        else:
+            n0, d0 = int(data.shape[0]), int(data.shape[1])
+            dt = dtype_name(data.dtype)
+            tk = tune.tuned_params("knn", dtype=dt, device=dev, n=n0, d=d0,
+                                   k=max(t - 1, 1))
+            if auto_block_q and tk.get("block_q"):
+                block_q = int(tk["block_q"])
+            if auto_block_k and tk.get("block_k"):
+                block_k = int(tk["block_k"])
+            if knn_route is None and tk.get("route"):
+                knn_route = str(tk["route"])
+            if knn_block == 0 and not explicit_knn_block:
+                tb = tune.tuned_params("knn_block", dtype=dt, device=dev,
+                                       n=n0, d=d0, k=max(t - 1, 1))
+                if tb.get("knn_block"):
+                    knn_block = int(tb["knn_block"])
+            # a fused winner of the "assign" cell freezes the fused
+            # streaming path (the TC's kNN runs it); a quantized one
+            # freezes as plain "fused": a fit has no low-precision buffers
+            if impl == "auto":
+                ta = tune.tuned_params("assign", dtype=dt, device=dev, nq=n0,
+                                       p=n0, d=d0, k=max(t - 1, 1))
+                if str(ta.get("impl", "")).startswith("fused"):
+                    impl = "fused"
+
     if streaming_input:
         validate_reduction_params(t, m, min_m=1, driver=driver)
         if chunk_n:
@@ -378,10 +440,8 @@ def plan_fit(
         t=int(t), m=int(m), backend=backend, executor=executor,
         key=prng.PRNGKey(0) if key is None else key, device=dev,
         weighted=weighted, use_mass_in_backend=use_mass_in_backend,
-        impl=cfg.impl if impl is None else impl,
-        knn_block=cfg.knn_block if knn_block is None else knn_block,
-        block_q=cfg.block_q if block_q is None else block_q,
-        block_k=cfg.block_k if block_k is None else block_k,
+        impl=impl, knn_block=knn_block, block_q=block_q, block_k=block_k,
+        knn_route=knn_route,
         n_blocks=cfg.n_blocks if n_blocks is None else n_blocks,
         chunk_n=int(chunk_n), reservoir_n=int(reservoir_n),
         prefetch_depth=int(prefetch_depth),
@@ -404,8 +464,12 @@ def _finalize_backend(plan: FitPlan, red: Reduction):
 
 
 def _plan_scope(plan: FitPlan):
-    """Pin the plan's resolved tile knobs for its execution."""
-    return configure(block_q=plan.block_q, block_k=plan.block_k)
+    """Pin the plan's resolved tile knobs for its execution, and clamp the
+    tune policy to a non-measuring one (``onthefly`` → ``cached``): the
+    planner may measure, the execution never does. Nesting it re-applies
+    the same overrides."""
+    exec_tune = "off" if active().tune == "off" else "cached"
+    return configure(block_q=plan.block_q, block_k=plan.block_k, tune=exec_tune)
 
 
 def finalize_reduction(plan: FitPlan, red: Reduction) -> FitResult:

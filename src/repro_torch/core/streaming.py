@@ -296,7 +296,7 @@ class _DevicePlacement:
         p = self.plan
         return itis_step(x, mass, valid, p.t, key=key, weighted=p.weighted,
                          impl=p.impl, knn_block=p.knn_block, n_out=n_out,
-                         n_blocks=p.n_blocks)
+                         n_blocks=p.n_blocks, knn_route=p.knn_route)
 
     def fold(self, res, px, pm, pv, offset: int) -> None:
         """Write one prototype slab at the frontier, in place."""

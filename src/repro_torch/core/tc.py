@@ -26,6 +26,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.knn import knn_graph, knn_graph_blocked, resolve_auto_block
+from repro_torch.kernels.ops import dtype_name
 from repro_torch.runtime import active
 
 _NEG = -1  # priorities are ranks in [0, n); -1 == "-inf"
@@ -106,11 +107,14 @@ def threshold_clustering(
     key: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
     knn_block: Optional[int] = None,
+    knn_route: Optional[str] = None,
 ) -> TCResult:
     """TC with minimum cluster size ``t`` on (n, d) points, on x's device.
 
     ``valid`` masks padded rows (they get label -1 and carry no edges);
-    ``knn_block`` > 0 forces blocks of that size on the kNN, 0 = auto.
+    ``knn_block`` > 0 forces blocks of that size on the kNN, 0 = auto;
+    ``knn_route`` pins the kNN kernel's route on the card (a plan's frozen
+    winner; default: the tuned one, else the shape rule).
     Deterministic given ``key`` (default: PRNGKey(0)).
     """
     cfg = active()
@@ -131,11 +135,13 @@ def threshold_clustering(
                         valid.sum().to(torch.int32), 0)
 
     k = t - 1
-    block = knn_block or resolve_auto_block(n, x.shape[1], k)
+    block = knn_block or resolve_auto_block(n, x.shape[1], k,
+                                            dtype_name(x.dtype), dev)
     if n > block:
-        _, idx = knn_graph_blocked(x, k, valid=valid, block=block, impl=impl)
+        _, idx = knn_graph_blocked(x, k, valid=valid, block=block, impl=impl,
+                                   route=knn_route)
     else:
-        _, idx = knn_graph(x, k, valid=valid, impl=impl)
+        _, idx = knn_graph(x, k, valid=valid, impl=impl, route=knn_route)
     idx = torch.where(valid[:, None], idx.to(torch.int64), -1)  # invalid rows: no out-edges
     idx_ok = idx >= 0
 

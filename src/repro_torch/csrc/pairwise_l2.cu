@@ -243,18 +243,24 @@ bool small_m_route(int m, int d) { return m <= kSmallM && d <= kSmallD; }
 
 extern "C" {
 
-// 0: small_m, 1: tiled (the Python wrapper's route() mirrors this rule).
+// The default instance of (m, d): 0 small_m, 1 tiled (the Python wrapper's
+// route() mirrors this rule). small_m runs only where m <= 16 and d <= 32;
+// tiled runs anywhere, with the same bits.
 int repro_pairwise_sq_l2_route(int m, int d) { return small_m_route(m, d) ? 0 : 1; }
 
-// x (n, d) f32, y (m, d) f32, y_valid (m,) u8 or null -> out (n, m) f32.
-// Returns a cudaError_t.
+// x (n, d) f32, y (m, d) f32, y_valid (m,) u8 or null, route 0 small_m /
+// 1 tiled / -1 the default -> out (n, m) f32. Returns a cudaError_t
+// (cudaErrorInvalidValue for small_m outside its range: never rerouted).
 int repro_pairwise_sq_l2_f32(const float* x, const float* y,
                              const unsigned char* y_valid, float* out, int n,
-                             int m, int d, void* stream) {
+                             int m, int d, int route, void* stream) {
   if (n < 0 || m < 0 || d < 1) return (int)cudaErrorInvalidValue;
+  if (route < 0) route = repro_pairwise_sq_l2_route(m, d);
+  if ((route != 0 && route != 1) || (route == 0 && !small_m_route(m, d)))
+    return (int)cudaErrorInvalidValue;
   if (n == 0 || m == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (small_m_route(m, d)) {
+  if (route == 0) {
     const unsigned blocks = (unsigned)((n + kSmallRows - 1) / kSmallRows);
     if (m <= 4)
       small_m_kernel<4><<<blocks, kSmallRows, 0, s>>>(x, y, y_valid, out, n, m, d);

@@ -1228,8 +1228,12 @@ __global__ void topk_split_merge_kernel(const float* __restrict__ part_d,
   }
 }
 
+// the split kernels stage features kSpF at a time and zero-fill the rest,
+// so they take any d >= 1; sp_route is where the default rule sends them
+bool sp_ok(int d, int k) { return d >= 1 && k >= 1 && k <= kTcMaxK; }
+
 long long sp_scratch_bytes(int nq, int p, int d, int k) {
-  if (!sp_route(d, k) || nq < 1) return 0;
+  if (!sp_ok(d, k) || nq < 1) return 0;
   return (long long)nq * sp_splits(nq, p) * sp_list_len(k) * 8;
 }
 
@@ -1285,14 +1289,14 @@ cudaError_t launch_k(const float* q, const KT* keys, const float* scale,
   return launch<KT, 32, D>(REPRO_TOPK_ARGS);
 }
 
-// the CUDA-core kernels: lists longer than kTcMaxK (k <= 8 takes the
-// tensor-core route at d <= 32 and the split route above)
+// the CUDA-core kernels: any k <= 32 (the default rule sends k <= 8 to the
+// tensor-core route at d <= 32 and to the split route above)
 template <typename KT>
 cudaError_t launch_d(const float* q, const KT* keys, const float* scale,
                      const float* zero, const unsigned char* valid,
                      const int* q_gidx, float* out_d, int* out_i, int nq, int p,
                      int d, int k, cudaStream_t stream) {
-  if (nq < 0 || p < 0 || d < 1 || k <= kTcMaxK || k > 32) return cudaErrorInvalidValue;
+  if (nq < 0 || p < 0 || d < 1 || k < 1 || k > 32) return cudaErrorInvalidValue;
   if (nq == 0) return cudaSuccess;
   if (d <= 4) return launch_k<KT, 4>(REPRO_TOPK_ARGS);
   if (d <= 8) return launch_k<KT, 8>(REPRO_TOPK_ARGS);
@@ -1301,11 +1305,32 @@ cudaError_t launch_d(const float* q, const KT* keys, const float* scale,
   return launch_k<KT, 0>(REPRO_TOPK_ARGS);
 }
 
-// Every route of one key type: the tensor-core route (d <= 32, k <= 8), the
-// split route (d > 32, k <= 8), the CUDA-core kernels (k > 8).
+// route codes: 0 the CUDA-core kernels, 1 the tensor-core route, 2 the
+// CUDA-core split route; -1 asks for the default rule (default_route)
+constexpr int kRouteCudaCore = 0, kRouteTc = 1, kRouteSplit = 2;
+
+int default_route(int d, int k) {
+  return tc_route(d, k) ? kRouteTc : sp_route(d, k) ? kRouteSplit : kRouteCudaCore;
+}
+
+// whether route r can run (d, k): the tensor-core route at d <= 32, k <= 8;
+// the split route at k <= 8, any d; the CUDA-core kernels at k <= 32
+bool route_ok(int r, int d, int k) {
+  if (r == kRouteTc) return tc_route(d, k);
+  if (r == kRouteSplit) return sp_ok(d, k);
+  if (r == kRouteCudaCore) return d >= 1 && k >= 1 && k <= 32;
+  return false;
+}
+
+// Every route of one key type: the default rule sends d <= 32, k <= 8 to
+// the tensor-core route, d > 32, k <= 8 to the split route and k > 8 to the
+// CUDA-core kernels; a route asked for by name runs wherever route_ok
+// allows it, and an illegal one is refused, never rerouted.
 template <typename KT>
-cudaError_t launch_route(REPRO_ROUTE_PARAMS) {
-  if (nq > 0 && tc_route(d, k)) {
+cudaError_t launch_route(REPRO_ROUTE_PARAMS, int route) {
+  if (route < 0) route = default_route(d, k);
+  if (!route_ok(route, d, k)) return cudaErrorInvalidValue;
+  if (nq > 0 && route == kRouteTc) {
     if (p < 0 || scratch == nullptr) return cudaErrorInvalidValue;
     switch (tc_width(d)) {
       case 8: return launch_tc_k<KT, 8>(REPRO_ROUTE_ARGS);
@@ -1314,7 +1339,7 @@ cudaError_t launch_route(REPRO_ROUTE_PARAMS) {
       default: return launch_tc_k<KT, 40>(REPRO_ROUTE_ARGS);
     }
   }
-  if (nq > 0 && sp_route(d, k)) {
+  if (nq > 0 && route == kRouteSplit) {
     if (p < 0 || scratch == nullptr) return cudaErrorInvalidValue;
     switch (sp_list_len(k)) {
       case 1: return launch_sp<KT, 1>(REPRO_ROUTE_ARGS);
@@ -1342,29 +1367,39 @@ extern "C" {
 
 int repro_topk_max_k() { return 32; }
 
-// the route of (d, k), the same for every key type: 1 the tensor-core
-// route (3xTF32 cross term), 2 the CUDA-core split route, 0 the CUDA-core
-// kernels
-int repro_topk_route(int d, int k) { return tc_route(d, k) ? 1 : sp_route(d, k) ? 2 : 0; }
+// the default route of (d, k), the same for every key type: 1 the
+// tensor-core route (3xTF32 cross term), 2 the CUDA-core split route, 0 the
+// CUDA-core kernels
+int repro_topk_route(int d, int k) { return default_route(d, k); }
+
+// 1 when route (a code above) can run (d, k), else 0
+int repro_topk_route_ok(int route, int d, int k) { return route_ok(route, d, k) ? 1 : 0; }
 
 // key axis splits of the CUDA-core split route for nq queries and p keys
 int repro_topk_split_count(int nq, int p) { return sp_splits(nq, p); }
 
-// bytes of scratch this build's entry point needs (the TC and split
-// routes' partial lists; 0 on the CUDA-core kernels)
-long long repro_topk_scratch_bytes(int nq, int p, int d, int k) {
-  return tc_route(d, k) ? tc_scratch_bytes(nq, p, d, k) : sp_scratch_bytes(nq, p, d, k);
+// bytes of scratch this build's entry point needs on route (-1: the
+// default): the TC and split routes' partial lists, 0 on the CUDA-core
+// kernels or an illegal route
+long long repro_topk_scratch_bytes(int nq, int p, int d, int k, int route) {
+  if (route < 0) route = default_route(d, k);
+  if (!route_ok(route, d, k)) return 0;
+  if (route == kRouteTc) return tc_scratch_bytes(nq, p, d, k);
+  if (route == kRouteSplit) return sp_scratch_bytes(nq, p, d, k);
+  return 0;
 }
 
 #if REPRO_TOPK_KEYS == 0
 // q (nq, d) f32, keys (p, d) f32, valid (p,) u8 or null, q_gidx (nq,) i32 or
-// null, scratch of repro_topk_scratch_bytes -> out_d (nq, k) f32, out_i
-// (nq, k) i32. Returns a cudaError_t.
+// null, route (-1: the default), scratch of repro_topk_scratch_bytes on
+// that route -> out_d (nq, k) f32, out_i (nq, k) i32. Returns a
+// cudaError_t (cudaErrorInvalidValue for a route illegal at (d, k)).
 int repro_topk_f32(const float* q, const float* keys, const unsigned char* valid,
                    const int* q_gidx, float* out_d, int* out_i, int nq, int p,
-                   int d, int k, void* scratch, void* stream) {
+                   int d, int k, int route, void* scratch, void* stream) {
   return (int)launch_route<float>(q, keys, nullptr, nullptr, valid, q_gidx, out_d, out_i,
-                                  nq, p, d, k, scratch, static_cast<cudaStream_t>(stream));
+                                  nq, p, d, k, scratch, static_cast<cudaStream_t>(stream),
+                                  route);
 }
 #endif
 
@@ -1372,11 +1407,11 @@ int repro_topk_f32(const float* q, const float* keys, const unsigned char* valid
 // q (nq, d) f32 (bf16 queries widened), keys (p, d) bf16. As above.
 int repro_topk_bf16(const float* q, const __nv_bfloat16* keys,
                     const unsigned char* valid, const int* q_gidx, float* out_d,
-                    int* out_i, int nq, int p, int d, int k, void* scratch,
+                    int* out_i, int nq, int p, int d, int k, int route, void* scratch,
                     void* stream) {
   return (int)launch_route<__nv_bfloat16>(q, keys, nullptr, nullptr, valid, q_gidx, out_d,
                                           out_i, nq, p, d, k, scratch,
-                                          static_cast<cudaStream_t>(stream));
+                                          static_cast<cudaStream_t>(stream), route);
 }
 #endif
 
@@ -1386,10 +1421,11 @@ int repro_topk_bf16(const float* q, const __nv_bfloat16* keys,
 int repro_topk_int8(const float* q, const int8_t* keys, const float* scale,
                     const float* zero, const unsigned char* valid,
                     const int* q_gidx, float* out_d, int* out_i, int nq, int p,
-                    int d, int k, void* scratch, void* stream) {
+                    int d, int k, int route, void* scratch, void* stream) {
   if (scale == nullptr || zero == nullptr) return (int)cudaErrorInvalidValue;
   return (int)launch_route<int8_t>(q, keys, scale, zero, valid, q_gidx, out_d, out_i, nq,
-                                   p, d, k, scratch, static_cast<cudaStream_t>(stream));
+                                   p, d, k, scratch, static_cast<cudaStream_t>(stream),
+                                   route);
 }
 #endif
 

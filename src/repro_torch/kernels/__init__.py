@@ -5,8 +5,9 @@ Each kernel wrapper counts its launches in a plain integer attribute,
 in ``.launches_bf16`` and ``.launches_int8``; K5 counts every launch and,
 apart, those of its split-kv decode route in ``.launches_decode``);
 :func:`launch_counts` reads them all, :func:`route_counts` the launches
-of K1, K4 and K5 per route (K5's tensor-core prefill route is
-"K5/tiled_mma" there, K4's instances "K4/small_m" and "K4/tiled"), and
+of K1–K5 per route (K5's tensor-core prefill route is "K5/tiled_mma"
+there, K4's instances "K4/small_m" and "K4/tiled", K3's paths "K3/few"
+and "K3/many", K2's routes "K2/tc3xtf32" ...), and
 :func:`reset_launch_counts` zeroes them all,
 so a run can show which kernels the main path went through.
 """
@@ -33,8 +34,9 @@ COUNTERS = {
 }
 
 #: wrappers that count their launches per route in ``.route_launches``
-_ROUTED = {"K1": _fused_assign.fused_topk, "K4": _pairwise_l2.pairwise_sq_l2,
-           "K5": _flash_attention.flash_attention}
+_ROUTED = {"K1": _fused_assign.fused_topk, "K2": _knn_topk.knn_topk,
+           "K3": _segment_sum.blocked_segment_sum,
+           "K4": _pairwise_l2.pairwise_sq_l2, "K5": _flash_attention.flash_attention}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -42,7 +44,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_counts() -> Dict[str, int]:
-    """Launches per route: "K1-int8/tc3xtf32", "K4/tiled", "K5/tiled_mma", ..."""
+    """Launches per route: "K1-int8/tc3xtf32", "K2/cuda_core_split",
+    "K3/many", "K4/tiled", "K5/tiled_mma", ..."""
     out = {}
     for kid, fn in _ROUTED.items():
         for key, n in fn.route_launches.items():

@@ -49,21 +49,23 @@ _F = ctypes.c_float
 
 #: C signatures (every function returns a cudaError_t as int)
 _SIGNATURES = {
-    "topk": ("repro_topk_f32", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "topk_bf16": ("repro_topk_bf16", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    "topk": ("repro_topk_f32", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
+    "topk_bf16": ("repro_topk_bf16",
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
     "topk_int8": ("repro_topk_int8",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
     "segment_sum": ("repro_segment_sum_f32",
                     [_P, _P, _P, _I, _P, _P, _L, _I, _I, _L, _I, _I, _P, _P]),
-    "pairwise_l2": ("repro_pairwise_sq_l2_f32", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "pairwise_l2": ("repro_pairwise_sq_l2_f32", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "flash_attention": ("repro_flash_attention",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P, _P]),
 }
 
 #: the libraries' other C functions: name -> (argument types, result type)
-_TOPK_HELPERS = {"repro_topk_scratch_bytes": ([_I, _I, _I, _I], _L),
+_TOPK_HELPERS = {"repro_topk_scratch_bytes": ([_I, _I, _I, _I, _I], _L),
                  "repro_topk_route": ([_I, _I], _I),
+                 "repro_topk_route_ok": ([_I, _I, _I], _I),
                  "repro_topk_split_count": ([_I, _I], _I)}
 _HELPERS = {
     "topk": _TOPK_HELPERS, "topk_bf16": _TOPK_HELPERS, "topk_int8": _TOPK_HELPERS,

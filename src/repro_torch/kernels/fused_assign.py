@@ -43,20 +43,57 @@ TC_MAX_D, TC_MAX_K = 32, 8
 SPLIT_Q, SPLIT_BLOCKS_WANTED = 64, 132 * 2
 
 
+#: the routes of ``csrc/topk.cu`` by their C codes (``repro_topk_route``)
+ROUTES = ("cuda_core", "tc3xtf32", "cuda_core_split")
+
+#: the longest list the kernels keep (``repro_topk_max_k``)
+MAX_K = 32
+
+
 def route(q_dtype: torch.dtype, keys_dtype: torch.dtype, d: int, k: int) -> str:
-    """Which kernel of ``csrc/topk.cu`` a launch takes, whatever the key
-    type (f32, bf16 or int8; the queries are read as f32): "tc3xtf32" (the
-    tensor-core cross term, keys split across blocks, an exact rescore;
-    d <= 32, k <= 8), "cuda_core_split" (the register-tiled f32 FMA
-    kernel, keys split across blocks; d > 32, k <= 8) or "cuda_core" (the
-    f32 FMA pair loop; k > 8). Each key type is widened or dequantized to
-    f32 as it is staged, so the route follows the shape alone."""
+    """Which kernel of ``csrc/topk.cu`` a launch takes by default, whatever
+    the key type (f32, bf16 or int8; the queries are read as f32):
+    "tc3xtf32" (the tensor-core cross term, keys split across blocks, an
+    exact rescore; d <= 32, k <= 8), "cuda_core_split" (the
+    register-tiled f32 FMA kernel, keys split across blocks; d > 32,
+    k <= 8) or "cuda_core" (the f32 FMA pair loop; k > 8). Each key type
+    is widened or dequantized to f32 as it is staged, so the route follows
+    the shape alone."""
     if 1 <= k <= TC_MAX_K:
         if 1 <= d <= TC_MAX_D:
             return "tc3xtf32"
         if d > TC_MAX_D:
             return "cuda_core_split"
     return "cuda_core"
+
+
+def route_ok(name: str, d: int, k: int) -> bool:
+    """Whether route ``name`` can run (d, k) when asked for by name
+    (``repro_topk_route_ok``): "tc3xtf32" at d <= 32, k <= 8;
+    "cuda_core_split" at k <= 8, any d (its kernels stage 32 features at a
+    time, zero-filled); "cuda_core" at k <= 32. Every bound is a power of
+    two, so a route legal at a shape bucket's edge is legal in the bucket."""
+    if d < 1 or k < 1:
+        return False
+    if name == "tc3xtf32":
+        return d <= TC_MAX_D and k <= TC_MAX_K
+    if name == "cuda_core_split":
+        return k <= TC_MAX_K
+    if name == "cuda_core":
+        return k <= MAX_K
+    return False
+
+
+def check_route(name: Optional[str], d: int, k: int) -> str:
+    """``name`` (None: the default rule) if it can run (d, k); raise
+    ``ValueError`` otherwise — a route asked for is never rerouted."""
+    if name is None:
+        return route(torch.float32, torch.float32, d, k)
+    if name not in ROUTES:
+        raise ValueError(f"topk: unknown route {name!r}; routes {ROUTES}")
+    if not route_ok(name, d, k):
+        raise ValueError(f"topk: route {name!r} cannot run d={d}, k={k}")
+    return name
 
 
 #: kernel id of each key type -> (its library of csrc/topk.cu, the attribute
@@ -111,10 +148,12 @@ def launch_topk(
     q_gidx: Optional[torch.Tensor],
     keys_scale: Optional[torch.Tensor] = None,
     keys_zero: Optional[torch.Tensor] = None,
+    route_name: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/topk.cu`` (shared by the K1 and K2 wrappers): the f32,
-    bf16 or int8 key instance, chosen by ``keys.dtype``, on the route of
-    :func:`route`. The queries go in as f32 (bf16 widens exactly)."""
+    bf16 or int8 key instance, chosen by ``keys.dtype``, on ``route_name``
+    (None: the rule of :func:`route`; an illegal route raises). The
+    queries go in as f32 (bf16 widens exactly)."""
     dev = _cuda.require_cuda("topk", q, keys, key_valid, q_gidx, keys_scale,
                              keys_zero)
     name = KEY_TYPES[key_type(keys.dtype)][0]
@@ -136,6 +175,7 @@ def launch_topk(
         raise ValueError(f"topk: q_gidx has shape {tuple(q_gidx.shape)}, "
                          f"want ({nq},)")
     _check_key_types(q, keys, keys_scale, keys_zero)
+    code = ROUTES.index(check_route(route_name, d, k))
     v = _cuda.u8(key_valid)
     g = _cuda.index(q_gidx, torch.int32)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
@@ -149,13 +189,13 @@ def launch_topk(
                       _cuda.ptr(_cuda.contiguous_as(keys_zero, torch.float32)))
     # the tensor-core and split routes' per-split candidate lists (0 bytes
     # on the CUDA-core route)
-    nbytes = lib.repro_topk_scratch_bytes(nq, p, d, k)
+    nbytes = lib.repro_topk_scratch_bytes(nq, p, d, k, code)
     scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
                if nbytes else None)
     with torch.cuda.device(dev):
         _cuda.call(name, _cuda.ptr(qf), _cuda.ptr(kc), *scale_zero,
                    _cuda.ptr(v), _cuda.ptr(g), _cuda.ptr(out_d), _cuda.ptr(out_i),
-                   nq, p, d, k, _cuda.ptr(scratch), _cuda.stream(dev))
+                   nq, p, d, k, code, _cuda.ptr(scratch), _cuda.stream(dev))
     return out_d, out_i
 
 
@@ -169,6 +209,7 @@ def fused_topk(
     keys_scale: Optional[torch.Tensor] = None,
     keys_zero: Optional[torch.Tensor] = None,
     block_k: Optional[int] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest valid keys of each query row (K1).
 
@@ -183,6 +224,9 @@ def fused_topk(
       q_gidx: optional (nq,) global index of each query among the keys;
         the matching key is excluded (the blocked-kNN self-match mask).
       block_k: key block of the plain fold (CPU tensors only).
+      route: the kernel's route by name (:data:`ROUTES`; None: the rule
+        of :func:`route`); one that cannot run (d, k) raises. Ignored for
+        a CPU tensor.
 
     Returns:
       (dists (nq, k) f32 ascending, idx (nq, k) int32; unfilled slots
@@ -195,12 +239,13 @@ def fused_topk(
                                 keys_scale=keys_scale, keys_zero=keys_zero,
                                 block_k=block_k)
     _cuda.forbid_grad("fused_topk", q, keys, keys_scale, keys_zero)
-    out = launch_topk(q, keys, k, key_valid, q_gidx, keys_scale, keys_zero)
+    out = launch_topk(q, keys, k, key_valid, q_gidx, keys_scale, keys_zero, route)
+    way = check_route(route, q.shape[1], k)  # the shapes passed the launch's checks
     if q.shape[0]:
         kid = key_type(keys.dtype)
         attr = KEY_TYPES[kid][1]
         setattr(fused_topk, attr, getattr(fused_topk, attr) + 1)
-        key = f"{kid}/{route(q.dtype, keys.dtype, q.shape[1], k)}"
+        key = f"{kid}/{way}"
         fused_topk.route_launches[key] = fused_topk.route_launches.get(key, 0) + 1
     return out
 

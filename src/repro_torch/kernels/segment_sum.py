@@ -26,6 +26,10 @@ from repro_torch.kernels import _cuda, ref
 FEW_SEGMENTS = 64
 
 
+#: the kernel's two paths, by their C mode codes
+ROUTES = ("few", "many")
+
+
 def plan(n: int, num_segments: int, n_blocks: int) -> Tuple[str, int]:
     """(path, rows per block) of a call: "few" or "many" segments, and
     ``nb = ceil(n / n_blocks)`` (row ``r`` lies in block ``r // nb``; the
@@ -34,16 +38,30 @@ def plan(n: int, num_segments: int, n_blocks: int) -> Tuple[str, int]:
     return ("few" if num_segments <= FEW_SEGMENTS else "many"), nb
 
 
+def route_ok(name: str, num_segments: int) -> bool:
+    """Whether path ``name`` may run ``num_segments`` segments: "many"
+    always, "few" up to :data:`FEW_SEGMENTS` (a thread block per segment
+    and block; a power of two, so legal at a shape bucket's edge means
+    legal in the bucket). Both give the same bits."""
+    if name == "many":
+        return True
+    return name == "few" and num_segments <= FEW_SEGMENTS
+
+
 def blocked_segment_sum(
     x: torch.Tensor,
     segment_ids: torch.Tensor,
     num_segments: int,
     weights: Optional[torch.Tensor] = None,
     n_blocks: int = 1,
+    *,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sums (S, d) f32, masses (S,) f32) under the ``n_blocks`` fold; ids
-    outside [0, S) are dropped. One kernel call, counted once in
-    ``blocked_segment_sum.launches``."""
+    outside [0, S) are dropped. ``route``: the path by name (None:
+    :func:`plan`'s rule); one that cannot run S segments raises; ignored
+    for a CPU tensor. One kernel call, counted once in
+    ``blocked_segment_sum.launches`` and per path in ``.route_launches``."""
     if not _cuda.on_card(x):
         return ref.blocked_segment_sum(x, segment_ids, num_segments,
                                        weights=weights, n_blocks=n_blocks)
@@ -62,6 +80,12 @@ def blocked_segment_sum(
         raise ValueError(f"segment_sum: {n} rows; the kernel indexes rows in i32")
     if num_segments < 0:
         raise ValueError(f"segment_sum: num_segments={num_segments}")
+    path, nb = plan(n, num_segments, n_blocks)
+    if route is not None:
+        if route not in ROUTES or not route_ok(route, num_segments):
+            raise ValueError(f"segment_sum: route {route!r} cannot run "
+                             f"{num_segments} segments; routes {ROUTES}")
+        path = route
     if n == 0 or num_segments == 0:  # nothing to fold: the sums are +0.0
         return (torch.zeros((num_segments, d), dtype=torch.float32, device=dev),
                 torch.zeros((num_segments,), dtype=torch.float32, device=dev))
@@ -71,7 +95,6 @@ def blocked_segment_sum(
     ids = _cuda.index(segment_ids, segment_ids.dtype
                       if segment_ids.dtype in (torch.int32, torch.int64)
                       else torch.int64)
-    path, nb = plan(n, num_segments, n_blocks)
     nblk = -(-n // nb)  # blocks that hold rows; the rest add +0.0
     mode = 0 if path == "few" else 1
     lib = _cuda.library("segment_sum")
@@ -85,10 +108,13 @@ def blocked_segment_sum(
                    _cuda.ptr(mass), n, num_segments, d, nb, nblk, mode,
                    _cuda.ptr(scratch), _cuda.stream(dev))
     blocked_segment_sum.launches += 1
+    blocked_segment_sum.route_launches[path] = (
+        blocked_segment_sum.route_launches.get(path, 0) + 1)
     return sums, mass
 
 
 blocked_segment_sum.launches = 0
+blocked_segment_sum.route_launches = {}
 
 
 def segment_sum(
@@ -96,7 +122,10 @@ def segment_sum(
     segment_ids: torch.Tensor,
     num_segments: int,
     weights: Optional[torch.Tensor] = None,
+    *,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sums (S, d) f32, masses (S,) f32); ids outside [0, S) are dropped:
     :func:`blocked_segment_sum` with one block."""
-    return blocked_segment_sum(x, segment_ids, num_segments, weights, n_blocks=1)
+    return blocked_segment_sum(x, segment_ids, num_segments, weights, n_blocks=1,
+                               route=route)

@@ -30,6 +30,19 @@ import torch
 #: family as "auto".
 IMPLS = ("auto", "ref", "cuda", "fused", "fused_bf16", "fused_int8")
 
+#: tuning policies (:mod:`repro_torch.tune`)
+TUNE_MODES = ("off", "cached", "onthefly")
+
+#: "auto" and the fit executors of :mod:`repro_torch.core.plan` (which keeps
+#: the registry; this tuple only gates the field, so a typo fails at import)
+EXECUTORS = ("auto", "memory", "streaming")
+#: the reference's multi-device executors, not ported yet
+SHARDED_EXECUTORS = ("sharded", "streaming_sharded")
+
+#: env var naming the tuning cache file (``python -m repro_torch.tune
+#: --cache`` wins over it)
+TUNE_CACHE_ENV = "REPRO_TORCH_TUNE_CACHE"
+
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
@@ -78,6 +91,8 @@ class RuntimeConfig:
     chunk_n: int = 0
     reservoir_n: int = 0
     prefetch_depth: int = 0
+    executor: str = "auto"
+    tune: str = "off"
     serve_queue_depth: int = 8192
     serve_max_inflight: int = 4
     serve_max_wait_ms: float = 5.0
@@ -99,6 +114,17 @@ class RuntimeConfig:
             raise ValueError(f"precision must be 'float32' or 'bfloat16', "
                              f"got {self.precision!r}")
         torch.device(self.device)  # unknown device strings fail here
+        if self.executor in SHARDED_EXECUTORS:
+            raise ValueError(
+                f"executor {self.executor!r} is multi-device, which the port "
+                f"does not have yet (ROADMAP Queue 1 item 7); use one of "
+                f"{EXECUTORS}")
+        if self.executor not in EXECUTORS:
+            raise ValueError(
+                f"executor must be one of {EXECUTORS}, got {self.executor!r}")
+        if self.tune not in TUNE_MODES:
+            raise ValueError(
+                f"tune must be one of {TUNE_MODES}, got {self.tune!r}")
         for name in ("serve_queue_depth", "serve_max_inflight"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
@@ -116,6 +142,27 @@ class RuntimeConfig:
     def replace(self, **overrides: Any) -> "RuntimeConfig":
         return dataclasses.replace(self, **overrides)
 
+    def dispatch_key(self) -> tuple:
+        """Hashable fingerprint of every behaviour-determining field, in the
+        reference's order: ``device``, ``precision`` and
+        ``serve_default_tenant`` are left out (resolved per call, as the
+        reference leaves out ``mesh``, ``axis_name`` and ``precision``).
+        With tuning on it carries ``(tune, cache_epoch())``, so a
+        populate, prune or cache swap changes the key; with tuning off it
+        carries ``"off"`` and cache churn costs nothing."""
+        if self.tune == "off":
+            tune_state: object = "off"
+        else:
+            from repro_torch.tune.cache import cache_epoch  # stdlib-only
+
+            tune_state = (self.tune, cache_epoch())
+        return (self.impl, self.knn_block, self.block_q, self.block_k,
+                self.n_blocks, self.chunk_n, self.reservoir_n,
+                self.prefetch_depth, self.executor, tune_state,
+                self.serve_queue_depth, self.serve_max_inflight,
+                self.serve_max_wait_ms, self.refresh_max_points,
+                self.refresh_max_cascades, self.refresh_drift_ratio)
+
 
 _ENV_FIELDS = {
     "REPRO_TORCH_IMPL": ("impl", str),
@@ -128,6 +175,8 @@ _ENV_FIELDS = {
     "REPRO_TORCH_CHUNK_N": ("chunk_n", int),
     "REPRO_TORCH_RESERVOIR_N": ("reservoir_n", int),
     "REPRO_TORCH_PREFETCH_DEPTH": ("prefetch_depth", int),
+    "REPRO_TORCH_EXECUTOR": ("executor", str),
+    "REPRO_TORCH_TUNE": ("tune", str),
     "REPRO_TORCH_SERVE_QUEUE_DEPTH": ("serve_queue_depth", int),
     "REPRO_TORCH_SERVE_MAX_INFLIGHT": ("serve_max_inflight", int),
     "REPRO_TORCH_SERVE_MAX_WAIT_MS": ("serve_max_wait_ms", float),
@@ -162,6 +211,44 @@ _stack = _Stack()
 def active() -> RuntimeConfig:
     """The config governing dispatch right now (innermost override wins)."""
     return _stack.frames[-1] if _stack.frames else _default
+
+
+def dispatch_key() -> tuple:
+    """``active().dispatch_key()``."""
+    return active().dispatch_key()
+
+
+def default_config() -> RuntimeConfig:
+    """The process-global default (env-seeded; ignores ``configure`` scopes)."""
+    return _default
+
+
+def set_default(config: RuntimeConfig) -> RuntimeConfig:
+    """Replace the process-global default; returns the previous one."""
+    global _default
+    if not isinstance(config, RuntimeConfig):
+        raise TypeError(f"expected RuntimeConfig, got {type(config).__name__}")
+    prev, _default = _default, config
+    return prev
+
+
+def update_default(**overrides: Any) -> RuntimeConfig:
+    """Update fields of the process-global default (returns the new one)."""
+    global _default
+    _default = _default.replace(**overrides)
+    return _default
+
+
+def tune_cache_path() -> str:
+    """Where the tuning cache lives, read at each call: ``$REPRO_TORCH_TUNE_CACHE``,
+    else ``$XDG_CACHE_HOME`` (or ``~/.cache``) ``/repro_torch/tune_cache.json``
+    — the port's own file, apart from the reference's."""
+    env = os.environ.get(TUNE_CACHE_ENV, "")
+    if env:
+        return env
+    base = os.environ.get("XDG_CACHE_HOME",
+                          os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(base, "repro_torch", "tune_cache.json")
 
 
 @contextlib.contextmanager

@@ -59,6 +59,7 @@ def test_port_imports_without_jax():
         "import repro_torch.core.streaming, repro_torch.data.pipeline\n"
         "import repro_torch.train, repro_torch.launch.train, repro_torch.utils.tree\n"
         "import repro_torch.data.instance_selection, repro_torch.train.compression\n"
+        "import repro_torch.tune, repro_torch.tune.__main__, repro_torch.tune.autotune\n"
         "from repro_torch.serve import (AsyncClusterService, IndexStore,\n"
         "    OnlineFitter, RefreshDriver, RefreshPolicy)\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') for m in sys.modules)\n"
