@@ -50,6 +50,24 @@ Phases, each printing one JSON line:
   serve        the main path, continued: ClusterIndex.build on that fit,
                ClusterService with buckets (32, 128, 512, 2048), requests of
                1, 100, 2048 and 5000 points, held against the plain path;
+  sharded      the sharded fit (repro_torch.core.distributed) at the fit's
+               full size, every rank on this card: four ranks over gloo
+               (CUDA tensors staged through pinned host memory) fit the
+               analog's first 579,312 rows (every level size divides by
+               the shard multiple 8), twice, and serve 4,999 queries under
+               the mesh: bit for bit the memory executor's fit and the
+               one-device assign; then all 581,012 rows (the padded path:
+               labels >= 0, clusters >= 3^5, mass sum n); stream_to_mesh in
+               chunks of 131,072 and a fit of its output (bitwise the
+               memory fit); streaming_sharded on aligned chunks of 132,192
+               (reservoir 220,320) bitwise the streaming executor; then
+               one rank over NCCL, the aligned fit again, bitwise; K1 at a
+               ring step's shape (queries of one rank against another's
+               block, self-exclusion shifted out of range) and K3 at a
+               rank's block partial held against their plain versions;
+               per rank the wall per level, MIS rounds, peak memory,
+               launches per route and the collectives staged through the
+               host with their bytes;
   tune         the autotuner (repro_torch.tune) on the main path: the
                CLI's populate into a temporary cache at the main path's
                buckets (knn, knn_block and assign at the fit's 581,012 x 6,
@@ -267,7 +285,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "tune", "headline",
+DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "sharded", "tune",
+                  "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
                   "train_moe", "train_ssm", "train_hybrid", "train_vlm",
                   "train_encdec", "lm", "lm_moe", "lm_hybrid", "lm_vlm",
@@ -314,6 +333,15 @@ DEV = "cuda"
 SIZES = dict(covertype=581_012, segments=193_670, blocked_q=8192,
              assign_q=2048, protos=2390, knn_n=7172, centres=7,
              gmm=1_000_000, det=65_536, lloyd_n=15_625)
+#: the sharded phase: ranks on this card over gloo, the aligned rows (1944 x
+#: 298: 579,312 -> 193,104 -> 64,368 -> 21,456 -> 7,152 -> 2,384, each a
+#: multiple of 8), the stream's chunks (131,072 for stream_to_mesh; 132,192
+#: = 1944 x 68 for streaming_sharded, whose per-chunk outputs of 44,064 and
+#: five-chunk reservoir of 220,320 -> ... -> 2,720 divide by 8), queries
+#: (not a multiple of the ranks: the pad path), the seconds a spawn may take
+SHARDED = dict(ranks=4, aligned=579_312, t=3, m=5, k=7, stream_chunk=131_072,
+               aligned_chunk=132_192, reservoir=220_320, queries=4_999,
+               timeout=600.0, one_rank_backend="nccl")
 #: the lm phase: gemma2-2b served at batch 4, prompt 2048, 160 new tokens,
 #: compressed at t = 2, m = 1 with a 128-slot tail (cache 2208 slots, 1232
 #: after the first compress), 8 teacher-forced steps in the parity check
@@ -1923,6 +1951,262 @@ def phase_serve(state: dict) -> None:
          agreement_with_plain=rate, mismatches=mism_total,
          stats=svc.stats, k1_launches_while_serving=counts["K1"] - k1_before,
          seconds=round(time.perf_counter() - t0, 3), launches=counts)
+
+
+def _fit_arrays(res) -> dict:
+    """A fit's result fields as host arrays (labels, the final buffers,
+    the k-means centres)."""
+    out = {f: getattr(res, f).detach().cpu().numpy()
+           for f in ("protos", "proto_mass", "proto_valid", "proto_labels",
+                     "n_prototypes")}
+    lab = res.labels  # a device tensor, or a stream's lazy host view
+    out["labels"] = (lab.cpu().numpy() if isinstance(lab, torch.Tensor)
+                     else np.asarray(lab))
+    out["centers"] = res.backend_result.centers.detach().cpu().numpy()
+    return out
+
+
+def _digest(arrays: dict) -> str:
+    """SHA-1 of a result's bytes, field by field (ranks compare results by
+    it: each returns its digest, rank 0 its arrays too)."""
+    h = hashlib.sha1()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    return h.hexdigest()
+
+
+def _bit_equal(a: dict, b: dict) -> list:
+    """The fields of two results whose bytes differ."""
+    return [k for k in sorted(a) if a[k].dtype != b[k].dtype
+            or a[k].shape != b[k].shape or a[k].tobytes() != b[k].tobytes()]
+
+
+def sharded_rank(rank: int, cfg: dict) -> dict:
+    """One rank of the sharded phase (started by spawn_ranks in a fresh
+    process; module level, so the process can import it). Every rank runs
+    the same fits on its own rows; rank 0 returns the arrays, every rank
+    its digests, walls, rounds, peak memory, launches and staged bytes."""
+    import repro_torch
+    from repro_torch import kernels, prng
+    from repro_torch.core import _collectives
+    from repro_torch.core.distributed import make_data_mesh
+    from repro_torch.core.index import ClusterIndex
+    from repro_torch.data import stream_to_mesh
+
+    dev = torch.device(cfg["device"])
+    on_card = dev.type == "cuda"
+    sync_here = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh = make_data_mesh(backend=cfg["backend"], device_type=dev.type)
+    x = np.load(cfg["x_path"])
+    xa = x[:cfg["aligned"]]
+    q = np.load(cfg["q_path"])
+    t, m, k, key = cfg["t"], cfg["m"], cfg["k"], prng.PRNGKey(0)
+    out = {"rank": rank, "results": {}, "digests": {}}
+
+    def keep(name, arrays):
+        out["digests"][name] = _digest(arrays)
+        if rank == 0:
+            out["results"][name] = arrays
+
+    def run_fit(data, **kw):
+        sync_here()
+        t0 = time.perf_counter()
+        res = repro_torch.fit(data, t, m, "kmeans", k=k, key=key, mesh=mesh,
+                              device=dev, **kw)
+        sync_here()
+        return res, time.perf_counter() - t0
+
+    # the main path: the aligned fit and the mesh assign, counted alone
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    _collectives.reset_staging_counts()
+    res, wall = run_fit(xa)
+    t0 = time.perf_counter()
+    labels_q = ClusterIndex.build(res).assign(q, mesh=mesh)
+    sync_here()
+    out["assign_s"] = time.perf_counter() - t0
+    out["launches"] = kernels.launch_counts()
+    out["routes"] = kernels.route_counts()
+    out["staged"] = _collectives.staging_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    out["aligned"] = dict(seconds=wall, executor=res.executor,
+                          level_seconds=res.info["level_seconds"],
+                          level_sizes=res.info["level_sizes"],
+                          mis_rounds=res.info["mis_rounds"],
+                          lloyd_iters=res.backend_result.iters)
+    keep("aligned", _fit_arrays(res))
+    keep("assign", {"labels": labels_q.cpu().numpy()})
+    res, out["repeat_s"] = run_fit(xa)
+    keep("repeat", _fit_arrays(res))
+    if cfg["full"]:
+        res, wall = run_fit(x)
+        out["full"] = dict(seconds=wall, level_sizes=res.info["level_sizes"],
+                           mis_rounds=res.info["mis_rounds"])
+        keep("full", _fit_arrays(res))
+    if cfg["stream"]:
+        c = cfg["stream_chunk"]
+        sync_here()
+        t0 = time.perf_counter()
+        xs, vs = stream_to_mesh((xa[i:i + c] for i in range(0, len(xa), c)), mesh,
+                                len(xa), xa.shape[1], device=dev)
+        sync_here()
+        out["stream_to_mesh_s"] = time.perf_counter() - t0
+        res, out["streamed_fit_s"] = run_fit(xs, valid=vs)
+        keep("streamed", _fit_arrays(res))
+        c = cfg["aligned_chunk"]
+        res, out["streaming_sharded_s"] = run_fit(
+            (xa[i:i + c] for i in range(0, len(xa), c)),
+            reservoir_n=cfg["reservoir"])
+        out["streaming_sharded_cascades"] = res.n_cascades
+        out["streaming_sharded_executor"] = res.executor
+        keep("streaming_sharded", _fit_arrays(res))
+    return out
+
+
+def _sharded_ring_kernels(x, ids, per: int, S: int) -> None:
+    """K1 at a ring step's shape (2,048 queries of rank 1's block against
+    rank 0's block of ``per`` keys: the self-exclusion index falls outside
+    the keys) and K3 at one rank's block partial, each against its plain
+    version (launches outside any counted run)."""
+    q = x[per:per + 2048]
+    keys = x[:per]
+    gidx = (per + torch.arange(2048, device=x.device)).to(torch.int32)
+    _k1_row("sharded ring step", q, keys, None, gidx, 2, plain_reps=1)
+    sub = per // 2  # n_blocks 8 over 4 ranks: two block partials a rank
+    _k3_row("sharded block partial", x[:sub], ids[:sub], S,
+            torch.ones((sub,), device=x.device), n_blocks=1)
+
+
+def phase_sharded(state: dict) -> None:
+    import repro_torch
+    from repro_torch import prng
+    from repro_torch.cluster.metrics import clustering_accuracy
+    from repro_torch.core.index import ClusterIndex
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t_start = time.perf_counter()
+    cfg = SHARDED
+    t, m, k, p = cfg["t"], cfg["m"], cfg["k"], cfg["ranks"]
+    n = SIZES["covertype"]
+    x = state["x"] if "x" in state else _analog(n)[0]
+    xa = x[:cfg["aligned"]]
+    gen = np.random.default_rng(3)
+    rows = dev(gen.integers(0, cfg["aligned"], size=cfg["queries"]))
+    q = xa[rows] + dev(gen.normal(scale=0.05, size=(cfg["queries"], x.shape[1]))
+                       .astype(np.float32))
+    # the one-device references, on this card
+    want = repro_torch.fit(xa, t, m, "kmeans", k=k, key=prng.PRNGKey(0), device=DEV)
+    want_q = ClusterIndex.build(want).assign(q).cpu().numpy()
+    xa_host = xa.cpu().numpy()
+    c = cfg["aligned_chunk"]
+    want_stream = repro_torch.fit(
+        (xa_host[i:i + c] for i in range(0, len(xa_host), c)), t, m, "kmeans",
+        k=k, key=prng.PRNGKey(0), reservoir_n=cfg["reservoir"], device=DEV)
+    full = state.get("fit") or repro_torch.fit(x, t, m, "kmeans", k=k,
+                                               key=prng.PRNGKey(0), device=DEV)
+    _sharded_ring_kernels(xa, want.assignments[0], cfg["aligned"] // p,
+                          want.info["level_sizes"][1])
+    sync()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sharded-") as tmp:
+        np.save(f"{tmp}/x.npy", x.cpu().numpy())
+        np.save(f"{tmp}/q.npy", q.cpu().numpy())
+        base = dict(cfg, device=DEV, x_path=f"{tmp}/x.npy", q_path=f"{tmp}/q.npy")
+        t0 = time.perf_counter()
+        gloo = spawn_ranks(sharded_rank, p, backend="gloo", device=DEV,
+                           init_dir=tmp, timeout=cfg["timeout"],
+                           args=(dict(base, backend="gloo", full=True, stream=True),))
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = cfg["one_rank_backend"]
+        nccl = spawn_ranks(sharded_rank, 1, backend=one, device=DEV,
+                           init_dir=tmp, timeout=cfg["timeout"],
+                           args=(dict(base, backend=one, full=False, stream=False),))
+        nccl_s = time.perf_counter() - t0
+
+    ref = _fit_arrays(want)
+    ref_stream = _fit_arrays(want_stream)
+    for run, outs, streamed in (("gloo", gloo, True),
+                                (cfg["one_rank_backend"], nccl, False)):
+        for name, dg in outs[0]["digests"].items():
+            same = all(o["digests"][name] == dg for o in outs)
+            check(same, f"sharded ({run}, {len(outs)} ranks): the ranks' {name} "
+                        f"results differ")
+        got = outs[0]["results"]
+        for name in ("aligned", "repeat") + (("streamed",) if streamed else ()):
+            diff = _bit_equal(got[name], ref)
+            check(not diff, f"sharded ({run}): the {name} fit differs from the "
+                            f"memory executor's in {diff}")
+        check(np.array_equal(got["assign"]["labels"], want_q),
+              f"sharded ({run}): the mesh assign differs from the one-device "
+                    f"assign on {int((got['assign']['labels'] != want_q).sum())} "
+                    f"queries")
+        for o in outs:
+            for kid in ("K1", "K3", "K4"):
+                check(o["launches"][kid] > 0,
+                      f"sharded ({run}): {kid} was not launched on rank {o['rank']}")
+            check(o["launches"]["K2"] == 0, "sharded: the ring kNN launched K2")
+    got = gloo[0]["results"]
+    diff = _bit_equal(got["streaming_sharded"], ref_stream)
+    check(not diff, f"sharded: streaming_sharded differs from the streaming "
+                    f"executor in {diff}")
+    check(gloo[0]["streaming_sharded_executor"] == "streaming_sharded",
+          "the chunk stream under a mesh did not plan streaming_sharded")
+    lab = got["full"]["labels"]
+    sizes = np.bincount(lab[lab >= 0], minlength=k)
+    mass = float(got["full"]["proto_mass"].astype(np.float64).sum())
+    check(lab.shape == (n,) and int(lab.min()) >= 0, "sharded full run: a label < 0")
+    check(int(sizes[sizes > 0].min()) >= t ** m,
+          f"sharded full run: a cluster below t^m: {sizes.tolist()}")
+    check(abs(mass - n) <= 1e-2, f"sharded full run: mass sums to {mass}, not {n}")
+    agreement = clustering_accuracy(full.labels.cpu().numpy(), lab, k)
+    counts = {}
+    routes = {}
+    for o in gloo:
+        for kid, v in o["launches"].items():
+            counts[kid] = counts.get(kid, 0) + v
+        for r, v in o["routes"].items():
+            routes[r] = routes.get(r, 0) + v
+    state["sharded_counts"], state["sharded_routes"] = counts, routes
+
+    def per_rank(outs):
+        return [dict(rank=o["rank"], level_seconds=[round(v, 4) for v in
+                                                   o["aligned"]["level_seconds"]],
+                     mis_rounds=o["aligned"]["mis_rounds"],
+                     fit_seconds=round(o["aligned"]["seconds"], 3),
+                     repeat_seconds=round(o["repeat_s"], 3),
+                     assign_seconds=round(o["assign_s"], 4),
+                     lloyd_iters=o["aligned"]["lloyd_iters"],
+                     peak_bytes=o["peak_bytes"], launches_by_route=o["routes"],
+                     staged=o["staged"],
+                     staged_bytes=sum(v["bytes"] for v in o["staged"].values()))
+                for o in outs]
+
+    emit("sharded", ranks=p, backend="gloo", n=cfg["aligned"], d=x.shape[1], t=t,
+         m=m, k=k, level_sizes=gloo[0]["aligned"]["level_sizes"],
+         bitwise_memory_executor=True, bitwise_repeat=True,
+         assign_queries=cfg["queries"], assign_bitwise=True,
+         per_rank=per_rank(gloo), spawn_seconds=round(gloo_s, 3),
+         memory_fit_mis_rounds=want.info["mis_rounds"])
+    emit("sharded_nccl", ranks=1, backend=cfg["one_rank_backend"],
+         bitwise_memory_executor=True,
+         bitwise_repeat=True, per_rank=per_rank(nccl),
+         spawn_seconds=round(nccl_s, 3))
+    o = gloo[0]
+    emit("sharded_full", ranks=p, n=n, level_sizes=o["full"]["level_sizes"],
+         mis_rounds=o["full"]["mis_rounds"], seconds=round(o["full"]["seconds"], 3),
+         min_cluster=int(sizes[sizes > 0].min()), mass_sum=mass,
+         label_agreement_with_memory_fit=agreement)
+    emit("sharded_stream", ranks=p, stream_chunk=cfg["stream_chunk"],
+         stream_to_mesh_seconds=round(o["stream_to_mesh_s"], 3),
+         streamed_fit_seconds=round(o["streamed_fit_s"], 3),
+         streamed_fit_bitwise_memory=True, aligned_chunk=c,
+         reservoir=cfg["reservoir"],
+         streaming_sharded_seconds=round(o["streaming_sharded_s"], 3),
+         cascades=o["streaming_sharded_cascades"], bitwise_streaming=True)
+    emit("sharded_phase", seconds=round(time.perf_counter() - t_start, 3),
+         launches=counts)
 
 
 def _owner(idx, q, impl):
@@ -4511,6 +4795,8 @@ def main() -> int:
         phase_fit(state)
         if "serve" in phases:
             phase_serve(state)
+    if "sharded" in phases:
+        phase_sharded(state)
     if "tune" in phases:
         phase_tune(state)
     if "headline" in phases:
@@ -4550,6 +4836,7 @@ def main() -> int:
             phase_lm_frontend(state, family)
     if results:
         paths = {"fit_serve": state.get("main_counts", state.get("fit_counts", {})),
+                 "sharded": state.get("sharded_counts", {}),
                  "tune": state.get("tune_counts", {}),
                  "headline": state.get("headline_counts", {}),
                  "hac": state.get("hac_counts", {}),
@@ -4564,6 +4851,7 @@ def main() -> int:
                  "lm_vlm": state.get("lm_vlm_counts", {}),
                  "lm_encdec": state.get("lm_encdec_counts", {})}
         routes = {"fit_serve": state.get("main_routes", {}),
+                  "sharded": state.get("sharded_routes", {}),
                   "tune": state.get("tune_routes", {}),
                   "headline": state.get("headline_routes", {}),
                   "hac": state.get("hac_routes", {}),

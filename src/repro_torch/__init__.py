@@ -6,7 +6,9 @@ The port of the JAX package ``repro`` (which stays the reference).
 a resident array or a chunk stream; ``ClusterIndex.build(result)`` freezes
 the servable index, ``ClusterService(index).assign(queries)`` or
 ``AsyncClusterService`` serves it, ``IndexStore`` versions it, and
-``OnlineFitter`` / ``RefreshDriver`` keep it fresh under live traffic. Entry points run on
+``OnlineFitter`` / ``RefreshDriver`` keep it fresh under live traffic.
+Under ``mesh=make_data_mesh()`` (one process per rank) the fit shards its
+rows over the ranks. Entry points run on
 ``device="cuda"`` unless the caller passes ``device="cpu"`` (or configures
 it); a missing GPU raises.
 
@@ -29,7 +31,10 @@ _LAZY = {
     "RefreshDriver": "repro_torch.serve.lifecycle",
     "RefreshPolicy": "repro_torch.serve.lifecycle",
     "IndexStore": "repro_torch.serve.artifacts",
+    "ihtc": "repro_torch.core.ihtc",
+    "ihtc_sharded": "repro_torch.core.distributed",
     "ihtc_streaming": "repro_torch.core.streaming",
+    "make_data_mesh": "repro_torch.core.distributed",
 }
 
 __all__ = ["runtime", *sorted(_LAZY)]

@@ -5,7 +5,7 @@ architectures, input shapes, parallelism knobs.
 trainer reads ``remat`` and ``microbatches``; ``zero_stage``,
 ``shard_kv_seq``, ``compress_pod_grads`` and ``seq_shard_activations``
 are mesh knobs, stored and not read until the port runs on a mesh
-(ROADMAP.md, Queue 1, item 7).
+(ROADMAP.md, Queue 1, item 7b).
 """
 from __future__ import annotations
 

@@ -3,14 +3,18 @@ memory executor, the port of ``repro.core.ihtc._execute_memory``.
 
 ITIS reduces n units to ≤ n/t^m weighted prototypes on the device, the
 planner's epilogue runs the backend on them and backs labels out to all
-n units; every final cluster holds ≥ t^m original units.
+n units; every final cluster holds ≥ t^m original units. :func:`ihtc`
+is the reference's deprecated alias of ``fit``.
 """
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 
+from repro_torch.cluster.registry import BackendFn
 from repro_torch.core.itis import itis
-from repro_torch.core.plan import FitPlan, Reduction, register_executor
+from repro_torch.core.plan import FitPlan, FitResult, Reduction, fit, register_executor
 
 
 @register_executor("memory")
@@ -30,3 +34,30 @@ def _execute_memory(plan: FitPlan, x: torch.Tensor) -> Reduction:
     return Reduction(protos=r.protos, mass=r.mass, valid=r.valid,
                      n_prototypes=r.n_prototypes, assignments=r.assignments,
                      n0=x.shape[0], info=info)
+
+
+def ihtc(
+    x,
+    t: int,
+    m: int,
+    backend: Union[str, BackendFn] = "kmeans",
+    *,
+    weights=None,
+    weighted: bool = False,
+    use_mass_in_backend: bool = True,
+    key: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+    knn_block: Optional[int] = None,
+    mesh=None,
+    axis_name: Optional[str] = None,
+    device=None,
+    **backend_kwargs,
+) -> FitResult:
+    """IHTC on a resident array (a deprecated alias of
+    :func:`repro_torch.fit`). A mesh, passed or configured, plans the
+    "sharded" executor; an explicit ``knn_block`` is refused there (the
+    ring kNN has no blocked scan)."""
+    return fit(x, t, m, backend, weights=weights, weighted=weighted,
+               use_mass_in_backend=use_mass_in_backend, key=key, impl=impl,
+               knn_block=knn_block, mesh=mesh, axis_name=axis_name,
+               device=device, driver="ihtc", **backend_kwargs)

@@ -189,6 +189,18 @@ class ClusterIndex(NamedTuple):
                         f"{name} of shape ({self.dim},), got {got}")
         return self
 
+    def replicate(self, mesh, axis_name: Optional[str] = None) -> "ClusterIndex":
+        """This index made rank 0's on every rank of ``mesh``'s
+        ``axis_name`` dimension, bit for bit (a broadcast of each array;
+        every rank passes an index of the same shapes, e.g. its own copy
+        of a sharded fit's result). Done once, at a service's warmup, it
+        keeps the assigns free of index transfers."""
+        from repro_torch.core.distributed import _axis
+
+        axis = _axis(mesh, axis_name)
+        return ClusterIndex(*(None if a is None else axis.broadcast(a, 0)
+                              for a in self))
+
     def assign(
         self,
         queries: Any,
@@ -198,6 +210,8 @@ class ClusterIndex(NamedTuple):
         block_k: Optional[int] = None,
         rescore_k: int = RESCORE_K,
         route: Optional[str] = None,
+        mesh=None,
+        axis_name: Optional[str] = None,
     ) -> torch.Tensor:
         """Label ``queries`` (nq, d) by their nearest valid prototype:
         (nq,) int32 backend labels on the index's device (-1 only if the
@@ -209,7 +223,36 @@ class ClusterIndex(NamedTuple):
         the ``"assign"`` tuning cell (``ops.resolve_nearest``): with tuning
         on, its winner picks the impl under "auto", and its ``block_k``
         and K1 ``route`` apply where none is passed. Queries on the host
-        are moved to the index's device."""
+        are moved to the index's device.
+
+        With a mesh (passed or configured) every rank passes the same
+        queries and holds the same index: the queries are right-padded to
+        a multiple of the rank count, each rank labels its contiguous
+        slice, and the slices are all-gathered (then the padding cut), so
+        every rank returns all nq labels — those of one device."""
+        cfg = active()
+        mesh = cfg.mesh if mesh is None else mesh
+        if mesh is not None:
+            from repro_torch.core.distributed import _axis
+
+            axis = _axis(mesh, axis_name)
+            q = as_device_tensor(queries, self.device)
+            nq = q.shape[0]
+            q = torch.nn.functional.pad(q, (0, 0, 0, (-nq) % axis.size))
+            per = q.shape[0] // axis.size
+            mine = q[axis.index * per:(axis.index + 1) * per]
+            lab = self._assign_here(mine, impl=impl, block=block,
+                                    block_k=block_k, rescore_k=rescore_k,
+                                    route=route)
+            return axis.gather_rows(lab)[:nq]
+        return self._assign_here(queries, impl=impl, block=block,
+                                 block_k=block_k, rescore_k=rescore_k,
+                                 route=route)
+
+    def _assign_here(self, queries: Any, *, impl: Optional[str], block: int,
+                     block_k: Optional[int], rescore_k: int,
+                     route: Optional[str]) -> torch.Tensor:
+        """:meth:`assign` on this device alone."""
         cfg = active()
         q = as_device_tensor(queries, self.device)
         n_max = self.protos.shape[0]

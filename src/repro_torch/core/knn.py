@@ -1,7 +1,7 @@
 """kNN-graph construction — the computational bottleneck of TC.
 
-Brute force, organised two ways by scale (the counterparts of
-``repro.core.knn``; the multi-device ``ring_knn`` is not ported yet):
+Brute force, organised three ways by scale (the counterparts of
+``repro.core.knn``):
 
   * :func:`knn_graph`         — one-shot self-kNN (K2 on the card).
   * :func:`knn_graph_blocked` — query blocks against the whole key set.
@@ -10,6 +10,9 @@ Brute force, organised two ways by scale (the counterparts of
     (n, n) nor a (block, block) distance matrix is ever written. The
     plain path folds (block, block) distance tiles into a running best
     list with the shared merge.
+  * :func:`ring_knn`          — rows sharded over a mesh dimension: key
+    blocks travel around the ring of ranks and each rank folds every
+    visiting block into its queries' best lists (K1 on the card).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core._collectives import Axis
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import merge_topk
 from repro_torch.runtime import active
@@ -113,3 +117,63 @@ def knn_graph_blocked(
         out_d.append(bd)
         out_i.append(bi)
     return torch.cat(out_d)[:n], torch.cat(out_i)[:n]
+
+
+def _merge_by_index(best_d: torch.Tensor, best_i: torch.Tensor, d: torch.Tensor,
+                    idx: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of two (n, ·) lists under the total order (dist,
+    global index): the lowest index wins a tie whichever list holds it
+    (the ring visits blocks in rank order from this rank, not from 0)."""
+    cat_d = torch.cat([best_d, d], dim=1)
+    cat_i = torch.cat([best_i.to(torch.int64), idx.to(torch.int64)], dim=1)
+    by_i = torch.argsort(cat_i, dim=1, stable=True)
+    cat_d, cat_i = torch.gather(cat_d, 1, by_i), torch.gather(cat_i, 1, by_i)
+    sd, pos = torch.sort(cat_d, dim=1, stable=True)
+    sd, pos = sd[:, :k], pos[:, :k]
+    si = torch.gather(cat_i, 1, pos)
+    return sd, torch.where(torch.isfinite(sd), si, -1).to(torch.int32)
+
+
+def ring_knn(
+    x_local: torch.Tensor,
+    k: int,
+    *,
+    axis: Axis,
+    valid: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+    route: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sharded exact kNN: this rank holds rows ``[r·n_local, (r+1)·n_local)``
+    of the global point set; returns the (dists, global idx) of the k
+    nearest valid rows of each local row, itself excluded — the function
+    :func:`knn_graph` computes on the concatenated rows.
+
+    At step s the visiting key block is that of rank ``(r + s) % P``; it
+    goes through the streaming top-k (K1 on the card, on ``route``) with
+    the self-exclusion as query indices shifted into the block's frame
+    (out of ``[0, n_local)`` for every other block), and the block's list
+    joins the running one under (dist, global index): the lowest index
+    wins a tie, as in one pass over all keys. The reference forms a dense
+    (n_local, n_local) block per step instead; at the fit's size that is
+    tens of GB. The block then moves one rank down the ring (P - 1 moves:
+    one all-gather's bytes, never held at once)."""
+    n_local = x_local.shape[0]
+    dev = x_local.device
+    if valid is None:
+        valid = torch.ones((n_local,), dtype=torch.bool, device=dev)
+    p, me = axis.size, axis.index
+    q_gidx = me * n_local + torch.arange(n_local, dtype=torch.int64, device=dev)
+    bd = torch.full((n_local, k), torch.inf, dtype=torch.float32, device=dev)
+    bi = torch.full((n_local, k), -1, dtype=torch.int32, device=dev)
+    keys, kval = x_local, valid.bool()
+    for s in range(p):
+        src = (me + s) % p  # owner of the visiting block
+        d, i = ops.nearest_topk(x_local, keys, k, key_valid=kval,
+                                q_gidx=(q_gidx - src * n_local).to(torch.int32),
+                                impl=impl, route=route)
+        gi = torch.where(i >= 0, i.to(torch.int64) + src * n_local, -1)
+        bd, bi = _merge_by_index(bd, bi, d, gi, k)
+        if s + 1 < p:
+            keys = axis.ring_shift(keys)
+            kval = axis.ring_shift(kval.to(torch.uint8)).bool()
+    return bd, bi

@@ -1,11 +1,13 @@
 """Fit planner and executors — the port of ``repro.core.plan``: the
-resident-array ("memory") and chunk-stream ("streaming") executors.
+resident-array ("memory"), chunk-stream ("streaming"), mesh ("sharded")
+and composed ("streaming_sharded") executors.
 
   * :class:`FitPlan` — everything decided before data moves: validated
     reduction parameters, the key schedule, the backend, the dispatch
-    knobs resolved from the active runtime config, the device, and the
-    executor (a resident array → ``memory``, any other iterable of host
-    chunks → ``streaming``).
+    knobs resolved from the active runtime config, the device, the mesh,
+    and the executor (a resident array → ``memory``, any other iterable
+    of host chunks → ``streaming``; a mesh, passed or configured, turns
+    them into ``sharded`` and ``streaming_sharded``).
   * the executor registry — an executor owns its data-movement strategy
     and returns a :class:`Reduction`.
   * the epilogue — backend finalize and label back-out, once, here.
@@ -16,7 +18,12 @@ resident-array ("memory") and chunk-stream ("streaming") executors.
 With the tuning policy on (``RuntimeConfig.tune``), ``plan_fit`` freezes
 the measured winners of the ``stream``, ``knn``, ``knn_block`` and
 ``assign`` cells into the plan, as the reference does; explicit kwargs
-still win. Sharded fits are not ported yet (ROADMAP Queue 1 item 7).
+still win (on the sharded executors only the ``knn`` cell: their kNN is
+a ring pass, not a blocked scan).
+
+Under a mesh every rank runs the same plan on its own rows
+(:mod:`repro_torch.core.distributed`); the epilogue keeps ``kmeans`` on
+the mesh and runs any other backend on the replicated final prototypes.
 """
 from __future__ import annotations
 
@@ -37,7 +44,10 @@ from repro_torch.runtime import active, configure, resolve_device
 ExecutorFn = Callable[["FitPlan", Any], "Reduction"]
 
 #: executors that consume a chunk iterator instead of a resident array
-STREAMING_EXECUTORS = ("streaming",)
+STREAMING_EXECUTORS = ("streaming", "streaming_sharded")
+
+#: executors that place level buffers on a mesh: each rank holds its rows
+SHARDED_EXECUTORS = ("sharded", "streaming_sharded")
 
 _REGISTRY: Dict[str, ExecutorFn] = {}
 
@@ -56,8 +66,9 @@ def register_executor(name: str) -> Callable[[ExecutorFn], ExecutorFn]:
 
 
 def _ensure_builtin_executors() -> None:
-    # importing the modules registers "memory" and "streaming"
-    from repro_torch.core import ihtc, streaming  # noqa: F401
+    # importing the modules registers "memory", "streaming", "sharded" and
+    # "streaming_sharded"
+    from repro_torch.core import distributed, ihtc, streaming  # noqa: F401
 
 
 def resolve_executor(name: str) -> ExecutorFn:
@@ -280,7 +291,12 @@ class FitPlan:
     reservoir_n: int = 0
     prefetch_depth: int = 0
     min_points: int = 4
-    weights: Optional[torch.Tensor] = None
+    weights: Optional[Any] = None
+    #: (n,) row mask of a pre-padded resident input (the sharded executor)
+    valid: Optional[Any] = None
+    #: the ``DeviceMesh`` of the sharded executors (None elsewhere)
+    mesh: Any = None
+    axis_name: str = "data"
     driver: str = "fit"
     backend_kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -291,6 +307,20 @@ class FitPlan:
         """Fewer valid points than this and a level must not run (the
         shared early-stop rule)."""
         return max(self.min_points, 2 * self.t)
+
+    def shard_count(self) -> int:
+        """Ranks along the mesh's ``axis_name`` (1 without a mesh)."""
+        from repro_torch.core._collectives import Axis
+
+        return 1 if self.mesh is None else Axis(self.mesh, self.axis_name).size
+
+    def shard_multiple(self) -> int:
+        """Level-buffer padding multiple of the mesh executors: the smallest
+        multiple of the shard count covering the canonical reduction width,
+        so every level splits evenly and the block fold keeps the
+        single-device bits (the reference's DESIGN.md §4.3)."""
+        p = self.shard_count()
+        return -(-max(self.n_blocks, p) // p) * p
 
     def split_keys(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(key_itis, key_backend) — the root split of the reference."""
@@ -318,6 +348,7 @@ def plan_fit(
     *,
     executor: Optional[str] = None,
     weights=None,
+    valid=None,
     weighted: bool = False,
     use_mass_in_backend: bool = True,
     key: Optional[torch.Tensor] = None,
@@ -330,6 +361,8 @@ def plan_fit(
     chunk_n: Optional[int] = None,
     reservoir_n: Optional[int] = None,
     prefetch_depth: Optional[int] = None,
+    mesh=None,
+    axis_name: Optional[str] = None,
     min_points: int = 4,
     device=None,
     driver: str = "fit",
@@ -337,10 +370,13 @@ def plan_fit(
 ) -> FitPlan:
     """Resolve one :class:`FitPlan` from the call, the input and the active
     runtime config (explicit kwargs win). A chunk iterator streams, a
-    resident array stays in memory, unless ``executor=`` or the config's
-    executor names one; inputs the chosen executor cannot honour are
-    refused loudly (``weights`` on a stream, ``prefetch_depth`` on the
-    memory executor)."""
+    resident array stays in memory, and a mesh (passed or configured) turns
+    either into its sharded flavour, unless ``executor=`` or the config's
+    executor names one (a sharded executor without a mesh makes one with
+    ``make_data_mesh()``); inputs the chosen executor cannot honour are
+    refused loudly (``weights`` on a stream, ``valid`` off the sharded
+    executor, ``knn_block`` on a sharded one, ``prefetch_depth`` on an
+    in-memory one)."""
     cfg = active()
     dev = resolve_device(device)
     explicit_prefetch = prefetch_depth is not None
@@ -354,11 +390,16 @@ def plan_fit(
     reservoir_n = cfg.reservoir_n if reservoir_n is None else reservoir_n
     prefetch_depth = (cfg.prefetch_depth if prefetch_depth is None
                       else prefetch_depth)
+    mesh = cfg.mesh if mesh is None else mesh
+    axis_name = cfg.axis_name if axis_name is None else axis_name
     streaming_input = _is_chunk_stream(data)
     if executor is None and cfg.executor != "auto":
         executor = cfg.executor
     if executor is None:
-        executor = "streaming" if streaming_input else "memory"
+        if streaming_input:
+            executor = "streaming_sharded" if mesh is not None else "streaming"
+        else:
+            executor = "sharded" if mesh is not None else "memory"
     resolve_executor(executor)  # unknown names fail here, loudly
     if streaming_input and executor not in STREAMING_EXECUTORS:
         raise ValueError(
@@ -369,11 +410,32 @@ def plan_fit(
         raise ValueError(
             f"{driver}: executor {executor!r} consumes an iterable of host "
             f"chunks; wrap a resident array as iter([x]) to stream it")
+    if executor in SHARDED_EXECUTORS:
+        if mesh is None:
+            from repro_torch.core.distributed import make_data_mesh  # no cycle
+
+            mesh = make_data_mesh()
+        if explicit_knn_block and knn_block:
+            raise ValueError(
+                f"{driver}: knn_block={knn_block} cannot apply to the "
+                f"{executor!r} executor — the sharded kNN is a ring pass over "
+                f"the mesh's ranks (repro_torch.core.knn.ring_knn), not a "
+                f"blocked scan; drop the kwarg (a configured runtime "
+                f"knn_block is ignored on sharded executors) or run a "
+                f"single-device executor")
+    else:
+        mesh = None  # a configured mesh means nothing to a one-device executor
     if weights is not None and executor in STREAMING_EXECUTORS:
         raise ValueError(
             f"{driver}: weights= cannot apply to the {executor!r} executor "
             f"— per-unit weights need the resident array; chunk streams "
             f"carry unit mass")
+    if valid is not None and executor != "sharded":
+        raise ValueError(
+            f"{driver}: valid= marks pre-padded rows of a resident mesh "
+            f"array and only the 'sharded' executor honours it (got "
+            f"{executor!r}); slice the array instead, or mask stream "
+            f"chunks with (chunk, n_valid) pairs")
     if prefetch_depth < 0:
         raise ValueError(
             f"{driver}: prefetch_depth must be >= 0, got {prefetch_depth}")
@@ -414,7 +476,8 @@ def plan_fit(
                 block_k = int(tk["block_k"])
             if knn_route is None and tk.get("route"):
                 knn_route = str(tk["route"])
-            if knn_block == 0 and not explicit_knn_block:
+            if (knn_block == 0 and not explicit_knn_block
+                    and executor not in SHARDED_EXECUTORS):
                 tb = tune.tuned_params("knn_block", dtype=dt, device=dev,
                                        n=n0, d=d0, k=max(t - 1, 1))
                 if tb.get("knn_block"):
@@ -422,7 +485,7 @@ def plan_fit(
             # a fused winner of the "assign" cell freezes the fused
             # streaming path (the TC's kNN runs it); a quantized one
             # freezes as plain "fused": a fit has no low-precision buffers
-            if impl == "auto":
+            if impl == "auto" and executor not in SHARDED_EXECUTORS:
                 ta = tune.tuned_params("assign", dtype=dt, device=dev, nq=n0,
                                        p=n0, d=d0, k=max(t - 1, 1))
                 if str(ta.get("impl", "")).startswith("fused"):
@@ -434,7 +497,7 @@ def plan_fit(
             validate_reduction_params(t, m, n=chunk_n, min_m=1, driver=driver)
     else:
         validate_reduction_params(t, m, n=data.shape[0], driver=driver)
-    if weights is not None:
+    if weights is not None and executor not in SHARDED_EXECUTORS:
         weights = as_device_tensor(weights, dev).float()
     return FitPlan(
         t=int(t), m=int(m), backend=backend, executor=executor,
@@ -445,7 +508,8 @@ def plan_fit(
         n_blocks=cfg.n_blocks if n_blocks is None else n_blocks,
         chunk_n=int(chunk_n), reservoir_n=int(reservoir_n),
         prefetch_depth=int(prefetch_depth),
-        min_points=min_points, weights=weights, driver=driver,
+        min_points=min_points, weights=weights, valid=valid, mesh=mesh,
+        axis_name=axis_name, driver=driver,
         backend_kwargs=dict(backend_kwargs),
     )
 
@@ -455,9 +519,23 @@ def _finalize_backend(plan: FitPlan, red: Reduction):
     weighting, -1 on invalid rows. Returns (labels, backend result)."""
     _, key_backend = plan.split_keys()
     w = red.mass if plan.use_mass_in_backend else None
-    fn = resolve_backend(plan.backend)
-    out = fn(red.protos, valid=red.valid, weights=w, key=key_backend,
-             impl=plan.impl, **dict(plan.backend_kwargs))
+    kwargs = dict(plan.backend_kwargs)
+    if plan.executor in SHARDED_EXECUTORS and plan.backend == "kmeans":
+        # k-means stays on the mesh; the final prototypes are replicated on
+        # every rank, which computes on its block of them
+        from repro_torch.core.distributed import kmeans_sharded  # no cycle
+
+        out = kmeans_sharded(
+            red.protos, kwargs.get("k", 3), valid=red.valid, weights=w,
+            key=key_backend, mesh=plan.mesh, axis_name=plan.axis_name,
+            iters=kwargs.get("iters", 100), impl=plan.impl,
+            n_blocks=plan.shard_multiple())
+    else:
+        # any other backend (and every one-device executor): the replicated
+        # final prototypes, as they are
+        fn = resolve_backend(plan.backend)
+        out = fn(red.protos, valid=red.valid, weights=w, key=key_backend,
+                 impl=plan.impl, **kwargs)
     labels = getattr(out, "labels", out)
     result = out if labels is not out else None
     return torch.where(red.valid, labels, -1).to(torch.int32), result
@@ -496,9 +574,10 @@ def finalize_reduction(plan: FitPlan, red: Reduction) -> FitResult:
 
 def execute_plan(plan: FitPlan, data: Any) -> FitResult:
     """Run the plan's executor on ``data`` (a resident array moved to the
-    plan's device, or the host chunk stream as it is), then the shared
+    plan's device; the host chunk stream, or a mesh executor's input, as
+    it is: a sharded executor moves only this rank's rows), then the shared
     epilogue."""
-    if plan.executor not in STREAMING_EXECUTORS:
+    if plan.executor not in STREAMING_EXECUTORS + SHARDED_EXECUTORS:
         data = as_device_tensor(data, plan.device)
     with _plan_scope(plan):
         red = resolve_executor(plan.executor)(plan, data)

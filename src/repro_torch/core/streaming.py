@@ -41,7 +41,14 @@ Parity: a stream that presents the dataset as one chunk with
 in the buffers and with the keys of the memory executor, so it gives its
 bits. Multi-chunk streams are another estimator of the same family.
 
-Not ported yet: the sharded placement (``streaming_sharded``).
+Two placements share the loop: one device (``streaming``), and the mesh
+(``streaming_sharded``, :class:`_MeshPlacement`): the chunk buffers and
+the reservoir are row-sharded over the ranks, levels run through the
+sharded level step, and a slab folds in as each rank's masked write of its
+own rows. Under a mesh every static size (chunk buffer, per-chunk and
+cascade outputs, reservoir, the finalize levels) is rounded up to the
+plan's shard multiple; where those sizes already divide by it, the
+sharded stream gives the ``streaming`` executor's bits.
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ import torch
 from repro_torch import prng
 from repro_torch.cluster.registry import BackendFn
 from repro_torch.core.itis import (ITISLevelOut, itis_step, level_sizes,
-                                   validate_reduction_params)
+                                   round_up, validate_reduction_params)
 from repro_torch.core.plan import (FitPlan, FitResult, LabelSpill, Reduction,
                                    fit, register_executor)
 
@@ -261,6 +268,8 @@ class _DevicePlacement:
     :func:`repro_torch.core.itis.itis_step`; the reservoir is written in
     place."""
 
+    mult = 1  # no shard padding
+
     def __init__(self, plan: FitPlan, d: int):
         self.plan = plan
         self.d = d
@@ -304,7 +313,8 @@ class _DevicePlacement:
         for buf, part in zip(res, (px, pm, pv)):
             buf[offset:offset + n].copy_(part)
 
-    def compact(self, res) -> torch.Tensor:
+    @staticmethod
+    def compact(res) -> torch.Tensor:
         """Gather the valid reservoir rows to the front, in place (an
         identity level: no reduction, just squeezing out the masked holes
         between slabs). Returns the old-slot → new-slot map, in the format
@@ -331,7 +341,8 @@ class _DevicePlacement:
             buf[n:] = 0
 
     @staticmethod
-    def prefix(res, size0: int):
+    def prefix(res, frontier: int, size0: int):
+        """The occupied prefix (``size0 == frontier`` on one device)."""
         return tuple(b[:size0] for b in res)
 
     @staticmethod
@@ -339,6 +350,143 @@ class _DevicePlacement:
         """Fresh buffers: a prefix is a view of the live reservoir, which
         later folds write in place."""
         return tuple(b.clone() for b in bufs)
+
+    @staticmethod
+    def n_valid(v: torch.Tensor) -> int:
+        """Valid rows of a level buffer (a host decision: syncs)."""
+        return int(v.sum())
+
+    @staticmethod
+    def rows(bufs):
+        """A level's output as the next level's input (the same buffers)."""
+        return bufs
+
+    @staticmethod
+    def whole(bufs):
+        """A level buffer as the epilogue takes it (the same buffers)."""
+        return bufs
+
+
+class _MeshPlacement:
+    """The ``streaming_sharded`` placement: each rank holds its contiguous
+    block of the rows of every chunk buffer and of the reservoir; levels
+    run through :func:`repro_torch.core.distributed.itis_level_sharded`,
+    whose outputs are replicated, and a slab folds in as each rank's write
+    of the rows of ``[offset, offset + slab)`` it owns. The rare steps that
+    move rows across ranks (the hole compaction, the finalize prefix)
+    all-gather the reservoir, which holds prototypes only."""
+
+    def __init__(self, plan: FitPlan, d: int):
+        from repro_torch.core.distributed import _axis
+
+        self.plan = plan
+        self.d = d
+        self.device = plan.device
+        self.mult = plan.shard_multiple()
+        self.axis = _axis(plan.mesh, plan.axis_name)
+
+    def _block(self, n: int):
+        per = n // self.axis.size
+        return self.axis.index * per, per
+
+    def reservoir(self, n: int):
+        _, per = self._block(n)
+        dev = self.device
+        return (torch.zeros((per, self.d), dtype=torch.float32, device=dev),
+                torch.zeros((per,), dtype=torch.float32, device=dev),
+                torch.zeros((per,), dtype=torch.bool, device=dev))
+
+    def place_chunk(self, buf: torch.Tensor, n_valid: int):
+        lo, per = self._block(buf.shape[0])
+        part = buf[lo:lo + per]
+        if self.device.type == "cuda":
+            xj = part.to(self.device, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        else:
+            xj, ev = part, None
+        vj = (lo + torch.arange(per, device=self.device)) < n_valid
+        return xj, vj.float(), vj, ev
+
+    def place_slab(self, px: torch.Tensor, n_valid: int):
+        """A raw host slab, replicated on every rank (it folds as a slab)."""
+        xj = px.to(self.device)  # a synchronous copy: the buffer is free after
+        vj = torch.arange(px.shape[0], device=self.device) < n_valid
+        return xj, vj.float(), vj, None
+
+    def level_step(self, x, mass, valid, key, n_out: int) -> ITISLevelOut:
+        from repro_torch.core.distributed import itis_level_sharded
+
+        p = self.plan
+        return itis_level_sharded(x, mass, valid, key, t=p.t, n_out=n_out,
+                                  weighted=p.weighted, axis=self.axis,
+                                  n_blocks=self.mult, impl=p.impl,
+                                  knn_route=p.knn_route)
+
+    def fold(self, res, px, pm, pv, offset: int) -> None:
+        """Each rank writes the rows of [offset, offset + slab) it owns,
+        from the replicated slab."""
+        row0, per = self._block(res[0].shape[0] * self.axis.size)
+        lo, hi = max(offset, row0), min(offset + px.shape[0], row0 + per)
+        if hi > lo:
+            for buf, part in zip(res, (px, pm, pv)):
+                buf[lo - row0:hi - row0].copy_(part[lo - offset:hi - offset])
+
+    def _gathered(self, res):
+        return tuple(self.axis.gather_rows(b) for b in res)
+
+    def _keep(self, res, full) -> None:
+        row0, per = self._block(full[0].shape[0])
+        for buf, part in zip(res, full):
+            buf.copy_(part[row0:row0 + per])
+
+    def compact(self, res) -> torch.Tensor:
+        """The single-device compaction on the gathered reservoir; each
+        rank keeps its block. Returns the replicated old → new slot map."""
+        full = self._gathered(res)
+        assignment = _DevicePlacement.compact(full)
+        self._keep(res, full)
+        return assignment
+
+    def absorb(self, out: ITISLevelOut, res) -> None:
+        """The cascade's replicated slab, zero-padded to the reservoir;
+        each rank keeps its block."""
+        n_res = res[0].shape[0] * self.axis.size
+        pad = n_res - out.protos.shape[0]
+        full = (torch.nn.functional.pad(out.protos, (0, 0, 0, pad)),
+                torch.nn.functional.pad(out.mass, (0, pad)),
+                torch.nn.functional.pad(out.valid, (0, pad)))
+        self._keep(res, full)
+
+    def prefix(self, res, frontier: int, size0: int):
+        """The occupied prefix zero-padded to ``size0`` (a multiple of the
+        shard multiple), re-blocked over the ranks."""
+        full = self._gathered(res)
+        pad = size0 - frontier
+        full = (torch.nn.functional.pad(full[0][:frontier], (0, 0, 0, pad)),
+                torch.nn.functional.pad(full[1][:frontier], (0, pad)),
+                torch.nn.functional.pad(full[2][:frontier], (0, pad)))
+        return self.rows(full)
+
+    @staticmethod
+    def clone(bufs):
+        return tuple(b.clone() for b in bufs)
+
+    def n_valid(self, v: torch.Tensor) -> int:
+        return int(self.axis.psum(v.sum().reshape(1).to(torch.int64))[0])
+
+    def rows(self, bufs):
+        """This rank's block of replicated level buffers."""
+        row0, per = self._block(bufs[0].shape[0])
+        return tuple(b[row0:row0 + per] for b in bufs)
+
+    def whole(self, bufs):
+        """Row-sharded level buffers, gathered (replicated)."""
+        return self._gathered(bufs)
+
+
+#: executor name -> placement
+_PLACEMENTS = {"streaming": _DevicePlacement, "streaming_sharded": _MeshPlacement}
 
 
 # ---------------------------------------------------------------------------
@@ -390,8 +538,11 @@ class _StreamMachine:
         self.chunk_n = chunk_n
         self.d = d
 
-        self.placement = _DevicePlacement(plan, d)
-        self.chunk_out = max(chunk_n // self.t, 1)
+        self.placement = _PLACEMENTS[plan.executor](plan, d)
+        mult = self.mult = self.placement.mult
+        # under a mesh every static size is a multiple of the shard multiple
+        self.chunk_buf_n = round_up(chunk_n, mult)
+        self.chunk_out = round_up(max(self.chunk_buf_n // self.t, 1), mult)
         # raw-fold slab of chunks too small to reduce (the early-stop rule,
         # per chunk): their valid prefix is copied verbatim
         self.raw_len = min(chunk_n, self.floor)
@@ -402,8 +553,9 @@ class _StreamMachine:
             reservoir_n = max(4 * self.chunk_out, 2 * self.raw_len,
                               self.floor - 1 + max(self.chunk_out,
                                                    self.raw_len))
+        reservoir_n = round_up(reservoir_n, mult)
         self.reservoir_n = reservoir_n
-        self.cascade_out = max(reservoir_n // self.t, 1)
+        self.cascade_out = round_up(max(reservoir_n // self.t, 1), mult)
         # feasibility up front, before the stream is consumed: an overflow
         # frees down to cascade_out (reduction) or, degraded, to at most
         # floor - 1 valid rows (compaction); the next slab may be a full
@@ -422,7 +574,7 @@ class _StreamMachine:
         # producer, one still owned by the consumer; the serial loop
         # double-buffers so a recycled buffer never waits on its own copy
         self.pool = _StagingPool(self.depth + 2 if self.depth else 2,
-                                 self.chunk_n, d,
+                                 self.chunk_buf_n, d,
                                  pin=plan.device.type == "cuda")
 
         self.res = self.placement.reservoir(reservoir_n)
@@ -472,7 +624,7 @@ class _StreamMachine:
     def cascade(self) -> None:
         self.drain_spills()  # the cascade syncs anyway; clear the backlog
         # compaction vs reduction is a host decision, once per reservoir fill
-        occ_valid = int(self.res[2].sum())
+        occ_valid = self.placement.n_valid(self.res[2])
         if occ_valid < self.floor:
             # the slots are mostly masked holes (slabs whose chunks made few
             # clusters): too few valid prototypes to reduce, so squeeze the
@@ -637,25 +789,29 @@ class _StreamMachine:
             "ingest_wait_s": self.ingest_wait_s,
         }
 
-        size0 = self.frontier
-        sizes = level_sizes(size0, self.t, self.m - 1) if self.m > 1 else [size0]
-        bufs = self.placement.prefix(self.res, size0)
+        size0 = round_up(self.frontier, self.mult)
+        sizes = (level_sizes(size0, self.t, self.m - 1, multiple=self.mult)
+                 if self.m > 1 else [size0])
+        bufs = self.placement.prefix(self.res, self.frontier, size0)
         if snapshot:  # the prefix is a view of the live reservoir
             bufs = self.placement.clone(bufs)
-        buf_x, buf_m, buf_v = bufs
+        whole = None  # the last level's replicated output
         key_chain = self.key_chain  # never consumed in place
         n_valid_seen = []
         for level in range(self.m - 1):
             # the early-exit floor is a host decision, m - 1 times per fit
-            n_valid = int(buf_v.sum())
+            n_valid = self.placement.n_valid(bufs[2])
             if n_valid < self.floor:
                 break
             key_chain, sub = prng.split(key_chain)
-            out = self.placement.level_step(buf_x, buf_m, buf_v, key=sub,
+            out = self.placement.level_step(*bufs, key=sub,
                                             n_out=sizes[level + 1])
             maps.append(_spill(out.assignment))
             n_valid_seen.append(n_valid)
-            buf_x, buf_m, buf_v = out.protos, out.mass, out.valid
+            whole = (out.protos, out.mass, out.valid)
+            bufs = self.placement.rows(whole)
+        buf_x, buf_m, buf_v = (whole if whole is not None
+                               else self.placement.whole(bufs))
         ingest_stats["finalize_level_sizes"] = sizes[:len(n_valid_seen) + 1]
         ingest_stats["finalize_n_valid"] = n_valid_seen
 
@@ -676,6 +832,13 @@ def _execute_streaming(plan: FitPlan, chunks) -> Reduction:
     machine, first, rest = _StreamMachine.open_stream(plan, chunks)
     machine.ingest(rest, first=first)
     return machine.finalize()
+
+
+@register_executor("streaming_sharded")
+def _execute_streaming_sharded(plan: FitPlan, chunks) -> Reduction:
+    """The composed path: the same loop over row-sharded buffers. Every
+    rank iterates the same chunk stream and places only its rows."""
+    return _execute_streaming(plan, chunks)
 
 
 def ihtc_streaming(

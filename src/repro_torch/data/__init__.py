@@ -14,5 +14,6 @@ from repro_torch.data.pipeline import (  # noqa: F401
     make_batch,
     point_chunk,
     point_chunks,
+    stream_to_mesh,
     synth_tokens,
 )

@@ -10,14 +10,14 @@ caller names a device, and the caller moves them to the card.
 
 The clustering workload's point streams follow the same contract: each
 chunk is a pure function of (seed, chunk index), so a stream is
-restartable and chunks can be made anywhere. Feeding a stream onto a mesh
-(``stream_to_mesh``) waits for the port's mesh (ROADMAP.md, Queue 1,
-item 7).
+restartable and chunks can be made anywhere. :func:`stream_to_mesh` feeds
+a stream onto a device mesh: every rank reads the same chunks and keeps
+only the rows of its own slab, so no full-size buffer exists anywhere.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,3 +157,58 @@ def point_chunks(cfg: PointStreamConfig) -> Iterator[np.ndarray]:
     n_chunks = -(-cfg.n // cfg.chunk)
     for i in range(n_chunks):
         yield point_chunk(cfg, i)
+
+
+def stream_to_mesh(
+    chunks: Iterable[np.ndarray],
+    mesh,
+    n_total: int,
+    d: int,
+    *,
+    axis_name: str = "data",
+    pad_multiple: int = 0,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Feed host-sized chunks onto the mesh without a full-size buffer.
+
+    Every rank iterates the same chunk stream and copies only the rows of
+    its slab, ``[r·per, (r+1)·per)`` of the ``n_pad`` padded rows, into one
+    slab-sized host buffer, placed on ``device`` (default: the runtime
+    config's) once the stream ends: peak host memory is one slab and one
+    chunk a rank. Returns ``(x, valid)`` as
+    :class:`repro_torch.core.distributed.ShardedRows` — x (n_pad, d), valid
+    (n_pad,) False on the padding rows, each rank holding its block —
+    which ``repro_torch.fit(x, ..., valid=valid, mesh=mesh)`` takes as they
+    are. ``pad_multiple`` defaults to the canonical reduction width rounded
+    to the rank count, so the sharded ITIS driver needs no re-padding."""
+    from repro_torch.core._collectives import Axis
+    from repro_torch.core.distributed import ShardedRows
+    from repro_torch.core.itis import round_up
+    from repro_torch.core.prototypes import REDUCE_BLOCKS
+    from repro_torch.runtime import resolve_device
+
+    axis = Axis(mesh, axis_name)
+    p, me = axis.size, axis.index
+    mult = round_up(pad_multiple or max(REDUCE_BLOCKS, p), p)
+    n_pad = round_up(n_total, mult)
+    per = n_pad // p
+    lo, hi = me * per, (me + 1) * per
+    buf = np.zeros((per, d), np.float32)
+    seen = 0
+    for chunk in chunks:
+        chunk = np.asarray(chunk, np.float32)
+        if chunk.ndim != 2 or chunk.shape[1] != d:
+            raise ValueError(f"stream_to_mesh: a chunk of shape {chunk.shape}, "
+                             f"want (rows, {d})")
+        a, b = max(seen, lo), min(seen + chunk.shape[0], hi)
+        if b > a:
+            buf[a - lo:b - lo] = chunk[a - seen:b - seen]
+        seen += chunk.shape[0]
+    if seen != n_total:
+        raise ValueError(f"stream yielded {seen} rows, expected {n_total}")
+    dev = resolve_device(device)
+    valid = (lo + torch.arange(per)) < n_total
+    return (ShardedRows(torch.from_numpy(buf).to(device=dev, dtype=dtype),
+                        (n_pad, d)),
+            ShardedRows(valid.to(dev), (n_pad,)))

@@ -1,0 +1,168 @@
+"""Meshes of the port and a launcher of ranks on one host.
+
+The reference simulates its devices inside one process; PyTorch runs one
+process per rank. :func:`spawn_ranks` starts them (the ``spawn`` method:
+CUDA cannot be forked), gives each an initialized process group (a
+``file://`` rendezvous, a timeout on every collective), and returns what
+each rank's function returned, or raises if any rank failed or outlived
+the limit. Under ``torchrun`` nothing needs starting:
+:func:`make_data_mesh` initializes the group from the launch variables.
+
+The trainer's meshes (``make_production_mesh``, ``make_plan``,
+``batch_specs``) wait for ROADMAP Queue 1 item 7b.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+import uuid
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.distributed import check_nccl_ranks, make_data_mesh  # noqa: F401
+
+#: seconds a spawned rank may take, collectives included (each test and
+#: phase passes its own)
+DEFAULT_TIMEOUT_S = 120.0
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
+                    device_type: Optional[str] = None):
+    """A small 2-D ``("data", "model")`` mesh over ``n_data · n_model``
+    ranks (the process group must have exactly that many)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.runtime import active
+
+    if device_type is None:
+        device_type = torch.device(active().device).type
+    return init_device_mesh(device_type, (n_data, n_model),
+                            mesh_dim_names=("data", "model"))
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The mesh dimensions the data is split over ("pod", "data")."""
+    return tuple(a for a in (mesh.mesh_dim_names or ()) if a in ("pod", "data"))
+
+
+def axis_size(mesh, axes) -> int:
+    """Ranks along ``axes`` (a name, a tuple of names, or None: 1)."""
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    names = tuple(mesh.mesh_dim_names or ())
+    return int(np.prod([mesh.size(names.index(a)) for a in axes]))
+
+
+def _rank_main(fn, rank: int, world: int, backend: str, device: str,
+               rendezvous: str, timeout: float, args: Sequence[Any], results) -> None:
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group(backend, init_method=f"file://{rendezvous}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=timeout))
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        out = fn(rank, *args)
+        results.put((rank, "ok", out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(
+    fn: Callable[..., Any],
+    nprocs: int,
+    *,
+    backend: str = "gloo",
+    device: str = "cpu",
+    init_dir: Optional[str] = None,
+    args: Sequence[Any] = (),
+    timeout: float = DEFAULT_TIMEOUT_S,
+) -> List[Any]:
+    """Run ``fn(rank, *args)`` in ``nprocs`` fresh processes joined by one
+    process group over ``backend``; returns the ranks' results in rank
+    order.
+
+    ``fn`` must be importable by name (defined at a module's top level) and
+    its result picklable. ``device`` "cuda" puts rank r on card ``r %
+    cards`` (every rank on cuda:0 with one card; NCCL with more ranks than
+    cards raises here, before anything starts). The rendezvous file lives
+    in ``init_dir`` (default: a fresh temporary directory, removed after).
+    ``timeout`` bounds every collective and the whole run: a rank still
+    alive then is killed and the call raises, as it does when any rank
+    raises or dies (the other ranks are stopped at once)."""
+    import torch.multiprocessing as mp
+
+    if nprocs < 1:
+        raise ValueError(f"spawn_ranks: nprocs={nprocs}")
+    if backend == "nccl":
+        check_nccl_ranks(nprocs, torch.device(device).type)
+    own_dir = init_dir is None
+    work = tempfile.mkdtemp(prefix="repro-torch-ranks-") if own_dir else init_dir
+    rendezvous = os.path.join(work, f"rendezvous-{uuid.uuid4().hex}")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, nprocs, backend, str(device), rendezvous,
+                               timeout, tuple(args), results))
+             for r in range(nprocs)]
+    for p in procs:
+        p.start()
+    got, errors = {}, {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) + len(errors) < nprocs and time.monotonic() < deadline:
+            try:
+                rank, status, payload = results.get(timeout=0.5)
+            except queue.Empty:
+                for r, p in enumerate(procs):  # a rank that died unreported
+                    if (p.exitcode not in (None, 0) and r not in got
+                            and r not in errors):
+                        errors[r] = f"exited with code {p.exitcode}"
+                if errors:
+                    break
+                continue
+            if status == "ok":
+                got[rank] = payload
+            else:
+                errors[rank] = payload
+                break  # the others may wait on a collective with it: stop them
+    finally:
+        stop = errors or len(got) < nprocs
+        for p in procs:
+            if stop and p.is_alive():
+                p.kill()
+            p.join(timeout=max(1.0, deadline - time.monotonic()) if not stop else 10.0)
+            if p.is_alive():
+                p.kill()
+                p.join(10.0)
+        results.close()
+        if own_dir:
+            shutil.rmtree(work, ignore_errors=True)
+        elif os.path.exists(rendezvous):
+            os.remove(rendezvous)
+    if errors:
+        text = "\n".join(f"rank {r}: {e}" for r, e in sorted(errors.items()))
+        raise RuntimeError(f"spawn_ranks: {len(errors)} of {nprocs} ranks "
+                           f"failed\n{text}")
+    if len(got) < nprocs:
+        missing = sorted(set(range(nprocs)) - set(got))
+        raise RuntimeError(f"spawn_ranks: ranks {missing} did not finish "
+                           f"within {timeout} s; killed")
+    for r, p in enumerate(procs):
+        if p.exitcode not in (0, None):
+            raise RuntimeError(f"spawn_ranks: rank {r} exited with code "
+                               f"{p.exitcode} after reporting")
+    return [got[r] for r in range(nprocs)]

@@ -16,11 +16,11 @@ checkpoints. Added here: ``--smoke`` takes the arch's ``smoke_config``
 
 The trainer is single-device: ``--mesh`` takes ``single``; the
 reference's ``debug``, ``pod1`` and ``pod2`` meshes wait for ROADMAP.md,
-Queue 1, item 7. Training holds 16 bytes a parameter (f32 weights and
+Queue 1, item 7b. Training holds 16 bytes a parameter (f32 weights and
 gradients, AdamW's two f32 moments); a model whose state exceeds the
 card's memory (llama4-scout, jamba, deepseek-moe-16b, granite-20b,
 minitron-8b and qwen2.5-32b at full depth) raises before it is built:
-cut its depth or wait for item 7. Weights are random from a seeded
+cut its depth or wait for item 7b. Weights are random from a seeded
 generator, in f32; the batches are the pure-function synthetic pipeline.
 A missing GPU raises; nothing falls back to the CPU.
 """
@@ -54,7 +54,7 @@ def check_mesh(mesh: str) -> None:
     if mesh != "single":
         raise NotImplementedError(
             f"--mesh {mesh}: the port's trainer runs on one device; the "
-            f"meshes wait for ROADMAP.md, Queue 1, item 7")
+            f"meshes wait for ROADMAP.md, Queue 1, item 7b")
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -77,7 +77,7 @@ def check_fits(cfg: ModelConfig, device: torch.device) -> None:
             f"{STATE_BYTES_PER_PARAM} B of f32 weights, gradients and AdamW "
             f"moments), more than the card's {have / 1e9:.1f} GB; cut the "
             f"depth (--layers) or train across devices (ROADMAP.md, Queue 1, "
-            f"item 7)")
+            f"item 7b)")
 
 
 def batch_dims(shape: ShapeConfig, batch: int = 0, seq: int = 0) -> Tuple[int, int]:

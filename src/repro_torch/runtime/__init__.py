@@ -11,6 +11,7 @@ from repro_torch.runtime.config import (  # noqa: F401
     dispatch_key,
     resolve_device,
     set_default,
+    torchrun_env,
     tune_cache_path,
     update_default,
 )

@@ -16,7 +16,7 @@ import contextlib
 import dataclasses
 import os
 import threading
-from typing import Any, Iterator, Mapping, Optional
+from typing import Any, Dict, Iterator, Mapping, Optional
 
 import torch
 
@@ -35,9 +35,12 @@ TUNE_MODES = ("off", "cached", "onthefly")
 
 #: "auto" and the fit executors of :mod:`repro_torch.core.plan` (which keeps
 #: the registry; this tuple only gates the field, so a typo fails at import)
-EXECUTORS = ("auto", "memory", "streaming")
-#: the reference's multi-device executors, not ported yet
-SHARDED_EXECUTORS = ("sharded", "streaming_sharded")
+EXECUTORS = ("auto", "memory", "streaming", "sharded", "streaming_sharded")
+
+#: the variables a ``torchrun`` launch sets in every rank
+#: (:func:`torchrun_env`; ``repro_torch.core.distributed.make_data_mesh``
+#: initializes the process group from them)
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 #: env var naming the tuning cache file (``python -m repro_torch.tune
 #: --cache`` wins over it)
@@ -66,6 +69,12 @@ class RuntimeConfig:
       reservoir_n: prototype reservoir capacity of the streaming fit; 0 =
         auto (four chunks' prototype budget, raised to the feasibility
         bound of ``repro_torch.core.streaming``).
+      mesh: the default 1-D ``("data",)`` device mesh
+        (``repro_torch.core.distributed.make_data_mesh``) of ``fit`` and
+        ``ClusterIndex.assign``; None = one device unless a mesh is passed.
+        A mesh turns the memory executor into "sharded" and the streaming
+        one into "streaming_sharded".
+      axis_name: the mesh dimension the rows are sharded over.
       prefetch_depth: chunks the streaming fit stages ahead of the device
         on a background thread (0 = the serial loop); every depth gives
         the same bits. The reference's ``donate_stream`` has no field
@@ -91,6 +100,8 @@ class RuntimeConfig:
     chunk_n: int = 0
     reservoir_n: int = 0
     prefetch_depth: int = 0
+    mesh: Any = None
+    axis_name: str = "data"
     executor: str = "auto"
     tune: str = "off"
     serve_queue_depth: int = 8192
@@ -114,11 +125,8 @@ class RuntimeConfig:
             raise ValueError(f"precision must be 'float32' or 'bfloat16', "
                              f"got {self.precision!r}")
         torch.device(self.device)  # unknown device strings fail here
-        if self.executor in SHARDED_EXECUTORS:
-            raise ValueError(
-                f"executor {self.executor!r} is multi-device, which the port "
-                f"does not have yet (ROADMAP Queue 1 item 7); use one of "
-                f"{EXECUTORS}")
+        if not self.axis_name:
+            raise ValueError("axis_name must be non-empty")
         if self.executor not in EXECUTORS:
             raise ValueError(
                 f"executor must be one of {EXECUTORS}, got {self.executor!r}")
@@ -144,9 +152,10 @@ class RuntimeConfig:
 
     def dispatch_key(self) -> tuple:
         """Hashable fingerprint of every behaviour-determining field, in the
-        reference's order: ``device``, ``precision`` and
-        ``serve_default_tenant`` are left out (resolved per call, as the
-        reference leaves out ``mesh``, ``axis_name`` and ``precision``).
+        reference's order: ``device``, ``precision``,
+        ``serve_default_tenant``, ``mesh`` and ``axis_name`` are left out
+        (resolved per call, as the reference leaves out ``mesh``,
+        ``axis_name`` and ``precision``).
         With tuning on it carries ``(tune, cache_epoch())``, so a
         populate, prune or cache swap changes the key; with tuning off it
         carries ``"off"`` and cache churn costs nothing."""
@@ -237,6 +246,12 @@ def update_default(**overrides: Any) -> RuntimeConfig:
     global _default
     _default = _default.replace(**overrides)
     return _default
+
+
+def torchrun_env() -> Dict[str, str]:
+    """The launch variables of :data:`TORCHRUN_VARS` that are set (read at
+    each call; empty outside a ``torchrun`` launch)."""
+    return {v: os.environ[v] for v in TORCHRUN_VARS if os.environ.get(v, "")}
 
 
 def tune_cache_path() -> str:

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.index import ClusterIndex
 from repro_torch.core.plan import as_device_tensor
+from repro_torch.runtime import active
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (32, 128, 512, 2048)
 
@@ -84,7 +85,12 @@ class ClusterService:
 
     def warmup(self) -> None:
         """Run every bucket shape once ahead of traffic, then zero the
-        counters (warmup is not traffic)."""
+        counters (warmup is not traffic). With a mesh in the runtime
+        config it first replicates the index over the mesh (every rank
+        gets rank 0's bits), and the bucket assigns run on the mesh."""
+        mesh = active().mesh
+        if mesh is not None:
+            self.index = self.index.replicate(mesh)
         d = self.index.dim
         for b in self.buckets:
             self.index.assign(

@@ -1,6 +1,6 @@
 """Training substrate of the port: optimizer, step factory, checkpoint,
 fault tolerance (single device; the mesh side waits for ROADMAP.md,
-Queue 1, item 7)."""
+Queue 1, item 7b)."""
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: F401
 from repro_torch.train.optimizer import (  # noqa: F401
     OptConfig,

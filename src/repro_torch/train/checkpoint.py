@@ -17,7 +17,7 @@ package's checkpoint load into the other's. The manifest has no treedef
 joins it (one writer at a time). ``restore`` reads a step into the
 structure of ``like``: a model's parameters are loaded in place, tensors
 come back on ``device`` (default: the device of the ``like`` leaf). Mesh
-placement waits for the mesh (ROADMAP.md, Queue 1, item 7).
+placement waits for the mesh (ROADMAP.md, Queue 1, item 7b).
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ Per-tensor symmetric int8: the payload the reference's compressed
 cross-pod all-reduce puts on the wire. The collectives themselves
 (``compressed_psum``, ``psum_with_error_feedback``,
 ``tree_compressed_psum``) need a collective axis and wait for the port's
-mesh (ROADMAP.md, Queue 1, item 7).
+mesh (ROADMAP.md, Queue 1, item 7b).
 """
 from __future__ import annotations
 

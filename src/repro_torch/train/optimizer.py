@@ -1,7 +1,7 @@
 """AdamW with a cosine schedule and global-norm clipping — the port of
 ``repro.train.optimizer`` (single device; the reference's ZeRO-1 specs,
 ``zero_opt_specs`` and ``_zero_spec_for``, wait for the mesh: ROADMAP.md,
-Queue 1, item 7).
+Queue 1, item 7b).
 
 The state is a dict of tensors on the parameters' device: f32 moments
 ``m`` and ``v`` keyed by parameter name, an int32 ``step``, and with

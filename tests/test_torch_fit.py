@@ -84,4 +84,7 @@ def test_fit_rejects_what_it_cannot_run(rng):
     with pytest.raises(ValueError, match="unknown backend"):
         repro_torch.fit(x, 2, 1, "spectral", device="cpu")
     with pytest.raises(ValueError, match="unknown executor"):
+        repro_torch.fit(x, 2, 1, executor="shardedd", device="cpu")
+    # the sharded executor exists, and without a process group it says so
+    with pytest.raises(RuntimeError, match="needs an initialized process group"):
         repro_torch.fit(x, 2, 1, executor="sharded", device="cpu")

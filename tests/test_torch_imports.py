@@ -60,6 +60,11 @@ def test_port_imports_without_jax():
         "import repro_torch.train, repro_torch.launch.train, repro_torch.utils.tree\n"
         "import repro_torch.data.instance_selection, repro_torch.train.compression\n"
         "import repro_torch.tune, repro_torch.tune.__main__, repro_torch.tune.autotune\n"
+        "import repro_torch.core.distributed, repro_torch.core._collectives\n"
+        "import repro_torch.launch.mesh\n"
+        "from repro_torch import make_data_mesh, ihtc, ihtc_sharded\n"
+        "from repro_torch.core import ring_knn, tc_sharded, kmeans_sharded\n"
+        "from repro_torch.data import stream_to_mesh\n"
         "from repro_torch.serve import (AsyncClusterService, IndexStore,\n"
         "    OnlineFitter, RefreshDriver, RefreshPolicy)\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') for m in sys.modules)\n"

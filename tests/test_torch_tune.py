@@ -160,8 +160,10 @@ def test_tune_policy_validation_and_env():
 
 @pytest.mark.parametrize("executor", ["sharded", "streaming_sharded"])
 def test_multi_device_executors_name_item_7(executor):
-    with pytest.raises(ValueError, match="item 7"):
-        RuntimeConfig(executor=executor)
+    # ROADMAP item 7a ported the multi-device executors: the field takes
+    # them, as the reference's does
+    assert RuntimeConfig(executor=executor).executor == executor
+    assert config_from_env({"REPRO_TORCH_EXECUTOR": executor}).executor == executor
     with pytest.raises(ValueError, match="executor must be one of"):
         RuntimeConfig(executor="memroy")
     assert jruntime.RuntimeConfig(executor=executor).executor == executor
