@@ -52,7 +52,8 @@ Phases, each printing one JSON line:
                1, 100, 2048 and 5000 points, held against the plain path;
   sharded      the sharded fit (repro_torch.core.distributed) at the fit's
                full size, every rank on this card: four ranks over gloo
-               (CUDA tensors staged through pinned host memory) fit the
+               (CUDA tensors copied through the ranks' device mailboxes,
+               opened by CUDA IPC; reductions through host memory) fit the
                analog's first 579,312 rows (every level size divides by
                the shard multiple 8), twice, and serve 4,999 queries under
                the mesh: bit for bit the memory executor's fit and the
@@ -66,8 +67,8 @@ Phases, each printing one JSON line:
                block, self-exclusion shifted out of range) and K3 at a
                rank's block partial held against their plain versions;
                per rank the wall per level, MIS rounds, peak memory,
-               launches per route and the collectives staged through the
-               host with their bytes;
+               launches per route and the collectives' bytes, staged
+               through the host and through the mailboxes;
   tune         the autotuner (repro_torch.tune) on the main path: the
                CLI's populate into a temporary cache at the main path's
                buckets (knn, knn_block and assign at the fit's 581,012 x 6,
@@ -163,6 +164,18 @@ Phases, each printing one JSON line:
                config, peak memory, the MoE's aux losses and dropped slots,
                the SSD scan's largest decay sum above the diagonal; with
                profile, one more step under torch.profiler;
+  train_mesh   the trainer over data ranks (TRAIN_MESH): gemma2-2b at full
+               width cut to 2 layers, four gloo ranks on this card for 3
+               steps (copies through the ranks' device mailboxes), bit for
+               bit the one-device step at 4 microbatches (losses, grad
+               norms, weights, the moments gathered from the ZeRO-1
+               shards); a step-2 checkpoint that two ranks restore for
+               step 3, bit for bit the one-device schedule; one NCCL rank
+               against 1 microbatch; the int8 error-feedback all-reduce on
+               the step-0 gradients (the reference's criteria, the card's
+               bits the host's); the first step apart, bytes a rank a
+               step, peak memory, spawn and phase seconds; the phase fails
+               past 60 s;
   lm           the LM serving path at the full gemma2-2b config (random
                weights from a seeded generator): ServeEngine.generate with
                batch 4, prompt 2048, 160 new tokens, IHTC KV compression
@@ -266,11 +279,13 @@ from __future__ import annotations
 
 import argparse
 import ast
+import atexit
 import asyncio
 import contextlib
 import hashlib
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -289,7 +304,7 @@ DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "sharded", "tune
                   "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
                   "train_moe", "train_ssm", "train_hybrid", "train_vlm",
-                  "train_encdec", "lm", "lm_moe", "lm_hybrid", "lm_vlm",
+                  "train_encdec", "train_mesh", "lm", "lm_moe", "lm_hybrid", "lm_vlm",
                   "lm_encdec")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
@@ -454,6 +469,25 @@ TRAIN_FAMILIES = {
     "train_vlm": dict(arch="phi-3-vision-4.2b", layers=0, batch=8),
     "train_encdec": dict(arch="seamless-m4t-large-v2", layers=0, batch=8),
 }
+#: the train_mesh phase: gemma2-2b at full width cut to 2 decoder layers
+#: (0.7456e9 parameters) over four gloo ranks on the card (8 + 8/4 B a
+#: parameter a rank, 7.5 GB; four ranks 30 GB), the train phase's batch (b 8,
+#: s 256, remat "block", one 2-row microbatch a rank) and schedule, 3 steps
+#: with a checkpoint after step 2; 2 of the ranks restore it for step 3;
+#: rank 0 alone over NCCL (one spawn for all three); the compressed all-reduce on the layers' step-0 gradients (the
+#: 590 M-parameter embedding left out), 16 feedback rounds on one matrix.
+#: The phase fails past ``limit_s`` (60 s); its steps were cut from 4 to 3
+#: to keep within it (PERF.md)
+TRAIN_MESH = dict(arch="gemma2-2b", layers=2, ranks=4, elastic_ranks=2, steps=3,
+                  save_at=2, batch=8, seq=256, rounds=16,
+                  rounds_leaf="layers.0.attn.wo", one_rank_backend="nccl",
+                  timeout=600.0, limit_s=60.0)
+#: the reference's criteria (tests/test_distribution.py::
+#: test_compressed_psum_error_feedback): each leaf's compressed mean within
+#: this share of its largest exact mean; 16 rounds of error feedback
+#: averaged below this share of the one-shot error
+MAX_COMPRESS_REL_ERR = 0.02
+MAX_FEEDBACK_RATIO = 0.6
 #: the tune phase: timed runs per candidate of populate (the median is
 #: kept), the cut shape the K1 routes are held against the plain version
 #: at (queries x keys of the covertype analog), and the rows of the
@@ -2030,6 +2064,7 @@ def sharded_rank(rank: int, cfg: dict) -> dict:
     out["launches"] = kernels.launch_counts()
     out["routes"] = kernels.route_counts()
     out["staged"] = _collectives.staging_counts()
+    out["ipc"] = _collectives.ipc_counts()
     out["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
     out["aligned"] = dict(seconds=wall, executor=res.executor,
                           level_seconds=res.info["level_seconds"],
@@ -2180,7 +2215,8 @@ def phase_sharded(state: dict) -> None:
                      lloyd_iters=o["aligned"]["lloyd_iters"],
                      peak_bytes=o["peak_bytes"], launches_by_route=o["routes"],
                      staged=o["staged"],
-                     staged_bytes=sum(v["bytes"] for v in o["staged"].values()))
+                     staged_bytes=sum(v["bytes"] for v in o["staged"].values()),
+                     ipc=o["ipc"], ipc_bytes=sum(v["bytes"] for v in o["ipc"].values()))
                 for o in outs]
 
     emit("sharded", ranks=p, backend="gloo", n=cfg["aligned"], d=x.shape[1], t=t,
@@ -3712,6 +3748,422 @@ def phase_train_family(state: dict, which: str, profile: bool = False) -> None:
     torch.cuda.empty_cache()
 
 
+def _rank_sync(on_card: bool) -> None:
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def _fingerprint(t: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
+    """An int64 fingerprint of a tensor's bits, taken in chunks (ranks
+    compare their copies of the gathered weights by it; equal tensors give
+    equal prints)."""
+    bits = t.detach().reshape(-1).view(torch.int32)
+    acc = torch.zeros(2, dtype=torch.int64, device=bits.device)
+    for a in range(0, bits.numel(), chunk):
+        b = bits[a:a + chunk].to(torch.int64)
+        w = torch.arange(a + 1, a + 1 + b.numel(), device=b.device,
+                         dtype=torch.int64) % 65521
+        acc += torch.stack([b.sum(), (b * w).sum()])
+    return acc
+
+
+def _one_device_run(cfg, job: dict, dev, schedule) -> tuple:
+    """The one-device trainer from the seeded state along ``schedule``
+    ((steps, microbatches), ...): (losses, grad norms, model, opt)."""
+    from repro_torch.configs import SHAPES, ParallelConfig
+    from repro_torch.launch.train import batch_fn, init_state
+    from repro_torch.train import OptConfig, make_train_step
+
+    bundle, model, opt = init_state(cfg, device=dev, seed=job["seed"])
+    opt_cfg = OptConfig(**job["opt"])
+    bfs = batch_fn(cfg, SHAPES["train_4k"], job["batch"], job["seq"], dev)
+    losses, gnorms, s = [], [], 0
+    for n, mb in schedule:
+        step = make_train_step(bundle, opt_cfg, ParallelConfig(remat=job["remat"],
+                                                               microbatches=mb))
+        for _ in range(n):
+            model, opt, m = step(model, opt, bfs(s))
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
+            s += 1
+    for p in model.parameters():
+        p.grad = None
+    return losses, gnorms, model, opt
+
+
+def _step0_grads(model, bundle, cfg, job: dict, axis, bfs) -> dict:
+    """This rank's gradients of both layers' matrices on its rows of the
+    step-0 batch at the seeded weights (the compressed all-reduce's input)."""
+    from repro_torch.train.train_step import _local_rows, make_loss_fn
+
+    leaves = [n for n, p in model.named_parameters()
+              if n.startswith("layers.") and p.dim() == 2]
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = make_loss_fn(bundle, "ref", job["remat"])(
+        model, _local_rows(bfs(0), cfg, axis)[0])
+    loss.backward()
+    named = dict(model.named_parameters())
+    g0 = {n: named[n].grad.detach().clone() for n in leaves}
+    for p in model.parameters():
+        p.grad = None
+    return g0
+
+
+def _compress_checks(g0: dict, job: dict, axis, mesh, on_card: bool) -> dict:
+    """The int8 error-feedback all-reduce over the ranks on ``g0`` (the
+    reference's criteria against the rank-order mean), 16 rounds on one
+    leaf, and the same call on host tensors."""
+    from repro_torch.train.compression import (compressed_psum,
+                                               psum_with_error_feedback,
+                                               tree_compressed_psum)
+    from repro_torch.train.train_step import _reduce_grads
+
+    leaves = list(g0)
+    _rank_sync(on_card)
+    t0 = time.perf_counter()
+    exact = {n: g.clone() for n, g in g0.items()}
+    _reduce_grads(list(exact.values()), axis, axis.size)  # the mean, rank order
+    means, new_errs = tree_compressed_psum(
+        g0, {n: torch.zeros_like(g) for n, g in g0.items()}, "data", mesh=mesh)
+    rel = {n: float((means[n] - exact[n]).abs().max() / exact[n].abs().max())
+           for n in leaves}
+    _rank_sync(on_card)
+    tree_s = time.perf_counter() - t0
+    x = g0[job["rounds_leaf"]]
+    want = exact[job["rounds_leaf"]]
+    one_err = float((compressed_psum(x, "data", mesh=mesh) - want).abs().max())
+    err, tot = torch.zeros_like(x), torch.zeros_like(x)
+    for _ in range(job["rounds"]):
+        o, err = psum_with_error_feedback(x, err, "data", mesh=mesh)
+        tot += o
+    avg_err = float((tot / job["rounds"] - want).abs().max())
+    _rank_sync(on_card)
+    rounds_s = time.perf_counter() - t0 - tree_s
+    t1 = time.perf_counter()
+    host = {n: g.cpu() for n, g in g0.items()}
+    means_h, errs_h = tree_compressed_psum(
+        host, {n: torch.zeros_like(g) for n, g in host.items()}, "data", mesh=mesh)
+    host_equal = all(torch.equal(means_h[n], means[n].cpu())
+                     and torch.equal(errs_h[n], new_errs[n].cpu()) for n in leaves)
+    return dict(leaves=len(leaves), elements=sum(g.numel() for g in g0.values()),
+                max_rel_err=max(rel.values()), rel_err=rel, one_shot_err=one_err,
+                avg_err_16=avg_err, tree_s=tree_s, rounds_s=rounds_s,
+                host_s=time.perf_counter() - t1, host_equal=host_equal)
+
+
+def _moved_bytes() -> list:
+    """[bytes staged through the host, bytes through the mailboxes] that
+    this rank's copies have moved since the counts were reset."""
+    from repro_torch.core import _collectives
+
+    return [sum(v["bytes"] for v in c().values())
+            for c in (_collectives.staging_counts, _collectives.ipc_counts)]
+
+
+def train_mesh_rank(rank: int, jobs: list) -> list:
+    """One rank of the train_mesh phase (started by spawn_ranks): each job
+    in turn on the spawn's first ``job["ranks"]`` ranks over
+    ``job["backend"]`` (a group of its own where those are not all the
+    ranks), the others waiting; this rank's result of each job, None where
+    it took no part."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core.distributed import make_data_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks share the host's cores (the host-side checks, gloo's reductions)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // dist.get_world_size()))
+    outs = []
+    for job in jobs:
+        n, kind = job["ranks"], torch.device(job["device"]).type
+        if n == dist.get_world_size() and job["backend"] == dist.get_backend():
+            mesh = make_data_mesh(backend=job["backend"], device_type=kind)
+        else:
+            group = dist.new_group(list(range(n)), backend=job["backend"])
+            mesh = (DeviceMesh.from_group(group, kind, mesh_dim_names=("data",))
+                    if rank < n else None)
+        outs.append(None if mesh is None else _train_mesh_job(rank, job, mesh))
+        if kind == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return outs
+
+
+def _train_mesh_job(rank: int, job: dict, mesh) -> dict:
+    """One job of :func:`train_mesh_rank` on ``mesh``: the data-parallel
+    trainer on this rank's rows of the train phase's batches, timed per
+    step; optionally a checkpoint after ``save_at`` or a restore of step
+    ``restore``, the compressed all-reduce, and on rank 0 the one-device
+    run of ``schedule`` held against the mesh's losses, grad norms, weights
+    and moments."""
+    from repro_torch.configs import SHAPES, ParallelConfig
+    from repro_torch.core import _collectives
+    from repro_torch.launch.mesh import data_axis
+    from repro_torch.launch.train import batch_fn, init_state
+    from repro_torch.train import (CheckpointManager, OptConfig, make_train_step,
+                                   mesh_opt_specs)
+    from repro_torch.train.fault_tolerance import run_training
+    from repro_torch.train.optimizer import gather_whole
+
+    started_s = time.time() - job["spawned_at"]
+    t_in = time.perf_counter()
+    dev = torch.device(job["device"])
+    on_card = dev.type == "cuda"
+    cfg = job["cfg"]
+    axis = data_axis(mesh)
+    bundle, model, opt = init_state(cfg, device=dev, seed=job["seed"], mesh=mesh)
+    specs = mesh_opt_specs(model, mesh)
+    step = make_train_step(bundle, OptConfig(**job["opt"]),
+                           ParallelConfig(remat=job["remat"]), mesh=mesh)
+    bfs = batch_fn(cfg, SHAPES["train_4k"], job["batch"], job["seq"], dev)
+    ckpt = CheckpointManager(job["ckpt_dir"]) if job["ckpt_dir"] else None
+    out = {"rank": rank, "size": axis.size, "start_s": started_s}
+    start = 0
+    if job["restore"]:
+        t0 = time.perf_counter()
+        start = job["restore"]
+        state = ckpt.restore(start, {"params": model, "opt": opt}, mesh=mesh,
+                             specs={"opt": specs})
+        model, opt = state["params"], state["opt"]
+        _rank_sync(on_card)
+        out["restore_s"] = time.perf_counter() - t0
+    g0 = _step0_grads(model, bundle, cfg, job, axis, bfs) if job["compress"] else None
+    out["setup_s"] = time.perf_counter() - t_in
+    axis.barrier()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _collectives.reset_staging_counts()
+
+    def synced(*args):
+        r = step(*args)
+        _rank_sync(on_card)
+        return r
+
+    mets, times = [], []
+    t0 = time.perf_counter()
+    save_at = job["save_at"]
+    out["save_s"], out["save_bytes"] = 0.0, [0, 0]
+    for lo, hi in ((start, save_at), (max(start, save_at), job["steps"])):
+        if hi <= lo:
+            continue
+        model, opt, st = run_training(
+            train_step=synced, init_state=(model, opt), batch_for_step=bfs,
+            n_steps=hi, start_step=lo, on_metrics=lambda s, m: mets.append(m),
+            mesh=mesh, opt_specs=specs)
+        times += st.times
+        if hi == save_at:
+            # gathered now; rank 0 writes it while the rank goes on (waited
+            # for before the state is freed)
+            t1, moved = time.perf_counter(), _moved_bytes()
+            ckpt.save(save_at, {"params": model, "opt": opt}, async_=True, mesh=mesh,
+                      specs={"opt": specs})
+            out["save_s"] = time.perf_counter() - t1
+            out["save_bytes"] = [b - a for a, b in zip(moved, _moved_bytes(), strict=True)]
+    out["train_s"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    out["staged"] = _collectives.staging_counts()
+    out["ipc"] = _collectives.ipc_counts()
+    out["step_s"] = times
+    losses = [m["loss"] for m in mets]
+    gnorms = [m["grad_norm"] for m in mets]
+    out["losses"] = [float(v) for v in losses]
+    out["grad_norms"] = [float(v) for v in gnorms]
+    prints = torch.stack([_fingerprint(p) for p in model.parameters()])
+    all_prints = axis.gather_rows(prints[None]).cpu()
+    out["weights_same_on_every_rank"] = bool((all_prints == all_prints[0]).all())
+    t0 = time.perf_counter()
+    moments = {"m": {}, "v": {}}  # whole, on rank 0's card
+    for key, whole in moments.items():
+        for n, t in opt[key].items():
+            w = gather_whole(t, specs[key][n], axis)
+            if rank == 0:
+                whole[n] = w
+    _rank_sync(on_card)
+    out["gather_s"] = time.perf_counter() - t0
+    if job["compress"]:
+        out["compress"] = _compress_checks(g0, job, axis, mesh, on_card)
+        del g0
+    t0 = time.perf_counter()
+    if ckpt is not None:
+        ckpt.wait()
+    out["write_wait_s"] = time.perf_counter() - t0
+    # the ranks' state goes before rank 0's one-device run takes the card
+    for p in model.parameters():
+        p.grad = None
+    del opt
+    if rank != 0:
+        del model
+    if on_card:
+        torch.cuda.empty_cache()
+    axis.barrier()
+    if rank == 0 and job["schedule"]:
+        t0 = time.perf_counter()
+        r_loss, r_gn, r_model, r_opt = _one_device_run(cfg, job, dev, job["schedule"])
+        out["reference_s"] = time.perf_counter() - t0
+        r_loss, r_gn = r_loss[start:], r_gn[start:]
+        out["losses_equal"] = all(torch.equal(a, b) for a, b in zip(losses, r_loss,
+                                                                    strict=True))
+        out["grad_norms_equal"] = all(torch.equal(a, b) for a, b in zip(gnorms, r_gn,
+                                                                        strict=True))
+        named = dict(r_model.named_parameters())
+        out["weights_differ"] = [n for n, p in model.named_parameters()
+                                 if not torch.equal(p, named[n])]
+        out["moments_differ"] = [f"{key} {n}" for key in ("m", "v")
+                                 for n, t in moments[key].items()
+                                 if not torch.equal(t, r_opt[key][n])]
+        out["reference_losses"] = [float(v) for v in r_loss]
+    out["job_s"] = time.perf_counter() - t_in
+    return out
+
+
+def phase_train_mesh(state: dict) -> None:
+    """The trainer over data ranks on the card (TRAIN_MESH): gemma2-2b at
+    full width cut to 2 layers, the train phase's batch and schedule, in
+    one spawn of four gloo ranks. All four (TRAIN_MESH's steps, a
+    checkpoint after ``save_at``) against the one-device step at
+    microbatches 4; the first two restore that checkpoint and take the
+    rest against the one-device schedule of ``save_at`` steps at 4
+    microbatches and the rest at 2; rank 0 alone over NCCL against
+    microbatches 1; the int8 error-feedback all-reduce on the four ranks'
+    step-0 gradients. Every comparison bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import check_fits, param_count, state_bytes_per_rank
+
+    t_start = time.perf_counter()
+    _free_models(state)
+    cfg = dataclasses.replace(ARCHS[TRAIN_MESH["arch"]], n_layers=TRAIN_MESH["layers"])
+    p, p2 = TRAIN_MESH["ranks"], TRAIN_MESH["elastic_ranks"]
+    n_params = param_count(cfg)
+    check_fits(cfg, torch.device(DEV), data_ranks=p, ranks_per_card=p)
+    reckoning = {f"P={k}": state_bytes_per_rank(n_params, k) for k in (p, p2, 1)}
+    steps, save_at = TRAIN_MESH["steps"], TRAIN_MESH["save_at"]
+    base = dict(cfg=cfg, device=DEV, seed=TRAIN["seed"], batch=TRAIN_MESH["batch"],
+                seq=TRAIN_MESH["seq"], remat="block", steps=steps,
+                opt=dict(peak_lr=TRAIN["peak_lr"], warmup_steps=TRAIN["warmup"],
+                         decay_steps=TRAIN["decay"]),
+                rounds=TRAIN_MESH["rounds"], rounds_leaf=TRAIN_MESH["rounds_leaf"])
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-mesh-") as tmp:
+        ckpt_dir = f"{tmp}/ckpt"
+        jobs = [dict(ranks=p, backend="gloo", save_at=save_at, restore=0, compress=True,
+                     schedule=((steps, p),), ckpt_dir=ckpt_dir),
+                dict(ranks=p2, backend="gloo", save_at=0, restore=save_at,
+                     compress=False, schedule=((save_at, p), (steps - save_at, p2)),
+                     ckpt_dir=ckpt_dir),
+                dict(ranks=1, backend=TRAIN_MESH["one_rank_backend"], save_at=0,
+                     restore=0, compress=False, schedule=((steps, 1),), ckpt_dir="")]
+        t0 = time.perf_counter()
+        at = time.time()
+        outs = spawn_ranks(train_mesh_rank, p, backend="gloo", device=DEV,
+                           init_dir=tmp, timeout=TRAIN_MESH["timeout"],
+                           args=([dict(base, spawned_at=at, **j) for j in jobs],))
+        spawn_s = time.perf_counter() - t0
+    runs = {name: [o[i] for o in outs[:jobs[i]["ranks"]]]
+            for i, name in enumerate(("gloo", "elastic", "nccl"))}
+
+    def per_rank(outs, n_steps):
+        rows = []
+        for o in outs:
+            ms = [t * 1e3 for t in o["step_s"]]
+            staged = {op: v["bytes"] for op, v in o["staged"].items()}
+            ipc = {op: v["bytes"] for op, v in o["ipc"].items()}
+            # the steps' bytes: the checkpoint's gathers are counted apart
+            step_bytes = sum(staged.values()) - o["save_bytes"][0]
+            ipc_bytes = sum(ipc.values()) - o["save_bytes"][1]
+            rows.append(dict(rank=o["rank"], start_s=round(o["start_s"], 3),
+                             setup_s=round(o["setup_s"], 3),
+                             train_s=round(o["train_s"], 3),
+                             save_s=round(o["save_s"], 3),
+                             write_wait_s=round(o["write_wait_s"], 3),
+                             gather_s=round(o["gather_s"], 3),
+                             step_ms_first=ms[0],
+                             step_ms_p50_rest=float(np.median(ms[1:])) if len(ms) > 1 else None,
+                             staged_bytes_per_step=step_bytes / n_steps,
+                             staged_by_op=staged,
+                             ipc_bytes_per_step=ipc_bytes / n_steps, ipc_by_op=ipc,
+                             save_bytes_staged_ipc=o["save_bytes"],
+                             peak_bytes=o["peak_bytes"],
+                             restore_s=o.get("restore_s")))
+        return rows
+
+    def bitwise(outs):
+        o = outs[0]
+        return dict(losses=o["losses_equal"], grad_norms=o["grad_norms_equal"],
+                    weights=not o["weights_differ"], moments=not o["moments_differ"],
+                    ranks_agree=all(x["weights_same_on_every_rank"]
+                                    and x["losses"] == o["losses"] for x in outs))
+
+    gloo, el, one = runs["gloo"], runs["elastic"], runs["nccl"]
+    comp = [o["compress"] for o in gloo]
+    c = comp[0]
+    peak = max(o["peak_bytes"] or 0 for o in gloo)
+    emit("train_mesh", arch=cfg.name, layers=cfg.n_layers, params=n_params,
+         batch=TRAIN_MESH["batch"], seq=TRAIN_MESH["seq"], remat="block",
+         ranks=p, backend="gloo", steps=steps, save_at=save_at,
+         state_bytes_per_rank_reckoned=reckoning, peak_bytes_max=peak,
+         losses=gloo[0]["losses"], grad_norms=gloo[0]["grad_norms"],
+         one_device_microbatches=p, bitwise=bitwise(gloo), per_rank=per_rank(gloo, steps),
+         spawn_seconds=round(spawn_s, 3), job_seconds=round(gloo[0]["job_s"], 3),
+         reference_s=round(gloo[0]["reference_s"], 3),
+         elastic=dict(ranks=p2, restored_step=save_at, steps=steps - save_at,
+                      losses=el[0]["losses"], one_device_schedule=[
+                          [save_at, p], [steps - save_at, p2]], bitwise=bitwise(el),
+                      per_rank=per_rank(el, steps - save_at),
+                      job_seconds=round(el[0]["job_s"], 3)))
+    emit("train_mesh_nccl", ranks=1, backend=TRAIN_MESH["one_rank_backend"],
+         steps=steps, losses=one[0]["losses"], one_device_microbatches=1,
+         bitwise=bitwise(one),
+         per_rank=per_rank(one, steps), job_seconds=round(one[0]["job_s"], 3))
+    emit("train_mesh_compress", ranks=p, leaves=c["leaves"], elements=c["elements"],
+         max_rel_err=max(x["max_rel_err"] for x in comp),
+         rel_err_rank0=c["rel_err"], rounds=TRAIN_MESH["rounds"],
+         rounds_leaf=TRAIN_MESH["rounds_leaf"],
+         one_shot_err=[x["one_shot_err"] for x in comp],
+         avg_err_16=[x["avg_err_16"] for x in comp],
+         host_equal=all(x["host_equal"] for x in comp),
+         tree_s=[round(x["tree_s"], 3) for x in comp],
+         rounds_s=[round(x["rounds_s"], 3) for x in comp],
+         host_s=[round(x["host_s"], 3) for x in comp])
+    seconds = round(time.perf_counter() - t_start, 3)
+    emit("train_mesh_phase", seconds=seconds, limit_s=TRAIN_MESH["limit_s"])
+    check(DEV != "cuda" or seconds <= TRAIN_MESH["limit_s"],
+          f"train_mesh: the phase took {seconds} s, past its {TRAIN_MESH['limit_s']} s")
+    for name, outs in runs.items():
+        o = outs[0]
+        check(all(x["weights_same_on_every_rank"] for x in outs),
+              f"train_mesh ({name}): the ranks' gathered weights differ")
+        check(all(x["losses"] == o["losses"] for x in outs),
+              f"train_mesh ({name}): the ranks' losses differ")
+        check(o["losses_equal"] and o["grad_norms_equal"],
+              f"train_mesh ({name}): losses or grad norms differ from the one-device "
+              f"run: {o['losses']} vs {o['reference_losses']}")
+        check(not o["weights_differ"],
+              f"train_mesh ({name}): weights differ from the one-device run: "
+              f"{o['weights_differ'][:5]}")
+        check(not o["moments_differ"],
+              f"train_mesh ({name}): moments differ from the one-device run: "
+              f"{o['moments_differ'][:5]}")
+        check(all(np.isfinite(o["losses"])) and all(np.isfinite(o["grad_norms"])),
+              f"train_mesh ({name}): a non-finite loss or grad norm")
+    check(all(x["max_rel_err"] < MAX_COMPRESS_REL_ERR for x in comp),
+          f"train_mesh_compress: a leaf's error {max(x['max_rel_err'] for x in comp)} "
+          f">= {MAX_COMPRESS_REL_ERR} of its largest mean")
+    check(all(x["avg_err_16"] < MAX_FEEDBACK_RATIO * x["one_shot_err"] for x in comp),
+          f"train_mesh_compress: 16 rounds of error feedback averaged "
+          f"{c['avg_err_16']}, not below {MAX_FEEDBACK_RATIO} x the one-shot "
+          f"{c['one_shot_err']}")
+    check(all(x["host_equal"] for x in comp),
+          "train_mesh_compress: the card's outputs differ from the same call on host "
+          "tensors")
+    check(DEV != "cuda" or all(reckoning[f"P={p}"] <= o["peak_bytes"] for o in gloo),
+          f"train_mesh: a rank's peak {peak} B is below the {reckoning[f'P={p}']} B "
+          f"of state check_fits reckons: the reckoning is wrong")
+
+
 def phase_select(state: dict) -> None:
     """The paper's instance selection on a 65,536-example corpus with the
     train phase's embedding table, kernel path against the plain path,
@@ -4785,6 +5237,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    if {"sharded", "train_mesh"} & set(phases):
+        from repro_torch.launch.mesh import start_rank_server, stop_rank_server
+
+        start_rank_server()  # the ranks' server imports in the background
+        atexit.register(stop_rank_server)
     device = phase_device() if "device" in phases else None
     if "build" in phases:
         phase_build()
@@ -4822,6 +5279,8 @@ def main() -> int:
     for which in TRAIN_FAMILIES:
         if which in phases:
             phase_train_family(state, which, profile="profile" in phases)
+    if "train_mesh" in phases:
+        phase_train_mesh(state)
     if "lm" in phases:
         phase_lm(state)
     if "profile" in phases:

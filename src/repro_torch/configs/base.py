@@ -1,11 +1,14 @@
 """Configs — the port's copy of ``repro.configs.base``: model
 architectures, input shapes, parallelism knobs.
 
-``ParallelConfig`` keeps every field of the reference. The single-device
-trainer reads ``remat`` and ``microbatches``; ``zero_stage``,
-``shard_kv_seq``, ``compress_pod_grads`` and ``seq_shard_activations``
-are mesh knobs, stored and not read until the port runs on a mesh
-(ROADMAP.md, Queue 1, item 7b).
+``ParallelConfig`` keeps every field of the reference. The trainer reads
+``remat`` and ``microbatches``, and over data ranks ``zero_stage`` (0:
+AdamW's state replicated, 1: sharded; the same bits either way).
+``compress_pod_grads`` is stored and unread, as in the reference, where no
+train step reads it (the int8 error-feedback all-reduce is the library
+function ``train.compression.tree_compressed_psum``). ``shard_kv_seq`` and
+``seq_shard_activations`` act on the model axis and wait for ROADMAP.md,
+Queue 1, item 7c.
 """
 from __future__ import annotations
 

@@ -1,15 +1,21 @@
 """Meshes of the port and a launcher of ranks on one host.
 
 The reference simulates its devices inside one process; PyTorch runs one
-process per rank. :func:`spawn_ranks` starts them (the ``spawn`` method:
-CUDA cannot be forked), gives each an initialized process group (a
-``file://`` rendezvous, a timeout on every collective), and returns what
-each rank's function returned, or raises if any rank failed or outlived
-the limit. Under ``torchrun`` nothing needs starting:
+process per rank. :func:`spawn_ranks` starts them (forked from a fresh
+server process that has imported :data:`RANK_PRELOAD` and never touched
+CUDA: a process that has cannot be forked, and one started from nothing
+spends seconds importing torch), gives each an initialized process group
+(a ``file://`` rendezvous, a timeout on every collective), and returns
+what each rank's function returned, or raises if any rank failed or
+outlived the limit. Under ``torchrun`` nothing needs starting:
 :func:`make_data_mesh` initializes the group from the launch variables.
 
-The trainer's meshes (``make_production_mesh``, ``make_plan``,
-``batch_specs``) wait for ROADMAP Queue 1 item 7b.
+The trainer's data axes run here: :func:`batch_specs` gives the rows of a
+batch over ``("pod", "data")``, which the data-parallel train step slices
+by, and :func:`data_axis` the collective axis over those ranks. The model
+axis (``make_production_mesh``, ``make_plan`` and the launcher's
+``debug``, ``pod1`` and ``pod2`` meshes) waits for ROADMAP Queue 1 item
+7c.
 """
 from __future__ import annotations
 
@@ -26,11 +32,19 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core._collectives import Axis, release_mailboxes
 from repro_torch.core.distributed import check_nccl_ranks, make_data_mesh  # noqa: F401
 
 #: seconds a spawned rank may take, collectives included (each test and
 #: phase passes its own)
 DEFAULT_TIMEOUT_S = 120.0
+#: modules the rank server imports once; every rank starts with them loaded
+#: (``torch.utils.checkpoint``, the train step's remat, imports
+#: ``torch._dynamo`` at its first call)
+RANK_PRELOAD = ("numpy", "torch", "torch.distributed", "torch._dynamo",
+                "repro_torch.launch.train", "repro_torch.core.distributed",
+                "repro_torch.train")
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
@@ -62,6 +76,59 @@ def axis_size(mesh, axes) -> int:
     return int(np.prod([mesh.size(names.index(a)) for a in axes]))
 
 
+def data_axis(mesh) -> Axis:
+    """The data ranks of a trainer's mesh as one collective axis (pod-major
+    over ``("pod", "data")``). A mesh with another dimension raises: the
+    model axis waits for ROADMAP.md, Queue 1, item 7c."""
+    axes = data_axes(mesh)
+    names = tuple(mesh.mesh_dim_names or ())
+    if not axes or axes != names:
+        raise NotImplementedError(
+            f"the port's trainer runs on the data axes (pod, data) only; this "
+            f"mesh has {names} (the model axis waits for ROADMAP.md, Queue 1, "
+            f"item 7c)")
+    return Axis(mesh, axes)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh, *, kind: str) -> dict:
+    """The spec of each key of a batch of this cell (a tuple, one entry a
+    dimension): its rows over the data axes, or None where the global batch
+    does not divide over them (then every rank takes the whole batch). One
+    data axis is named alone, as a ``PartitionSpec`` holds it."""
+    dp = data_axes(mesh)
+    dp_size = axis_size(mesh, dp)
+    b = shape.global_batch
+    bx = (dp if len(dp) != 1 else dp[0]) if (b % dp_size == 0 and b >= dp_size) else None
+    specs = {"tokens": (bx, None)}
+    if kind == "train":
+        specs["labels"] = (bx, None)
+    if cfg.frontend == "vision" and kind != "decode":
+        specs["patch_embeds"] = (bx, None, None)
+    if cfg.frontend == "audio" and kind != "decode":
+        specs["frames"] = (bx, None, None)
+    return specs
+
+
+def start_rank_server() -> None:
+    """Start the server that :func:`spawn_ranks` forks its ranks from, if it
+    is not running yet (it imports :data:`RANK_PRELOAD` in the background;
+    a caller may start it early to hide that)."""
+    import multiprocessing.forkserver as forkserver
+
+    import torch.multiprocessing as mp
+
+    mp.get_context("forkserver").set_forkserver_preload(list(RANK_PRELOAD))
+    forkserver.ensure_running()
+
+
+def stop_rank_server() -> None:
+    """Stop the rank server if this process started one (it would end with
+    this process too, a moment after it)."""
+    import multiprocessing.forkserver as forkserver
+
+    forkserver._forkserver._stop()  # the standard library's own stop
+
+
 def _rank_main(fn, rank: int, world: int, backend: str, device: str,
                rendezvous: str, timeout: float, args: Sequence[Any], results) -> None:
     import torch.distributed as dist
@@ -73,6 +140,7 @@ def _rank_main(fn, rank: int, world: int, backend: str, device: str,
         if torch.device(device).type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
         out = fn(rank, *args)
+        release_mailboxes()
         results.put((rank, "ok", out))
     except BaseException:  # noqa: BLE001 — reported to the parent
         results.put((rank, "error", traceback.format_exc()))
@@ -96,7 +164,8 @@ def spawn_ranks(
     order.
 
     ``fn`` must be importable by name (defined at a module's top level) and
-    its result picklable. ``device`` "cuda" puts rank r on card ``r %
+    its result picklable. The ranks are forked from the rank server
+    (:func:`start_rank_server`). ``device`` "cuda" puts rank r on card ``r %
     cards`` (every rank on cuda:0 with one card; NCCL with more ranks than
     cards raises here, before anything starts). The rendezvous file lives
     in ``init_dir`` (default: a fresh temporary directory, removed after).
@@ -112,7 +181,8 @@ def spawn_ranks(
     own_dir = init_dir is None
     work = tempfile.mkdtemp(prefix="repro-torch-ranks-") if own_dir else init_dir
     rendezvous = os.path.join(work, f"rendezvous-{uuid.uuid4().hex}")
-    ctx = mp.get_context("spawn")
+    start_rank_server()
+    ctx = mp.get_context("forkserver")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, r, nprocs, backend, str(device), rendezvous,

@@ -16,15 +16,28 @@ package's checkpoint load into the other's. The manifest has no treedef
 ``async_=True`` only the write runs on a background thread; ``wait()``
 joins it (one writer at a time). ``restore`` reads a step into the
 structure of ``like``: a model's parameters are loaded in place, tensors
-come back on ``device`` (default: the device of the ``like`` leaf). Mesh
-placement waits for the mesh (ROADMAP.md, Queue 1, item 7b).
+come back on ``device`` (default: the device of the ``like`` leaf).
+
+On a mesh of data ranks (``mesh=`` and ``specs=``, a tree of ZeRO specs
+beside the saved one, e.g. ``{"opt": mesh_opt_specs(...)}``; a leaf with
+no spec is replicated), ``save`` gathers every sharded leaf whole, one at
+a time, in rank order, rank 0 copies it to the host and writes the whole
+arrays, the reference's layout, and
+every rank waits for the write (``wait()``: the writer joined, then a
+barrier). ``restore`` reads the same files on any number of data ranks
+(the one-device trainer included) and keeps this rank's shard of each
+sharded leaf, reading only that shard's part of the file: the elastic
+restore. The model axis waits for ROADMAP.md,
+Queue 1, item 7c.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
+import zipfile
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -61,18 +74,47 @@ def _to_host(parts: List[Any]) -> Tuple[np.ndarray, str]:
     return a, _BF16 if a.dtype == _BF16_HOST else str(a.dtype)
 
 
+def _spec_parts(specs: Any, cfg) -> Dict[str, List[Any]]:
+    """{leaf path: the spec of each part} of a spec tree laid out as the
+    saved tree (a dict keyed by parameter names is laid out as the model)."""
+    return dict(tree_flatten_with_paths(specs, cfg=cfg)) if specs else {}
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._axis = None  # the data ranks of the last save on a mesh
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree: Any, *, async_: bool = False,
-             extra: Optional[dict] = None) -> None:
-        host = [(name, *_to_host(parts))
-                for name, parts in tree_flatten_with_paths(tree)]
+             extra: Optional[dict] = None, mesh=None, specs: Any = None) -> None:
+        self.wait()
+        if mesh is not None:
+            from repro_torch.launch.mesh import data_axis
+            from repro_torch.train.optimizer import gather_whole
+
+            axis = data_axis(mesh)
+            sp = _spec_parts(specs, find_config(tree))
+            host = []
+            for name, parts in tree_flatten_with_paths(tree):
+                whole = [gather_whole(part.detach(), spec, axis)
+                         if isinstance(part, torch.Tensor) else part
+                         for part, spec in zip(parts, sp.get(name, [None] * len(parts)),
+                                               strict=True)]
+                if axis.index == 0:
+                    host.append((name, *_to_host(whole)))
+                del whole
+            self._axis = axis
+            if axis.index != 0:
+                if not async_:
+                    self.wait()
+                return
+        else:
+            host = [(name, *_to_host(parts))
+                    for name, parts in tree_flatten_with_paths(tree)]
         manifest = {
             "step": step,
             "leaves": [{"path": n, "shape": list(a.shape), "dtype": dt}
@@ -92,17 +134,23 @@ class CheckpointManager:
             os.replace(tmp, path)
             self._gc()
 
-        self.wait()
         if async_:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
         else:
             _write()
+            if mesh is not None:
+                self.wait()
 
     def wait(self) -> None:
+        """Join the writer; after a save on a mesh, every rank then waits
+        for every other (the write is on disk for all of them)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._axis is not None:
+            axis, self._axis = self._axis, None
+            axis.barrier()
 
     def _gc(self) -> None:
         for s in self.all_steps()[: -self.keep]:
@@ -120,15 +168,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, *, device=None) -> Any:
+    def restore(self, step: int, like: Any, *, device=None, mesh=None,
+                specs: Any = None) -> Any:
         """Step ``step`` in the structure of ``like`` (see the module
-        docstring)."""
+        docstring); with ``mesh`` and ``specs`` this rank's shard of each
+        sharded leaf."""
+        from repro_torch.train.optimizer import local_shard, mesh_coords
+
         path = os.path.join(self.dir, f"step_{step:08d}")
-        with np.load(os.path.join(path, "arrays.npz")) as z:
-            data = {k: z[k] for k in z.files}
+        data = _npz_arrays(os.path.join(path, "arrays.npz"))
         with open(os.path.join(path, "manifest.json")) as f:
             dtypes = {l["path"]: l["dtype"] for l in json.load(f)["leaves"]}
         cfg = find_config(like)
+        sp = _spec_parts(specs, cfg) if mesh is not None else {}
+        coords = mesh_coords(mesh) if mesh is not None else {}
         restored: Dict[str, List[Any]] = {}
         for name, parts in tree_flatten_with_paths(like, cfg=cfg):
             a = data[name]
@@ -136,14 +189,49 @@ class CheckpointManager:
             if len(pieces) != len(parts):
                 raise ValueError(f"{name}: {len(pieces)} stacked entries, "
                                  f"the model has {len(parts)}")
-            restored[name] = [_from_host(arr, dtypes[name], part, device)
-                              for part, arr in zip(parts, pieces, strict=True)]
+            specs_here = sp.get(name, [None] * len(parts))
+            restored[name] = [
+                _from_host(arr if spec is None else local_shard(arr, spec, coords),
+                           dtypes[name], part, device)
+                for part, arr, spec in zip(parts, pieces, specs_here, strict=True)]
         return _rebuild(like, "", cfg, restored)
+
+
+def _npz_arrays(path: str) -> Dict[str, np.ndarray]:
+    """The arrays of an ``.npz``, each mapped from the file where it is
+    stored uncompressed (``np.savez`` stores so): a rank that keeps one
+    shard of a leaf reads that shard's pages only. A compressed entry is
+    read whole."""
+    out: Dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            name = info.filename[:-4] if info.filename.endswith(".npy") else info.filename
+            if info.compress_type != zipfile.ZIP_STORED:
+                with zf.open(info) as member:
+                    out[name] = np.lib.format.read_array(member)
+                continue
+            # the local header: 30 bytes, then the name and the extra field
+            f.seek(info.header_offset)
+            head = f.read(30)
+            start = info.header_offset + 30 + int.from_bytes(head[26:28], "little") \
+                + int.from_bytes(head[28:30], "little")
+            f.seek(start)
+            version = np.lib.format.read_magic(f)
+            shape, fortran, dtype = (np.lib.format.read_array_header_1_0(f)
+                                     if version == (1, 0)
+                                     else np.lib.format.read_array_header_2_0(f))
+            if dtype.hasobject or math.prod(shape) * dtype.itemsize < (1 << 20):
+                f.seek(start)
+                out[name] = np.lib.format.read_array(f)
+                continue
+            out[name] = np.memmap(path, dtype=dtype, mode="r", offset=f.tell(),
+                                  shape=shape, order="F" if fortran else "C")
+    return out
 
 
 def _from_host(a: np.ndarray, dtype: str, like: Any, device) -> Any:
     if not isinstance(like, torch.Tensor):
-        return a
+        return np.array(a)
     if dtype == _BF16:
         t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
     else:

@@ -6,6 +6,13 @@ node loss → restart from the last checkpoint; (c) stragglers → detected
 from step-time quantiles. The data pipeline is a pure function of step,
 so any restart replays exactly — no data state to recover.
 
+On a mesh of data ranks every rank runs the same loop: the retry is
+decided by the pure ``failure_hook(step, attempt)`` before the step starts,
+so every rank retries the same step before any collective, and the
+checkpoints are collective (``mesh=`` and the state's ``opt_specs=`` go
+to ``CheckpointManager.save``), so a run restored on another number of data
+ranks continues bit for bit.
+
 A step's metrics stay device tensors until ``on_metrics`` reads them, so
 the loop waits on the card only where a caller reads a number. The times
 :class:`StepStats` records are host walls of ``step_fn``: on the card
@@ -98,9 +105,13 @@ def run_training(
     start_step: int = 0,
     guard_kwargs: Optional[dict] = None,
     on_metrics: Optional[Callable[[int, dict], None]] = None,
+    mesh=None,
+    opt_specs: Optional[dict] = None,
 ):
     """The fault-tolerant loop: pure data, guarded step, periodic async
-    checkpoints. Returns (model, opt_state, stats)."""
+    checkpoints (on ``mesh``, with the optimizer state's ZeRO
+    ``opt_specs``: collective).
+    Returns (model, opt_state, stats)."""
     params, opt_state = init_state
     guard = StepGuard(train_step, **(guard_kwargs or {}))
     for step in range(start_step, n_steps):
@@ -109,7 +120,8 @@ def run_training(
         if on_metrics is not None:
             on_metrics(step, mets)
         if ckpt is not None and ckpt_every and (step + 1) % ckpt_every == 0:
-            ckpt.save(step + 1, {"params": params, "opt": opt_state}, async_=True)
+            ckpt.save(step + 1, {"params": params, "opt": opt_state}, async_=True,
+                      mesh=mesh, specs={"opt": opt_specs})
     if ckpt is not None:
         ckpt.wait()
     return params, opt_state, guard.stats

@@ -62,6 +62,13 @@ def test_port_imports_without_jax():
         "import repro_torch.tune, repro_torch.tune.__main__, repro_torch.tune.autotune\n"
         "import repro_torch.core.distributed, repro_torch.core._collectives\n"
         "import repro_torch.launch.mesh\n"
+        "from repro_torch.launch.mesh import batch_specs\n"
+        "from repro_torch.train import zero_opt_specs, mesh_opt_specs\n"
+        "from repro_torch.launch.mesh import data_axis\n"
+        "from repro_torch.train.optimizer import gather_shards, gather_whole\n"
+        "from repro_torch.train.compression import (compressed_psum,\n"
+        "    psum_with_error_feedback, tree_compressed_psum)\n"
+        "from repro_torch.launch.train import check_fits, state_bytes_per_rank\n"
         "from repro_torch import make_data_mesh, ihtc, ihtc_sharded\n"
         "from repro_torch.core import ring_knn, tc_sharded, kmeans_sharded\n"
         "from repro_torch.data import stream_to_mesh\n"
