@@ -176,6 +176,27 @@ Phases, each printing one JSON line:
                bits the host's); the first step apart, bytes a rank a
                step, peak memory, spawn and phase seconds; the phase fails
                past 60 s;
+  mesh_tp      the model axis (MESH_TP): gemma2-2b cut as train_mesh cuts
+               it over 8 gloo ranks on this card at (data 2, model 4), one
+               spawn from train_mesh's rank server: every rank draws its
+               slices of the seeded model at once, one whole leaf at a
+               time (its peak then held to check_fits' reckoning); 3 train
+               steps within
+               tests/test_torch_train.py's bounds of the one-device step at
+               2 microbatches (run first, in this process: loss and grad
+               norm within 8 bf16 ulps, each step-0 gradient within 8 ulps
+               of its leaf's largest |g|, weights within 2·Σlr and on
+               average 0.1·Σlr), a second run bitwise the first, every
+               replicated leaf bitwise across the model ranks; the lm
+               phase's traffic served (batch 4, 2 rows a data rank, prompt
+               2048, 160 tokens, compressed) with each rank's K5, K2 and K3
+               launches counted, prefill and 32 forced decode steps within
+               lm_parity's limits of the one-device kernel path and bitwise
+               on repeat, every K5 call at the ranks' heads held against
+               K5's plain version, each rank's compressed slots the one-device
+               compression of the ranks' raw caches put together; step ms,
+               mailbox and staged bytes a rank a step, peak memory against
+               check_fits' reckoning; the phase fails past 40 s;
   lm           the LM serving path at the full gemma2-2b config (random
                weights from a seeded generator): ServeEngine.generate with
                batch 4, prompt 2048, 160 new tokens, IHTC KV compression
@@ -304,7 +325,8 @@ DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "sharded", "tune
                   "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
                   "train_moe", "train_ssm", "train_hybrid", "train_vlm",
-                  "train_encdec", "train_mesh", "lm", "lm_moe", "lm_hybrid", "lm_vlm",
+                  "train_encdec", "train_mesh", "mesh_tp", "lm", "lm_moe", "lm_hybrid",
+                  "lm_vlm",
                   "lm_encdec")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
@@ -457,7 +479,7 @@ MIN_LOSS_DROP = 0.92
 #: top-6 + 2 shared; 28 layers would be 262 GB), jamba to 2 (Mamba + dense,
 #: Mamba + MoE 16 experts top-2; the first cut holding its attention layer
 #: is 5 layers, 114 GB: its attention trains at smoke_config on the CPU
-#: until ROADMAP Queue 1 item 7). The batch is 8, cut to 4 for a phase
+#: until ROADMAP Queue 1 item 7d). The batch is 8, cut to 4 for a phase
 #: whose predicted peak passes 75 GB (none: PERF.md)
 TRAIN_FAMILY = dict(steps=16, seq=256, batch=8)
 #: log of the largest f32: exp overflows past it
@@ -482,6 +504,19 @@ TRAIN_MESH = dict(arch="gemma2-2b", layers=2, ranks=4, elastic_ranks=2, steps=3,
                   save_at=2, batch=8, seq=256, rounds=16,
                   rounds_leaf="layers.0.attn.wo", one_rank_backend="nccl",
                   timeout=600.0, limit_s=60.0)
+#: the mesh_tp phase: gemma2-2b cut as TRAIN_MESH cuts it over 8 gloo
+#: ranks at (data 2, model 4) (a rank 186.4e6 parameters: a quarter of the
+#: embedding and of the layers; 8 + 8/2 B each, 2.24 GB); the train phase's
+#: batch, sequence, remat and schedule for ``steps`` steps against the
+#: one-device step at ``data`` microbatches; the lm phase's traffic (batch
+#: 4, prompt 2048, 160 tokens, compressed at t 2, m 1, tail 128) and 32
+#: forced decode steps. The phase fails past ``limit_s`` (40 s)
+MESH_TP = dict(arch="gemma2-2b", layers=2, data=2, model=4, batch=8, seq=256,
+               steps=3, serve_batch=4, prompt=2048, new_tokens=160, t=2, m=1,
+               tail=128, forced_steps=32, timeout=300.0, limit_s=40.0)
+#: gradients, losses and grad norms against the one-device step (bf16 ulps,
+#: tests/test_torch_train.py)
+GRAD_ULPS = 8
 #: the reference's criteria (tests/test_distribution.py::
 #: test_compressed_psum_error_feedback): each leaf's compressed mean within
 #: this share of its largest exact mean; 16 rounds of error feedback
@@ -4164,6 +4199,463 @@ def phase_train_mesh(state: dict) -> None:
           f"of state check_fits reckons: the reckoning is wrong")
 
 
+def _bf16_ulp(x: float) -> float:
+    return float(2.0 ** (np.floor(np.log2(abs(x))) - 7)) if x else 0.0
+
+
+def _tp_train(job: dict, mesh, dev) -> dict:
+    """The tensor-parallel trainer twice from the seeded state (MESH_TP's
+    steps), the first run held against the one-device step's step-0
+    gradients and final weights (``job["ref"]``, shared by the parent)."""
+    from repro_torch.configs import SHAPES, ParallelConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import _collectives
+    from repro_torch.launch.mesh import make_plan
+    from repro_torch.launch.train import batch_fn, init_state
+    from repro_torch.models.tensor_parallel import model_dim
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.optimizer import local_shard
+
+    cfg, on_card = job["cfg"], dev.type == "cuda"
+    ref = job["ref"]
+    plan = make_plan(cfg, ShapeConfig("mesh_tp", job["seq"], job["batch"], "train"), mesh)
+    bfs = batch_fn(cfg, SHAPES["train_4k"], job["batch"], job["seq"], dev)
+    runs = []
+    for attempt in range(2):
+        t0 = time.perf_counter()
+        before = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        # every rank draws its slices at once, one whole leaf at a time
+        bundle, model, opt = init_state(cfg, device=dev, seed=job["seed"], mesh=mesh)
+        init_peak = torch.cuda.max_memory_allocated() - before if on_card else None
+        tp = model.tp
+        coords = {"model": (tp.index, tp.size)}  # slices of the one-device leaves
+        step = make_train_step(bundle, OptConfig(**job["opt"]),
+                               ParallelConfig(remat="block"), mesh=mesh, plan=plan)
+        _rank_sync(on_card)
+        run = {"init_s": time.perf_counter() - t0, "init_peak_bytes": init_peak}
+        tp.axis.barrier()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _collectives.reset_staging_counts()
+        losses, gnorms, times = [], [], []
+        for s in range(job["steps"]):
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, bfs(s))
+            _rank_sync(on_card)
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
+            if s == 0 and attempt == 0:
+                worst = 0.0
+                for n, p in model.named_parameters():
+                    want = ref["grads0"][n]
+                    err = float((p.grad - local_shard(want, tp.specs[n], coords))
+                                .abs().max())
+                    bound = GRAD_ULPS * _bf16_ulp(float(want.abs().max()))
+                    worst = max(worst, err / bound if bound else (0.0 if err == 0 else
+                                                                  float("inf")))
+                run["grad_ratio_max"] = worst
+        run.update(step_s=times, losses=[float(v) for v in losses],
+                   grad_norms=[float(v) for v in gnorms], moved=_moved_bytes(),
+                   staged=_collectives.staging_counts(), ipc=_collectives.ipc_counts(),
+                   peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+        named = dict(model.named_parameters())
+        run["prints"] = torch.stack([_fingerprint(p) for p in named.values()]).cpu()
+        if attempt == 0:
+            dmax, dsum, count = {}, {}, {}
+            for n, p in named.items():
+                d = (p.detach() - local_shard(ref["params"][n], tp.specs[n], coords)).abs()
+                dmax[n], dsum[n], count[n] = float(d.max()), float(d.sum()), d.numel()
+            run.update(dmax=dmax, dsum=dsum, count=count)
+            rep = [n for n in named if model_dim(tp.specs[n]) is None]
+            mine = torch.stack([_fingerprint(named[n]) for n in rep])
+            every = tp.axis.gather_rows(mine[None]).cpu()
+            run["replicated_equal"] = bool((every == every[0]).all())
+            run["replicated_leaves"] = len(rep)
+        runs.append(run)
+        del model, opt, step, named
+        if on_card:
+            torch.cuda.empty_cache()
+    a, b = runs
+    return dict(runs[0], repeat_bitwise=(a["losses"] == b["losses"]
+                                         and a["grad_norms"] == b["grad_norms"]
+                                         and torch.equal(a["prints"], b["prints"])),
+                repeat_init_s=b["init_s"], repeat_step_s=b["step_s"],
+                repeat_init_peak_bytes=b["init_peak_bytes"], prints=None)
+
+
+def _tp_serve(job: dict, mesh, dev) -> dict:
+    """The lm phase's traffic through ServeEngine on the mesh (launches
+    counted), then the forced route twice, the first with every K5 call
+    held against its plain version at the ranks' shapes; the raw and the
+    compressed caches of the first gathered whole (every row, every kv
+    head) on rank 0."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import data_axis, make_plan
+    from repro_torch.models import build
+    from repro_torch.models.tensor_parallel import cache_kv_heads, gather_dim
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, S = job["cfg"], job["sizes"]
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    bundle = build(cfg)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0), device=dev,
+                        mesh=mesh)
+    tp = model.tp
+    plan = make_plan(cfg, ShapeConfig("mesh_tp", S["prompt"], S["serve_batch"],
+                                      "decode"), mesh)
+    engine = ServeEngine(bundle, model, ServeConfig(
+        max_new_tokens=S["new_tokens"], compress=True, compress_t=S["t"],
+        compress_m=S["m"], compress_tail=S["tail"], impl="auto"), plan=plan, mesh=mesh)
+    rows = data_axis(mesh)
+    _rank_sync(on_card)
+    out = {"init_s": time.perf_counter() - t0}
+    rows.barrier()
+    kernels.reset_launch_counts()
+    gen = engine.generate({"tokens": job["prompts"]})
+    _rank_sync(on_card)
+    out.update(counts=kernels.launch_counts(), routes=kernels.route_counts(),
+               tokens=gen["tokens"].cpu().numpy(), timings=gen["timings"],
+               n_steps=gen["n_steps"], compressions=gen["compressions"])
+    # the launches this rank's generate makes: K5 at each global layer's
+    # prefill and at every layer of every decode step, K2 once a (row, kv
+    # head) a layer a compression
+    n_global = sum(cfg.attn_type(l) == "global" for l in range(cfg.n_layers))
+    heads = cache_kv_heads(cfg, tp.size)
+    out["want"] = {"K5": n_global + cfg.n_layers * S["new_tokens"],
+                   "K5-decode": cfg.n_layers * S["new_tokens"],
+                   "K2": cfg.n_layers * (S["serve_batch"] // rows.size) * heads
+                   * len(gen["timings"]["compress"])}
+    per = S["serve_batch"] // rows.size
+    lo = rows.index * per
+    tok = torch.from_numpy(job["prompts"][lo:lo + per]).to(dev)
+    steps = torch.from_numpy(job["forced"][lo:lo + per]).to(dev)
+    route = dict(impl="auto", compress_impl="auto", cache_kw=dict(tp_size=tp.size),
+                 plan=plan, whole=lambda x: rows.gather_rows(gather_dim(x, tp.axis, 1)),
+                 traffic=dict(LM, t=S["t"], m=S["m"], tail=S["tail"],
+                              new_tokens=S["new_tokens"]))
+    held = []
+    t0 = time.perf_counter()
+    first, raw, comp = _forced_route(bundle, model, tok, steps, held=held, **route)
+    again = _forced_route(bundle, model, tok, steps, **route)[0]
+    _rank_sync(on_card)
+    out["forced_s"] = time.perf_counter() - t0
+    out["repeat_bitwise"] = all(torch.equal(a, b) for a, b in zip(first, again,
+                                                                  strict=True))
+    out["diffs"] = [_logit_diff(a, b) for a, b in zip(first, job["ref"]["logits"],
+                                                      strict=True)]
+    out["held"] = _held_summary(held)
+    out["held_want"] = [n_global, cfg.n_layers * steps.shape[1]]
+    local_heads = heads < cfg.n_kv_heads
+
+    def whole(c):  # every row and kv head
+        got = {}
+        for k in ("k", "v", "mass"):
+            if k in c:
+                t = gather_dim(c[k], tp.axis, 1) if local_heads else c[k]
+                got[k] = rows.gather_rows(t.contiguous())
+        return dict(got, pos=c["pos"])
+
+    def host(c):  # numpy for the parent (bf16 widened to f32: exact)
+        return {k: v if k == "pos" else v.float().cpu().numpy() for k, v in c.items()}
+
+    raw_all = [whole(c) for c in raw["layers"]]
+    comp_all = [whole(c) for c in comp["layers"]]
+    out.update(rows=(lo, lo + per), heads=((tp.index * heads, (tp.index + 1) * heads)
+                                           if local_heads else None))
+    if rows.index == 0 and tp.index == 0:
+        out.update(raw=dict(raw, layers=[host(c) for c in raw_all]),
+                   comp={"layers": [host(c) for c in comp_all]})
+    del raw_all, comp_all
+    del model, engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_tp_rank(rank: int, job: dict) -> dict:
+    """One rank of the mesh_tp phase (started by spawn_ranks): the debug
+    mesh, the tensor-parallel trainer, then the server."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // dist.get_world_size()))
+    dev = torch.device(job["device"])
+    started_s = time.time() - job["spawned_at"]
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(job["data"], job["model"], device_type=dev.type)
+    train = _tp_train(job, mesh, dev)
+    train_s = time.perf_counter() - t0
+    serve = _tp_serve(job, mesh, dev)
+    return {"rank": rank, "coords": {a: int(mesh.get_local_rank(a))
+                                     for a in ("data", "model")},
+            "start_s": started_s, "train_s": train_s,
+            "serve_s": time.perf_counter() - t0 - train_s, "train": train,
+            "serve": serve}
+
+
+def _tp_reference(cfg, dev, prompts) -> tuple:
+    """The one-device oracles of the mesh_tp phase, in this process: the
+    trainer at ``data`` microbatches (losses, grad norms, step-0 gradients,
+    final weights) and the kernel path's generate and forced route."""
+    from repro_torch.configs import SHAPES, ParallelConfig
+    from repro_torch.launch.train import batch_fn, init_state
+    from repro_torch.models import build
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train import OptConfig, make_train_step
+
+    S = MESH_TP
+    t0 = time.perf_counter()
+    bundle, model, opt = init_state(cfg, device=dev, seed=TRAIN["seed"])
+    step = make_train_step(bundle, OptConfig(**_mesh_tp_opt()),
+                           ParallelConfig(remat="block", microbatches=S["data"]))
+    bfs = batch_fn(cfg, SHAPES["train_4k"], S["batch"], S["seq"], dev)
+    losses, gnorms, lrs, grads0 = [], [], [], None
+    sync_ = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync_()
+    init_s = time.perf_counter() - t0
+    for s in range(S["steps"]):
+        model, opt, m = step(model, opt, bfs(s))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        if s == 0:
+            grads0 = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    steps_s = time.perf_counter() - t0 - init_s
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sync_()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sb = build(cfg)
+    smodel = sb.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine = ServeEngine(sb, smodel, ServeConfig(
+        max_new_tokens=S["new_tokens"], compress=True, compress_t=S["t"],
+        compress_m=S["m"], compress_tail=S["tail"], impl="auto"))
+    gen = engine.generate({"tokens": prompts})
+    tok = torch.from_numpy(prompts).to(dev)
+    forced = gen["tokens"][:, :S["forced_steps"]].to(dev, torch.int64)
+    logits = _forced_route(sb, smodel, tok, forced, impl="auto", compress_impl="auto",
+                           traffic=dict(LM, t=S["t"], m=S["m"], tail=S["tail"],
+                                        new_tokens=S["new_tokens"]))[0]
+    del smodel, engine
+    sync_()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return (dict(losses=losses, grad_norms=gnorms, lrs=lrs, grads0=grads0,
+                 params=params, logits=logits, tokens=gen["tokens"].cpu().numpy(),
+                 timings=gen["timings"], forced=forced.cpu().numpy(),
+                 init_s=init_s, steps_s=steps_s),
+            train_s, time.perf_counter() - t0)
+
+
+def _mesh_tp_opt() -> dict:
+    return dict(peak_lr=TRAIN["peak_lr"], warmup_steps=TRAIN["warmup"],
+                decay_steps=TRAIN["decay"])
+
+
+def _on_card(caches: dict) -> dict:
+    """Host caches (numpy, bf16 keys and values widened to f32) back on the
+    card as the model keeps them."""
+    def one(c):
+        return {k: (v if k == "pos" else torch.from_numpy(v).to(
+            DEV, torch.float32 if k == "mass" else torch.bfloat16)) for k, v in c.items()}
+    return dict(caches, layers=[one(c) for c in caches["layers"]])
+
+
+def _sliced(caches: dict, rows, heads) -> dict:
+    """The (rows, kv heads) block of every layer's cache (``heads`` None:
+    all of them)."""
+    sl = (slice(*rows), slice(*heads) if heads else slice(None))
+    return {"layers": [{k: (v[sl] if torch.is_tensor(v) else v) for k, v in c.items()}
+                       for c in caches["layers"]]}
+
+
+def phase_mesh_tp(state: dict) -> None:
+    """The model axis on the card (MESH_TP): the one-device oracles in this
+    process, then one spawn of data x model gloo ranks (train_mesh's rank
+    server) running the tensor-parallel trainer and server, held against
+    them (see the module docstring)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import (init_bytes_per_rank, rank_param_count,
+                                          state_bytes_per_rank)
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    t_start = time.perf_counter()
+    _free_models(state)
+    S = MESH_TP
+    cfg = dataclasses.replace(ARCHS[S["arch"]], n_layers=S["layers"])
+    n_ranks = S["data"] * S["model"]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(S["serve_batch"], S["prompt"]))
+    ref, ref_train_s, ref_serve_s = _tp_reference(cfg, torch.device(DEV), prompts)
+    per_rank_params = rank_param_count(cfg, S["model"])
+    reckoned = state_bytes_per_rank(per_rank_params, S["data"])
+    init_reckoned = init_bytes_per_rank(cfg, per_rank_params, S["data"],
+                                        model_ranks=S["model"])
+    job = dict(cfg=cfg, device=DEV, seed=TRAIN["seed"], data=S["data"], model=S["model"],
+               batch=S["batch"], seq=S["seq"], steps=S["steps"], opt=_mesh_tp_opt(),
+               prompts=prompts, forced=ref["forced"], sizes=dict(S),
+               ref={k: ref[k] for k in ("grads0", "params", "logits")})
+    parent_bytes = ([torch.cuda.memory_allocated(), torch.cuda.memory_reserved()]
+                    if DEV == "cuda" else None)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-tp-") as tmp:
+        t0 = time.perf_counter()
+        job["spawned_at"] = time.time()
+        outs = spawn_ranks(mesh_tp_rank, n_ranks, backend="gloo", device=DEV,
+                           init_dir=tmp, timeout=S["timeout"], args=(job,))
+        spawn_s = time.perf_counter() - t0
+    del job
+    # the train checks
+    trains = [o["train"] for o in outs]
+    lr_sum = sum(ref["lrs"])
+    loss_ok = all(abs(a - b) <= GRAD_ULPS * _bf16_ulp(b)
+                  for t in trains for key in ("losses", "grad_norms")
+                  for a, b in zip(t[key], ref[key], strict=True))
+    grad_ratio = max(t["grad_ratio_max"] for t in trains)
+    names = list(trains[0]["dmax"])
+    dmax = {n: max(t["dmax"][n] for t in trains) for n in names}
+    dmean = {}
+    row0 = [o["train"] for o in outs if o["coords"]["data"] == 0]
+    for n in names:  # every element once: a sharded leaf's slices on data row 0
+        parts = row0 if trains[0]["count"][n] < ref["params"][n].numel() else row0[:1]
+        dmean[n] = sum(t["dsum"][n] for t in parts) / sum(t["count"][n] for t in parts)
+    weights_ok = all(dmax[n] <= 2 * lr_sum and dmean[n] <= 0.1 * lr_sum for n in names)
+    # the serve checks
+    serves = [o["serve"] for o in outs]
+    diffs = serves[0]["diffs"]
+    zero = next(sv for sv in serves if "raw" in sv)
+    together = compress_model_caches(_on_card(zero["raw"]), S["t"], S["m"],
+                                     tail=S["tail"], impl="auto")
+    comp = _on_card(zero["comp"])
+    slots = [_slot_agreement(_sliced(comp, sv["rows"], sv["heads"]),
+                             _sliced(together, sv["rows"], sv["heads"])) for sv in serves]
+    counts, routes = {}, {}
+    for sv in serves:
+        for k, v in sv["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in sv["routes"].items():
+            routes[k] = routes.get(k, 0) + v
+    state["mesh_tp_counts"], state["mesh_tp_routes"] = counts, routes
+    tokens_equal = float((serves[0]["tokens"] == ref["tokens"]).mean())
+
+    def rank_row(o):
+        t, sv = o["train"], o["serve"]
+        ms = [x * 1e3 for x in t["step_s"]]
+        tm = sv["timings"]
+        n_tok = sv["tokens"].shape[0] * sv["n_steps"] // S["data"]
+        return dict(rank=o["rank"], coords=o["coords"], start_s=round(o["start_s"], 3),
+                    train_s=round(o["train_s"], 3), serve_s=round(o["serve_s"], 3),
+                    init_s=round(t["init_s"], 3), init_peak_bytes=t["init_peak_bytes"],
+                    repeat_init_peak_bytes=t["repeat_init_peak_bytes"],
+                    step_ms_first=ms[0], step_ms_p50_rest=float(np.median(ms[1:])),
+                    repeat_step_ms=[x * 1e3 for x in t["repeat_step_s"]],
+                    staged_bytes_per_step=t["moved"][0] / S["steps"],
+                    ipc_bytes_per_step=t["moved"][1] / S["steps"],
+                    staged_by_op=t["staged"], ipc_by_op=t["ipc"],
+                    peak_bytes=t["peak_bytes"], launches=sv["counts"],
+                    launches_want=sv["want"], launches_by_route=sv["routes"],
+                    prefill_ms=tm["prefill_s"] * 1e3, decode_s=tm["decode_s"],
+                    decode_tok_per_s=n_tok / tm["decode_s"],
+                    compress_ms=[c["seconds"] * 1e3 for c in tm["compress"]],
+                    forced_s=round(sv["forced_s"], 3))
+
+    rows = [rank_row(o) for o in outs]
+    peak = max((r["peak_bytes"] or 0) for r in rows)
+    init_peak = max(max(r["init_peak_bytes"] or 0, r["repeat_init_peak_bytes"] or 0)
+                    for r in rows)
+    held = [sv["held"] for sv in serves]
+    tm = ref["timings"]
+    emit("mesh_tp", arch=cfg.name, layers=cfg.n_layers, mesh=[S["data"], S["model"]],
+         backend="gloo", params_per_rank=per_rank_params,
+         state_bytes_per_rank_reckoned=reckoned, peak_bytes_max=peak,
+         init_bytes_per_rank_reckoned=init_reckoned, init_peak_bytes_max=init_peak,
+         train=dict(batch=S["batch"], seq=S["seq"], remat="block", steps=S["steps"],
+                    one_device_microbatches=S["data"], losses=trains[0]["losses"],
+                    reference_losses=ref["losses"], grad_norms=trains[0]["grad_norms"],
+                    reference_grad_norms=ref["grad_norms"], grad_ratio_max=grad_ratio,
+                    weights_dmax_max=max(dmax.values()),
+                    weights_dmean_max=max(dmean.values()), lr_sum=lr_sum,
+                    repeat_bitwise=all(t["repeat_bitwise"] for t in trains),
+                    replicated_leaves=trains[0]["replicated_leaves"],
+                    replicated_equal=all(t["replicated_equal"] for t in trains)),
+         serve=dict(batch=S["serve_batch"], prompt=S["prompt"],
+                    new_tokens=S["new_tokens"], forced_steps=S["forced_steps"],
+                    logit_ulps=LOGIT_ULPS, steps=[_rounded(d) for d in diffs],
+                    slot_agreement=min(slots), tokens_equal_share=tokens_equal,
+                    k5_held=held, k5_held_want=serves[0]["held_want"],
+                    repeat_bitwise=all(sv["repeat_bitwise"] for sv in serves),
+                    launches=counts, launches_by_route=routes,
+                    one_device=dict(prefill_ms=tm["prefill_s"] * 1e3,
+                                    decode_s=tm["decode_s"],
+                                    decode_tok_per_s=S["serve_batch"] * S["new_tokens"]
+                                    / tm["decode_s"],
+                                    compress_ms=[c["seconds"] * 1e3
+                                                 for c in tm["compress"]])),
+         per_rank=rows, reference_train_s=round(ref_train_s, 3),
+         reference_init_s=round(ref["init_s"], 3),
+         reference_steps_s=round(ref["steps_s"], 3),
+         reference_serve_s=round(ref_serve_s, 3), spawn_seconds=round(spawn_s, 3),
+         parent_allocated_reserved_bytes=parent_bytes)
+    del ref
+    seconds = round(time.perf_counter() - t_start, 3)
+    emit("mesh_tp_phase", seconds=seconds, limit_s=S["limit_s"])
+    check(DEV != "cuda" or seconds <= S["limit_s"],
+          f"mesh_tp: the phase took {seconds} s, past its {S['limit_s']} s")
+    check(loss_ok, f"mesh_tp: losses or grad norms past {GRAD_ULPS} bf16 ulps of the "
+          f"one-device step: {trains[0]['losses']} vs the reference's")
+    check(grad_ratio <= 1.0, f"mesh_tp: a step-0 gradient past {GRAD_ULPS} bf16 ulps "
+          f"of its leaf's largest |g| (ratio {grad_ratio})")
+    check(weights_ok, f"mesh_tp: weights past 2·Σlr or a mean past 0.1·Σlr "
+          f"({max(dmax.values())}, {max(dmean.values())}; Σlr {lr_sum})")
+    check(all(t["repeat_bitwise"] for t in trains), "mesh_tp: the second run differs")
+    check(all(t["replicated_equal"] for t in trains),
+          "mesh_tp: a replicated leaf differs across the model ranks")
+    check(all(o["train"]["losses"] == trains[0]["losses"] for o in outs),
+          "mesh_tp: the ranks' losses differ")
+    for i, e in enumerate(diffs):
+        check(e["finite"], f"mesh_tp step {i}: non-finite logits")
+        check(e["err"] <= e["bound"],
+              f"mesh_tp step {i}: max |dlogit| {e['err']} > {e['bound']}")
+        check(e["top1"] >= MIN_TOP1, f"mesh_tp step {i}: top-1 agreement {e['top1']}")
+    for sv in serves:
+        h = sv["held"]
+        got = [h.get("prefill", {}).get("calls"), h.get("decode", {}).get("calls")]
+        check(got == sv["held_want"], f"mesh_tp: K5 held against its plain version in "
+              f"{got} (prefill, decode) calls, want {sv['held_want']}")
+        for name, a in h.items():
+            check(a["ratio"] <= 1.0,
+                  f"mesh_tp: K5's {name} at a rank's heads against its plain version: {a}")
+    check(min(slots) >= MIN_SLOT_AGREEMENT,
+          f"mesh_tp: compressed slots agree {min(slots)} with the caches put together")
+    check(all(sv["repeat_bitwise"] for sv in serves),
+          "mesh_tp: a second prefill and forced decode differ")
+    check(all(np.array_equal(sv["tokens"], serves[0]["tokens"]) for sv in serves),
+          "mesh_tp: the ranks' gathered tokens differ")
+    for sv in serves:
+        c = sv["counts"]
+        check(DEV != "cuda" or (all(c.get(k, 0) == n for k, n in sv["want"].items())
+                                and c.get("K3", 0) > 0),
+              f"mesh_tp: a rank's serving launched {c}, want {sv['want']} and K3")
+    check(DEV != "cuda" or all(reckoned <= (r["peak_bytes"] or 0) for r in rows),
+          f"mesh_tp: a rank's peak {peak} B is below the {reckoned} B of state "
+          f"check_fits reckons: the reckoning is wrong")
+    check(DEV != "cuda" or init_peak <= init_reckoned,
+          f"mesh_tp: a rank's peak while the model is drawn, {init_peak} B, is past "
+          f"the {init_reckoned} B check_fits reckons for it")
+
+
 def phase_select(state: dict) -> None:
     """The paper's instance selection on a 65,536-example corpus with the
     train phase's embedding table, kernel path against the plain path,
@@ -4360,7 +4852,7 @@ def _cloned(c):
 
 def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
                   attention=None, traffic=LM, held=None, inputs=None,
-                  cache_kw=None, compress=True):
+                  cache_kw=None, compress=True, plan=None, whole=None):
     """One route through prefill, compression and teacher-forced decode:
     (last-position f32 logits of the prefill and of each step, the prefill
     caches, a copy of the compressed caches as the steps found them).
@@ -4369,17 +4861,25 @@ def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
     inputs (``_attention_held``). ``inputs``: the prefill's other batch
     entries (a VLM's ``patch_embeds``, an enc-dec model's ``frames``, with
     its ``enc_len`` in ``cache_kw``); ``compress=False`` decodes from the
-    raw caches (then the copy is of those)."""
+    raw caches (then the copy is of those). On a mesh's model axis:
+    ``plan`` (``make_plan``), ``cache_kw=dict(tp_size=)`` and ``whole``,
+    which puts one rank's last-position logits (its rows, its vocabulary
+    columns) together into the whole batch's."""
     from repro_torch.serve.kv_compression import compress_model_caches
 
     B, S = tok.shape
     with torch.inference_mode(), _attention_as(attention), \
             (_attention_held(held) if held is not None else contextlib.nullcontext()):
-        raw = bundle.init_caches(B, S + traffic["new_tokens"], device=DEV,
+        raw = bundle.init_caches(B, S + traffic["new_tokens"], device=tok.device,
                                  **(cache_kw or {}))
+        pl = {} if plan is None else {"plan": plan}
         logits, raw = bundle.prefill(model, raw, {"tokens": tok, **(inputs or {})},
-                                     impl=impl)
-        out = [logits[:, -1].float()]
+                                     impl=impl, **pl)
+
+        def last(x):
+            return (x[:, -1] if whole is None else whole(x[:, -1])).float()
+
+        out = [last(logits)]
         comp = (compress_model_caches(raw, traffic["t"], traffic["m"],
                                       tail=traffic["tail"], impl=compress_impl)
                 if compress else raw)
@@ -4387,8 +4887,8 @@ def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
         for i in range(steps.shape[1]):
             logits, comp = bundle.decode_step(model, comp,
                                               {"tokens": steps[:, i:i + 1]},
-                                              impl=impl)
-            out.append(logits[:, -1].float())
+                                              impl=impl, **pl)
+            out.append(last(logits))
     return out, raw, start
 
 
@@ -5237,7 +5737,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    if {"sharded", "train_mesh"} & set(phases):
+    if {"sharded", "train_mesh", "mesh_tp"} & set(phases):
         from repro_torch.launch.mesh import start_rank_server, stop_rank_server
 
         start_rank_server()  # the ranks' server imports in the background
@@ -5281,6 +5781,8 @@ def main() -> int:
             phase_train_family(state, which, profile="profile" in phases)
     if "train_mesh" in phases:
         phase_train_mesh(state)
+    if "mesh_tp" in phases:
+        phase_mesh_tp(state)
     if "lm" in phases:
         phase_lm(state)
     if "profile" in phases:
@@ -5304,6 +5806,7 @@ def main() -> int:
                  "train": state.get("train_counts", {}),
                  "select": state.get("select_counts", {}),
                  **{w: state.get(f"{w}_counts", {}) for w in TRAIN_FAMILIES},
+                 "mesh_tp": state.get("mesh_tp_counts", {}),
                  "lm": state.get("lm_counts", {}),
                  "lm_moe": state.get("lm_moe_counts", {}),
                  "lm_hybrid": state.get("lm_hybrid_counts", {}),
@@ -5319,6 +5822,7 @@ def main() -> int:
                   "train": state.get("train_routes", {}),
                   "select": state.get("select_routes", {}),
                   **{w: state.get(f"{w}_routes", {}) for w in TRAIN_FAMILIES},
+                  "mesh_tp": state.get("mesh_tp_routes", {}),
                   "lm": state.get("lm_routes", {}),
                   "lm_moe": state.get("lm_moe_routes", {}),
                   "lm_hybrid": state.get("lm_hybrid_routes", {}),

@@ -7,8 +7,9 @@ AdamW's state replicated, 1: sharded; the same bits either way).
 ``compress_pod_grads`` is stored and unread, as in the reference, where no
 train step reads it (the int8 error-feedback all-reduce is the library
 function ``train.compression.tree_compressed_psum``). ``shard_kv_seq`` and
-``seq_shard_activations`` act on the model axis and wait for ROADMAP.md,
-Queue 1, item 7c.
+``seq_shard_activations`` are declared and read nowhere, as in the
+reference (the model axis's sequence-sharded cache and context-parallel
+attention wait for ROADMAP.md, Queue 1, item 7d).
 """
 from __future__ import annotations
 

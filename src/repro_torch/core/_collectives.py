@@ -23,7 +23,9 @@ cross-rank steps are these calls, each the counterpart of a JAX op:
 
 An axis may also span several mesh dimensions (the trainer's ``("pod",
 "data")``): its ranks are then taken in row-major order, pod-major, as
-the reference's ``P(("pod", "data"))`` lays out rows.
+the reference's ``P(("pod", "data"))`` lays out rows. On a mesh with
+other dimensions too (``("pod", "data", "model")``) each index of those
+gets a group of its own (:func:`_subgroup`, made once a mesh).
 
 Host staging. Gloo moves host memory: a CUDA tensor handed to a gloo
 group goes through a pinned host copy and back. The choice is made from
@@ -181,13 +183,39 @@ def _all_gather(out: torch.Tensor, t: torch.Tensor, group) -> None:
     fn(out, t, group=group)
 
 
+# (the mesh's ranks, its dimension names, the axis's dimensions) -> the
+# process group of this rank's ranks along them
+_SUBGROUPS: Dict[tuple, Any] = {}
+
+
+def _subgroup(mesh, want: Sequence[str]):
+    """The group of the ranks that share this rank's index on every mesh
+    dimension outside ``want``, in row-major order over ``want``. Every
+    group of the mesh is made (``new_group`` is collective over all
+    ranks), once a mesh."""
+    names = tuple(mesh.mesh_dim_names)
+    grid = mesh.mesh
+    key = (tuple(int(r) for r in grid.flatten().tolist()), names, tuple(want))
+    if key not in _SUBGROUPS:
+        rest = [names.index(a) for a in names if a not in want]
+        order = rest + [names.index(a) for a in want]
+        rows = grid.permute(order).reshape(-1, int(np.prod(
+            [grid.shape[names.index(a)] for a in want])))
+        me = dist.get_rank()
+        for row in rows.tolist():
+            group = dist.new_group([int(r) for r in row])
+            if me in row:
+                _SUBGROUPS[key] = group
+    return _SUBGROUPS[key]
+
+
 class Axis:
     """One named dimension of a ``DeviceMesh`` as this rank sees it: the
     process group, its ``size`` (the reference's ``axis_size``) and this
     rank's ``index`` along it (``lax.axis_index``). ``axis_name`` may be a
-    tuple of dimension names, one axis over their ranks in row-major order;
-    that needs a mesh over every rank of the default group (its group is
-    the default group's)."""
+    tuple of dimension names, one axis over their ranks in row-major order
+    (the default group where those are every dimension of the mesh, else
+    a group of this rank's index on the others)."""
 
     def __init__(self, mesh, axis_name: Union[str, Sequence[str]]):
         names = tuple(mesh.mesh_dim_names or ())
@@ -204,16 +232,14 @@ class Axis:
             self.index = int(mesh.get_local_rank(want[0]))
         else:
             ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
-            if tuple(want) != names or ranks != list(range(dist.get_world_size())):
-                raise NotImplementedError(
-                    f"an axis over dimensions {want} needs a mesh of exactly "
-                    f"those dimensions over every rank in order; this mesh has "
-                    f"{names} over ranks {ranks}")
-            self.group = dist.group.WORLD
-            self.size = len(ranks)
+            if tuple(want) == names and ranks == list(range(dist.get_world_size())):
+                self.group = dist.group.WORLD
+            else:
+                self.group = _subgroup(mesh, want)
+            sizes = tuple(int(mesh.size(names.index(a))) for a in want)
+            self.size = int(np.prod(sizes))
             self.index = int(np.ravel_multi_index(
-                tuple(int(mesh.get_local_rank(a)) for a in want),
-                tuple(int(mesh.size(names.index(a))) for a in want)))
+                tuple(int(mesh.get_local_rank(a)) for a in want), sizes))
         self.backend = str(dist.get_backend(self.group))
         self._peers = [dist.get_global_rank(self.group, r) for r in range(self.size)]
 
@@ -261,9 +287,15 @@ class Axis:
                read: Callable[[], Any]) -> None:
         """One exchange through the mailboxes: this rank writes, every rank
         waits for all, reads, and waits again (then a mailbox may be
-        written anew)."""
-        wait = (torch.cuda.current_stream(device).synchronize if device.type == "cuda"
-                else lambda: None)
+        written anew). The card's copies are waited for on a blocking
+        event, so a rank sleeps instead of spinning on a core that the
+        other ranks' collectives need."""
+        def wait() -> None:
+            if device.type == "cuda":
+                done = torch.cuda.Event(blocking=True)
+                done.record(torch.cuda.current_stream(device))
+                done.synchronize()
+
         if write is not None:
             write()
         wait()

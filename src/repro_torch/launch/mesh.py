@@ -1,4 +1,5 @@
-"""Meshes of the port and a launcher of ranks on one host.
+"""Meshes of the port, the reference's sharding plans, and a launcher of
+ranks on one host.
 
 The reference simulates its devices inside one process; PyTorch runs one
 process per rank. :func:`spawn_ranks` starts them (forked from a fresh
@@ -10,12 +11,16 @@ what each rank's function returned, or raises if any rank failed or
 outlived the limit. Under ``torchrun`` nothing needs starting:
 :func:`make_data_mesh` initializes the group from the launch variables.
 
-The trainer's data axes run here: :func:`batch_specs` gives the rows of a
-batch over ``("pod", "data")``, which the data-parallel train step slices
-by, and :func:`data_axis` the collective axis over those ranks. The model
-axis (``make_production_mesh``, ``make_plan`` and the launcher's
-``debug``, ``pod1`` and ``pod2`` meshes) waits for ROADMAP Queue 1 item
-7c.
+The trainer's meshes: ``("data",)`` and ``("pod", "data")`` (data ranks),
+:func:`make_debug_mesh` ``("data", "model")`` and
+:func:`make_production_mesh`'s (16, 16) ``("data", "model")`` and (2,
+16, 16) ``("pod", "data", "model")``. :func:`batch_specs` gives the rows
+of a batch over ``("pod", "data")``, :func:`make_plan` the reference's
+activation plan of a cell (``models.transformer.ShardingPlan``);
+:func:`data_axis` and :func:`model_axis` the collective axes. The plans,
+``batch_specs`` and ``axis_size`` read only a mesh's dimension names and
+sizes, so a :class:`MeshShape` (no process group) stands in for a mesh
+of 256 or 512 ranks.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import tempfile
 import time
 import traceback
 import uuid
+from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core._collectives import Axis, release_mailboxes
 from repro_torch.core.distributed import check_nccl_ranks, make_data_mesh  # noqa: F401
+from repro_torch.models.transformer import ShardingPlan
 
 #: seconds a spawned rank may take, collectives included (each test and
 #: phase passes its own)
@@ -47,18 +54,58 @@ RANK_PRELOAD = ("numpy", "torch", "torch.distributed", "torch._dynamo",
                 "repro_torch.train")
 
 
-def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
-                    device_type: Optional[str] = None):
-    """A small 2-D ``("data", "model")`` mesh over ``n_data · n_model``
-    ranks (the process group must have exactly that many)."""
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's dimension names and sizes with no process group behind it
+    (what the plans read of a ``DeviceMesh``)."""
+    mesh_dim_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    def size(self, dim: Optional[int] = None) -> int:
+        return int(np.prod(self.sizes)) if dim is None else int(self.sizes[dim])
+
+
+#: the reference's production meshes (``make_production_mesh``)
+PRODUCTION_MESHES = {
+    "pod1": MeshShape(("data", "model"), (16, 16)),
+    "pod2": MeshShape(("pod", "data", "model"), (2, 16, 16)),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: Optional[str] = None):
+    """The reference's production mesh over this process group: (16, 16)
+    ``("data", "model")``, or with ``multi_pod`` (2, 16, 16) ``("pod",
+    "data", "model")``. The group must have exactly 256 or 512 ranks
+    (``torchrun``); :data:`PRODUCTION_MESHES` holds the shapes alone."""
+    import torch.distributed as dist
+
+    shape = PRODUCTION_MESHES["pod2" if multi_pod else "pod1"]
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != shape.size():
+        raise RuntimeError(
+            f"the {'pod2' if multi_pod else 'pod1'} mesh {shape.sizes} needs a "
+            f"process group of exactly {shape.size()} ranks (torchrun "
+            f"--nproc-per-node ... with {shape.size()} ranks in all); this process "
+            f"has {world or 'none'}")
+    return _device_mesh(shape, device_type)
+
+
+def _device_mesh(shape: MeshShape, device_type: Optional[str]):
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.runtime import active
 
     if device_type is None:
         device_type = torch.device(active().device).type
-    return init_device_mesh(device_type, (n_data, n_model),
-                            mesh_dim_names=("data", "model"))
+    return init_device_mesh(device_type, shape.sizes,
+                            mesh_dim_names=shape.mesh_dim_names)
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
+                    device_type: Optional[str] = None):
+    """A small 2-D ``("data", "model")`` mesh over ``n_data · n_model``
+    ranks (the process group must have exactly that many)."""
+    return _device_mesh(MeshShape(("data", "model"), (n_data, n_model)), device_type)
 
 
 def data_axes(mesh) -> Tuple[str, ...]:
@@ -78,16 +125,87 @@ def axis_size(mesh, axes) -> int:
 
 def data_axis(mesh) -> Axis:
     """The data ranks of a trainer's mesh as one collective axis (pod-major
-    over ``("pod", "data")``). A mesh with another dimension raises: the
-    model axis waits for ROADMAP.md, Queue 1, item 7c."""
+    over ``("pod", "data")``; on a mesh with "model", the data ranks of
+    this rank's model index)."""
     axes = data_axes(mesh)
-    names = tuple(mesh.mesh_dim_names or ())
-    if not axes or axes != names:
-        raise NotImplementedError(
-            f"the port's trainer runs on the data axes (pod, data) only; this "
-            f"mesh has {names} (the model axis waits for ROADMAP.md, Queue 1, "
-            f"item 7c)")
+    if not axes:
+        raise ValueError(f"mesh {tuple(mesh.mesh_dim_names or ())} has no data "
+                         f"dimension (pod, data)")
     return Axis(mesh, axes)
+
+
+def model_axis(mesh) -> Axis:
+    """The model ranks of this rank's data index (tensor parallelism)."""
+    return Axis(mesh, "model")
+
+
+def _entry(names):
+    """A spec entry as ``PartitionSpec`` keeps it: None, a name, or a tuple
+    of two or more names."""
+    if names is None or isinstance(names, str):
+        return names
+    names = tuple(names)
+    return None if not names else names[0] if len(names) == 1 else names
+
+
+def make_plan(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+              heads_mode: str = "auto") -> ShardingPlan:
+    """The reference's activation plan of one (arch x shape x mesh) cell.
+
+    heads_mode, for archs whose query heads do not divide the model ranks:
+      auto: attention replicated over "model" (the port gathers q and the
+            out projection; the reference leaves it to SPMD propagation);
+      seq:  context parallelism, q sequence-sharded over "model" and k/v
+            replicated (``plan.kv``); the port's model axis does not run
+            it yet (ROADMAP.md, Queue 1, item 7d)."""
+    from repro_torch.models.mamba2 import dims
+
+    dp = data_axes(mesh)
+    dp_size = axis_size(mesh, dp)
+    names = tuple(mesh.mesh_dim_names or ())
+    tp_size = axis_size(mesh, "model") if "model" in names else 1
+    b = shape.global_batch
+
+    batch_axes = _entry(dp) if (b % dp_size == 0 and b >= dp_size) else None
+    heads_ok = cfg.n_heads % tp_size == 0 if cfg.n_heads else False
+    kv_ok = cfg.n_kv_heads % tp_size == 0 if cfg.n_kv_heads else False
+    kv_spec = None
+    if heads_ok:
+        heads_spec = (batch_axes, "model", None, None)
+    elif heads_mode == "seq" and shape.kind in ("train", "prefill"):
+        heads_spec = (batch_axes, None, "model", None)
+        kv_spec = (batch_axes, None, None, None)
+    else:
+        heads_spec = None
+    mamba_ok = bool(cfg.ssm_state) and dims(cfg)[1] % tp_size == 0
+
+    if shape.kind == "decode":
+        if b == 1:
+            seq_axes = _entry(dp + ("model",) if not kv_ok else dp)
+            cache = (None, "model" if kv_ok else None, seq_axes, None)
+        elif kv_ok:
+            cache = (batch_axes, "model", None, None)
+        else:
+            cache = (batch_axes, None, "model", None)
+    else:
+        cache = (batch_axes, "model" if kv_ok else None, None, None)
+
+    if cfg.n_experts and cfg.n_experts % tp_size == 0:
+        ep = ((batch_axes, "model", None, None) if cfg.moe_groups > 1
+              else ("model", None, None))
+    elif cfg.n_experts:
+        ep = (None, None, None)
+    else:
+        ep = None
+    return ShardingPlan(
+        resid=(batch_axes, None, None),
+        heads=heads_spec,
+        kv=kv_spec,
+        mamba_heads=(batch_axes, None, "model" if mamba_ok else None, None),
+        ep=ep,
+        cache=cache,
+        logits=(batch_axes, None, "model"),
+    )
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh, *, kind: str) -> dict:
@@ -98,7 +216,7 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh, *, kind: str) -> dic
     dp = data_axes(mesh)
     dp_size = axis_size(mesh, dp)
     b = shape.global_batch
-    bx = (dp if len(dp) != 1 else dp[0]) if (b % dp_size == 0 and b >= dp_size) else None
+    bx = _entry(dp) if (b % dp_size == 0 and b >= dp_size) else None
     specs = {"tokens": (bx, None)}
     if kind == "train":
         specs["labels"] = (bx, None)

@@ -138,6 +138,21 @@ def attend(
                              chunk=chunk)
 
 
+# ------------------------------------------------------------- specs
+def attention_specs(cfg: ModelConfig, tp: Optional[str] = "model",
+                    tp_size: int = 1) -> dict:
+    """The reference's ``attention_specs``: q and the out projection over
+    ``tp`` by columns and rows; k and v by columns where the model ranks
+    divide ``n_kv_heads · head_dim`` (a head may then be split), else
+    whole. One tuple per dimension."""
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    kv = (None, tp) if kv_dim % max(tp_size, 1) == 0 else (None, None)
+    p = {"wq": (None, tp), "wk": kv, "wv": kv, "wo": (tp, None)}
+    if cfg.qkv_bias:
+        p.update(bq=(tp,), bk=(kv[1],), bv=(kv[1],))
+    return p
+
+
 # ------------------------------------------------------------- module
 class Attention(nn.Module):
     """QKV/O projections of one attention layer (weights (d_in, d_out))."""
@@ -168,6 +183,7 @@ def attention_apply(
     causal: bool = True,
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     impl: Optional[str] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One attention block, self or cross. x: (b, s, d) bf16.
 
@@ -181,21 +197,34 @@ def attention_apply(
     decoder's, from the encoder output; the reference passes them as
     (b, s_kv, hkv, hd)). Then only q is projected, and neither q nor k is
     rotated, as in the reference; a cross call passes no cache.
+
+    ``tp`` (a sharded model's ``TensorParallel``): this rank's heads, as
+    ``models/tensor_parallel.py`` lays them out; the output is then summed
+    over the model ranks (or computed whole, where the heads do not divide
+    them).
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
+    xq = xkv = x
+    w = {n: getattr(p, n) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+         if hasattr(p, n)}
+    kv_range, partial = None, False
+    if tp is not None:
+        lay = tp.attention_operands(p, x)
+        xq, xkv, w, hq, hkv = (lay[n] for n in ("xq", "xkv", "w", "hq", "hkv"))
+        kv_range, partial = lay["kv_range"], lay["partial"]
 
-    q = x @ p.wq.to(dt)
+    q = xq @ w["wq"].to(dt)
     if cfg.qkv_bias:
-        q = q + p.bq.to(dt)
+        q = q + w["bq"].to(dt)
     q = q.reshape(b, s, hq, hd)
     if cross_kv is None:
-        k = x @ p.wk.to(dt)
-        v = x @ p.wv.to(dt)
+        k = xkv @ w["wk"].to(dt)
+        v = xkv @ w["wv"].to(dt)
         if cfg.qkv_bias:
-            k = k + p.bk.to(dt)
-            v = v + p.bv.to(dt)
+            k = k + w["bk"].to(dt)
+            v = v + w["bv"].to(dt)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
         v = v.reshape(b, s, hkv, hd)
@@ -223,12 +252,17 @@ def attention_apply(
             if window > 0:
                 ok = ok & (kpos > pos - window)
             pm = torch.where(ok, 0.0, _MASKED).to(torch.float32)
-            kv_bias = pm.expand(b, hkv, S)
+            kv_bias = pm.expand(b, ck.shape[1], S)
             if "bias" in cache:
                 kv_bias = kv_bias + cache["bias"]
             k, v = ck, cv
             causal = False  # the position mask subsumes causality and window
             window = 0
+    if kv_range is not None:  # the kv heads this rank's query heads use
+        lo, hi = kv_range
+        k, v = k[:, lo:hi], v[:, lo:hi]
+        if kv_bias is not None:
+            kv_bias = kv_bias[:, lo:hi]
     scale = 1.0 / (hd ** 0.5)
     if cfg.name.startswith("gemma2"):
         scale = 1.0 / (256.0 ** 0.5)  # query_pre_attn_scalar
@@ -236,13 +270,14 @@ def attention_apply(
     out = attend(q, k.to(dt), v.to(dt), causal=causal, window=window,
                  kv_bias=kv_bias, softcap=cfg.attn_logit_softcap, scale=scale,
                  impl=impl, chunk=cfg.attn_chunk)
-    out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return out @ p.wo.to(dt), new_cache
+    out = out.transpose(1, 2).reshape(b, s, hq * hd) @ w["wo"].to(dt)
+    return (tp.reduce(out) if partial else out), new_cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=COMPUTE_DTYPE, device=None) -> dict:
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+               dtype=COMPUTE_DTYPE, device=None, kv_heads: int = 0) -> dict:
+    """A zero cache of ``kv_heads`` heads (0: the config's)."""
+    shape = (batch, kv_heads or cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": 0}

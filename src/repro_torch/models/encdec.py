@@ -228,6 +228,41 @@ def _run(block, remat: str, *args):
     return ckpt.checkpoint(block, *args, use_reentrant=False)
 
 
+def encdec_specs(cfg: ModelConfig, tp: Optional[str] = "model", tp_size: int = 1) -> dict:
+    """The reference's ``encdec_specs`` keyed by the port's parameter names
+    (every encoder and decoder layer's leaf without the stack's leading
+    None)."""
+    from repro_torch.models.layers import embed_specs, mlp_specs
+
+    a = attn.attention_specs(cfg, tp, tp_size)
+    m = mlp_specs(cfg.mlp, tp)
+
+    def sub(prefix: str, specs: dict) -> dict:
+        return {f"{prefix}.{k}": v for k, v in specs.items()}
+
+    specs = sub("embed", embed_specs(cfg, tp))
+    for i in range(cfg.n_enc_layers):
+        specs.update({f"enc.{i}.ln1": (None,), f"enc.{i}.ln2": (None,),
+                      **sub(f"enc.{i}.attn", a), **sub(f"enc.{i}.mlp", m)})
+    for i in range(cfg.n_layers):
+        specs.update({f"dec.{i}.ln1": (None,), f"dec.{i}.ln_x": (None,),
+                      f"dec.{i}.ln2": (None,), **sub(f"dec.{i}.self_attn", a),
+                      **sub(f"dec.{i}.cross_attn", a), **sub(f"dec.{i}.mlp", m)})
+    specs.update(ln_enc=(None,), ln_f=(None,))
+    return specs
+
+
+def encdec_cache_specs(cfg: ModelConfig, plan, tp_size: int = 1) -> dict:
+    """The reference's ``encdec_cache_specs``, laid out as
+    :func:`init_encdec_caches` lays out the caches."""
+    from repro_torch.models.transformer import layer_cache_spec
+
+    dp = plan.resid[0] if plan.resid is not None else None
+    one = {"self": layer_cache_spec(cfg, 0, plan, tp_size),
+           "cross_k": (dp, None, None, None), "cross_v": (dp, None, None, None)}
+    return {"layers": [dict(one) for _ in range(cfg.n_layers)]}
+
+
 def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
                        *, dtype=COMPUTE_DTYPE, device=None) -> dict:
     """Per decoder layer: a self-attention cache of ``max_len`` slots and

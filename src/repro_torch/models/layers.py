@@ -33,10 +33,16 @@ def weight(shape, *, dtype=COMPUTE_DTYPE, device=None,
 def dense_init_(w: torch.Tensor, generator: torch.Generator,
                 scale: Optional[float] = None) -> None:
     """Fill ``w`` (d_in, ...) with N(0, 1)·scale drawn in f32 (default
-    scale 1/sqrt(d_in)), as the reference's ``_dense_init``."""
-    s = (1.0 / w.shape[0]) ** 0.5 if scale is None else scale
-    draw = torch.randn(w.shape, generator=generator, dtype=torch.float32,
-                       device=generator.device) * s
+    scale 1/sqrt(d_in)), as the reference's ``_dense_init``. A slice of a
+    sharded leaf (``w.whole``: the leaf's shape, the sliced dimension and
+    the slice's first index; ``tensor_parallel.init_sharded``) draws the
+    whole leaf and keeps its slice."""
+    shape, dim, lo = getattr(w, "whole", (w.shape, None, 0))
+    s = (1.0 / shape[0]) ** 0.5 if scale is None else scale
+    draw = torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).mul_(s)
+    if dim is not None:
+        draw = draw.narrow(dim, lo, w.shape[dim])
     with torch.no_grad():
         w.copy_(draw.to(w.device, w.dtype))
 
@@ -67,6 +73,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------- specs
+def mlp_specs(kind: str, tp: Optional[str] = "model") -> dict:
+    """The reference's ``mlp_specs``: gate and up column-parallel, down
+    row-parallel over ``tp`` (one tuple per dimension)."""
+    p = {"down": (tp, None), "up": (None, tp)}
+    if kind == "swiglu":
+        p["gate"] = (None, tp)
+    return p
+
+
+def embed_specs(cfg: ModelConfig, tp: Optional[str] = "model") -> dict:
+    """The reference's ``embed_specs``: the vocabulary over ``tp``."""
+    p = {"table": (tp, None)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = (None, tp)
+    return p
+
+
 # ---------------------------------------------------------------- mlp
 class MLP(nn.Module):
     """swiglu (gate, up, down) | relu2 | gelu (up, down), in bf16."""
@@ -83,8 +107,13 @@ class MLP(nn.Module):
         if kind == "swiglu":
             self.gate = weight((d, ff), **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """``tp`` (a sharded model's ``TensorParallel``): gate and up hold
+        this rank's columns, down its rows; the output is summed over the
+        model ranks."""
         dt = x.dtype
+        if tp is not None:
+            x = tp.copy(x)
         up = x @ self.up.to(dt)
         if self.kind == "swiglu":
             h = nn.functional.silu(x @ self.gate.to(dt)) * up
@@ -92,7 +121,8 @@ class MLP(nn.Module):
             h = torch.square(torch.relu(up))
         else:  # the reference's jax.nn.gelu: the tanh approximation
             h = nn.functional.gelu(up, approximate="tanh")
-        return h @ self.down.to(dt)
+        y = h @ self.down.to(dt)
+        return y if tp is None else tp.reduce(y)
 
 
 # ---------------------------------------------------------------- embedding
@@ -109,18 +139,24 @@ class Embed(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = weight((cfg.d_model, v), **kw)
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.table.to(COMPUTE_DTYPE)[tokens]
+    def embed(self, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+        """The tokens' rows in bf16 (gemma scales them by sqrt(d)); ``tp``:
+        the table holds this rank's rows of the vocabulary."""
+        table = self.table.to(COMPUTE_DTYPE)
+        x = table[tokens] if tp is None else tp.embed(table, tokens)
         cfg = self.cfg
         if cfg.family in ("dense",) and cfg.name.startswith("gemma"):
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE,
                                  device=x.device)
         return x
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """(…, padded_vocab) f32 logits: final softcap, padding masked."""
+    def logits(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """(…, padded_vocab) f32 logits: final softcap, padding masked;
+        ``tp``: this rank's columns of them (…, padded_vocab / tp)."""
         cfg = self.cfg
         dt = x.dtype
+        if tp is not None:
+            x = tp.copy(x)
         if cfg.tie_embeddings:
             logits = x @ self.table.to(dt).T
         else:
@@ -130,6 +166,9 @@ class Embed(nn.Module):
             c = cfg.final_logit_softcap
             logits = c * torch.tanh(logits / c)
         if cfg.padded_vocab_size != cfg.vocab_size:
-            col = torch.arange(cfg.padded_vocab_size, device=x.device)
+            per = logits.shape[-1]
+            col = torch.arange(per, device=x.device)
+            if tp is not None:
+                col = col + tp.index * per
             logits = torch.where(col < cfg.vocab_size, logits, -1e30)
         return logits

@@ -36,6 +36,26 @@ def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     return d_in, d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
 
 
+def mamba_specs(cfg: ModelConfig, tp: Optional[str] = "model", tp_size: int = 1) -> dict:
+    """The reference's ``mamba_specs``: the z/x projections by columns and
+    the out projection by rows where the model ranks divide ``d_inner``,
+    the per-head leaves where they divide the heads; B, C, the conv and
+    the norm whole."""
+    d_in, h, _, _ = dims(cfg)
+    ts = max(tp_size, 1)
+    col = (None, tp) if d_in % ts == 0 else (None, None)
+    head = (tp,) if h % ts == 0 else (None,)
+    return {
+        "wz": col, "wx": col,
+        "wB": (None, None), "wC": (None, None),
+        "wdt": (None, tp) if h % ts == 0 else (None, None),
+        "conv_w": (None, None), "conv_b": (None,),
+        "A_log": head, "D": head, "dt_bias": head,
+        "norm": (None,),
+        "out": (tp, None) if d_in % ts == 0 else (None, None),
+    }
+
+
 class Mamba(nn.Module):
     """The block's weights in the reference's layout: the input
     projections ``wz``, ``wx`` (d, d_in), ``wB``, ``wC`` (d, n), ``wdt``

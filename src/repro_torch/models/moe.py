@@ -23,7 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import no_tf32
-from repro_torch.models.layers import COMPUTE_DTYPE, MLP, weight
+from repro_torch.models.layers import COMPUTE_DTYPE, MLP, mlp_specs, weight
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,6 +81,17 @@ def capacity_of(cfg: ModelConfig, tokens: int, capacity_factor: Optional[float] 
         ng = 1
     tg = tokens // ng
     return ng, max(int(k * tg * cf / e), min(tg * k, 8))
+
+
+def moe_specs(cfg: ModelConfig, tp: Optional[str] = "model", tp_size: int = 1) -> dict:
+    """The reference's ``moe_specs``: the experts over ``tp`` where the
+    model ranks divide their count (expert parallel), the router whole, the
+    shared MLP as a dense one (``shared.<name>``)."""
+    ep = (tp, None, None) if cfg.n_experts % max(tp_size, 1) == 0 else (None, None, None)
+    p = {"router": (None, None), "gate": ep, "up": ep, "down": ep}
+    if cfg.n_shared_experts:
+        p.update({f"shared.{k}": v for k, v in mlp_specs("swiglu", tp).items()})
+    return p
 
 
 class MoE(nn.Module):

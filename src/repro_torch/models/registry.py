@@ -19,10 +19,20 @@ Batches follow the reference's conventions:
   decode step:   {"tokens": (b, 1)}
 
 ``init`` builds the model on ``device`` (default: the runtime config's,
-"cuda" unless the caller asks for the CPU; a missing GPU raises). Every
+"cuda" unless the caller asks for the CPU; a missing GPU raises); with
+``mesh=`` of more than one model rank it draws this rank's slices of the
+same model (``tensor_parallel.init_sharded``), one whole leaf at a time. Every
 family of ``transformer.FAMILIES``; ``forward``'s aux is the MoE layers'
 load-balancing loss (0 without MoE). The VLM's ``forward`` drops the
 prefix's logits; its prefill keeps the last position's.
+
+``param_specs(tp=, tp_size=)`` and ``cache_specs(plan=, tp_size=)`` are
+the reference's, keyed by the port's parameter names and laid out as
+``init_caches`` lays out the caches. A decoder-only model sharded over a
+mesh's "model" dimension (``models.tensor_parallel.shard_model``) takes
+``plan=`` (``launch.mesh.make_plan``) in ``forward``, ``prefill`` and
+``decode_step``, and its caches come from ``init_caches(...,
+tp_size=)``.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, tensor_parallel, transformer
 from repro_torch.models.frontends import VISION_PREFIX_TOKENS
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.runtime import resolve_device
@@ -46,14 +56,23 @@ class ModelBundle:
     prefill: Callable[..., Any]       # (logits (b, 1, V), caches)
     decode_step: Callable[..., Any]   # (logits (b, 1, V), caches)
     init_caches: Callable[..., dict]
+    #: ``param_specs(tp="model", tp_size=1)``: {parameter name: spec tuple}
+    param_specs: Callable[..., dict]
+    #: ``cache_specs(plan=ShardingPlan(), tp_size=1)``: specs laid out as
+    #: ``init_caches`` lays out the caches
+    cache_specs: Callable[..., dict]
 
 
 def _initialiser(make: Callable[..., torch.nn.Module]):
     def init(generator: Optional[torch.Generator] = None, *,
-             device=None, trainable: bool = False) -> torch.nn.Module:
+             device=None, trainable: bool = False, mesh=None) -> torch.nn.Module:
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
+        if tensor_parallel.model_ranks(mesh) > 1:
+            return tensor_parallel.init_sharded(
+                make(device=torch.device("meta"), trainable=trainable), generator,
+                mesh, dev)
         return make(device=dev, trainable=trainable).init_weights(generator)
     return init
 
@@ -64,54 +83,73 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
     def prefix_of(batch):
         return batch.get("patch_embeds") if is_vlm else None
 
-    def forward(model, batch, *, impl="ref", remat="none"):
+    def forward(model, batch, *, impl="ref", remat="none", plan=None):
         prefix = prefix_of(batch)
         logits, _, aux = model(batch["tokens"], prefix_embeds=prefix, impl=impl,
-                               remat=remat, with_aux=True)
+                               remat=remat, with_aux=True, plan=plan)
         if prefix is not None:
             logits = logits[:, prefix.shape[1]:]
         return logits, aux
 
-    def prefill(model, caches, batch, *, impl=None):
+    def prefill(model, caches, batch, *, impl=None, plan=None):
         return model(batch["tokens"], prefix_embeds=prefix_of(batch),
-                     caches=caches, impl=impl, last_only=True)
+                     caches=caches, impl=impl, last_only=True, plan=plan)
 
-    def decode_step(model, caches, batch, *, impl=None):
+    def decode_step(model, caches, batch, *, impl=None, plan=None):
         start = transformer.cache_start_pos(caches)
-        return model(batch["tokens"], caches=caches, start_pos=start, impl=impl)
+        return model(batch["tokens"], caches=caches, start_pos=start, impl=impl,
+                     plan=plan)
 
     def init_caches(batch: int, max_len: int, *, dtype=COMPUTE_DTYPE,
-                    device=None) -> dict:
+                    device=None, tp_size: int = 1) -> dict:
         if is_vlm:  # room for the patch-embedding prefix
             max_len = max_len + VISION_PREFIX_TOKENS
         return transformer.init_lm_caches(cfg, batch, max_len, dtype=dtype,
-                                          device=resolve_device(device))
+                                          device=resolve_device(device),
+                                          tp_size=tp_size)
+
+    def param_specs(tp="model", tp_size=1):
+        return transformer.lm_specs(cfg, tp, tp_size)
+
+    def cache_specs(plan=transformer.ShardingPlan(), tp_size=1):
+        return transformer.cache_specs(cfg, plan, tp_size)
 
     init = _initialiser(lambda **kw: transformer.LM(cfg, **kw))
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_caches)
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_caches,
+                       param_specs, cache_specs)
 
 
 def _encdec_bundle(cfg: ModelConfig) -> ModelBundle:
-    def forward(model, batch, *, impl="ref", remat="none"):
+    # ``plan`` is taken for a uniform signature: an enc-dec model runs on
+    # one model rank (tensor_parallel.check_model_axis)
+    def forward(model, batch, *, impl="ref", remat="none", plan=None):
         logits = model(batch["frames"], batch["tokens"], impl=impl, remat=remat)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
-    def prefill(model, caches, batch, *, impl=None):
+    def prefill(model, caches, batch, *, impl=None, plan=None):
         enc_out = model.encode(batch["frames"], impl=impl)
         return model.decode(batch["tokens"], enc_out, caches=caches, impl=impl,
                             last_only=True)
 
-    def decode_step(model, caches, batch, *, impl=None):
+    def decode_step(model, caches, batch, *, impl=None, plan=None):
         return model.decode(batch["tokens"], None, caches=caches,
                             start_pos=encdec.cache_start_pos(caches), impl=impl)
 
     def init_caches(batch: int, max_len: int, enc_len: Optional[int] = None, *,
-                    dtype=COMPUTE_DTYPE, device=None) -> dict:
+                    dtype=COMPUTE_DTYPE, device=None, tp_size: int = 1) -> dict:
+        tensor_parallel.check_model_axis(cfg, tp_size)
         return encdec.init_encdec_caches(cfg, batch, max_len, enc_len or max_len,
                                          dtype=dtype, device=resolve_device(device))
 
+    def param_specs(tp="model", tp_size=1):
+        return encdec.encdec_specs(cfg, tp, tp_size)
+
+    def cache_specs(plan=transformer.ShardingPlan(), tp_size=1):
+        return encdec.encdec_cache_specs(cfg, plan, tp_size)
+
     init = _initialiser(lambda **kw: encdec.EncDec(cfg, **kw))
-    return ModelBundle(cfg, init, forward, prefill, decode_step, init_caches)
+    return ModelBundle(cfg, init, forward, prefill, decode_step, init_caches,
+                       param_specs, cache_specs)
 
 
 def build(cfg: ModelConfig) -> ModelBundle:

@@ -20,6 +20,7 @@ the enc-dec family is ``models/encdec.py``.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
@@ -35,8 +36,30 @@ from repro_torch.models.layers import (
     MLP,
     Embed,
     dense_init_,
+    embed_specs,
+    mlp_specs,
     rms_norm,
 )
+
+#: a sharding spec: one entry a leading dimension (None, a mesh dimension's
+#: name, or a tuple of names), the reference's ``PartitionSpec`` as a tuple
+Spec = Tuple
+
+
+@dataclass(frozen=True)
+class ShardingPlan:
+    """The reference's activation layout of one (arch x shape x mesh) cell
+    (``launch.mesh.make_plan``), as spec tuples; None leaves a tensor
+    unconstrained. The port's tensor-parallel paths read ``heads`` and
+    ``kv`` (which attention layout runs), ``cache`` (the decode caches) and
+    ``logits`` (the vocabulary over "model")."""
+    resid: Optional[Spec] = None        # (b, s, d)
+    heads: Optional[Spec] = None        # (b, h, s, hd): the query tensor
+    kv: Optional[Spec] = None           # (b, hkv, s, hd): fresh k/v
+    mamba_heads: Optional[Spec] = None  # (b, s, h, p)
+    ep: Optional[Spec] = None           # (g, e, c, d): the MoE dispatch buffer
+    cache: Optional[Spec] = None        # (b, hkv, S, hd)
+    logits: Optional[Spec] = None       # (b, s, v)
 
 
 def dense_ff(cfg: ModelConfig, layer: int) -> int:
@@ -88,6 +111,64 @@ def check_supported(cfg: ModelConfig) -> None:
             f"builds {', '.join(FAMILIES)} (see ROADMAP.md)")
 
 
+def _prefixed(prefix: str, specs: dict) -> dict:
+    return {f"{prefix}.{k}": v for k, v in specs.items()}
+
+
+def layer_specs(cfg: ModelConfig, layer: int, tp: Optional[str] = "model",
+                tp_size: int = 1) -> dict:
+    """The reference's ``layer_specs`` of decoder layer ``layer``, keyed by
+    the port's names within a ``Block`` ("ln1", "attn.wq", "mlp.up")."""
+    p = {"ln1": (None,)}
+    if cfg.layer_kind(layer) == "attn":
+        p.update(_prefixed("attn", attn.attention_specs(cfg, tp, tp_size)))
+    else:
+        p.update(_prefixed("mamba", mamba2.mamba_specs(cfg, tp, tp_size)))
+    if cfg.layer_is_moe(layer):
+        p.update(_prefixed("moe", moe_mod.moe_specs(cfg, tp, tp_size)))
+    elif dense_ff(cfg, layer) > 0:
+        p.update(_prefixed("mlp", mlp_specs(cfg.mlp, tp)))
+    if cfg.layer_is_moe(layer) or dense_ff(cfg, layer) > 0:
+        p["ln2"] = (None,)
+    if cfg.post_norm:
+        p["ln1_post"] = p["ln2_post"] = (None,)
+    return p
+
+
+def lm_specs(cfg: ModelConfig, tp: Optional[str] = "model", tp_size: int = 1) -> dict:
+    """The reference's ``lm_specs`` keyed by the port's parameter names. A
+    scanned reference leaf carries a leading None for its repeat axis; the
+    port's per-layer leaf has the spec without it."""
+    specs = _prefixed("embed", embed_specs(cfg, tp))
+    for l in range(cfg.n_layers):
+        specs.update(_prefixed(f"layers.{l}", layer_specs(cfg, l, tp, tp_size)))
+    specs["ln_f"] = (None,)
+    return specs
+
+
+def layer_cache_spec(cfg: ModelConfig, layer: int, plan: ShardingPlan,
+                     tp_size: int = 1) -> dict:
+    """The reference's ``_layer_cache_spec``: an attention layer's k and v
+    by ``plan.cache`` (whole without one); a Mamba layer's state by the
+    batch axes of ``plan.resid`` and its heads over "model" where they
+    divide."""
+    dp = plan.resid[0] if plan.resid is not None else None
+    if cfg.layer_kind(layer) == "attn":
+        spec = plan.cache if plan.cache is not None else (None,)
+        return {"k": spec, "v": spec, "pos": ()}
+    _, h, _, _ = mamba2.dims(cfg)
+    head_ok = h % max(tp_size, 1) == 0
+    return {"ssm": (dp, "model" if head_ok else None, None, None),
+            "conv": (dp, None, None)}
+
+
+def cache_specs(cfg: ModelConfig, plan: ShardingPlan, tp_size: int = 1) -> dict:
+    """The spec of every layer's cache, laid out as :func:`init_lm_caches`
+    lays out the caches (``{"layers": [...]}``)."""
+    return {"layers": [layer_cache_spec(cfg, l, plan, tp_size)
+                       for l in range(cfg.n_layers)]}
+
+
 class Block(nn.Module):
     """One decoder layer: pre-norm attention or Mamba, then (after ``ln2``)
     a MoE or a dense MLP; a pure-Mamba block (``dense_ff`` 0, not MoE) has
@@ -121,16 +202,17 @@ class Block(nn.Module):
             self.ln1_post, self.ln2_post = norm(), norm()
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[dict], impl: Optional[str]
+                cache: Optional[dict], impl: Optional[str], tp=None
                 ) -> Tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
-        """(x, the layer's new cache, the MoE aux loss or None)."""
+        """(x, the layer's new cache, the MoE aux loss or None); ``tp``: the
+        model's ``TensorParallel`` (attention and MLP on this rank's part)."""
         cfg = self.cfg
         aux = None
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         if hasattr(self, "attn"):
             y, new_cache = attn.attention_apply(self.attn, h, cfg, layer=self.layer,
                                                 positions=positions, cache=cache,
-                                                impl=impl)
+                                                impl=impl, tp=tp)
         else:
             y, new_cache = mamba2.mamba_apply(self.mamba, h, cfg, cache=cache)
         if cfg.post_norm:
@@ -141,7 +223,7 @@ class Block(nn.Module):
             if hasattr(self, "moe"):
                 y2, aux = moe_mod.moe_apply(self.moe, h2, cfg)
             else:
-                y2 = self.mlp(h2)
+                y2 = self.mlp(h2, tp)
             if cfg.post_norm:
                 y2 = rms_norm(y2, self.ln2_post, cfg.norm_eps)
             x = x + y2
@@ -153,7 +235,13 @@ class LM(nn.Module):
 
     ``trainable=False`` (serving): frozen bf16 weights. ``trainable=True``:
     f32 weights and norms with ``requires_grad``, as the reference trains.
+
+    ``tp``: None on one device; a model sliced over a mesh's "model"
+    dimension (``tensor_parallel.shard_model``) holds its
+    ``TensorParallel`` there, and its forward then takes ``plan=``.
     """
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, *, device=None, trainable: bool = False):
         super().__init__()
@@ -231,6 +319,7 @@ class LM(nn.Module):
         last_only: bool = False,
         remat: str = "none",
         with_aux: bool = False,
+        plan: Optional[ShardingPlan] = None,
     ):
         """(logits (b, s or 1, padded_vocab) f32, caches), and with
         ``with_aux`` the sum of the MoE layers' aux losses () f32 after
@@ -250,13 +339,21 @@ class LM(nn.Module):
         ``dots_with_no_batch_dims_saveable``. The values do not depend on
         ``remat``. Training takes ``impl`` "ref", the reference's "xla"
         route: the kernels have no backward pass.
+
+        A model sharded over "model" (``self.tp``) needs ``plan`` (the
+        reference's ``make_plan`` of its cell) and gives this rank's
+        vocabulary columns of the logits, ``plan.logits``; one device
+        reads no plan.
         """
         if remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         if remat != "none" and caches is not None:
             raise ValueError("remat is for training, which passes no caches")
         cfg = self.cfg
-        x = self.embed.embed(tokens).to(COMPUTE_DTYPE)
+        tp = self.tp
+        if tp is not None:
+            tp.check_plan(plan)
+        x = self.embed.embed(tokens, tp).to(COMPUTE_DTYPE)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.device, COMPUTE_DTYPE), x], dim=1)
         b, s, _ = x.shape
@@ -269,7 +366,7 @@ class LM(nn.Module):
                 caches["layers"] if caches is not None else [None] * cfg.n_layers)
             new_layers = []
             for blk, c in zip(self.layers, layer_caches, strict=True):
-                x, nc, aux = blk(x, positions, c, impl)
+                x, nc, aux = blk(x, positions, c, impl, tp)
                 if aux is not None:
                     aux_total = aux_total + aux
                 new_layers.append(nc)
@@ -279,7 +376,7 @@ class LM(nn.Module):
             def group(h: torch.Tensor, ids: range):
                 a = torch.zeros((), dtype=torch.float32, device=h.device)
                 for l in ids:
-                    h, _, aux = self.layers[l](h, positions, None, impl)
+                    h, _, aux = self.layers[l](h, positions, None, impl, tp)
                     if aux is not None:
                         a = a + aux
                 return h, a
@@ -292,7 +389,7 @@ class LM(nn.Module):
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
-        logits = self.embed.logits(x)
+        logits = self.embed.logits(x, tp)
         if with_aux:
             return logits, new_caches, aux_total
         return logits, new_caches
@@ -322,13 +419,19 @@ def _dots_context():
 
 
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                   dtype=COMPUTE_DTYPE, device=None) -> dict:
+                   dtype=COMPUTE_DTYPE, device=None, tp_size: int = 1) -> dict:
     """``{"layers": [per-layer cache], "n_prefix", "period"}`` — the layer
     list (an attention layer's KV cache or a Mamba layer's state) with the
-    reference's stack plan beside it."""
+    reference's stack plan beside it. ``tp_size``: the caches of one rank
+    of a model sharded over that many model ranks (its kv heads,
+    ``tensor_parallel.cache_kv_heads``)."""
+    from repro_torch.models.tensor_parallel import cache_kv_heads
+
     n_prefix, period, _ = stack_plan(cfg)
+    heads = cache_kv_heads(cfg, tp_size)
     return {
-        "layers": [attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
+        "layers": [attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device,
+                                   kv_heads=heads)
                    if cfg.layer_kind(l) == "attn"
                    else mamba2.init_mamba_cache(cfg, batch, dtype=dtype,
                                                 device=device)

@@ -12,6 +12,17 @@ prototypes, since the decode position is the cache's ``pos``.
 
 Each result carries host-clock timings of its phases; the clock is read
 after a device synchronise at each phase boundary (a handful per call).
+
+On a mesh (``plan=``, the cell's ``launch.mesh.make_plan``, and ``mesh=``,
+default the runtime's), as the reference's ``ServeEngine(..., plan=)``:
+each data rank serves its rows of the batch (``plan.resid``'s batch axes;
+every row where the batch does not divide), a model sharded over "model"
+(``models.tensor_parallel.shard_model``) holds each rank's kv heads in its
+caches and compresses them unchanged (every (row, head) set draws with its
+layer's key, so a head's prototypes do not depend on the rank that holds
+it), the last position's logits are gathered over the model ranks (an
+exact copy) before sampling, and the tokens are gathered over the data
+ranks at the end.
 """
 from __future__ import annotations
 
@@ -52,17 +63,39 @@ def _sync(device: torch.device) -> None:
 
 class ServeEngine:
     def __init__(self, bundle: ModelBundle, model: torch.nn.Module,
-                 scfg: Optional[ServeConfig] = None):
+                 scfg: Optional[ServeConfig] = None, plan=None, mesh=None):
         self.bundle = bundle
         self.model = model
         self.scfg = scfg if scfg is not None else ServeConfig()
         self.device = next(model.parameters()).device
+        self.plan = plan
+        self.tp = getattr(model, "tp", None)
+        self.rows = None  # the data ranks' axis, where each serves its rows
+        if plan is not None:
+            from repro_torch.launch.mesh import data_axis
+            from repro_torch.runtime import active
+
+            mesh = active().mesh if mesh is None else mesh
+            if mesh is not None and plan.resid is not None and plan.resid[0] is not None:
+                self.rows = data_axis(mesh)
+        if self.tp is not None:
+            self.tp.check_plan(plan)
 
     def _sample(self, logits: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:  # the vocabulary gathered: an exact copy
+            from repro_torch.models.tensor_parallel import gather_dim
+
+            logits = gather_dim(logits[:, -1:], self.tp.axis, 2)
         if self.scfg.temperature <= 0.0:
             return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return prng.categorical(
-            key, logits[:, -1] / self.scfg.temperature).to(torch.int32)
+        x = logits[:, -1] / self.scfg.temperature
+        if self.rows is None:
+            return prng.categorical(key, x).to(torch.int32)
+        # the whole batch's draws, this rank's rows of them: prng.categorical
+        batch, lo = self._rows_of
+        noise = prng.gumbel(key, (batch, x.shape[-1]), device=x.device)
+        return torch.argmax(noise[lo:lo + x.shape[0]].to(x.dtype) + x,
+                            dim=-1).to(torch.int32)
 
     @torch.inference_mode()
     def generate(
@@ -94,20 +127,29 @@ class ServeEngine:
             key = prng.PRNGKey(0)
         inputs = {name: (a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
                          ).to(dev) for name, a in batch.items()}
-        prompt = inputs["tokens"] = inputs["tokens"].to(torch.int64)
+        inputs["tokens"] = inputs["tokens"].to(torch.int64)
+        if self.rows is not None:  # this data rank's rows
+            batch = inputs["tokens"].shape[0]
+            per = batch // self.rows.size
+            lo = self.rows.index * per
+            inputs = {n: a[lo:lo + per] for n, a in inputs.items()}
+            self._rows_of = (batch, lo)
+        prompt = inputs["tokens"]
         b, s = prompt.shape
         total = max_len or (s + scfg.max_new_tokens)
         compress_log: List[dict] = []
 
         _sync(dev)
         t0 = time.perf_counter()
+        if self.tp is not None:
+            cache_kw = dict(cache_kw, tp_size=self.tp.size)
         caches = self.bundle.init_caches(b, total, device=dev, **cache_kw)
         if scfg.compress and next(find_attention_caches(caches), None) is None:
             raise ValueError(
                 f"{cfg.name}: compress=True compresses attention "
                 f"KV caches, and this model has none (every layer is Mamba)")
         logits, caches = self.bundle.prefill(self.model, caches, inputs,
-                                             impl=scfg.impl)
+                                             impl=scfg.impl, plan=self.plan)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
 
@@ -139,12 +181,15 @@ class ServeEngine:
             out.append(tok)
             if scfg.eos_id >= 0:
                 done = done | (tok == scfg.eos_id)
-                if bool(done.all()):  # the one device read of the loop
+                finished = done.all()
+                if self.rows is not None:  # every data rank stops together
+                    finished = self.rows.pmin(finished.to(torch.int32)[None])[0]
+                if bool(finished):  # the one device read of the loop
                     break
             key = prng.fold_in(key, i)
             logits, caches = self.bundle.decode_step(
                 self.model, caches, {"tokens": tok[:, None].to(torch.int64)},
-                impl=scfg.impl)
+                impl=scfg.impl, plan=self.plan)
             tok = self._sample(logits, key)
             if scfg.compress:
                 pos_host += 1  # decode appended one token per sequence
@@ -155,8 +200,11 @@ class ServeEngine:
         _sync(dev)
         loop_s = time.perf_counter() - t_loop
         decode_s = loop_s - sum(c["seconds"] for c in compress_log[1:])
+        tokens = torch.stack(out, dim=1)
+        if self.rows is not None:
+            tokens = self.rows.gather_rows(tokens)
         return {
-            "tokens": torch.stack(out, dim=1),
+            "tokens": tokens,
             "n_steps": len(out),
             "compressions": n_compress,
             "timings": {"prefill_s": prefill_s, "decode_s": decode_s,

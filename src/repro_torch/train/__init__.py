@@ -1,8 +1,9 @@
 """Training substrate of the port: optimizer, step factory, checkpoint,
-fault tolerance, on one device or over data ranks (ZeRO-1 AdamW, the
+fault tolerance, on one device, over data ranks (ZeRO-1 AdamW, the
 rank-order gradient reduction, collective and elastic checkpoints, the
-int8 error-feedback all-reduce); the model axis waits for ROADMAP.md,
-Queue 1, item 7c."""
+int8 error-feedback all-reduce) and over a model axis (tensor parallel:
+``models.tensor_parallel``; the dense and VLM families; MoE, Mamba heads
+and the enc-dec wait for ROADMAP.md, Queue 1, item 7d)."""
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: F401
 from repro_torch.train.optimizer import (  # noqa: F401
     OptConfig,

@@ -27,8 +27,13 @@ every rank waits for the write (``wait()``: the writer joined, then a
 barrier). ``restore`` reads the same files on any number of data ranks
 (the one-device trainer included) and keeps this rank's shard of each
 sharded leaf, reading only that shard's part of the file: the elastic
-restore. The model axis waits for ROADMAP.md,
-Queue 1, item 7c.
+restore. On a mesh with a "model" dimension a model sharded over it
+(``models.tensor_parallel.shard_model``) brings its own parameter specs
+(``model.tp.specs``, under the tree's key that holds the model), the
+ZeRO specs are the whole tensors' (``mesh_opt_specs``), and ``save``
+gathers each leaf over the data ranks, then over the model ranks: the
+files hold whole leaves, so a checkpoint of (data 2, model 4) restores
+on one device and back again.
 """
 from __future__ import annotations
 
@@ -93,22 +98,22 @@ class CheckpointManager:
              extra: Optional[dict] = None, mesh=None, specs: Any = None) -> None:
         self.wait()
         if mesh is not None:
-            from repro_torch.launch.mesh import data_axis
-            from repro_torch.train.optimizer import gather_whole
+            from repro_torch.launch.mesh import data_axis, model_axis
 
             axis = data_axis(mesh)
-            sp = _spec_parts(specs, find_config(tree))
+            tp = model_axis(mesh) if "model" in (mesh.mesh_dim_names or ()) else None
+            sp = _spec_parts(_with_model_specs(tree, specs), find_config(tree))
             host = []
             for name, parts in tree_flatten_with_paths(tree):
-                whole = [gather_whole(part.detach(), spec, axis)
+                whole = [_gather(part.detach(), spec, axis, tp)
                          if isinstance(part, torch.Tensor) else part
                          for part, spec in zip(parts, sp.get(name, [None] * len(parts)),
                                                strict=True)]
-                if axis.index == 0:
+                if axis.index == 0 and (tp is None or tp.index == 0):
                     host.append((name, *_to_host(whole)))
                 del whole
-            self._axis = axis
-            if axis.index != 0:
+            self._axis = axis if tp is None else (axis, tp)
+            if axis.index != 0 or (tp is not None and tp.index != 0):
                 if not async_:
                     self.wait()
                 return
@@ -149,8 +154,9 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
         if self._axis is not None:
-            axis, self._axis = self._axis, None
-            axis.barrier()
+            axes, self._axis = self._axis, None
+            for axis in (axes if isinstance(axes, tuple) else (axes,)):
+                axis.barrier()
 
     def _gc(self) -> None:
         for s in self.all_steps()[: -self.keep]:
@@ -180,7 +186,7 @@ class CheckpointManager:
         with open(os.path.join(path, "manifest.json")) as f:
             dtypes = {l["path"]: l["dtype"] for l in json.load(f)["leaves"]}
         cfg = find_config(like)
-        sp = _spec_parts(specs, cfg) if mesh is not None else {}
+        sp = _spec_parts(_with_model_specs(like, specs), cfg) if mesh is not None else {}
         coords = mesh_coords(mesh) if mesh is not None else {}
         restored: Dict[str, List[Any]] = {}
         for name, parts in tree_flatten_with_paths(like, cfg=cfg):
@@ -195,6 +201,30 @@ class CheckpointManager:
                            dtypes[name], part, device)
                 for part, arr, spec in zip(parts, pieces, specs_here, strict=True)]
         return _rebuild(like, "", cfg, restored)
+
+
+def _with_model_specs(tree: Any, specs: Any) -> Any:
+    """``specs`` with the parameter specs of each model sharded over
+    "model" that ``tree`` holds at its top level, under the same key."""
+    if not isinstance(tree, Mapping):
+        return specs
+    out = dict(specs or {})
+    for k, v in tree.items():
+        tp = getattr(v, "tp", None) if is_model(v) else None
+        if tp is not None and k not in out:
+            out[k] = tp.specs
+    return out
+
+
+def _gather(t: torch.Tensor, spec, axis, tp) -> torch.Tensor:
+    """The whole leaf on every rank: the rank's piece gathered over the
+    data ranks (``axis``), then over the model ranks (``tp``)."""
+    from repro_torch.train.optimizer import DATA_AXES, gather_whole, restrict
+
+    if spec is None:
+        return t
+    t = gather_whole(t, restrict(spec, DATA_AXES), axis)
+    return t if tp is None else gather_whole(t, restrict(spec, ("model",)), tp)
 
 
 def _npz_arrays(path: str) -> Dict[str, np.ndarray]:

@@ -9,8 +9,12 @@ they divide (the reference's rule, on the port's per-layer tensor shapes),
 updates only that shard. The update is elementwise, so a shard's bits are
 the whole update's; the train step gathers the updated weights
 (:func:`gather_shards`), a checkpoint the whole moments
-(:func:`gather_whole`). The model axis (tensor-parallel parameter specs)
-waits for ROADMAP.md, Queue 1, item 7c.
+(:func:`gather_whole`). On a mesh with a model axis the specs are the
+whole tensors' (the reference's, with "model" in them); a rank's
+parameter is already its model slice, so the ZeRO shard of it is taken
+under :func:`restrict`'s data part of the spec (a merged ``("model",
+"data")`` entry included), and :func:`local_shard` of a whole tensor
+(a checkpoint's) slices every sharded dimension.
 
 The state is a dict of tensors on the parameters' device: f32 moments
 ``m`` and ``v`` keyed by parameter name, an int32 ``step``, and with
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.tensor_parallel import entry_names
 from repro_torch.utils.tree import global_norm
 
 
@@ -82,8 +87,9 @@ def init_opt_state(params: Params, *, master: bool = False, mesh=None,
 
     With ``mesh`` and ``specs`` (:func:`zero_opt_specs`' output) each of
     ``m``, ``v`` and ``master`` holds only this rank's shard of the
-    parameter, its slice along the dimension its spec gives the data axes;
-    a leaf that nothing divides stays whole on every rank."""
+    parameter, its slice along the dimension its spec gives the data axes
+    (of the rank's parameter: on a model axis, its model slice); a leaf
+    that nothing divides stays whole on every rank."""
     named = _named(params)
     dev = next(iter(named.values())).device if named else None
     if (mesh is None) != (specs is None):
@@ -91,7 +97,9 @@ def init_opt_state(params: Params, *, master: bool = False, mesh=None,
     coords = mesh_coords(mesh) if mesh is not None else {}
 
     def local(key: str, n: str, t: torch.Tensor) -> torch.Tensor:
-        return t if specs is None else local_shard(t, specs[key][n], coords)
+        if specs is None:
+            return t
+        return local_shard(t, restrict(specs[key][n], DATA_AXES), coords)
 
     out = {
         "m": {n: torch.zeros(local("m", n, p).shape, dtype=torch.float32,
@@ -112,7 +120,8 @@ def init_opt_state(params: Params, *, master: bool = False, mesh=None,
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
                  params: Params, cfg: OptConfig, *,
-                 local: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                 local: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Params, dict, Dict[str, torch.Tensor]]:
     """One AdamW step, in place. Returns (params, opt_state, metrics
     {"grad_norm", "lr"}). With an f32 ``master`` copy in the state the
@@ -121,11 +130,13 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
     ``local(name, tensor)`` (ZeRO-1) maps a parameter or its gradient to
     the view of this rank's shard, the one the state's moments hold: the
     update then writes that shard of each parameter only. The grad norm is
-    taken from the whole ``grads`` all the same."""
+    taken from the whole ``grads`` all the same, unless ``gnorm`` gives it
+    (a model sharded over "model": ``TensorParallel.grad_norm``)."""
     named = _named(params)
     model_cfg = getattr(params, "cfg", None)
     step = opt_state["step"] + 1
-    gnorm = global_norm(dict(grads), cfg=model_cfg)
+    if gnorm is None:
+        gnorm = global_norm(dict(grads), cfg=model_cfg)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -220,44 +231,62 @@ def mesh_coords(mesh) -> Dict[str, Tuple[int, int]]:
             for i, a in enumerate(names)}
 
 
+#: the data axes of a mesh; a rank's parameter is already sliced over the
+#: others ("model", by ``models.tensor_parallel.shard_params``)
+DATA_AXES = ("pod", "data")
+
+
+def restrict(spec: Spec, axes: Sequence[str]) -> Spec:
+    """``spec`` with only the mesh dimensions in ``axes`` kept in each
+    entry. ``restrict(spec, DATA_AXES)`` is the spec of a rank's parameter
+    (its model slice) under a whole-tensor spec: a merged ``("model",
+    "data")`` entry becomes "data", row-major (model-major) as the merge
+    lays out the whole dimension."""
+    out = []
+    for e in spec:
+        kept = tuple(a for a in entry_names(e) if a in axes)
+        out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+    return tuple(out)
+
+
 def shard_dim(spec: Spec) -> Optional[int]:
-    """The dimension a spec shards (None: the leaf is whole on every rank).
-    Only the data axes shard here; a model axis waits for item 7c."""
+    """The dimension a spec shards (None: the leaf is whole on every rank);
+    a spec of more than one sharded dimension raises (see
+    :func:`restrict`)."""
     dims = [i for i, e in enumerate(spec) if e is not None]
-    for i in dims:
-        names = (spec[i],) if isinstance(spec[i], str) else tuple(spec[i])
-        if any(a not in ("pod", "data") for a in names):
-            raise NotImplementedError(
-                f"spec {spec}: a model-sharded dimension; the port's trainer "
-                f"shards over the data axes only (ROADMAP.md, Queue 1, item 7c)")
     if len(dims) > 1:
         raise ValueError(f"spec {spec}: more than one sharded dimension")
     return dims[0] if dims else None
+
+
+def _index(entry, coords: Mapping[str, Tuple[int, int]]) -> Tuple[int, int]:
+    names = entry_names(entry)
+    idx = tuple(coords[a][0] for a in names)
+    sizes = tuple(coords[a][1] for a in names)
+    return int(np.ravel_multi_index(idx, sizes)), int(np.prod(sizes))
 
 
 def shard_index(spec: Spec, coords: Mapping[str, Tuple[int, int]]) -> Tuple[int, int]:
     """(this rank's shard, number of shards) of a leaf with spec ``spec``:
     the row-major index over the entry's dimensions (pod-major)."""
     d = shard_dim(spec)
-    if d is None:
-        return 0, 1
-    names = (spec[d],) if isinstance(spec[d], str) else tuple(spec[d])
-    idx = tuple(coords[a][0] for a in names)
-    sizes = tuple(coords[a][1] for a in names)
-    return int(np.ravel_multi_index(idx, sizes)), int(np.prod(sizes))
+    return (0, 1) if d is None else _index(spec[d], coords)
 
 
 def local_shard(t, spec: Spec, coords: Mapping[str, Tuple[int, int]]):
-    """This rank's shard of ``t`` under ``spec`` (a view, of a tensor or an
-    array; the whole of ``t`` where the spec shards nothing)."""
-    d = shard_dim(spec)
-    if d is None:
-        return t
-    r, n = shard_index(spec, coords)
-    per = t.shape[d] // n
-    if isinstance(t, torch.Tensor):
-        return t.narrow(d, r * per, per)
-    return t[(slice(None),) * d + (slice(r * per, (r + 1) * per),)]
+    """This rank's piece of ``t`` under ``spec`` (a view, of a tensor or an
+    array; the whole of ``t`` where the spec shards nothing): every sharded
+    dimension sliced by its entry's row-major index."""
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        r, n = _index(e, coords)
+        per = t.shape[d] // n
+        if isinstance(t, torch.Tensor):
+            t = t.narrow(d, r * per, per)
+        else:
+            t = t[(slice(None),) * d + (slice(r * per, (r + 1) * per),)]
+    return t
 
 
 @torch.no_grad()

@@ -26,7 +26,19 @@ AdamW updates this rank's ZeRO-1 shard (``parallel.zero_stage``) and the
 weights are gathered in rank order. With one microbatch a rank the losses,
 grad norms and weights are those of the one-device step at ``microbatches
 = P``, bit for bit; with m a rank, the gradient sums each rank's m first.
-The model axis waits for ROADMAP.md, Queue 1, item 7c.
+
+On a mesh with a "model" dimension (``("data", "model")``, ``("pod",
+"data", "model")``) the model is sharded over it
+(``models.tensor_parallel.shard_model``) and the step takes the cell's
+``plan`` (``launch.mesh.make_plan``): the forward and backward run
+tensor-parallel, the loss is the vocabulary-parallel cross-entropy, the
+data-axis reduction and ZeRO-1 act on each rank's model slice, and the
+grad norm adds the squares of model-sharded leaves over the model ranks
+in rank order (replicated leaves once). Every model rank then holds the
+same bits of every replicated leaf; the step is within rounding of the
+one-device step (the row-parallel sums add in another order), not bitwise.
+MoE, Mamba heads and the enc-dec on a model axis wait for ROADMAP.md,
+Queue 1, item 7d.
 """
 from __future__ import annotations
 
@@ -36,14 +48,17 @@ import torch
 
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.models.registry import ModelBundle
+from repro_torch.models.tensor_parallel import entry_names
 from repro_torch.runtime import active
 from repro_torch.train.optimizer import (
+    DATA_AXES,
     SLICE,
     OptConfig,
     adamw_update,
     gather_shards,
     local_shard,
     mesh_coords,
+    restrict,
     zero_opt_specs,
 )
 
@@ -69,12 +84,16 @@ def cross_entropy(
     return torch.sum(tok_loss) / tot, tot
 
 
-def make_loss_fn(bundle: ModelBundle, impl: str, remat: str) -> Callable:
+def make_loss_fn(bundle: ModelBundle, impl: str, remat: str, plan=None) -> Callable:
+    """The step's loss: the cross-entropy (vocabulary-parallel for a model
+    sharded over "model", which takes ``plan``) plus the MoE aux loss."""
     cfg = bundle.cfg
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits, aux = bundle.forward(model, batch, impl=impl, remat=remat)
-        loss, tot = cross_entropy(logits, batch["labels"], batch.get("weights"))
+        logits, aux = bundle.forward(model, batch, impl=impl, remat=remat, plan=plan)
+        tp = getattr(model, "tp", None)
+        ce = cross_entropy if tp is None else tp.cross_entropy
+        loss, tot = ce(logits, batch["labels"], batch.get("weights"))
         total = loss + cfg.router_aux_coef * aux
         return total, {"loss": loss, "aux_loss": aux, "weight": tot}
 
@@ -93,6 +112,7 @@ def make_train_step(
     impl: str = "ref",
     *,
     mesh=None,
+    plan=None,
 ) -> Callable:
     """Builds ``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``.
@@ -106,9 +126,10 @@ def make_train_step(
 
     ``mesh`` (default: the runtime's ``mesh``) makes it the data-parallel
     step of the module docstring; its ``opt_state`` comes from
-    ``init_opt_state(model, mesh=, specs=mesh_opt_specs(...))``.
+    ``init_opt_state(model, mesh=, specs=mesh_opt_specs(...))``. ``plan``:
+    the cell's ``make_plan``, which a model sharded over "model" needs.
     """
-    loss_fn = make_loss_fn(bundle, impl, parallel.remat)
+    loss_fn = make_loss_fn(bundle, impl, parallel.remat, plan)
     n_micro = max(parallel.microbatches, 1)
     mesh = active().mesh if mesh is None else mesh
     if mesh is not None:
@@ -152,26 +173,46 @@ def _forward_backward(model, named: Dict[str, torch.Tensor], loss_fn: Callable,
 
 
 def _update(model, named: Dict[str, torch.Tensor], opt_state: dict, opt_cfg: OptConfig,
-            loss: torch.Tensor, mets: dict, local: Optional[Callable] = None):
-    """AdamW on the step's gradients (``local``: on this rank's shards);
+            loss: torch.Tensor, mets: dict, local: Optional[Callable] = None,
+            gnorm: Optional[torch.Tensor] = None):
+    """AdamW on the step's gradients (``local``: on this rank's shards;
+    ``gnorm``: the grad norm, where the model is sharded);
     (model, opt_state, metrics)."""
     model, opt_state, opt_mets = adamw_update(
-        {n: p.grad for n, p in named.items()}, opt_state, model, opt_cfg, local=local)
+        {n: p.grad for n, p in named.items()}, opt_state, model, opt_cfg, local=local,
+        gnorm=gnorm)
     return model, opt_state, dict(mets, **opt_mets, total_loss=loss)
 
 
-def mesh_opt_specs(params, mesh, *, zero_stage: int = 1, master: bool = False) -> dict:
-    """The ZeRO specs of a model's optimizer state on a mesh of data ranks:
-    every parameter is replicated, each moment sharded by
-    :func:`~repro_torch.train.optimizer.zero_opt_specs` (``zero_stage=0``:
-    replicated too)."""
+def mesh_opt_specs(params, mesh, *, zero_stage: int = 1, master: bool = False,
+                   param_specs: Optional[dict] = None) -> dict:
+    """The ZeRO specs of a model's optimizer state on a mesh: each moment
+    takes its parameter's spec (``param_specs``; default: a sharded
+    model's own, ``model.tp.specs``, else replicated) with the data axes
+    folded in by :func:`~repro_torch.train.optimizer.zero_opt_specs`
+    (``zero_stage=0``: the parameter's spec). The specs are of the whole
+    tensors, whose shapes are the rank's parameters' times the model ranks
+    along their model-sharded dimension."""
     from repro_torch.launch.mesh import data_axes
 
+    if param_specs is None and isinstance(params, torch.nn.Module):
+        tp = getattr(params, "tp", None)
+        param_specs = tp.specs if tp is not None else None
     named = ({n: p for n, p in params.named_parameters() if p.requires_grad}
              if isinstance(params, torch.nn.Module) else dict(params))
     shape = {a: c[1] for a, c in mesh_coords(mesh).items()}
-    return zero_opt_specs({n: () for n in named}, named, data_axes(mesh), shape,
-                          zero_stage=zero_stage, master=master)
+    pspecs = {n: tuple((param_specs or {}).get(n, ())) for n in named}
+
+    def whole(n: str) -> tuple:
+        dims = list(named[n].shape)
+        for d, e in enumerate(pspecs[n]):
+            for a in entry_names(e):
+                if a not in DATA_AXES:
+                    dims[d] *= shape[a]
+        return tuple(dims)
+
+    return zero_opt_specs(pspecs, {n: whole(n) for n in named}, data_axes(mesh),
+                          shape, zero_stage=zero_stage, master=master)
 
 
 def _local_rows(batch: dict, cfg, axis) -> Tuple[dict, bool]:
@@ -231,11 +272,20 @@ def _data_parallel_step(loss_fn: Callable, cfg, opt_cfg: OptConfig,
     axis = data_axis(mesh)
     coords = mesh_coords(mesh)
     n_micro = max(parallel.microbatches, 1)
+    names = tuple(mesh.mesh_dim_names or ())
+    tp_size = coords["model"][1] if "model" in names else 1
 
     def train_step(model, opt_state, batch):
+        tp = getattr(model, "tp", None)
+        if (tp.size if tp is not None else 1) != tp_size:
+            raise ValueError(
+                f"the mesh has {tp_size} model ranks and the model is sharded over "
+                f"{tp.size if tp is not None else 1}: shard it with "
+                f"models.tensor_parallel.shard_model(model, mesh)")
         named = _trainable(model)
-        specs = mesh_opt_specs(named, mesh, zero_stage=parallel.zero_stage,
-                               master="master" in opt_state)["m"]
+        specs = {n: restrict(s, DATA_AXES) for n, s in mesh_opt_specs(
+            named, mesh, zero_stage=parallel.zero_stage, master="master" in opt_state,
+            param_specs=tp.specs if tp is not None else None)["m"].items()}
         for n, p in named.items():
             want = tuple(local_shard(p, specs[n], coords).shape)
             if tuple(opt_state["m"][n].shape) != want:
@@ -262,7 +312,9 @@ def _data_parallel_step(loss_fn: Callable, cfg, opt_cfg: OptConfig,
         mets = {k: torch.mean(cols[j + 1]) for j, k in enumerate(keys)}
         model, opt_state, mets = _update(
             model, named, opt_state, opt_cfg, loss, mets,
-            local=lambda n, t: local_shard(t, specs[n], coords))
+            local=lambda n, t: local_shard(t, specs[n], coords),
+            gnorm=None if tp is None else tp.grad_norm(
+                {n: p.grad for n, p in named.items()}))
         for n, p in named.items():
             gather_shards(p.data, specs[n], axis)
         return model, opt_state, mets
@@ -270,8 +322,8 @@ def _data_parallel_step(loss_fn: Callable, cfg, opt_cfg: OptConfig,
     return train_step
 
 
-def make_eval_step(bundle: ModelBundle, impl: str = "ref") -> Callable:
-    loss_fn = make_loss_fn(bundle, impl, "none")
+def make_eval_step(bundle: ModelBundle, impl: str = "ref", *, plan=None) -> Callable:
+    loss_fn = make_loss_fn(bundle, impl, "none", plan)
 
     @torch.no_grad()
     def eval_step(model, batch):

@@ -65,10 +65,15 @@ def test_port_imports_without_jax():
         "from repro_torch.launch.mesh import batch_specs\n"
         "from repro_torch.train import zero_opt_specs, mesh_opt_specs\n"
         "from repro_torch.launch.mesh import data_axis\n"
+        "from repro_torch.launch.mesh import (MeshShape, make_plan,\n"
+        "    make_production_mesh, model_axis)\n"
+        "from repro_torch.models.tensor_parallel import (shard_model,\n"
+        "    shard_params, gather_params, init_sharded, entry_names)\n"
         "from repro_torch.train.optimizer import gather_shards, gather_whole\n"
         "from repro_torch.train.compression import (compressed_psum,\n"
         "    psum_with_error_feedback, tree_compressed_psum)\n"
-        "from repro_torch.launch.train import check_fits, state_bytes_per_rank\n"
+        "from repro_torch.launch.train import (check_fits, state_bytes_per_rank,\n"
+        "    init_bytes_per_rank)\n"
         "from repro_torch import make_data_mesh, ihtc, ihtc_sharded\n"
         "from repro_torch.core import ring_knn, tc_sharded, kmeans_sharded\n"
         "from repro_torch.data import stream_to_mesh\n"

@@ -525,9 +525,12 @@ def _no_model(*args, **kw):
 
 @pytest.mark.parametrize("mesh", ["debug", "pod1", "pod2"])
 def test_launcher_rejects_meshes(mesh, monkeypatch):
+    """A mesh with a model axis runs the dense and VLM families (item 7c);
+    a MoE arch there raises, naming item 7d, before any rank or model."""
     monkeypatch.setattr(launcher, "init_state", _no_model)  # never full size here
+    monkeypatch.setattr(launcher, "spawn_ranks", _no_model)
     with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        launcher.main(["--arch", "gemma2-2b", "--mesh", mesh, "--steps", "1",
+        launcher.main(["--arch", "deepseek-moe-16b", "--mesh", mesh, "--steps", "1",
                        "--device", "cpu"])
 
 

@@ -27,10 +27,11 @@ collective and on the whole run). One spawn per mesh runs several jobs
   * ``compressed_psum``, ``psum_with_error_feedback`` (16 rounds) and
     ``tree_compressed_psum`` on 8 ranks bitwise the reference's under
     ``shard_map`` on 8 CPU devices;
-  * ``check_fits``'s mesh reckoning, and ``--mesh debug|pod1|pod2`` naming
-    item 7c;
-  * ``chip_smoke.py``'s ``train_mesh`` phase rehearsed on the CPU at smoke
-    size (every check of the phase run, none failing).
+  * ``check_fits``'s mesh reckoning (and, on a model axis, the peak while
+    the model is drawn), and ``--mesh debug|pod1|pod2`` (item 7c): debug
+    spawns 8 ranks, pod1 and pod2 need torchrun;
+  * ``chip_smoke.py``'s ``train_mesh`` and ``mesh_tp`` phases rehearsed on
+    the CPU at smoke size (every check of the phase run, none failing).
 """
 import json
 import os
@@ -645,6 +646,22 @@ def test_state_reckoning_over_data_ranks():
     assert abs(count - 0.7456e9) < 0.0005e9 and abs(per - 7.46e9) < 0.01e9
 
 
+def test_init_reckoning_on_a_model_axis():
+    """A rank of a model axis draws each leaf whole before it keeps its
+    slice: its peak while drawing is its f32 weights, its AdamW shard and
+    the largest leaf (gemma2-2b's 256,000 x 2304 embedding), not the
+    gradients; check_fits takes the larger of that and the state."""
+    import dataclasses
+
+    cut = dataclasses.replace(ARCHS["gemma2-2b"], n_layers=2)
+    n = launcher.rank_param_count(cut, 4)
+    leaf = 4 * 256_000 * 2304
+    assert launcher.largest_leaf_bytes(cut) == leaf
+    assert launcher.init_bytes_per_rank(cut, n, 2, model_ranks=4) == 4 * n + 4 * n + leaf
+    assert launcher.init_bytes_per_rank(cut, n, 2) == 8 * n
+    assert abs(launcher.init_bytes_per_rank(cut, n, 2, model_ranks=4) - 3.85e9) < 0.01e9
+
+
 def test_check_fits_counts_the_ranks_on_a_card(monkeypatch):
     monkeypatch.setattr(launcher, "param_count", lambda cfg: 2_000_000_000)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
@@ -666,10 +683,28 @@ def _no_model(*args, **kw):
 
 @pytest.mark.parametrize("mesh", ["debug", "pod1", "pod2"])
 def test_the_model_axis_meshes_name_item_7c(mesh, monkeypatch):
+    """The meshes with a model axis (item 7c): ``debug`` spawns its 8 ranks
+    on this host; ``pod1`` and ``pod2`` need torchrun with exactly 256 or
+    512 ranks and raise, saying so, before a model is built."""
     monkeypatch.setattr(launcher, "init_state", _no_model)
-    with pytest.raises(NotImplementedError, match="model axis.*item 7c"):
-        launcher.main(["--arch", "gemma2-2b", "--mesh", mesh, "--steps", "1",
-                       "--device", "cpu"])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    spawned = []
+    monkeypatch.setattr(launcher, "spawn_ranks", lambda fn, n, **kw: spawned.append(
+        (fn, n, kw)) or [{"rank": 0, "start": 0, "quantiles": {}, "stragglers": 0}])
+    argv = ["--arch", "gemma2-2b", "--mesh", mesh, "--steps", "1", "--device", "cpu"]
+    if mesh == "debug":
+        launcher.main(argv)
+        (fn, n, kw), = spawned
+        assert fn is launcher.mesh_rank and n == 8 and kw["backend"] == "gloo"
+        assert kw["args"][2] == "debug"
+        return
+    need = {"pod1": 256, "pod2": 512}[mesh]
+    with pytest.raises(RuntimeError, match=f"torchrun and exactly {need} ranks"):
+        launcher.main(argv)
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    with pytest.raises(RuntimeError, match=f"exactly {need} torchrun ranks"):
+        launcher.main(argv)
+    assert not spawned
 
 
 # ------------------------------------------------------------- the card's phase
@@ -705,3 +740,34 @@ def test_chip_train_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     for row in lines["train_mesh"]["per_rank"]:
         assert {"step_ms_first", "step_ms_p50_rest", "staged_bytes_per_step",
                 "peak_bytes", "save_s"} <= set(row)
+
+
+def test_chip_mesh_tp_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py``'s mesh_tp phase, its control flow on the CPU:
+    gemma2-2b at its smoke config cut to 2 layers over 8 gloo ranks at
+    (data 2, model 4), b 8, s 32, a 64-token prompt, 8 new tokens and 4
+    forced steps; every check of the phase holds (the time limit, the
+    launch counts and the memory checks are the card's)."""
+    import chip_smoke
+
+    from repro_torch import configs
+
+    failed = []
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda cond, msg: None if cond else failed.append(msg))
+    for k, v in dict(seq=32, prompt=64, new_tokens=8, forced_steps=4, tail=8,
+                     timeout=LIMIT_S).items():
+        monkeypatch.setitem(chip_smoke.MESH_TP, k, v)
+    monkeypatch.setitem(configs.ARCHS, "gemma2-2b", smoke_config(ARCHS["gemma2-2b"]))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    chip_smoke.phase_mesh_tp({})
+    assert not failed, failed
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    line = next(d for d in out if d.get("phase") == "mesh_tp")
+    assert line["train"]["repeat_bitwise"] and line["train"]["replicated_equal"]
+    assert line["serve"]["repeat_bitwise"] and line["serve"]["slot_agreement"] >= 0.999
+    assert all(h["prefill"]["calls"] == 1 and h["decode"]["calls"] == 2 * 4
+               for h in line["serve"]["k5_held"])
+    assert len(line["per_rank"]) == 8
