@@ -8,7 +8,15 @@ Phases, each printing one JSON line:
 
   device       the card, from nvidia-smi (its raw line is printed too);
   build        compile the CUDA kernels (csrc/*.cu, one nvcc each, in
-               parallel) into build/repro_torch/;
+               parallel) into build/repro_torch/; then each library's
+               kernels through cuobjdump --dump-resource-usage (registers,
+               static shared memory, stack and local bytes; the whole
+               table to build/repro_torch/kernel_resources.json), the
+               static shared bytes held to what the port's analyzer
+               reckons from the sources (repro_torch.analysis, PK402) for
+               every instance it evaluates: equal, up to the block's 1 KB
+               system reserve and the arrays an instance never reads
+               (the compiler drops them; the line names each);
   kernels      every kernel against its plain PyTorch version on the card,
                at the shapes the main path gives it (K1 f32 at the fit's
                level 0, the stream's 8192 x 131,072 and the serve shape;
@@ -188,9 +196,11 @@ Phases, each printing one JSON line:
                of its leaf's largest |g|, weights within 2·Σlr and on
                average 0.1·Σlr), a second run bitwise the first, every
                replicated leaf bitwise across the model ranks; the lm
-               phase's traffic served (batch 4, 2 rows a data rank, prompt
-               2048, 160 tokens, compressed) with each rank's K5, K2 and K3
-               launches counted, prefill and 32 forced decode steps within
+               phase's traffic served with a shorter decode (batch 4, 2
+               rows a data rank, prompt 2048, 48 tokens, compressed with a
+               32-slot tail: one in-flight recompression) with each rank's
+               K5, K2 and K3 launches counted, prefill and 8 forced decode
+               steps within
                lm_parity's limits of the one-device kernel path and bitwise
                on repeat, every K5 call at the ranks' heads held against
                K5's plain version, each rank's compressed slots the one-device
@@ -207,6 +217,23 @@ Phases, each printing one JSON line:
                LOGIT_ULPS, with a planted fault (K5's bias dropped for one
                step) that must exceed it; then a second
                kernel-path run (bitwise equal tokens);
+  dryrun       the dry run (repro_torch.launch.dryrun) on the meta device
+               against what the card measured: train_gemma2's step (the
+               train phase's p50 and peak), lm_gemma2's prefill of the
+               2048-token prompt into its 2,208-slot cache and one decode
+               step over a compressed 1,232-slot cache (both timed here on
+               the lm phase's model, DRYRUN's repeats), and one mesh_tp
+               rank's step (the mesh_tp phase's rank 0); each line has the
+               reckoned FLOPs by dtype, bytes, peak and model FLOPs beside
+               the measured p50 and the step's own peak (the card's
+               max_memory_allocated less what was allocated beside the
+               step's inputs): mfu (model FLOPs over p50 x the bf16 peak)
+               and hw_flops_share (the counted FLOPs at their types' peaks
+               over p50) must be <= 1, peak_ratio (reckoned / measured) in
+               DRYRUN's band, the mesh_tp rank's reckoned collectives
+               equal, op by op, to what every rank recorded over its last
+               step, and the phase within DRYRUN's 20 s; run alone it
+               first runs the phases it compares against;
   lm_moe       the lm phase's serving, compression and parity on
                deepseek-moe-16b whole (28 layers, MHA 16 x 128, 64 routed
                experts top-6 + 2 shared; 16.4e9 random bf16 parameters):
@@ -325,19 +352,24 @@ DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "sharded", "tune
                   "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
                   "train_moe", "train_ssm", "train_hybrid", "train_vlm",
-                  "train_encdec", "train_mesh", "mesh_tp", "lm", "lm_moe", "lm_hybrid",
+                  "train_encdec", "train_mesh", "mesh_tp", "lm", "dryrun", "lm_moe",
+                  "lm_hybrid",
                   "lm_vlm",
                   "lm_encdec")
 #: "profile" (not run by default): the fit and the headline fit once more
 #: under torch.profiler — device time by kernel and the device's busy share
 ALL_PHASES = DEFAULT_PHASES + ("profile", "basins")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): f32 on the CUDA
-# cores, bf16 on the tensor cores (f32 accumulation), HBM3
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES = 3.35e12
+
+def _peaks():
+    """(f32, bf16, tf32 FLOP/s, B/s): the H100 SXM's data-sheet peaks, from
+    the port's one source (repro_torch.utils.roofline; main puts src/ on
+    the path)."""
+    from repro_torch.utils import roofline
+
+    by = roofline.PEAK_FLOPS_BY_DTYPE
+    return by["float32"], by["bfloat16"], by["tf32"], roofline.HBM_BW
+
 
 # distance tolerance, kernel vs plain version, both f32 on the card: they
 # round |x|²+|y|²−2x·y in other orders (sequential fma vs cuBLAS and
@@ -401,8 +433,8 @@ LM_HYBRID = dict(LM_MOE, arch="jamba-v0.1-52b", layers=8, ssm_arch="mamba2-370m"
 #: vision tower (VISION_PREFIX, repro_torch.models.frontends) and a 2048-
 #: token prompt, 160 new tokens, compressed at t = 2, m = 1, tail 128 (2,304
 #: valid of 2,464 slots, 1,360 after the first compress, one in flight;
-#: batch 2, not 4: a compression is one TC per layer, sequence and kv head,
-#: 2,048 at batch 2); seamless-m4t-large-v2 whole (24 + 24 layers, MHA 16 x
+#: batch 2, not 4: a compression's K2 and K3 calls are one a layer,
+#: sequence and kv head, 2,048 at batch 2); seamless-m4t-large-v2 whole (24 + 24 layers, MHA 16 x
 #: 64) at batch 4 over 2048 encoder frames (the stubbed speech encoder's
 #: output), a 128-token decoder prompt and 160 new tokens, no compression
 #: (an enc-dec cache is not compressed); 32 teacher-forced steps each
@@ -509,11 +541,18 @@ TRAIN_MESH = dict(arch="gemma2-2b", layers=2, ranks=4, elastic_ranks=2, steps=3,
 #: embedding and of the layers; 8 + 8/2 B each, 2.24 GB); the train phase's
 #: batch, sequence, remat and schedule for ``steps`` steps against the
 #: one-device step at ``data`` microbatches; the lm phase's traffic (batch
-#: 4, prompt 2048, 160 tokens, compressed at t 2, m 1, tail 128) and 32
-#: forced decode steps. The phase fails past ``limit_s`` (40 s)
+#: 4, prompt 2048, compressed at t 2, m 1) with its decode cut to 48 tokens
+#: behind a 32-slot tail (still one in-flight recompression) and 8 forced
+#: decode steps, as the lm phase's parity takes. The phase fails past
+#: ``limit_s`` (40 s); at 160 tokens, a 128-slot tail and 32 forced steps
+#: it read 31.9-52.3 s on one card as the host's speed varied (PERF.md)
 MESH_TP = dict(arch="gemma2-2b", layers=2, data=2, model=4, batch=8, seq=256,
-               steps=3, serve_batch=4, prompt=2048, new_tokens=160, t=2, m=1,
-               tail=128, forced_steps=32, timeout=300.0, limit_s=40.0)
+               steps=3, serve_batch=4, prompt=2048, new_tokens=48, t=2, m=1,
+               tail=32, forced_steps=8, timeout=300.0, limit_s=40.0)
+#: the dryrun phase: the lm decode step's cache (the compressed cache of
+#: the lm phase's K5 decode row), timed repeats, the band of reckoned over
+#: measured peak memory, and the phase's budget (seconds)
+DRYRUN = dict(decode_cache=1232, reps=5, peak_ratio=(0.75, 1.33), limit_s=20.0)
 #: gradients, losses and grad norms against the one-device step (bf16 ulps,
 #: tests/test_torch_train.py)
 GRAD_ULPS = 8
@@ -523,11 +562,12 @@ GRAD_ULPS = 8
 #: averaged below this share of the one-shot error
 MAX_COMPRESS_REL_ERR = 0.02
 MAX_FEEDBACK_RATIO = 0.6
-#: the tune phase: timed runs per candidate of populate (the median is
-#: kept), the cut shape the K1 routes are held against the plain version
+#: the tune phase: timed runs per candidate of populate after its untimed
+#: warm-up run (the median is kept; 3 took 75 s of the script's time limit,
+#: where the routes the phase picks between differ by 3x), the cut shape the K1 routes are held against the plain version
 #: at (queries x keys of the covertype analog), and the rows of the
 #: onthefly plan's fit
-TUNE = dict(repeats=3, check_q=4096, check_keys=65_536, onthefly_n=32_768)
+TUNE = dict(repeats=1, check_q=4096, check_keys=65_536, onthefly_n=32_768)
 #: tuned vs untuned covertype fit: label agreement (bitwise when every
 #: winner is its kernel's default route)
 MIN_TUNED_AGREEMENT = 0.999
@@ -628,8 +668,9 @@ def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
     """(bound_ms, bound_by): the larger of the operations' time (``flops``
     at the f32 peak plus ``bf16_flops``, products of bf16 operands, at the
     bf16 tensor-core peak) and bytes at the memory rate."""
-    t_ops = flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
-    t_bytes = nbytes / PEAK_BYTES
+    f32, bf16, _, hbm = _peaks()
+    t_ops = flops / f32 + bf16_flops / bf16
+    t_bytes = nbytes / hbm
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -646,11 +687,11 @@ def distance_bound(pairs: float, d: int, nbytes: float, *, f32_flops: float = 0.
     queries and keys, one bf16 product, 2·d a pair at the bf16 peak, is
     exact) beside the 3 a pair at the f32 peak. ``f32_flops``: other work
     at the f32 peak on either way (K4's norms)."""
-    t_cuda_core = (pairs * (2 * d + 3) + f32_flops) / PEAK_F32_FLOPS
-    t_cross = (2 * d * pairs / PEAK_BF16_FLOPS if bf16_operands
-               else 3 * 2 * d * pairs / PEAK_TF32_FLOPS)
-    t_ops = min(t_cuda_core, max(t_cross, (3 * pairs + f32_flops) / PEAK_F32_FLOPS))
-    t_bytes = nbytes / PEAK_BYTES
+    f32, bf16, tf32, hbm = _peaks()
+    t_cuda_core = (pairs * (2 * d + 3) + f32_flops) / f32
+    t_cross = (2 * d * pairs / bf16 if bf16_operands else 3 * 2 * d * pairs / tf32)
+    t_ops = min(t_cuda_core, max(t_cross, (3 * pairs + f32_flops) / f32))
+    t_bytes = nbytes / hbm
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -733,6 +774,122 @@ def phase_build() -> None:
                          ("flash_attention", "split_combine_kernel")):
         text = _cuda.library_path(name).with_suffix(".log").read_text()
         emit("ptxas", library=name, functions=_ptxas_usage(text, marker))
+    _kernel_resources()
+
+
+def _cuobjdump_usage(lib_path: Path, tools: Path) -> list:
+    """(kernel, int template arguments, registers, static shared, stack,
+    local bytes) of each function ``cuobjdump --dump-resource-usage``
+    lists in one library, names demangled by ``cu++filt``."""
+    out = subprocess.run([str(tools / "cuobjdump"), "--dump-resource-usage",
+                          str(lib_path)], capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    rows = re.findall(r"Function ([^\s:]+):\s*\n\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+                      r"LOCAL:(\d+)", out)
+    names = subprocess.run([str(tools / "cu++filt")], input="\n".join(r[0] for r in rows),
+                           capture_output=True, text=True, timeout=60,
+                           check=True).stdout.split("\n")
+    usage = []
+    for (_, reg, stack, shared, local), name in zip(rows, names):
+        # "void <unnamed>::topk_kernel<float, (int)32, (int)128>(const float *, ...)"
+        head = re.sub(r"\((?:unsigned )?int\)|\(bool\)", "", name)
+        m = re.match(r"(?:void\s+)?(?:[\w<>]+::)*(\w+)(?:<([^()]*)>)?\(", head)
+        kernel = m.group(1) if m else name
+        args = tuple(int(a) for a in (x.strip() for x in ((m and m.group(2)) or "").split(","))
+                     if re.fullmatch(r"-?\d+", a))
+        usage.append(dict(kernel=kernel, args=list(args), registers=int(reg),
+                          shared=int(shared), stack=int(stack), local=int(local),
+                          demangled=name))
+    return usage
+
+
+#: shared bytes the card reserves for the system in a block that uses
+#: shared memory or barriers (sm_8x and sm_90: 1 KB,
+#: cudaDevAttrReservedSharedMemoryPerBlock), which cuobjdump's SHARED adds
+RESERVED_SHARED = 1024
+
+
+def _shared_explained(got: int, e: dict):
+    """How cuobjdump's static shared bytes ``got`` follow from the
+    analyzer's entry ``e``: ``(reserve, dropped)`` — its declarations
+    placed (less the arrays the compiler dropped, ``dropped``, because
+    this instance never reads them), plus the system reserve or not — or
+    None when nothing explains them."""
+    import itertools
+
+    from repro_torch.analysis.rules.pk import place
+
+    decls = e["decls"]
+    for k in range(len(decls) + 1):
+        for gone in itertools.combinations(range(len(decls)), k):
+            kept = [d for i, d in enumerate(decls) if i not in gone]
+            for reserve in (RESERVED_SHARED, 0):
+                if got == place(kept) + reserve:
+                    return reserve, [decls[i][0] for i in gone]
+    return None
+
+
+def _kernel_resources() -> None:
+    """Every built kernel's registers, static shared memory and stack /
+    local (spill) bytes from cuobjdump, the static shared bytes held to
+    the port's analyzer's reckoning (PK402's ``static_shared``) for every
+    instance the analyzer evaluates: equal, up to the block's system
+    reserve and the arrays an instance never reads (the compiler drops
+    them; each named); the whole table goes to
+    build/repro_torch/kernel_resources.json."""
+    from repro_torch.analysis.context import CudaContext
+    from repro_torch.analysis.rules.pk import static_shared
+    from repro_torch.kernels import _cuda
+
+    tools = Path(_cuda.nvcc()).parent
+    table, compared, mismatches, unbuilt, summary = {}, 0, [], [], {}
+    exact, dropped = 0, {}
+    for name, (source, _) in _cuda.SOURCES.items():
+        usage = _cuobjdump_usage(_cuda.library_path(name), tools)
+        table[name] = usage
+        built = {}
+        for u in usage:
+            built.setdefault((u["kernel"], tuple(u["args"])), set()).add(u["shared"])
+        src = (_cuda.CSRC / source).read_text()
+        seen = set()
+        for kernel, entries in static_shared(CudaContext(source, src)).items():
+            for e in entries:
+                key = (kernel, tuple(e["args"]))
+                if "bytes" not in e or key in seen:  # one int-argument instance once
+                    continue
+                seen.add(key)
+                got = built.get(key)
+                if got is None:
+                    unbuilt.append(f"{name}:{kernel}{list(e['args'])}")
+                    continue
+                compared += 1
+                how = [_shared_explained(g, e) for g in sorted(got)]
+                if any(h is None for h in how):
+                    mismatches.append({"library": name, "kernel": kernel,
+                                       "args": list(e["args"]), "reckoned": e["bytes"],
+                                       "cuobjdump": sorted(got)})
+                    continue
+                for _, gone in how:
+                    if gone:
+                        dropped[f"{name}:{kernel}{list(e['args'])}"] = gone
+                    else:
+                        exact += 1
+        spills = sorted({f"{u['kernel']}{u['args']}" for u in usage
+                         if u["local"] or u["stack"]})
+        summary[name] = dict(functions=len(usage),
+                             max_registers=max(u["registers"] for u in usage),
+                             max_shared=max(u["shared"] for u in usage),
+                             with_stack_or_local=spills)
+    path = _cuda.BUILD_DIR / "kernel_resources.json"
+    path.write_text(json.dumps(table, indent=1))
+    emit("kernel_resources", libraries=summary, analyzer_compared=compared,
+         analyzer_equal=exact, analyzer_arrays_dropped=dropped,
+         reserved_shared=RESERVED_SHARED,
+         analyzer_mismatches=mismatches, analyzer_not_built=sorted(set(unbuilt)),
+         table=str(path.relative_to(ROOT)))
+    check(compared > 0, "kernel_resources: no kernel instance compared with the analyzer")
+    check(not mismatches, f"kernel_resources: the analyzer's static shared bytes "
+          f"differ from cuobjdump's: {mismatches}")
 
 
 def _ptxas_usage(log: str, marker: str) -> list:
@@ -864,11 +1021,21 @@ def phase_kernels(results: dict) -> None:
     emit("kernels_done", seconds=round(time.perf_counter() - t0, 3))
 
 
+#: the plain K1 fold's key tile in the kernels phase's K1 rows, against
+#: the whole query block (the runtime's 256 x 512 tiles mirror the TPU
+#: kernel's; there the rows' plain calls, host-bound, took 75-118 s of the
+#: script's time limit). The fold's lists do not depend on its tiles (the
+#: running list wins ties, then the earlier key); its distances differ by
+#: the matmul's rounding at most, within DIST_TOL, as the tune phase's
+#: check at whole tiles reads
+PLAIN_BLOCK_K = 16_384
+
+
 def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
-    """K1 f32 at one of the main path's shapes against its plain version:
-    distances within DIST_TOL, index mismatches only at near-ties; the
-    kernel's time, its plain version's (``plain_reps`` calls) and the bound
-    of the route it took."""
+    """K1 f32 at one of the main path's shapes against its plain version
+    (at PLAIN_BLOCK_K tiles): distances within DIST_TOL, index mismatches
+    only at near-ties; the kernel's time, its plain version's
+    (``plain_reps`` calls) and the bound of the route it took."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import fused_assign as fa
 
@@ -877,11 +1044,12 @@ def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
     check(TOPK_ROUTES[_cuda.library("topk").repro_topk_route(d, k)] == route,
           f"K1 route rule differs from the library's at d {d}, k {k}")
     gd, gi = fa.fused_topk(q, keys, k, valid, q_gidx=gidx)
+    tiles = dict(block_q=nq, block_k=min(p, PLAIN_BLOCK_K))
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    rd, ri = fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx)
+    rd, ri = fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx, **tiles)
     end.record()
     end.synchronize()
     err = float((gd - rd).abs().max())
@@ -891,7 +1059,8 @@ def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
     ms = cuda_ms(lambda: fa.fused_topk(q, keys, k, valid, q_gidx=gidx))
     # one call (seconds at the fit's largest shapes): the checked call itself
     plain = (start.elapsed_time(end) if plain_reps == 1 else
-             cuda_ms(lambda: fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx),
+             cuda_ms(lambda: fa.fused_topk_plain(q, keys, k, valid, q_gidx=gidx,
+                                                 **tiles),
                      reps=plain_reps))
     # bytes: queries, keys, valid, q_gidx in; distances and indices out
     nbytes = ((nq + p) * d * 4 + (0 if valid is None else p)
@@ -901,8 +1070,8 @@ def _k1_row(path: str, q, keys, valid, gidx, k: int, plain_reps: int) -> dict:
     row = dict(kernel="K1", path=path, variant=route, nq=nq, p=p, d=d, k=k,
                max_abs_err=err, index_mismatches=mism, ms=ms, device_ms=dev_ms,
                plain_ms=plain,
-               plain_reps=plain_reps, bound_ms=b_ms, bound_by=b_by,
-               library_ms=None)
+               plain_reps=plain_reps, plain_block_k=tiles["block_k"], bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
     emit("kernels", **row)
     return row
 
@@ -3456,6 +3625,36 @@ def _host_params(model) -> dict:
     return out
 
 
+def _tensor_bytes(*trees) -> int:
+    """Bytes of the distinct storages of every tensor in ``trees`` (a
+    module counts its parameters)."""
+    from torch.utils._pytree import tree_flatten
+
+    seen = {}
+    for tree in trees:
+        if isinstance(tree, torch.nn.Module):
+            tree = list(tree.parameters())
+        for t in tree_flatten(tree)[0]:
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _beside_inputs(model, *inputs) -> int:
+    """Reset the card's peak memory and return the bytes allocated beside a
+    step's inputs (the parameters and ``inputs``: the optimizer state, the
+    caches; a train step's last gradients go first, as the step's first act
+    drops them): a step's own peak is then ``max_memory_allocated()`` less
+    this."""
+    for p in model.parameters():
+        p.grad = None
+    if not torch.cuda.is_available():
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() - _tensor_bytes(model, *inputs)
+
+
 def _steps_timed(step, model, opt, bfs, n_rep: int, n_steps: int) -> dict:
     """``n_steps`` synchronised steps from (model, opt), a host copy of the
     parameters taken after the first ``n_rep`` (outside the step times);
@@ -3576,7 +3775,7 @@ def phase_train(state: dict) -> None:
     tr = _trainer(state)
     n_rep = TRAIN["repeat_steps"]
     step = _synced(tr["step"])
-    torch.cuda.reset_peak_memory_stats()
+    other = _beside_inputs(tr["model"], tr["opt"])
     kernels.reset_launch_counts()
     run = _steps_timed(step, tr["model"], tr["opt"], tr["bfs"], n_rep, TRAIN["steps"])
     peak = torch.cuda.max_memory_allocated()
@@ -3594,13 +3793,15 @@ def phase_train(state: dict) -> None:
     resume, resume_arch = _resume_at_smoke(TRAIN["arch"])
 
     first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    fields = _step_fields(run["times"], tr["b"] * tr["s"], run["adamw_ms"])
+    state["train_measured"] = dict(p50_ms=fields["step_ms_p50"], peak_bytes=peak,
+                                   beside_bytes=other, batch=tr["b"], seq=tr["s"])
     emit("train", arch=tr["cfg"].name, params=n_params, state_bytes=state_bytes,
          batch=tr["b"], seq=tr["s"], steps=len(losses), remat="block",
          init_s=round(tr["init_s"], 3), train_s=round(run["train_s"], 3),
          snapshot_s=round(run["snapshot_s"], 3),
          loss_first4=losses[:4], loss_last4=losses[-4:],
-         loss_ratio=last / first, grad_norms=gnorms,
-         **_step_fields(run["times"], tr["b"] * tr["s"], run["adamw_ms"]),
+         loss_ratio=last / first, grad_norms=gnorms, **fields,
          max_memory_allocated=peak,
          launches={k: v for k, v in counts.items() if v},
          bitwise_repeat=bool(loss_repeat and param_repeat),
@@ -4241,10 +4442,18 @@ def _tp_train(job: dict, mesh, dev) -> dict:
         _collectives.reset_staging_counts()
         losses, gnorms, times = [], [], []
         for s in range(job["steps"]):
+            dry = attempt == 1 and s == job["steps"] - 1  # the dryrun phase's step
+            if dry:
+                _collectives.reset_op_counts()
+                beside = _beside_inputs(model, opt) if on_card else None
             t0 = time.perf_counter()
             model, opt, m = step(model, opt, bfs(s))
             _rank_sync(on_card)
             times.append(time.perf_counter() - t0)
+            if dry:
+                run["dry_step"] = dict(
+                    ops=_collectives.op_counts(), ms=times[-1] * 1e3, beside_bytes=beside,
+                    peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
             losses.append(m["loss"])
             gnorms.append(m["grad_norm"])
             if s == 0 and attempt == 0:
@@ -4283,7 +4492,8 @@ def _tp_train(job: dict, mesh, dev) -> dict:
                                          and a["grad_norms"] == b["grad_norms"]
                                          and torch.equal(a["prints"], b["prints"])),
                 repeat_init_s=b["init_s"], repeat_step_s=b["step_s"],
-                repeat_init_peak_bytes=b["init_peak_bytes"], prints=None)
+                repeat_init_peak_bytes=b["init_peak_bytes"], dry_step=b["dry_step"],
+                prints=None)
 
 
 def _tp_serve(job: dict, mesh, dev) -> dict:
@@ -4548,6 +4758,9 @@ def phase_mesh_tp(state: dict) -> None:
         for k, v in sv["routes"].items():
             routes[k] = routes.get(k, 0) + v
     state["mesh_tp_counts"], state["mesh_tp_routes"] = counts, routes
+    state["mesh_tp_measured"] = dict(
+        trains[0]["dry_step"], ranks_ops=[t["dry_step"]["ops"] for t in trains],
+        p50_ms=float(np.median([x * 1e3 for x in trains[0]["step_s"][1:]])))
     tokens_equal = float((serves[0]["tokens"] == ref["tokens"]).mean())
 
     def rank_row(o):
@@ -4654,6 +4867,152 @@ def phase_mesh_tp(state: dict) -> None:
     check(DEV != "cuda" or init_peak <= init_reckoned,
           f"mesh_tp: a rank's peak while the model is drawn, {init_peak} B, is past "
           f"the {init_reckoned} B check_fits reckons for it")
+
+
+def _timed_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` between CUDA events (one warm-up)."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        z.record()
+        z.synchronize()
+        times.append(a.elapsed_time(z))
+    return statistics.median(times)
+
+
+def _lm_measured(state: dict) -> dict:
+    """The lm phase's model, timed here: the prompt's prefill into a cache
+    of prompt + new_tokens slots, and one decode step over a compressed
+    cache of DRYRUN's slots (zero prototype bias and mass, the last slot
+    being written); each its p50 over DRYRUN's repeats, and its peak."""
+    engine, prompts = state["lm_engine"]
+    bundle, model = engine.bundle, engine.model
+    b = prompts.shape[0]
+    tok = torch.from_numpy(prompts).to(DEV)
+    out = {}
+    with torch.inference_mode():
+        caches = bundle.init_caches(b, LM["prompt"] + LM["new_tokens"], device=DEV)
+
+        def prefill():
+            return bundle.prefill(model, caches, {"tokens": tok}, impl="auto")
+
+        ms = _timed_ms(prefill, DRYRUN["reps"])
+        sync()
+        beside = _beside_inputs(model, caches, tok)
+        prefill()
+        sync()
+        out["prefill"] = dict(p50_ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+                              beside_bytes=beside)
+        del caches
+        slots = DRYRUN["decode_cache"]
+        caches = bundle.init_caches(b, slots, device=DEV)
+        for c in caches["layers"]:
+            c["pos"] = slots - 1
+            c["bias"] = torch.zeros(c["k"].shape[:-1], dtype=torch.float32, device=DEV)
+            c["mass"] = torch.zeros(c["k"].shape[:-1], dtype=torch.float32, device=DEV)
+        step_tok = tok[:, :1]
+
+        def decode():
+            return bundle.decode_step(model, caches, {"tokens": step_tok}, impl="auto")
+
+        ms = _timed_ms(decode, DRYRUN["reps"])
+        sync()
+        beside = _beside_inputs(model, caches, step_tok)
+        decode()
+        sync()
+        out["decode"] = dict(p50_ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+                             beside_bytes=beside)
+        del caches
+    return out
+
+
+def _dry_line(cell: str, cfg, shape, got: dict, measured: dict, n_active: int) -> dict:
+    """One dryrun line: the reckoning beside the card's numbers and the
+    shares that hold them together."""
+    from repro_torch.utils import roofline
+
+    p50_s = measured["p50_ms"] / 1e3
+    model_flops = roofline.model_flops_for(cfg, shape, n_active=n_active)
+    step_peak = measured["peak_bytes"] - measured["beside_bytes"]
+    line = dict(cell=cell, kind=shape.kind, batch=shape.global_batch, seq=shape.seq_len,
+                flops_by_dtype=got["flops_by_dtype"], bytes=got["bytes"],
+                peak_bytes_reckoned=got["peak_bytes"], inputs_bytes=got["start_bytes"],
+                kernels=got["kernels"], collectives=got["op_counts"],
+                model_flops=model_flops, p50_ms=measured["p50_ms"],
+                peak_bytes_measured=step_peak,
+                mfu=model_flops / (p50_s * roofline.PEAK_FLOPS),
+                hw_flops_share=roofline.compute_seconds(got["flops_by_dtype"]) / p50_s,
+                bytes_share=got["bytes"] / roofline.HBM_BW / p50_s,
+                peak_ratio=got["peak_bytes"] / step_peak)
+    emit("dryrun", **line)
+    return line
+
+
+def phase_dryrun(state: dict) -> None:
+    """The dry run against the card (module docstring, ``dryrun``)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, ParallelConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+
+    if "train_measured" not in state:  # run alone: what it compares against
+        phase_train(state)
+        state.pop("trainer", None)
+    if "mesh_tp_measured" not in state:
+        phase_mesh_tp(state)
+    if "lm_engine" not in state:
+        phase_lm(state)
+    t0 = time.perf_counter()
+    gemma = ARCHS[TRAIN["arch"]]
+    n_active = dryrun._active_params(gemma, dryrun._model(gemma, trainable=False,
+                                                          mesh=None))
+    lines = []
+    tm = state["train_measured"]
+    shape = ShapeConfig("train_gemma2", tm["seq"], tm["batch"], "train")
+    got = dryrun.trace_step(gemma, shape, None, parallel=ParallelConfig(remat="block"))
+    lines.append(_dry_line("train_gemma2", gemma, shape, got, tm, n_active))
+    lm = _lm_measured(state)
+    shape = ShapeConfig("lm_gemma2_prefill", LM["prompt"], LM["batch"], "prefill")
+    got = dryrun.trace_step(gemma, shape, None, parallel=ParallelConfig(remat="none"),
+                            cache_len=LM["prompt"] + LM["new_tokens"])
+    lines.append(_dry_line("lm_gemma2_prefill", gemma, shape, got, lm["prefill"],
+                           n_active))
+    shape = ShapeConfig("lm_gemma2_decode", LM["prompt"], LM["batch"], "decode")
+    got = dryrun.trace_step(gemma, shape, None, parallel=ParallelConfig(remat="none"),
+                            variant="ihtc-kv", cache_len=DRYRUN["decode_cache"])
+    lines.append(_dry_line("lm_gemma2_decode", gemma, shape, got, lm["decode"],
+                           n_active))
+    S, mt = MESH_TP, state["mesh_tp_measured"]
+    cut = dataclasses.replace(gemma, n_layers=S["layers"])
+    shape = ShapeConfig("mesh_tp_gemma2", S["seq"], S["batch"], "train")
+    got = dryrun.trace_step(cut, shape, MeshShape(("data", "model"), (S["data"], S["model"])),
+                            parallel=ParallelConfig(remat="block"))
+    rank = dict(mt, p50_ms=mt["p50_ms"])
+    cut_active = dryrun._active_params(cut, dryrun._model(cut, trainable=False, mesh=None))
+    lines.append(_dry_line("mesh_tp_gemma2_rank", cut, shape, got, rank, cut_active))
+    seconds = round(time.perf_counter() - t0, 3)
+    emit("dryrun_phase", seconds=seconds, limit_s=DRYRUN["limit_s"])
+    lo, hi = DRYRUN["peak_ratio"]
+    for ln in lines:
+        for key in ("mfu", "hw_flops_share"):
+            check(ln[key] <= 1.0, f"dryrun {ln['cell']}: {key} {ln[key]} > 1: the count "
+                  f"is wrong")
+        check(lo <= ln["peak_ratio"] <= hi,
+              f"dryrun {ln['cell']}: reckoned / measured peak {ln['peak_ratio']} "
+              f"outside [{lo}, {hi}]")
+    for r, ops in enumerate(mt["ranks_ops"]):
+        check(ops == got["op_counts"],
+              f"dryrun: mesh_tp rank {r} recorded {ops}, the dry run reckons "
+              f"{got['op_counts']}")
+    check(seconds <= DRYRUN["limit_s"],
+          f"dryrun: the phase took {seconds} s, past its {DRYRUN['limit_s']} s")
 
 
 def phase_select(state: dict) -> None:
@@ -5785,6 +6144,8 @@ def main() -> int:
         phase_mesh_tp(state)
     if "lm" in phases:
         phase_lm(state)
+    if "dryrun" in phases:
+        phase_dryrun(state)
     if "profile" in phases:
         phase_profile(state)
     if "basins" in phases:

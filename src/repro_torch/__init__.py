@@ -12,9 +12,10 @@ rows over the ranks. Entry points run on
 ``device="cuda"`` unless the caller passes ``device="cpu"`` (or configures
 it); a missing GPU raises.
 
-Heavy submodules load lazily, so ``import repro_torch`` stays cheap.
+Every submodule loads lazily (``runtime`` too), so ``import repro_torch``
+stays cheap and imports no torch: ``python -m repro_torch.analysis`` runs
+on a bare python.
 """
-from repro_torch import runtime  # noqa: F401
 
 _LAZY = {
     "fit": "repro_torch.core.plan",
@@ -41,12 +42,14 @@ __all__ = ["runtime", *sorted(_LAZY)]
 
 
 def __getattr__(name: str):
-    if name in _LAZY:
-        import importlib
+    import importlib
 
+    if name == "runtime":
+        return importlib.import_module("repro_torch.runtime")
+    if name in _LAZY:
         return getattr(importlib.import_module(_LAZY[name]), name)
     raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_LAZY))
+    return sorted(set(globals()) | set(_LAZY) | {"runtime"})

@@ -137,6 +137,17 @@ class ModelConfig:
             total += attn_params() + d  # decoder cross-attn + its norm
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k only)."""
+        if not self.n_experts:
+            return self.param_count()
+        full = self.param_count()
+        d, ff = self.d_model, self.d_ff
+        per_expert = (3 if self.mlp == "swiglu" else 2) * d * ff
+        n_moe_layers = sum(self.layer_is_moe(l) for l in range(self.n_layers))
+        inactive = n_moe_layers * (self.n_experts - self.n_experts_per_tok) * per_expert
+        return full - inactive
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

@@ -46,6 +46,14 @@ reductions (``pmax``, ``pmin``, ``psum``) stay with gloo on the host.
 Mailbox traffic is counted apart (:func:`ipc_counts`). The tests run the
 same path on the CPU through files mapped shared
 (:func:`use_host_mailboxes`).
+
+The logical count. :func:`op_counts` counts every call of an
+:class:`Axis` collective once, with the bytes this rank hands it, whatever
+the route (mailbox, staged, NCCL, gloo on host tensors); :func:`op_records`
+keeps the group size beside each, which the ring cost model of
+``utils/hlo.py`` reads. A :class:`RecordingAxis` (the dry run's, on a
+:class:`~repro_torch.launch.mesh.TracedMesh`) counts the same calls into
+the same table without a process group.
 """
 from __future__ import annotations
 
@@ -67,6 +75,8 @@ MAILBOX_BYTES = 1 << 28
 
 # op name -> [staged calls, staged bytes] (the tensors sent)
 _STAGED: Dict[str, list] = {}
+# (op name, group size) -> [calls, bytes this rank handed in], every route
+_OPS: Dict[tuple, list] = {}
 # op name -> [calls, bytes this rank wrote to its mailbox]
 _IPC: Dict[str, list] = {}
 # (process group, card index or "cpu") -> its _Mailbox, or None where the
@@ -95,7 +105,34 @@ def reset_staging_counts() -> None:
     _IPC.clear()
 
 
-def _count(table: Dict[str, list], op: str, nbytes: int) -> None:
+def op_counts() -> Dict[str, Dict[str, int]]:
+    """Every collective call since :func:`reset_op_counts`, whatever its
+    route: ``{op: {"calls": n, "bytes": b}}`` (b: the bytes of the tensors
+    this rank handed in; broadcast counts its buffer on every rank)."""
+    out: Dict[str, Dict[str, int]] = {}
+    for (op, _), (c, b) in sorted(_OPS.items()):
+        rec = out.setdefault(op, {"calls": 0, "bytes": 0})
+        rec["calls"] += c
+        rec["bytes"] += b
+    return out
+
+
+def op_records() -> List[Dict[str, Any]]:
+    """:func:`op_counts` by op and group size: ``[{"op", "group", "calls",
+    "bytes"}]``, the records ``utils.hlo.collective_bytes`` takes."""
+    return [{"op": op, "group": k, "calls": c, "bytes": b}
+            for (op, k), (c, b) in sorted(_OPS.items())]
+
+
+def reset_op_counts() -> None:
+    _OPS.clear()
+
+
+def _record(op: str, group: int, t: torch.Tensor) -> None:
+    _count(_OPS, (op, int(group)), t.numel() * t.element_size())
+
+
+def _count(table: Dict[Any, list], op: Any, nbytes: int) -> None:
     rec = table.setdefault(op, [0, 0])
     rec[0] += 1
     rec[1] += nbytes
@@ -128,6 +165,7 @@ class _Mailbox:
         if any(c != card for c, _ in got):
             return None
         boxes = [buf if j == index else rebuild(*h) for j, (_, h) in enumerate(got)]
+        # repro_torch: allow[HS201]: once a group, where the mailboxes open: the IPC handles must be valid before the peers map them
         torch.cuda.synchronize(device)
         dist.barrier(group=group)
         return _Mailbox(buf, boxes)
@@ -195,6 +233,7 @@ def _subgroup(mesh, want: Sequence[str]):
     ranks), once a mesh."""
     names = tuple(mesh.mesh_dim_names)
     grid = mesh.mesh
+    # repro_torch: allow[HS201]: the DeviceMesh's rank grid is a host tensor (no card read)
     key = (tuple(int(r) for r in grid.flatten().tolist()), names, tuple(want))
     if key not in _SUBGROUPS:
         rest = [names.index(a) for a in names if a not in want]
@@ -202,6 +241,7 @@ def _subgroup(mesh, want: Sequence[str]):
         rows = grid.permute(order).reshape(-1, int(np.prod(
             [grid.shape[names.index(a)] for a in want])))
         me = dist.get_rank()
+        # repro_torch: allow[HS201]: the DeviceMesh's rank grid is a host tensor (no card read)
         for row in rows.tolist():
             group = dist.new_group([int(r) for r in row])
             if me in row:
@@ -231,6 +271,7 @@ class Axis:
             self.size = int(mesh.size(names.index(want[0])))
             self.index = int(mesh.get_local_rank(want[0]))
         else:
+            # repro_torch: allow[HS201]: the DeviceMesh's rank grid is a host tensor (no card read)
             ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
             if tuple(want) == names and ranks == list(range(dist.get_world_size())):
                 self.group = dist.group.WORLD
@@ -325,6 +366,7 @@ class Axis:
         an exact copy (bools travel as bytes)."""
         is_bool = t.dtype == torch.bool
         src = (t.to(torch.uint8) if is_bool else t).contiguous()
+        _record("gather_rows", self.size, src)
         box = self._mailbox(src)
         if box is not None:
             out = torch.empty((self.size * src.shape[0], *src.shape[1:]),
@@ -353,18 +395,22 @@ class Axis:
         return out.to(t.device) if staged else out
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        _record("pmax", self.size, t)
         return self._all_reduce(t, dist.ReduceOp.MAX, "pmax")
 
     def pmin(self, t: torch.Tensor) -> torch.Tensor:
+        _record("pmin", self.size, t)
         return self._all_reduce(t, dist.ReduceOp.MIN, "pmin")
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
+        _record("psum", self.size, t)
         return self._all_reduce(t, dist.ReduceOp.SUM, "psum")
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank (an exact copy; ``t`` is the
         buffer's shape and dtype on the others)."""
         t = t.contiguous()
+        _record("broadcast", self.size, t)
         box = self._mailbox(t)
         if box is not None:
             out = t.clone()
@@ -382,6 +428,7 @@ class Axis:
         """``lax.ppermute`` with perm ``[(i, (i - 1) % size)]``: this rank's
         ``t`` goes to the next lower rank, and the next higher rank's
         arrives."""
+        _record("ring_shift", self.size, t)
         if self.size == 1:
             return t
         t = t.contiguous()
@@ -413,6 +460,7 @@ class Axis:
             raise ValueError(f"sum_scatter takes a flat tensor of a multiple of "
                              f"{self.size} elements, not {tuple(t.shape)}")
         t = t.contiguous()
+        _record("sum_scatter", self.size, t)
         box = self._mailbox(t)
         if box is not None:
             return self._sum_scatter_via(box, t)
@@ -454,3 +502,65 @@ class Axis:
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
+
+
+class RecordingAxis:
+    """One axis of a :class:`~repro_torch.launch.mesh.TracedMesh` with no
+    process group behind it: what :class:`Axis` offers, at this rank's
+    ``index`` of ``size``, each call counted as :class:`Axis` counts it
+    (:func:`op_counts`) and answered by an uninitialised tensor of the
+    shape and dtype the real collective returns. The dry run traces one
+    rank's step over it on the "meta" device (no data moves, so the values
+    mean nothing on any other device)."""
+
+    backend = "recording"
+
+    def __init__(self, mesh, axis_name: Union[str, Sequence[str]]):
+        names = tuple(mesh.mesh_dim_names)
+        want = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        missing = [a for a in want if a not in names]
+        if missing or not want:
+            raise ValueError(f"mesh has no dimension {axis_name!r}; its "
+                             f"dimensions are {names}")
+        self.mesh = mesh
+        self.axis_name = want[0] if len(want) == 1 else want
+        sizes = tuple(int(mesh.size(names.index(a))) for a in want)
+        self.size = int(np.prod(sizes))
+        self.index = int(np.ravel_multi_index(
+            tuple(int(mesh.get_local_rank(a)) for a in want), sizes))
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        _record("gather_rows", self.size,
+                t.to(torch.uint8) if t.dtype == torch.bool else t)
+        return torch.empty((self.size * t.shape[0], *t.shape[1:]), dtype=t.dtype,
+                           device=t.device)
+
+    def _same(self, op: str, t: torch.Tensor) -> torch.Tensor:
+        _record(op, self.size, t)
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        return self._same("pmax", t)
+
+    def pmin(self, t: torch.Tensor) -> torch.Tensor:
+        return self._same("pmin", t)
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        return self._same("psum", t)
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        return self._same("broadcast", t)
+
+    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        out = self._same("ring_shift", t)  # counted at one rank too, as Axis counts
+        return t if self.size == 1 else out
+
+    def sum_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        if t.dim() != 1 or t.numel() % self.size:
+            raise ValueError(f"sum_scatter takes a flat tensor of a multiple of "
+                             f"{self.size} elements, not {tuple(t.shape)}")
+        _record("sum_scatter", self.size, t)
+        return torch.empty((t.numel() // self.size,), dtype=t.dtype, device=t.device)
+
+    def barrier(self) -> None:
+        pass

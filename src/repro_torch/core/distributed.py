@@ -411,6 +411,7 @@ def place_rows(a: Any, n_pad: int, axis: Axis, device: torch.device, *,
     hi = min(lo + per, a.shape[0])
     blk = a[lo:hi] if hi > lo else a[0:0]
     if not isinstance(blk, torch.Tensor):
+        # repro_torch: allow[HS201]: a host array's block, before it goes to the card
         blk = torch.as_tensor(np.asarray(blk))
     blk = blk.to(device)
     if blk.shape[0] < per:
@@ -483,6 +484,7 @@ def _itis_sharded(x, t, m, *, mesh, axis_name, weights, valid, key, weighted,
     v_full = axis.gather_rows(v_l)
     assignments, rounds, n_valid_seen, level_s = [], [], [], []
     n_protos = v_full.sum().to(torch.int32)
+    # repro_torch: allow[HS202]: one read a level, the early-exit floor (the reference's host decision)
     n_valid = int(v_full.sum())  # the early-exit floor is a host decision
     for level in range(m):
         if n_valid < max(min_points, 2 * t):
@@ -500,6 +502,7 @@ def _itis_sharded(x, t, m, *, mesh, axis_name, weights, valid, key, weighted,
         cur_x, cur_m, cur_v = (_local_rows(out_x, axis), _local_rows(out_m, axis),
                                _local_rows(out_v, axis))
         n_protos = out.n_clusters
+        # repro_torch: allow[HS202]: one read a level, where its wall ends (the reference's host decision)
         n_valid = int(out_v.sum())  # syncs: the level's wall ends here
         level_s.append(time.perf_counter() - t0)
     if not assignments:  # nothing ran: the level-0 buffer, replicated
@@ -586,6 +589,7 @@ def kmeans_sharded(
     tol_f32 = torch.tensor(tol, dtype=torch.float32, device=dev)
     delta = torch.tensor(torch.inf, dtype=torch.float32, device=dev)
     it = 0
+    # repro_torch: allow[HS202]: one read a Lloyd iteration, the reference's convergence test (ROADMAP item 1 takes such loops on the card)
     while it < iters and bool(delta > tol_f32):
         lab, _ = assign(centers)
         lab_safe = torch.where(v_l, lab, k)

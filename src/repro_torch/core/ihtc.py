@@ -16,6 +16,9 @@ from repro_torch.cluster.registry import BackendFn
 from repro_torch.core.itis import itis
 from repro_torch.core.plan import FitPlan, FitResult, Reduction, fit, register_executor
 
+#: deprecated alias: every executor returns a FitResult
+IHTCResult = FitResult
+
 
 @register_executor("memory")
 def _execute_memory(plan: FitPlan, x: torch.Tensor) -> Reduction:

@@ -13,6 +13,7 @@ and rescore the shortlist in exact f32.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -46,10 +47,12 @@ def tensor_from_numpy(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
     """A host array as a tensor of ``dtype`` on ``device`` (a copy: the
     array may be a read-only view). bf16 arrives as numpy's ``bfloat16``
     extension type or as its uint16 bit pattern; both keep their bits."""
+    # repro_torch: allow[HS201]: the caller's host array (an artifact's buffer), on its way to the card
     a = np.asarray(a)
     if dtype == torch.bfloat16:
         if a.dtype.itemsize != 2:
             raise TypeError(f"a bf16 buffer needs 2-byte elements, got {a.dtype}")
+        # repro_torch: allow[HS201]: the caller's host array (an artifact's buffer), on its way to the card
         bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
         return bits.view(torch.bfloat16).to(device)
     return torch.tensor(a, device=device).to(dtype)
@@ -119,6 +122,45 @@ class ClusterIndex(NamedTuple):
         return self._replace(protos_bf16=self.protos.to(torch.bfloat16),
                              protos_q8=q8, q8_scale=scale, q8_zero=zero)
 
+    # ---- deprecated constructor aliases (the reference's pre-build surface)
+
+    @classmethod
+    def from_result(cls, result: FitResult) -> "ClusterIndex":
+        """Deprecated alias of ``ClusterIndex.build(result)``."""
+        warnings.warn(
+            "ClusterIndex.from_result is deprecated; use "
+            "ClusterIndex.build(result)", DeprecationWarning, stacklevel=2)
+        return cls.build(result)
+
+    def with_packed_protos(self) -> "ClusterIndex":
+        """Deprecated alias of ``ClusterIndex.build(index)`` (repack)."""
+        warnings.warn(
+            "ClusterIndex.with_packed_protos is deprecated; use "
+            "ClusterIndex.build(index)", DeprecationWarning, stacklevel=2)
+        return self._packed()
+
+    @classmethod
+    def fit(cls, x, t: int, m: int, backend: Union[str, BackendFn] = "kmeans",
+            **fit_kwargs) -> "ClusterIndex":
+        """Deprecated alias of ``ClusterIndex.build(x, t, m, backend)``."""
+        warnings.warn(
+            "ClusterIndex.fit is deprecated; use "
+            "ClusterIndex.build(x, t, m, backend)", DeprecationWarning, stacklevel=2)
+        return cls.build(x, t, m, backend, **fit_kwargs)
+
+    @classmethod
+    def fit_streaming(cls, chunks, t: int, m: int,
+                      backend: Union[str, BackendFn] = "kmeans",
+                      **streaming_kwargs) -> "ClusterIndex":
+        """Deprecated alias of ``ClusterIndex.build(chunks, t, m, backend)``
+        (the planner streams chunk iterables; under a mesh it composes the
+        ``streaming_sharded`` executor)."""
+        warnings.warn(
+            "ClusterIndex.fit_streaming is deprecated; use "
+            "ClusterIndex.build(chunks, t, m, backend)", DeprecationWarning,
+            stacklevel=2)
+        return cls.build(chunks, t, m, backend, **streaming_kwargs)
+
     @classmethod
     def from_numpy(cls, arrays: Mapping[str, Any], *, device=None
                    ) -> "ClusterIndex":
@@ -144,6 +186,7 @@ class ClusterIndex(NamedTuple):
     @property
     def n_valid(self) -> int:
         """Count of real prototypes (a host inspection helper; syncs)."""
+        # repro_torch: allow[HS202]: a host inspection helper, off the assign path (documented: syncs)
         return int(self.proto_valid.sum())
 
     def check_servable(self, expect_dim: Optional[int] = None) -> "ClusterIndex":

@@ -141,6 +141,7 @@ def itis(
     cur_x, cur_m, cur_v = x, mass, valid
     n_protos = cur_v.sum().to(torch.int32)
     for level in range(m):
+        # repro_torch: allow[HS202]: one read a level, the early-exit floor (the reference's host decision)
         n_valid = int(cur_v.sum())  # the early-exit floor is a host decision
         if n_valid < max(min_points, 2 * t):
             break

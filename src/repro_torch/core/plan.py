@@ -217,6 +217,7 @@ class FitResult:
     def _proto_labels_np(self) -> np.ndarray:
         if self._proto_labels_host is None:
             # the fit is complete: the small label table comes to the host once
+            # repro_torch: allow[HS201]: the fit is done; the small label table comes to the host once
             self._proto_labels_host = self.proto_labels.cpu().numpy()
         return self._proto_labels_host
 
@@ -228,6 +229,7 @@ class FitResult:
         if chunk_idx != 0:
             raise IndexError(
                 f"in-memory fit has a single chunk; got index {chunk_idx}")
+        # repro_torch: allow[HS201]: labels_for returns host numpy by contract, after the fit
         return self._labels.cpu().numpy()
 
     def iter_labels(self) -> Iterator[np.ndarray]:
@@ -337,6 +339,7 @@ def as_device_tensor(data: Any, device: torch.device) -> torch.Tensor:
     """Host numpy or a tensor anywhere → a tensor on ``device``."""
     if isinstance(data, torch.Tensor):
         return data.to(device)
+    # repro_torch: allow[HS201]: host numpy in, on its way to the card
     return torch.tensor(np.asarray(data), device=device)
 
 

@@ -68,6 +68,9 @@ from repro_torch.core.plan import (FitPlan, FitResult, LabelSpill, Reduction,
                                    fit, register_executor)
 
 # fold_in tag separating the cascade key stream from the per-chunk stream
+#: deprecated alias: the streaming executors return a FitResult
+StreamingIHTCResult = FitResult
+
 _CASCADE_KEY_TAG = 0x7FFFFFFF
 
 # deferred spill maps kept in flight before one batched host drain: bounds
@@ -96,7 +99,9 @@ def _normalize_chunk(item, driver: str) -> Tuple[np.ndarray, int]:
 
 def _host_f32(a: Any) -> np.ndarray:
     if isinstance(a, torch.Tensor):
+        # repro_torch: allow[HS201]: the stream's chunks are host data; a tensor chunk comes to the host once
         a = a.detach().cpu().numpy()
+    # repro_torch: allow[HS201]: the stream's chunks are host data; a tensor chunk comes to the host once
     return np.asarray(a, np.float32)
 
 
@@ -160,6 +165,7 @@ class _StagingPool:
                     raise _PoolClosed() from None
         if dep is not None:
             dep.synchronize()  # the last tenant's host→device copy landed
+        # repro_torch: allow[HS201]: a pinned host buffer's view (no card read)
         buf = self._bufs[i].numpy()  # the same (pinned) memory
         r = arr.shape[0]
         if r:
@@ -250,11 +256,13 @@ class _PendingSpill:
 
     def numpy(self) -> np.ndarray:
         self.event.synchronize()
+        # repro_torch: allow[HS201]: the spill point: an owning host copy after the event the copy recorded
         return np.array(self.host.numpy())  # an owning copy; the pin returns
 
 
 def _spill(t: torch.Tensor) -> np.ndarray:
     """A forced host copy (never a view) of a level map."""
+    # repro_torch: allow[HS201]: the spill point: a forced host copy of a level map
     return np.array(t.cpu().numpy())
 
 
@@ -354,6 +362,7 @@ class _DevicePlacement:
     @staticmethod
     def n_valid(v: torch.Tensor) -> int:
         """Valid rows of a level buffer (a host decision: syncs)."""
+        # repro_torch: allow[HS202]: one read a level, the buffer's valid rows (a host decision, as the reference's)
         return int(v.sum())
 
     @staticmethod
@@ -618,6 +627,7 @@ class _StreamMachine:
     def drain_spills(self) -> None:
         """Bring every deferred chunk map to the host (one batch)."""
         for i in self.spill_pending:
+            # repro_torch: allow[HS201]: the deferred spills, drained in one batch
             self.chunk_assign[i] = self.chunk_assign[i].numpy()
         self.spill_pending.clear()
 

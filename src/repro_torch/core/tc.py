@@ -20,7 +20,7 @@ device sync per round; the round count is returned.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,6 +69,7 @@ def luby_mis_rounds(priorities: torch.Tensor, active0: torch.Tensor,
     act = active0.clone()
     seed = torch.zeros_like(act)
     rounds = 0
+    # repro_torch: allow[HS202]: one flag read a MIS round, the reference's while_loop condition (ROADMAP item 1)
     while bool(act.any()):
         p_eff = torch.where(act, priorities, _NEG)
         m2 = closed2_max(p_eff)
@@ -117,9 +118,6 @@ def threshold_clustering(
     winner; default: the tuned one, else the shape rule).
     Deterministic given ``key`` (default: PRNGKey(0)).
     """
-    cfg = active()
-    impl = cfg.impl if impl is None else impl
-    knn_block = cfg.knn_block if knn_block is None else knn_block
     n = x.shape[0]
     dev = x.device
     if valid is None:
@@ -134,18 +132,69 @@ def threshold_clustering(
         return TCResult(labels.to(torch.int32), seed_of.to(torch.int32), valid,
                         valid.sum().to(torch.int32), 0)
 
+    idx = _knn_edges(x, t, valid, impl, knn_block, knn_route)
+    priorities = seed_priorities(key, n, device=dev)
+    labels, seed_of, is_seed, n_clusters, rounds = _cluster(x, idx, valid,
+                                                            priorities, 1)
+    return TCResult(labels.to(torch.int32), seed_of.to(torch.int32), is_seed,
+                    n_clusters[0].to(torch.int32), rounds)
+
+
+def threshold_clustering_heads(
+    x: torch.Tensor,
+    t: int,
+    *,
+    valid: torch.Tensor,
+    priorities: torch.Tensor,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """TC on H point sets at once, each as ``threshold_clustering`` with
+    the same priorities would cluster it alone: x (H, n, d), valid (H, n),
+    ``priorities`` (n,) (``seed_priorities`` of the key every set draws
+    with; t ≥ 2). Returns (labels (H, n) int32, n_clusters (H,) int32, MIS
+    rounds). Each set's kNN graph is its own call; the seed rounds, the
+    grow and the assignment run over the H graphs as one graph of H·n
+    vertices, which no edge joins across sets, so every set gets its own
+    answer bit for bit (the KV compression's heads of one layer)."""
+    H, n = x.shape[0], x.shape[1]
+    valid = valid.bool()
+    off = torch.arange(H, dtype=torch.int64, device=x.device)[:, None, None] * n
+    idx = torch.stack([_knn_edges(x[h], t, valid[h], impl, None, None)
+                       for h in range(H)])
+    idx = torch.where(idx >= 0, idx + off, -1).reshape(H * n, -1)
+    labels, _, _, n_clusters, rounds = _cluster(
+        x.reshape(H * n, -1), idx, valid.reshape(-1), priorities.repeat(H), H)
+    return labels.reshape(H, n).to(torch.int32), n_clusters.to(torch.int32), rounds
+
+
+def _knn_edges(x: torch.Tensor, t: int, valid: torch.Tensor, impl, knn_block,
+               knn_route) -> torch.Tensor:
+    """TC's (t−1)-NN graph: (n, t−1) int64 neighbour indices, −1 from the
+    invalid rows (they carry no out-edges)."""
+    cfg = active()
+    impl = cfg.impl if impl is None else impl
+    knn_block = cfg.knn_block if knn_block is None else knn_block
+    n = x.shape[0]
     k = t - 1
     block = knn_block or resolve_auto_block(n, x.shape[1], k,
-                                            dtype_name(x.dtype), dev)
+                                            dtype_name(x.dtype), x.device)
     if n > block:
         _, idx = knn_graph_blocked(x, k, valid=valid, block=block, impl=impl,
                                    route=knn_route)
     else:
         _, idx = knn_graph(x, k, valid=valid, impl=impl, route=knn_route)
-    idx = torch.where(valid[:, None], idx.to(torch.int64), -1)  # invalid rows: no out-edges
-    idx_ok = idx >= 0
+    return torch.where(valid[:, None], idx.to(torch.int64), -1)
 
-    priorities = seed_priorities(key, n, device=dev)
+
+def _cluster(x: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+             priorities: torch.Tensor, heads: int):
+    """TC's steps 2-4 on the graph ``idx`` over the N = heads·n points x:
+    seeds, grow, assign, then cluster ids ranked among the seeds of each
+    of the ``heads`` runs of n vertices. Returns (labels, seed_of, is_seed,
+    n_clusters (heads,), MIS rounds)."""
+    n = x.shape[0]
+    dev = x.device
+    idx_ok = idx >= 0
     is_seed, rounds = luby_mis_rounds(
         priorities, valid, lambda p: _closed2_max(p, idx, idx_ok))
 
@@ -195,10 +244,9 @@ def threshold_clustering(
     seed_of = torch.where(labeled, seed_of, fallback)
     seed_of = torch.where(valid, seed_of, _NEG)
 
-    # ---- compact cluster ids: rank among seeds
-    seed_rank = torch.cumsum(is_seed.long(), 0) - 1
+    # ---- compact cluster ids: rank among each run's seeds
+    seed_rank = torch.cumsum(is_seed.long().reshape(heads, -1), 1).reshape(-1) - 1
     has = seed_of >= 0
     labels = torch.where(has, seed_rank[torch.where(has, seed_of, 0)], _NEG)
-    n_clusters = is_seed.sum().to(torch.int32)
-    return TCResult(labels.to(torch.int32), seed_of.to(torch.int32), is_seed,
-                    n_clusters, rounds)
+    n_clusters = is_seed.reshape(heads, -1).sum(1)
+    return labels, seed_of, is_seed, n_clusters, rounds

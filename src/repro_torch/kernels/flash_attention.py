@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _cuda, ref
+from repro_torch.kernels import _cuda, meta, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -107,6 +107,9 @@ def flash_attention(
     over all lk keys. The LM path forms no such row: the slot being
     decoded is always visible with a finite bias."""
     _check(q, k, v, kv_bias, causal)
+    if q.is_meta:
+        return meta.flash_attention(q, k, v, kv_bias, causal, route(
+            q.shape[1], k.shape[1], q.shape[2], q.dtype, q.shape[3]))
     if not _cuda.on_card(q):
         return flash_attention_plain(q, k, v, kv_bias, causal=causal,
                                      scale=scale, logit_softcap=logit_softcap)

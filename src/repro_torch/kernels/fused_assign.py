@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _cuda, ref
+from repro_torch.kernels import _cuda, meta, ref
 from repro_torch.runtime import active
 
 #: shortlist length the quantized assign variants rescore in exact f32
@@ -234,6 +234,10 @@ def fused_topk(
       ``.launches_bf16`` and ``.launches_int8``; and per key type and
       route in ``.route_launches`` ("K1-int8/tc3xtf32": n, ...).
     """
+    if q.is_meta:
+        way = check_route(route, q.shape[1], k)
+        return meta.topk(key_type(keys.dtype), q, keys, k, way, key_valid, q_gidx,
+                         keys_scale, keys_zero)
     if not _cuda.on_card(q):
         return fused_topk_plain(q, keys, k, key_valid, q_gidx=q_gidx,
                                 keys_scale=keys_scale, keys_zero=keys_zero,

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _cuda, ref
+from repro_torch.kernels import _cuda, meta, ref
 from repro_torch.kernels.fused_assign import check_route, launch_topk
 
 
@@ -28,6 +28,8 @@ def knn_topk(
     inf/-1). ``route``: K1's route by name (None: its default rule; one
     that cannot run (d, k) raises; ignored for a CPU tensor). Launches
     count in ``.launches`` and per route in ``.route_launches``."""
+    if x.is_meta:
+        return meta.topk("K2", x, x, k, check_route(route, x.shape[1], k), valid)
     if not _cuda.on_card(x):
         return ref.knn(x, k, valid=valid, exclude_self=exclude_self)
     _cuda.forbid_grad("knn_topk", x)

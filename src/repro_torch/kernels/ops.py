@@ -5,7 +5,9 @@ Dispatch policy (``impl=``), resolved by :func:`resolve`:
   * ``None``    — the active runtime config's policy;
   * ``"auto"``  — for a CUDA tensor the hand-written kernels (``"fused"``
     on the nearest/kNN ops, ``"cuda"`` elsewhere), for a CPU tensor the
-    plain PyTorch versions (``"ref"``);
+    plain PyTorch versions (``"ref"``); a meta tensor takes the card's
+    choice, and its wrappers reckon the kernel's work
+    (:mod:`repro_torch.kernels.meta`, the dry run's);
   * ``"cuda"``  — each op's kernel wrapper (which runs its plain version
     when handed a CPU tensor); nearest composes the K4 distance matrix
     with the plain merge, as the reference's ``"pallas"`` does;
@@ -59,7 +61,7 @@ def resolve(impl: Optional[str], device: torch.device, *,
     if impl == "auto" and tuned is not None and (fused or tuned not in FUSED_IMPLS):
         impl = tuned
     if impl == "auto":
-        if torch.device(device).type == "cuda":
+        if torch.device(device).type in ("cuda", "meta"):
             impl = "fused" if fused else "cuda"
         else:
             impl = "ref"
@@ -116,7 +118,7 @@ def knn(
     reference."""
     tp = _tuned("knn", x.dtype, x.device, n=x.shape[0], d=x.shape[1], k=k)
     r = resolve(impl, x.device, fused=True, tuned=tp.get("impl"))
-    if r in FUSED_IMPLS and not x.is_cuda:
+    if r in FUSED_IMPLS and not (x.is_cuda or x.is_meta):
         gidx = (torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
                 if exclude_self else None)
         return fused_assign.fused_topk_plain(x, x, k, valid, q_gidx=gidx,

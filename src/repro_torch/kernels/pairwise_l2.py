@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _cuda, ref
+from repro_torch.kernels import _cuda, meta, ref
 
 #: the small-m instance of ``csrc/pairwise_l2.cu``: at most this many keys
 #: and features
@@ -63,6 +63,8 @@ def pairwise_sq_l2(
     ``route``: the instance by name (None: the default rule); one
     that cannot run (m, d) raises; ignored for a CPU tensor. Launches
     count in ``.launches`` and per route in ``.route_launches``."""
+    if x.is_meta:
+        return meta.pairwise(x, y, y_valid, check_route(route, y.shape[0], x.shape[1]))
     if not _cuda.on_card(x):
         return ref.pairwise_sq_l2(x, y, y_valid=y_valid)
     _cuda.forbid_grad("pairwise_sq_l2", x, y)

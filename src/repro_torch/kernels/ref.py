@@ -110,7 +110,9 @@ def segment_sum(
     sums = torch.zeros((num_segments + 1, x.shape[1]), dtype=x.dtype,
                        device=x.device)
     masses = torch.zeros((num_segments + 1,), dtype=x.dtype, device=x.device)
+    # repro_torch: allow[DT504]: the plain version: the CPU's index_add_ folds the rows in order; on the card K3 runs
     sums.index_add_(0, ids, x * w[:, None])
+    # repro_torch: allow[DT504]: the plain version: the CPU's index_add_ folds the rows in order; on the card K3 runs
     masses.index_add_(0, ids, w)
     return sums[:num_segments], masses[:num_segments]
 

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _cuda, ref
+from repro_torch.kernels import _cuda, meta, ref
 
 #: up to this many segments the kernel walks each block's rows once per
 #: segment (the k-means statistics); above it, it groups the rows first
@@ -62,6 +62,9 @@ def blocked_segment_sum(
     :func:`plan`'s rule); one that cannot run S segments raises; ignored
     for a CPU tensor. One kernel call, counted once in
     ``blocked_segment_sum.launches`` and per path in ``.route_launches``."""
+    if x.is_meta:
+        way = route if route is not None else plan(x.shape[0], num_segments, n_blocks)[0]
+        return meta.segment_sum(x, segment_ids, num_segments, weights, way)
     if not _cuda.on_card(x):
         return ref.blocked_segment_sum(x, segment_ids, num_segments,
                                        weights=weights, n_blocks=n_blocks)

@@ -20,7 +20,8 @@ activation plan of a cell (``models.transformer.ShardingPlan``);
 :func:`data_axis` and :func:`model_axis` the collective axes. The plans,
 ``batch_specs`` and ``axis_size`` read only a mesh's dimension names and
 sizes, so a :class:`MeshShape` (no process group) stands in for a mesh
-of 256 or 512 ranks.
+of 256 or 512 ranks; a :class:`TracedMesh` is one rank of such a mesh
+whose axes record their calls (the dry run's).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core._collectives import Axis, release_mailboxes
+from repro_torch.core._collectives import Axis, RecordingAxis, release_mailboxes
 from repro_torch.core.distributed import check_nccl_ranks, make_data_mesh  # noqa: F401
 from repro_torch.models.transformer import ShardingPlan
 
@@ -63,6 +64,24 @@ class MeshShape:
 
     def size(self, dim: Optional[int] = None) -> int:
         return int(np.prod(self.sizes)) if dim is None else int(self.sizes[dim])
+
+
+@dataclass(frozen=True)
+class TracedMesh(MeshShape):
+    """A mesh's shape seen from its first rank (index 0 on every
+    dimension), with no process group: :func:`data_axis` and
+    :func:`model_axis` give :class:`RecordingAxis` es over it, which count
+    each collective and return a tensor of its shape. ``launch.dryrun``
+    traces one rank's step on it, on the "meta" device."""
+
+    def get_local_rank(self, name: str) -> int:
+        if name not in self.mesh_dim_names:
+            raise ValueError(f"mesh has no dimension {name!r}")
+        return 0
+
+
+def traced_mesh(shape: MeshShape) -> TracedMesh:
+    return TracedMesh(shape.mesh_dim_names, shape.sizes)
 
 
 #: the reference's production meshes (``make_production_mesh``)
@@ -131,12 +150,18 @@ def data_axis(mesh) -> Axis:
     if not axes:
         raise ValueError(f"mesh {tuple(mesh.mesh_dim_names or ())} has no data "
                          f"dimension (pod, data)")
-    return Axis(mesh, axes)
+    return _axis(mesh, axes)
 
 
 def model_axis(mesh) -> Axis:
     """The model ranks of this rank's data index (tensor parallelism)."""
-    return Axis(mesh, "model")
+    return _axis(mesh, "model")
+
+
+def _axis(mesh, names):
+    if isinstance(mesh, TracedMesh):
+        return RecordingAxis(mesh, names)
+    return Axis(mesh, names)
 
 
 def _entry(names):

@@ -274,19 +274,28 @@ def _mesh_named(name: str, device: torch.device):
 def mesh_rank(rank: int, cfg: ModelConfig, shape: str, mesh: str, kw: dict) -> dict:
     """One rank of a launch on ``mesh`` (spawned by :func:`launch_mesh`, or
     the process itself under ``torchrun``): :func:`train`, rank 0 printing
-    the metrics; the rank's losses, step times and peak memory on the card
-    (None on the CPU)."""
-    losses = []
+    the metrics; the rank's losses, step times, the collectives of its last
+    step (``_collectives.op_counts``: calls and bytes by op, whatever the
+    route) and peak memory on the card (None on the CPU)."""
+    from repro_torch.core._collectives import op_counts, reset_op_counts
+
+    losses, step_ops = [], {}
 
     def on_metrics(step: int, m: dict) -> None:
         losses.append(float(m["loss"]))
+        step_ops.clear()
+        step_ops.update(op_counts())
+        reset_op_counts()
         if rank == 0:
             print_metrics(step, m)
+
+    reset_op_counts()
 
     _, _, stats, start = train(cfg, SHAPES[shape], mesh=mesh, on_metrics=on_metrics,
                                **kw)
     on_card = resolve_device(kw.get("device")).type == "cuda"
     return {"rank": rank, "start": start, "losses": losses,
+            "step_collectives": dict(step_ops),
             "quantiles": stats.quantiles(), "stragglers": stats.stragglers(),
             "peak_bytes": torch.cuda.max_memory_allocated() if on_card else None}
 

@@ -351,7 +351,9 @@ class AsyncClusterService:
         req = _Request(next(self._rid), state.tenant, n, fut, t_admit,
                        state.entry)
         if hasattr(queries, "detach"):  # a tensor: the queries are host data
+            # repro_torch: allow[HS201]: requests are host data; a tensor request comes to the host at admission
             queries = queries.detach().cpu().numpy()
+        # repro_torch: allow[HS201]: requests are host data; a tensor request comes to the host at admission
         q = np.asarray(queries)
         deadline = t_admit + self.max_wait
         segments = [
@@ -541,6 +543,7 @@ class AsyncClusterService:
         # the copy to the host waits for the device, so completion means
         # labels the client can read, not a pending device computation
         q = as_device_tensor(queries, entry.index.device)
+        # repro_torch: allow[HS201]: a batch completes with labels the client can read (one copy a batch)
         return entry.service.assign_bucket(q).cpu().numpy()
 
     def _on_batch_done(self, batch, result, exc) -> None:

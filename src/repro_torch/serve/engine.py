@@ -58,6 +58,7 @@ class ServeConfig:
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
+        # repro_torch: allow[HS201]: the timing boundaries of generate (prefill, compression, decode)
         torch.cuda.synchronize(device)
 
 
@@ -125,6 +126,7 @@ class ServeEngine:
                 f"cross k/v; the reference cannot compress them either)")
         if key is None:
             key = prng.PRNGKey(0)
+        # repro_torch: allow[HS201]: the caller's host batch, on its way to the card
         inputs = {name: (a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
                          ).to(dev) for name, a in batch.items()}
         inputs["tokens"] = inputs["tokens"].to(torch.int64)
@@ -184,6 +186,7 @@ class ServeEngine:
                 finished = done.all()
                 if self.rows is not None:  # every data rank stops together
                     finished = self.rows.pmin(finished.to(torch.int32)[None])[0]
+                # repro_torch: allow[HS202]: the one card read of the decode loop, the stop test (ROADMAP item 4)
                 if bool(finished):  # the one device read of the loop
                     break
             key = prng.fold_in(key, i)

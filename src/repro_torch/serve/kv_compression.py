@@ -16,8 +16,13 @@ reduced with the same assignment (K3 again). The compressed cache is a
 regular cache plus "bias" and "mass", with ``tail`` empty slots for new
 tokens after the P prototypes and ``pos = P``.
 
-The reference vmaps one key over every head of a layer; this port loops
-over the heads with that same key, which gives the same clusters.
+The reference vmaps one key over every head of a layer; this port
+compresses the heads together, as that one key lets it: each level's key
+and TC's seed priorities are drawn once, TC's seed rounds, grow and
+assignment run over every head's graph at once
+(``threshold_clustering_heads``), and each head's kNN graph and
+prototype sums stay the one-head calls (K2 and K3 launch per head, as
+before), so every head gets the clusters it would get alone, bit for bit.
 """
 from __future__ import annotations
 
@@ -26,8 +31,8 @@ from typing import Iterator, Optional, Tuple
 import torch
 
 from repro_torch import prng
-from repro_torch.core.itis import itis_step
 from repro_torch.core.prototypes import reduce_to_prototypes
+from repro_torch.core.tc import seed_priorities, threshold_clustering_heads
 
 _MASKED = -1e30
 
@@ -45,18 +50,47 @@ def compress_kv_head(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Compress one head's KV set by t^m: (k̄ (P, hd) f32, v̄, mass,
     valid) with P = S // t^m. Level l draws with ``fold_in(key, l)``."""
+    out = _compress_heads(k[None], v[None], mass[None], valid[None], t, m,
+                          key=key, impl=impl)
+    return tuple(a[0] for a in out)
+
+
+def _compress_heads(
+    k: torch.Tensor,      # (H, S, hd)
+    v: torch.Tensor,      # (H, S, hd)
+    mass: torch.Tensor,   # (H, S) f32
+    valid: torch.Tensor,  # (H, S) bool
+    t: int,
+    m: int,
+    *,
+    key: Optional[torch.Tensor],
+    impl: Optional[str],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``compress_kv_head`` on H sets that draw with one key, at once:
+    (k̄ (H, P, hd) f32, v̄, mass (H, P), valid (H, P)). At each level TC
+    runs over the H sets together (``threshold_clustering_heads``), then
+    each set's keys (its level's prototypes and mass, ITIS's step) and its
+    stacked ``[k‖v]`` are reduced with its own labels, one K3 call each."""
     if key is None:
         key = prng.PRNGKey(0)
-    hd = k.shape[-1]
+    H, hd = k.shape[0], k.shape[-1]
     x, w, val = k.float(), mass, valid
     kvx = torch.cat([x, v.float()], dim=-1)
     for level in range(m):
-        out = itis_step(x, w, val, t, key=prng.fold_in(key, level),
-                        weighted=True, impl=impl)
-        ps = reduce_to_prototypes(kvx, out.assignment, out.protos.shape[0],
-                                  weights=w, weighted=True, impl=impl)
-        x, w, val, kvx = out.protos, out.mass, out.valid, ps.x
-    return kvx[:, :hd], kvx[:, hd:], w, val
+        n = x.shape[1]
+        pri = seed_priorities(prng.fold_in(key, level), n, device=x.device)
+        labels, _, _ = threshold_clustering_heads(x, t, valid=val, priorities=pri,
+                                                  impl=impl)
+        n_out = max(n // t, 1)
+        heads = []
+        for h in range(H):
+            ps = reduce_to_prototypes(x[h], labels[h], n_out, weights=w[h],
+                                      weighted=True, impl=impl)
+            kv = reduce_to_prototypes(kvx[h], labels[h], n_out, weights=w[h],
+                                      weighted=True, impl=impl)
+            heads.append((ps.x, ps.mass, ps.valid, kv.x))
+        x, w, val, kvx = (torch.stack(a) for a in zip(*heads))
+    return kvx[..., :hd], kvx[..., hd:], w, val
 
 
 def compress_cache(
@@ -87,16 +121,11 @@ def compress_cache(
         mass = torch.ones((b, h, S), dtype=torch.float32, device=dev)
     valid = torch.arange(S, device=dev) < pos
 
-    heads = [compress_kv_head(k[i, j], v[i, j], mass[i, j], valid, t, m,
-                              key=key, impl=impl)
-             for i in range(b) for j in range(h)]
-    P = heads[0][0].shape[0]
-
-    def stack(n: int) -> torch.Tensor:
-        return torch.stack([hh[n] for hh in heads]).reshape(
-            (b, h) + heads[0][n].shape)
-
-    kbar, vbar, pmass, pvalid = stack(0), stack(1), stack(2), stack(3)
+    out = _compress_heads(k.reshape(b * h, S, hd), v.reshape(b * h, S, hd),
+                          mass.reshape(b * h, S), valid.expand(b * h, S), t, m,
+                          key=key, impl=impl)
+    P = out[0].shape[1]
+    kbar, vbar, pmass, pvalid = (a.reshape((b, h) + a.shape[1:]) for a in out)
     total = P + tail
     nk = torch.zeros((b, h, total, hd), dtype=k.dtype, device=dev)
     nv = torch.zeros((b, h, total, hd), dtype=v.dtype, device=dev)

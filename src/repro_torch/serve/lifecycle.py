@@ -304,6 +304,7 @@ class RefreshDriver:
             as_device_tensor(arr, index.device), index.protos,
             index.proto_valid)
         # one scalar readback per observed batch, off the request path
+        # repro_torch: allow[HS202]: one scalar a batch, off the request path (the drift estimate)
         mean = float(torch.sqrt(torch.clamp_min(dist, 0.0)).mean())
         a = self.drift_alpha
         self._ema = mean if self._ema is None else a * mean + (1 - a) * self._ema

@@ -109,6 +109,41 @@ def test_compress_cache_matches_pallas_route(rng, jdt, tdt):
     assert_same_cache(got, want, "pallas")
 
 
+@pytest.mark.parametrize("t,m,grid", [(2, 1, True), (2, 2, False), (3, 2, True)])
+def test_compress_cache_heads_equal_the_one_head_itis_path(rng, t, m, grid):
+    """``compress_cache`` compresses the heads of a layer together; each
+    head's prototypes, masses and mask are those the one-head path gives
+    it (``itis_step`` with ``fold_in(key, level)``, then its ``[k‖v]``
+    reduced with the same labels), bit for bit, on both routes."""
+    from repro_torch import prng
+    from repro_torch.core.itis import itis_step
+    from repro_torch.core.prototypes import reduce_to_prototypes
+
+    b, h, S, hd, pos = 2, 3, 50, 16, 43
+    draw = dyadic if grid else (lambda r, shape: r.normal(size=shape).astype(np.float32))
+    k, v = draw(rng, (b, h, S, hd)), draw(rng, (b, h, S, hd))
+    key = prng.PRNGKey(5)
+    for impl in ("auto", "ref"):
+        got = compress_cache(_tcache(k, v, pos, torch.bfloat16), t, m, tail=4,
+                             key=key, impl=impl)
+        P = got["pos"]
+        for i in range(b):
+            for j in range(h):
+                x = torch.from_numpy(k[i, j]).bfloat16().float()
+                kvx = torch.cat([x, torch.from_numpy(v[i, j]).bfloat16().float()], -1)
+                w, val = torch.ones(S), torch.arange(S) < pos
+                for level in range(m):
+                    out = itis_step(x, w, val, t, key=prng.fold_in(key, level),
+                                    weighted=True, impl=impl)
+                    kvx = reduce_to_prototypes(kvx, out.assignment, out.protos.shape[0],
+                                               weights=w, weighted=True, impl=impl).x
+                    x, w, val = out.protos, out.mass, out.valid
+                assert torch.equal(got["k"][i, j, :P], kvx[:, :hd].bfloat16()), (impl, i, j)
+                assert torch.equal(got["v"][i, j, :P], kvx[:, hd:].bfloat16()), (impl, i, j)
+                assert torch.equal(got["mass"][i, j, :P], torch.where(val, w, 1.0))
+                assert torch.equal(got["bias"][i, j, :P] > -1e29, val)
+
+
 def test_compress_model_caches_derives_the_reference_keys(rng):
     """A stand-alone layer and a stacked group of period 2, repeated twice:
     the reference's {"prefix", "stack"} layout against the port's layer

@@ -92,6 +92,32 @@ def test_tc_invariants(rng, t):
     assert not two_hop[np.ix_(seeds, seeds)][~np.eye(len(seeds), dtype=bool)].any()
 
 
+@pytest.mark.parametrize("t,d,grid", [(2, 2, True), (3, 2, True), (2, 16, False)])
+def test_threshold_clustering_heads_equals_each_set_alone(rng, t, d, grid):
+    """TC over H point sets at once (the KV compression's heads of one
+    layer) gives each set the labels and cluster count that
+    ``threshold_clustering`` gives it alone with the same key, bit for bit
+    (on the grid, ties common; off it, distances of every rounding), with
+    a different valid mask per set."""
+    H, n = 5, 120
+    x = dyadic(rng, (H, n, d)) if grid else rng.normal(size=(H, n, d)).astype(np.float32)
+    v = rng.random((H, n)) > 0.15
+    v[0] = True
+    _, tk = keys(11)
+    pri = t_tc.seed_priorities(tk, n)
+    labels, n_clusters, rounds = t_tc.threshold_clustering_heads(
+        torch.from_numpy(x), t, valid=torch.from_numpy(v), priorities=pri)
+    assert labels.dtype == torch.int32 and labels.shape == (H, n)
+    most = 0
+    for h in range(H):
+        one = t_tc.threshold_clustering(torch.from_numpy(x[h]), t,
+                                        valid=torch.from_numpy(v[h]), key=tk)
+        assert torch.equal(labels[h], one.labels), h
+        assert int(n_clusters[h]) == int(one.n_clusters), h
+        most = max(most, one.mis_rounds)
+    assert rounds == most
+
+
 def test_tc_t1_degenerate(rng):
     x = dyadic(rng, (10, 2))
     v = np.array([True] * 7 + [False] * 3)

@@ -504,13 +504,42 @@ def test_context_parallel_plans_name_item_7d():
 
 
 # ------------------------------------------------------------- the launcher
-def test_the_launcher_trains_on_the_debug_mesh(tmp_path):
+#: the launcher's debug-mesh run: 2 steps of the smoke gemma2 cut to 2 layers
+DEBUG_RUN = dict(steps=2, batch=4, seq=16, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def debug_launch():
+    """The one spawn of 8 ranks at (data 2, model 4): the launcher's
+    ``--mesh debug`` run of DEBUG_RUN; every rank's :func:`mesh_rank`."""
+    cfg = dataclasses.replace(_cfg("gemma2-2b"), n_layers=2)
+    return cfg, launcher.launch_mesh(cfg, "train_4k", "debug", DEBUG_RUN,
+                                     timeout=LIMIT_S)
+
+
+def test_the_launcher_trains_on_the_debug_mesh(debug_launch):
     """``--mesh debug`` at the smoke config on the CPU: 8 spawned ranks at
     (data 2, model 4), 2 steps; every rank's losses equal and finite."""
-    cfg = dataclasses.replace(_cfg("gemma2-2b"), n_layers=2)
-    outs = launcher.launch_mesh(cfg, "train_4k", "debug",
-                                dict(steps=2, batch=4, seq=16, device="cpu"),
-                                timeout=LIMIT_S)
+    _, outs = debug_launch
     assert len(outs) == 8 and [o["rank"] for o in outs] == list(range(8))
     assert all(o["losses"] == outs[0]["losses"] for o in outs)
     assert len(outs[0]["losses"]) == 2 and np.isfinite(outs[0]["losses"]).all()
+
+
+def test_the_dry_run_reckons_every_ranks_collectives(debug_launch):
+    """The dry run's trace of the same step on the meta device
+    (``launch.dryrun.trace_step`` over a ``TracedMesh`` of (data 2, model
+    4)) records, op by op, the calls and bytes each of the 8 gloo ranks
+    recorded over its last step (``_collectives.op_counts``)."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    cfg, outs = debug_launch
+    got = dryrun.trace_step(
+        cfg, ShapeConfig("train_4k", DEBUG_RUN["seq"], DEBUG_RUN["batch"], "train"),
+        port_mesh.MeshShape(("data", "model"), (2, 4)),
+        parallel=ParallelConfig(remat="block"))
+    assert got["op_counts"] and set(got["op_counts"]) >= {"gather_rows", "sum_scatter"}
+    for o in outs:
+        assert o["step_collectives"] == got["op_counts"], o["rank"]
