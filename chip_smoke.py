@@ -207,6 +207,29 @@ Phases, each printing one JSON line:
                compression of the ranks' raw caches put together; step ms,
                mailbox and staged bytes a rank a step, peak memory against
                check_fits' reckoning; the phase fails past 40 s;
+  mesh_ep      expert parallelism and Mamba heads on the model axis
+               (MESH_EP), in mesh_tp's spawn and at its sizes, after it:
+               deepseek-moe-16b at full width cut to 2 layers (1 dense +
+               1 MoE, 16 of 64 experts a rank) and mamba2-370m cut to 8
+               layers (8 of 32 SSD heads a rank), each drawn a whole leaf
+               at a time on every rank; 3 train steps each within mesh_tp's
+               bounds of the one-device step at 2 microbatches (run first,
+               in this process, its MoE routing recorded and replayed on
+               the ranks, far choices pinned too and counted: none at the
+               first step, at most MAX_FAR_SHARE of a rank's slots after
+               it, none in the served routing), a second run
+               bitwise, every replicated leaf (the router, B, C, the conv)
+               bitwise across the model ranks; deepseek serves mesh_tp's
+               traffic (K5 at a rank's 4 heads held against its plain
+               version, K2 and K3 compressing a rank's caches, the slots
+               against the one-device compression of the caches put
+               together, taken on rank 0), mamba2 a prefill and 16 decode
+               steps; the one-device kernel path then replays the ranks'
+               routing over their forced route, within lm_parity's limits;
+               the experts' gathered bytes, bytes a rank a step, step ms
+               (first apart), peak memory against check_fits, decode
+               tokens/s a rank, the pinned tokens; the phase fails past
+               40 s;
   lm           the LM serving path at the full gemma2-2b config (random
                weights from a seeded generator): ServeEngine.generate with
                batch 4, prompt 2048, 160 new tokens, IHTC KV compression
@@ -222,17 +245,19 @@ Phases, each printing one JSON line:
                train phase's p50 and peak), lm_gemma2's prefill of the
                2048-token prompt into its 2,208-slot cache and one decode
                step over a compressed 1,232-slot cache (both timed here on
-               the lm phase's model, DRYRUN's repeats), and one mesh_tp
-               rank's step (the mesh_tp phase's rank 0); each line has the
+               the lm phase's model, DRYRUN's repeats), one mesh_tp rank's
+               step (the mesh_tp phase's rank 0) and one mesh_ep deepseek
+               rank's step (the mesh_ep phase's rank 0); each line has the
                reckoned FLOPs by dtype, bytes, peak and model FLOPs beside
                the measured p50 and the step's own peak (the card's
                max_memory_allocated less what was allocated beside the
                step's inputs): mfu (model FLOPs over p50 x the bf16 peak)
                and hw_flops_share (the counted FLOPs at their types' peaks
                over p50) must be <= 1, peak_ratio (reckoned / measured) in
-               DRYRUN's band, the mesh_tp rank's reckoned collectives
-               equal, op by op, to what every rank recorded over its last
-               step, and the phase within DRYRUN's 20 s; run alone it
+               DRYRUN's band, the mesh_tp and mesh_ep ranks' reckoned
+               collectives (the experts' gathers among them) equal, op by
+               op, to what every rank recorded over its last step, and the
+               phase within DRYRUN's 20 s; run alone it
                first runs the phases it compares against;
   lm_moe       the lm phase's serving, compression and parity on
                deepseek-moe-16b whole (28 layers, MHA 16 x 128, 64 routed
@@ -352,7 +377,8 @@ DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "sharded", "tune
                   "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
                   "train_moe", "train_ssm", "train_hybrid", "train_vlm",
-                  "train_encdec", "train_mesh", "mesh_tp", "lm", "dryrun", "lm_moe",
+                  "train_encdec", "train_mesh", "mesh_tp", "mesh_ep", "lm", "dryrun",
+                  "lm_moe",
                   "lm_hybrid",
                   "lm_vlm",
                   "lm_encdec")
@@ -510,8 +536,9 @@ MIN_LOSS_DROP = 0.92
 #: 80 GB card: deepseek-moe-16b to 4 layers (1 dense + 3 MoE, 64 experts
 #: top-6 + 2 shared; 28 layers would be 262 GB), jamba to 2 (Mamba + dense,
 #: Mamba + MoE 16 experts top-2; the first cut holding its attention layer
-#: is 5 layers, 114 GB: its attention trains at smoke_config on the CPU
-#: until ROADMAP Queue 1 item 7d). The batch is 8, cut to 4 for a phase
+#: is 5 layers, 114 GB: its attention trains at smoke_config on the CPU,
+#: and on a model axis (tests/test_torch_ep.py), whose ranks share one
+#: card's memory here). The batch is 8, cut to 4 for a phase
 #: whose predicted peak passes 75 GB (none: PERF.md)
 TRAIN_FAMILY = dict(steps=16, seq=256, batch=8)
 #: log of the largest f32: exp overflows past it
@@ -549,6 +576,28 @@ TRAIN_MESH = dict(arch="gemma2-2b", layers=2, ranks=4, elastic_ranks=2, steps=3,
 MESH_TP = dict(arch="gemma2-2b", layers=2, data=2, model=4, batch=8, seq=256,
                steps=3, serve_batch=4, prompt=2048, new_tokens=48, t=2, m=1,
                tail=32, forced_steps=8, timeout=300.0, limit_s=40.0)
+#: the mesh_ep phase, in mesh_tp's spawn (MESH_TP's 8 gloo ranks at (data
+#: 2, model 4), batch, sequence, remat, schedule, steps and serving
+#: traffic): deepseek-moe-16b at full width cut to 2 layers (1 dense + 1
+#: MoE; 16 of its 64 experts a rank, 0.27e9 parameters a rank, 8 + 8/2 B
+#: each) and mamba2-370m at full width cut to 8 layers (8 of its 32 SSD
+#: heads a rank), each trained against the one-device step at 2
+#: microbatches; deepseek serves mesh_tp's traffic, mamba2 a prefill of
+#: the same shape and ``ssm_steps`` decode steps (no attention cache: no
+#: compression). The phase fails past ``limit_s`` (40 s). ``ssm_grad_ulps``:
+#: mamba2's step-0 gradients against the one-device step's, bf16 ulps of a
+#: leaf's largest |g|, 16 where deepseek keeps GRAD_ULPS: mamba2 reads 10
+#: ulps at one leaf (layer 7's wC), on the card as on 4 CPU ranks at full
+#: width, a reading that grows with the SSD stack's depth (1, 2, 4.6 and 10
+#: ulps at 1, 2, 4 and 8 layers) and that the same comparison in f32 takes
+#: to 1.3e-4 of the 8-ulp bound (tests/mamba_tp_rounding_check.py): the
+#: rank-order sums' last bits carried through the stack, not the layout.
+#: ``ssm_remat``: mamba2 trains without rematerialisation (its 8 layers'
+#: activations are small; a recomputed forward repeats its two exchanges
+#: a layer)
+MESH_EP = dict(moe_arch="deepseek-moe-16b", moe_layers=2, ssm_arch="mamba2-370m",
+               ssm_layers=8, ssm_steps=16, ssm_remat="none", ssm_grad_ulps=16,
+               limit_s=40.0)
 #: the dryrun phase: the lm decode step's cache (the compressed cache of
 #: the lm phase's K5 decode row), timed repeats, the band of reckoned over
 #: measured peak memory, and the phase's budget (seconds)
@@ -556,6 +605,13 @@ DRYRUN = dict(decode_cache=1232, reps=5, peak_ratio=(0.75, 1.33), limit_s=20.0)
 #: gradients, losses and grad norms against the one-device step (bf16 ulps,
 #: tests/test_torch_train.py)
 GRAD_ULPS = 8
+#: the tokens a mesh rank's train step past the first may take pinned
+#: beyond a near-tie, a share of its token slots (tests/test_torch_ep.py):
+#: after a step the mesh's weights differ from one device's by up to 2·lr
+#: an element, which moves a few tokens' router probabilities past 2^-5 of
+#: their top-k boundary; the first step (the same weights) and the served
+#: routing take none
+MAX_FAR_SHARE = 0.02
 #: the reference's criteria (tests/test_distribution.py::
 #: test_compressed_psum_error_feedback): each leaf's compressed mean within
 #: this share of its largest exact mean; 16 rounds of error feedback
@@ -4404,21 +4460,44 @@ def _bf16_ulp(x: float) -> float:
     return float(2.0 ** (np.floor(np.log2(abs(x))) - 7)) if x else 0.0
 
 
+def _rank_pin(job: dict, step: int, mesh):
+    """A RoutingPin (far choices pinned too) replaying this data rank's
+    share of step ``step``'s recorded MoE calls (``job["routing"]``: a
+    list a step of the one-device step's calls, microbatch-major), or None
+    without routing."""
+    from repro_torch.launch.mesh import data_axis
+
+    if not job.get("routing"):
+        return None
+    rows = data_axis(mesh)
+    calls = job["routing"][step]
+    per = len(calls) // rows.size
+    pin = RoutingPin(pin_far=True)
+    pin.calls = [torch.from_numpy(c) for c in calls[rows.index * per:(rows.index + 1) * per]]
+    return pin
+
+
 def _tp_train(job: dict, mesh, dev) -> dict:
     """The tensor-parallel trainer twice from the seeded state (MESH_TP's
     steps), the first run held against the one-device step's step-0
-    gradients and final weights (``job["ref"]``, shared by the parent)."""
+    gradients and final weights (``job["ref"]``, shared by the parent);
+    with ``job["routing"]`` (a MoE) every MoE call replays the one-device
+    step's routing, and the experts' gathers are counted."""
     from repro_torch.configs import SHAPES, ParallelConfig
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import _collectives
     from repro_torch.launch.mesh import make_plan
     from repro_torch.launch.train import batch_fn, init_state
-    from repro_torch.models.tensor_parallel import model_dim
+    from repro_torch.models.tensor_parallel import expert_gathers, model_dim
     from repro_torch.train import OptConfig, make_train_step
     from repro_torch.train.optimizer import local_shard
 
     cfg, on_card = job["cfg"], dev.type == "cuda"
     ref = job["ref"]
+    if "index" in ref:  # two flat buffers (mesh_ep's)
+        ref = dict(zip(("grads0", "params"),
+                       (_views(torch.as_tensor(f), ref["index"]) for f in ref["flat"]),
+                       strict=True))
     plan = make_plan(cfg, ShapeConfig("mesh_tp", job["seq"], job["batch"], "train"), mesh)
     bfs = batch_fn(cfg, SHAPES["train_4k"], job["batch"], job["seq"], dev)
     runs = []
@@ -4433,23 +4512,30 @@ def _tp_train(job: dict, mesh, dev) -> dict:
         tp = model.tp
         coords = {"model": (tp.index, tp.size)}  # slices of the one-device leaves
         step = make_train_step(bundle, OptConfig(**job["opt"]),
-                               ParallelConfig(remat="block"), mesh=mesh, plan=plan)
+                               ParallelConfig(remat=job.get("remat", "block")), mesh=mesh,
+                               plan=plan)
         _rank_sync(on_card)
         run = {"init_s": time.perf_counter() - t0, "init_peak_bytes": init_peak}
         tp.axis.barrier()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         _collectives.reset_staging_counts()
-        losses, gnorms, times = [], [], []
+        losses, gnorms, times, pins, gathered = [], [], [], [], []
         for s in range(job["steps"]):
             dry = attempt == 1 and s == job["steps"] - 1  # the dryrun phase's step
             if dry:
                 _collectives.reset_op_counts()
                 beside = _beside_inputs(model, opt) if on_card else None
+            pin = _rank_pin(job, s, mesh)
             t0 = time.perf_counter()
-            model, opt, m = step(model, opt, bfs(s))
+            with (pin.replay() if pin is not None else contextlib.nullcontext()), \
+                    expert_gathers() as sent:
+                model, opt, m = step(model, opt, bfs(s))
             _rank_sync(on_card)
             times.append(time.perf_counter() - t0)
+            gathered.append(sum(sent))
+            if pin is not None:
+                pins.append(pin.summary())
             if dry:
                 run["dry_step"] = dict(
                     ops=_collectives.op_counts(), ms=times[-1] * 1e3, beside_bytes=beside,
@@ -4457,17 +4543,19 @@ def _tp_train(job: dict, mesh, dev) -> dict:
             losses.append(m["loss"])
             gnorms.append(m["grad_norm"])
             if s == 0 and attempt == 0:
-                worst = 0.0
+                ratios = {}
                 for n, p in model.named_parameters():
                     want = ref["grads0"][n]
                     err = float((p.grad - local_shard(want, tp.specs[n], coords))
                                 .abs().max())
-                    bound = GRAD_ULPS * _bf16_ulp(float(want.abs().max()))
-                    worst = max(worst, err / bound if bound else (0.0 if err == 0 else
-                                                                  float("inf")))
-                run["grad_ratio_max"] = worst
+                    bound = GRAD_ULPS * _bf16_ulp(job["grad_max"][n])
+                    ratios[n] = (err / bound if bound else
+                                 (0.0 if err == 0 else float("inf")))
+                worst = max(ratios, key=ratios.get)
+                run["grad_ratio_max"], run["grad_ratio_leaf"] = ratios[worst], worst
         run.update(step_s=times, losses=[float(v) for v in losses],
                    grad_norms=[float(v) for v in gnorms], moved=_moved_bytes(),
+                   pins=pins, expert_gather_bytes=gathered,
                    staged=_collectives.staging_counts(), ipc=_collectives.ipc_counts(),
                    peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
         named = dict(model.named_parameters())
@@ -4587,9 +4675,11 @@ def _tp_serve(job: dict, mesh, dev) -> dict:
     return out
 
 
-def mesh_tp_rank(rank: int, job: dict) -> dict:
-    """One rank of the mesh_tp phase (started by spawn_ranks): the debug
-    mesh, the tensor-parallel trainer, then the server."""
+def mesh_rank(rank: int, job: dict) -> dict:
+    """One rank of the mesh_tp and mesh_ep phases (started by spawn_ranks):
+    the debug mesh; mesh_tp's tensor-parallel trainer, then its server
+    (``job["tp"]``); then mesh_ep's trainer and server of each of its
+    models (``job["ep"]``)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -4600,14 +4690,26 @@ def mesh_tp_rank(rank: int, job: dict) -> dict:
     started_s = time.time() - job["spawned_at"]
     t0 = time.perf_counter()
     mesh = make_debug_mesh(job["data"], job["model"], device_type=dev.type)
-    train = _tp_train(job, mesh, dev)
-    train_s = time.perf_counter() - t0
-    serve = _tp_serve(job, mesh, dev)
-    return {"rank": rank, "coords": {a: int(mesh.get_local_rank(a))
-                                     for a in ("data", "model")},
-            "start_s": started_s, "train_s": train_s,
-            "serve_s": time.perf_counter() - t0 - train_s, "train": train,
-            "serve": serve}
+    out = {"rank": rank, "coords": {a: int(mesh.get_local_rank(a))
+                                    for a in ("data", "model")},
+           "start_s": started_s}
+    if job.get("tp") is not None:
+        out["train"] = _tp_train(job["tp"], mesh, dev)
+        out["train_s"] = time.perf_counter() - t0
+        out["serve"] = _tp_serve(job["tp"], mesh, dev)
+        out["serve_s"] = time.perf_counter() - t0 - out["train_s"]
+    if job.get("ep") is not None:
+        t0 = time.perf_counter()
+        out["ep"] = {}
+        for name, sub in job["ep"].items():
+            t1 = time.perf_counter()
+            train = _tp_train(sub, mesh, dev)
+            t2 = time.perf_counter()
+            serve = _ep_serve(sub, mesh, dev)
+            out["ep"][name] = dict(train=train, serve=serve, train_s=t2 - t1,
+                                   serve_s=time.perf_counter() - t2)
+        out["ep_s"] = time.perf_counter() - t0
+    return out
 
 
 def _tp_reference(cfg, dev, prompts) -> tuple:
@@ -4690,43 +4792,110 @@ def _sliced(caches: dict, rows, heads) -> dict:
 
 
 def phase_mesh_tp(state: dict) -> None:
-    """The model axis on the card (MESH_TP): the one-device oracles in this
-    process, then one spawn of data x model gloo ranks (train_mesh's rank
-    server) running the tensor-parallel trainer and server, held against
-    them (see the module docstring)."""
-    import dataclasses
+    """The model axis on the card (MESH_TP) alone: :func:`phase_mesh`."""
+    phase_mesh(state, ("mesh_tp",))
 
-    from repro_torch.configs import ARCHS
+
+def phase_mesh_ep(state: dict) -> None:
+    """Expert parallelism and Mamba heads on the card (MESH_EP) alone:
+    :func:`phase_mesh`."""
+    phase_mesh(state, ("mesh_ep",))
+
+
+def phase_mesh(state: dict, which=("mesh_tp", "mesh_ep")) -> None:
+    """The model axis on the card: each phase of ``which``'s one-device
+    oracles that the ranks hold their runs against, in this process
+    (mesh_tp's, then mesh_ep's), then one spawn of data x model gloo ranks
+    (train_mesh's rank server) running mesh_tp's tensor-parallel trainer
+    and server, then mesh_ep's, each phase's verdict and seconds apart (see
+    the module docstring)."""
     from repro_torch.launch.mesh import spawn_ranks
-    from repro_torch.launch.train import (init_bytes_per_rank, rank_param_count,
-                                          state_bytes_per_rank)
-    from repro_torch.serve.kv_compression import compress_model_caches
 
     t_start = time.perf_counter()
     _free_models(state)
     S = MESH_TP
-    cfg = dataclasses.replace(ARCHS[S["arch"]], n_layers=S["layers"])
     n_ranks = S["data"] * S["model"]
+    job = dict(device=DEV, data=S["data"], model=S["model"], tp=None, ep=None)
+    tp_ctx = ep_ctx = None
+    if "mesh_tp" in which:
+        job["tp"], tp_ctx = _mesh_tp_job()
+    tp_prep_s = time.perf_counter() - t_start
+    if "mesh_ep" in which:
+        job["ep"], ep_ctx = _mesh_ep_job()
+    ep_prep_s = time.perf_counter() - t_start - tp_prep_s
+    parent_bytes = ([torch.cuda.memory_allocated(), torch.cuda.memory_reserved()]
+                    if DEV == "cuda" else None)
+    emit("mesh_spawn", phases=list(which), parent_allocated_reserved_bytes=parent_bytes,
+         prepare_seconds=[round(tp_prep_s, 3), round(ep_prep_s, 3)])
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        t0 = time.perf_counter()
+        job["spawned_at"] = time.time()
+        outs = spawn_ranks(mesh_rank, n_ranks, backend="gloo", device=DEV,
+                           init_dir=tmp, timeout=S["timeout"], args=(job,))
+        spawn_s = time.perf_counter() - t0
+    del job
+    # the spawn's seconds: the ranks' start goes to mesh_tp, the return of
+    # their results to mesh_ep, each to the other where it runs alone
+    start_s = max(o["start_s"] for o in outs)
+    tp_s = max(o.get("train_s", 0.0) + o.get("serve_s", 0.0) for o in outs)
+    ep_s = max(o.get("ep_s", 0.0) for o in outs)
+    tail_s = max(0.0, spawn_s - start_s - tp_s - ep_s)
+    if tp_ctx is not None:
+        _mesh_tp_verdict(state, outs, tp_ctx, spawn_s, parent_bytes,
+                         before_s=(tp_prep_s + start_s + tp_s
+                                   + (tail_s if ep_ctx is None else 0.0)))
+    if ep_ctx is not None:
+        _mesh_ep_verdict(state, outs, ep_ctx, spawn_s, parent_bytes,
+                         before_s=(ep_prep_s + ep_s + tail_s
+                                   + (start_s if tp_ctx is None else 0.0)))
+
+
+def _mesh_tp_job() -> tuple:
+    """mesh_tp's one-device oracles (``_tp_reference``) and the ranks' job:
+    (job, what the verdict reads)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import (init_bytes_per_rank, rank_param_count,
+                                          state_bytes_per_rank)
+
+    S = MESH_TP
+    cfg = dataclasses.replace(ARCHS[S["arch"]], n_layers=S["layers"])
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(S["serve_batch"], S["prompt"]))
     ref, ref_train_s, ref_serve_s = _tp_reference(cfg, torch.device(DEV), prompts)
     per_rank_params = rank_param_count(cfg, S["model"])
-    reckoned = state_bytes_per_rank(per_rank_params, S["data"])
-    init_reckoned = init_bytes_per_rank(cfg, per_rank_params, S["data"],
-                                        model_ranks=S["model"])
-    job = dict(cfg=cfg, device=DEV, seed=TRAIN["seed"], data=S["data"], model=S["model"],
-               batch=S["batch"], seq=S["seq"], steps=S["steps"], opt=_mesh_tp_opt(),
-               prompts=prompts, forced=ref["forced"], sizes=dict(S),
+    ctx = dict(cfg=cfg, ref=ref, ref_train_s=ref_train_s, ref_serve_s=ref_serve_s,
+               per_rank_params=per_rank_params,
+               reckoned=state_bytes_per_rank(per_rank_params, S["data"]),
+               init_reckoned=init_bytes_per_rank(cfg, per_rank_params, S["data"],
+                                                 model_ranks=S["model"]))
+    job = dict(cfg=cfg, seed=TRAIN["seed"], batch=S["batch"], seq=S["seq"],
+               steps=S["steps"], opt=_mesh_tp_opt(), prompts=prompts,
+               forced=ref["forced"], sizes=dict(S), grad_max=_leaf_max(ref["grads0"]),
                ref={k: ref[k] for k in ("grads0", "params", "logits")})
-    parent_bytes = ([torch.cuda.memory_allocated(), torch.cuda.memory_reserved()]
-                    if DEV == "cuda" else None)
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-tp-") as tmp:
-        t0 = time.perf_counter()
-        job["spawned_at"] = time.time()
-        outs = spawn_ranks(mesh_tp_rank, n_ranks, backend="gloo", device=DEV,
-                           init_dir=tmp, timeout=S["timeout"], args=(job,))
-        spawn_s = time.perf_counter() - t0
-    del job
+    return job, ctx
+
+
+def _leaf_max(named: dict) -> dict:
+    """Each tensor's largest |value| (a host float): the ranks' gradient
+    bounds, taken once here rather than on every rank's card."""
+    return {n: float(t.abs().max()) for n, t in named.items()}
+
+
+def _mesh_tp_verdict(state: dict, outs: list, ctx: dict, spawn_s: float,
+                     parent_bytes, *, before_s: float) -> None:
+    """mesh_tp's lines and checks from the ranks' ``outs``; ``before_s``:
+    the phase's seconds before this (its oracles and its share of the
+    spawn)."""
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    t_start = time.perf_counter() - before_s
+    S = MESH_TP
+    cfg, ref = ctx["cfg"], ctx["ref"]
+    ref_train_s, ref_serve_s = ctx["ref_train_s"], ctx["ref_serve_s"]
+    per_rank_params, reckoned = ctx["per_rank_params"], ctx["reckoned"]
+    init_reckoned = ctx["init_reckoned"]
     # the train checks
     trains = [o["train"] for o in outs]
     lr_sum = sum(ref["lrs"])
@@ -4869,6 +5038,447 @@ def phase_mesh_tp(state: dict) -> None:
           f"the {init_reckoned} B check_fits reckons for it")
 
 
+def _ep_train_reference(cfg, dev, remat: str) -> dict:
+    """mesh_ep's one-device trainer of ``cfg``: MESH_TP's steps at ``data``
+    microbatches under ``remat``, the MoE calls' routing of each step
+    recorded (host arrays, microbatch-major), the losses, grad norms,
+    learning rates, step-0 gradients and final weights."""
+    from repro_torch.configs import SHAPES, ParallelConfig
+    from repro_torch.launch.train import batch_fn, init_state
+    from repro_torch.train import OptConfig, make_train_step
+
+    S = MESH_TP
+    t0 = time.perf_counter()
+    bundle, model, opt = init_state(cfg, device=dev, seed=TRAIN["seed"])
+    # what the ranks read: two flat buffers (a spawn opens one CUDA IPC
+    # handle a tensor on every rank), allocated before the step's own, so
+    # the card's cache can release every segment the training used
+    index, total = [], 0
+    for n, p in model.named_parameters():
+        index.append((n, total, tuple(p.shape)))
+        total += p.numel()
+    flat = [torch.empty(total, dtype=torch.float32, device=dev) for _ in range(2)]
+    grads0, params = (_views(f, index) for f in flat)
+    step = make_train_step(bundle, OptConfig(**_mesh_tp_opt()),
+                           ParallelConfig(remat=remat, microbatches=S["data"]))
+    bfs = batch_fn(cfg, SHAPES["train_4k"], S["batch"], S["seq"], dev)
+    losses, gnorms, lrs, routing = [], [], [], []
+    for s in range(S["steps"]):
+        pin = RoutingPin()
+        with pin.record():
+            model, opt, m = step(model, opt, bfs(s))
+        routing.append([c.cpu().numpy() for c in pin.calls])
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        if s == 0:
+            for n, p in model.named_parameters():
+                grads0[n].copy_(p.grad)
+    for n, p in model.named_parameters():
+        params[n].copy_(p.detach())
+    del model, opt, step, m
+    floor = None
+    if not cfg.n_experts:  # the same step at 1 microbatch: its sums in another order
+        _, model, opt = init_state(cfg, device=dev, seed=TRAIN["seed"])
+        step = make_train_step(bundle, OptConfig(**_mesh_tp_opt()),
+                               ParallelConfig(remat=remat, microbatches=1))
+        model, opt, m = step(model, opt, bfs(0))
+        floor = max(float((p.grad - grads0[n]).abs().max())
+                    / (GRAD_ULPS * _bf16_ulp(float(grads0[n].abs().max())))
+                    for n, p in model.named_parameters())
+        del model, opt, step, m
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=gnorms, lrs=lrs, grads0=grads0, params=params,
+                flat=flat, index=index,
+                routing=routing if cfg.n_experts else None, grad_floor_ratio=floor,
+                seconds=time.perf_counter() - t0)
+
+
+def _views(flat: torch.Tensor, index: list) -> dict:
+    """{name: view of ``flat``} by ``index``'s (name, offset, shape)."""
+    return {n: flat[o:o + int(np.prod(shape))].view(shape) for n, o, shape in index}
+
+
+def _mesh_ep_job() -> tuple:
+    """mesh_ep's one-device trainers (``_ep_train_reference``) and the
+    ranks' jobs, one a model ({"moe", "ssm"}): (jobs, what the verdict
+    reads)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import (init_bytes_per_rank, rank_param_count,
+                                          state_bytes_per_rank)
+
+    S, E = MESH_TP, MESH_EP
+    jobs, ctx = {}, {}
+    for name, arch, layers, remat in (("moe", E["moe_arch"], E["moe_layers"], "block"),
+                                      ("ssm", E["ssm_arch"], E["ssm_layers"],
+                                       E["ssm_remat"])):
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=layers)
+        ref = _ep_train_reference(cfg, torch.device(DEV), remat)
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, size=(S["serve_batch"], S["prompt"]))
+        forced = rng.integers(0, cfg.vocab_size, size=(S["serve_batch"], E["ssm_steps"]))
+        n = rank_param_count(cfg, S["model"])
+        ctx[name] = dict(cfg=cfg, ref=ref, prompts=prompts, per_rank_params=n, remat=remat,
+                         reckoned=state_bytes_per_rank(n, S["data"]),
+                         init_reckoned=init_bytes_per_rank(cfg, n, S["data"],
+                                                           model_ranks=S["model"]))
+        jobs[name] = dict(cfg=cfg, seed=TRAIN["seed"], batch=S["batch"], seq=S["seq"],
+                          steps=S["steps"], opt=_mesh_tp_opt(), prompts=prompts, remat=remat,
+                          forced=forced,
+                          sizes=dict(S, ssm_steps=E["ssm_steps"]), routing=ref["routing"],
+                          grad_max=_leaf_max(ref["grads0"]),
+                          ref=dict(index=ref["index"],
+                                   flat=[f if DEV == "cuda" else f.cpu().numpy()
+                                         for f in ref["flat"]]))
+    return jobs, ctx
+
+
+def _ep_serve(job: dict, mesh, dev) -> dict:
+    """A mesh_ep model served on the mesh: the engine's generate (mesh_tp's
+    traffic; launches counted), then the forced route over its first
+    tokens with every MoE call's routing recorded (the parent replays it on
+    one device) and, with attention, every K5 call held against its plain
+    version at the ranks' heads and the raw and compressed caches gathered
+    whole on rank 0. The last-position logits (whole) and tokens come back
+    from rank 0, the routing from the model index 0 of each data row."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import data_axis, make_plan
+    from repro_torch.models import build
+    from repro_torch.models.tensor_parallel import cache_kv_heads, gather_dim
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, S = job["cfg"], job["sizes"]
+    on_card = dev.type == "cuda"
+    attn = bool(cfg.n_heads)
+    new_tokens = S["new_tokens"] if attn else S["ssm_steps"]
+    n_forced = S["forced_steps"] if attn else S["ssm_steps"]
+    t0 = time.perf_counter()
+    bundle = build(cfg)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0), device=dev,
+                        mesh=mesh)
+    tp = model.tp
+    plan = make_plan(cfg, ShapeConfig("mesh_ep", S["prompt"], S["serve_batch"],
+                                      "decode"), mesh)
+    rows = data_axis(mesh)
+    _rank_sync(on_card)
+    out = {"init_s": time.perf_counter() - t0}
+    rows.barrier()
+    kernels.reset_launch_counts()
+    if attn:  # the engine's generate; its first tokens are forced below
+        engine = ServeEngine(bundle, model, ServeConfig(
+            max_new_tokens=new_tokens, compress=True, compress_t=S["t"],
+            compress_m=S["m"], compress_tail=S["tail"], impl="auto"), plan=plan,
+            mesh=mesh)
+        gen = engine.generate({"tokens": job["prompts"]})
+        _rank_sync(on_card)
+        del engine
+        tokens = gen["tokens"]
+        out.update(counts=kernels.launch_counts(), routes=kernels.route_counts(),
+                   timings=gen["timings"], n_steps=gen["n_steps"],
+                   tokens_print=hashlib.sha1(tokens.cpu().numpy().tobytes()).hexdigest())
+    else:  # no cache to compress: the forced route is the serving (timed there)
+        tokens = torch.from_numpy(job["forced"])
+    heads = cache_kv_heads(cfg, tp.size) if attn else 0
+    n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.n_layers))
+    per = S["serve_batch"] // rows.size
+    out["want"] = ({"K5": n_attn + n_attn * new_tokens,
+                    "K5-decode": n_attn * new_tokens,
+                    "K2": n_attn * per * heads * len(gen["timings"]["compress"])}
+                   if attn else {"K5": 0, "K2": 0, "K3": 0})
+    lo = rows.index * per
+    tok = torch.from_numpy(job["prompts"][lo:lo + per]).to(dev)
+    forced = tokens[:, :n_forced].to(dev, torch.int64)
+    route = dict(impl="auto", compress_impl="auto", cache_kw=dict(tp_size=tp.size),
+                 plan=plan, whole=lambda x: rows.gather_rows(gather_dim(x, tp.axis, 1)),
+                 traffic=dict(LM, t=S["t"], m=S["m"], tail=S["tail"],
+                              new_tokens=new_tokens), compress=attn)
+    pin, held, timed = RoutingPin(), [], {}
+    t0 = time.perf_counter()
+    with pin.record():
+        logits, raw, comp = _forced_route(bundle, model, tok, forced[lo:lo + per],
+                                          held=held if attn else None, timings=timed,
+                                          **route)
+    _rank_sync(on_card)
+    out["forced_s"] = time.perf_counter() - t0
+    if not attn:
+        out.update(counts=kernels.launch_counts(), routes=kernels.route_counts(),
+                   timings=dict(timed, compress=[]), n_steps=n_forced, tokens_print=None)
+    out["held"] = _held_summary(held)
+    out["held_want"] = [n_attn, n_attn * n_forced]
+    if tp.index == 0:
+        out["routing"] = [c.cpu().numpy() for c in pin.calls]
+    if rows.index == 0 and tp.index == 0:  # host arrays: no tensor crosses the queue
+        out.update(logits=[x.cpu().numpy() for x in logits], forced=forced.cpu().numpy())
+    if attn:
+        out["slots"] = _ep_slots(cfg, S, raw, comp, rows, tp, heads)
+    del model, raw, comp
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ep_slots(cfg, S: dict, raw: dict, comp: dict, rows, tp, heads: int):
+    """The compressed slots of every rank against the one-device
+    compression of the ranks' raw caches put together, taken on rank 0
+    (the caches gathered whole there; nothing crosses the host): the
+    smallest share of a rank's (rows, kv heads) block that agrees, or None
+    on the other ranks."""
+    from repro_torch.models.tensor_parallel import gather_dim
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    local_heads = heads < cfg.n_kv_heads
+
+    def whole(c):  # every row and kv head
+        if "k" not in c:
+            return c
+        got = {}
+        for k in ("k", "v", "mass"):
+            if k in c:
+                t = gather_dim(c[k], tp.axis, 1) if local_heads else c[k]
+                got[k] = rows.gather_rows(t.contiguous())
+        return dict(got, pos=c["pos"])
+
+    raw_all = dict(raw, layers=[whole(c) for c in raw["layers"]])
+    comp_all = {"layers": [whole(c) for c in comp["layers"]]}
+    if rows.index or tp.index:
+        return None
+    together = compress_model_caches(raw_all, S["t"], S["m"], tail=S["tail"],
+                                     impl="auto")
+    per = S["serve_batch"] // rows.size
+    blocks = [((i * per, (i + 1) * per),
+               (j * heads, (j + 1) * heads) if local_heads else None)
+              for i in range(rows.size) for j in range(tp.size)]
+    return min(_slot_agreement(_sliced(comp_all, r, h), _sliced(together, r, h))
+               for r, h in blocks)
+
+
+def _ep_serve_reference(cfg, prompts, forced, routing) -> tuple:
+    """The one-device kernel path of a mesh_ep model over the ranks' forced
+    route (``forced``), every MoE call replaying the mesh's ``routing``
+    (far choices pinned too): (last-position logits of the prefill and
+    each step, the pin's summary or None, seconds)."""
+    from repro_torch.models import build
+
+    S = MESH_TP
+    t0 = time.perf_counter()
+    attn = bool(cfg.n_heads)
+    bundle = build(cfg)
+    model = bundle.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    pin = None
+    if routing:
+        pin = RoutingPin(pin_far=True)
+        pin.calls = [torch.from_numpy(c) for c in routing]
+    new_tokens = S["new_tokens"] if attn else MESH_EP["ssm_steps"]
+    with (pin.replay() if pin is not None else contextlib.nullcontext()):
+        logits = _forced_route(
+            bundle, model, torch.from_numpy(prompts).to(DEV),
+            torch.from_numpy(forced).to(DEV), impl="auto", compress_impl="auto",
+            traffic=dict(LM, t=S["t"], m=S["m"], tail=S["tail"], new_tokens=new_tokens),
+            compress=attn)[0]
+    del model
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return logits, (pin.summary() if pin is not None else None), time.perf_counter() - t0
+
+
+def _mesh_ep_verdict(state: dict, outs: list, ctx: dict, spawn_s: float,
+                     parent_bytes, *, before_s: float) -> None:
+    """mesh_ep's lines and checks from the ranks' ``outs`` (each rank's
+    ``ep``), after the one-device kernel path has replayed each served
+    model's mesh routing; ``before_s``: the phase's seconds before this."""
+    t_start = time.perf_counter() - before_s
+    S = MESH_TP
+    verdicts, counts, routes = {}, {}, {}
+    for name, c in ctx.items():
+        cfg, ref = c["cfg"], c["ref"]
+        runs = [o["ep"][name] for o in outs]
+        trains = [r["train"] for r in runs]
+        serves = [r["serve"] for r in runs]
+        # the train checks, as mesh_tp's
+        lr_sum = sum(ref["lrs"])
+        loss_ok = all(abs(a - b) <= GRAD_ULPS * _bf16_ulp(b)
+                      for t in trains for key in ("losses", "grad_norms")
+                      for a, b in zip(t[key], ref[key], strict=True))
+        grad_ratio = max(t["grad_ratio_max"] for t in trains)
+        names = list(trains[0]["dmax"])
+        dmax = {n: max(t["dmax"][n] for t in trains) for n in names}
+        row0 = [t for o, t in zip(outs, trains, strict=True) if o["coords"]["data"] == 0]
+        dmean = {}
+        for n in names:  # every element once: a sharded leaf's slices on data row 0
+            parts = row0 if trains[0]["count"][n] < ref["params"][n].numel() else row0[:1]
+            dmean[n] = sum(t["dsum"][n] for t in parts) / sum(t["count"][n] for t in parts)
+        weights_ok = all(dmax[n] <= 2 * lr_sum and dmean[n] <= 0.1 * lr_sum for n in names)
+        train_pins = [p for t in trains for p in t["pins"]]
+        # the serving: the one-device kernel path over the mesh's forced
+        # route, under the mesh's routing (its data rows' calls put together)
+        zero = next(sv for sv in serves if "logits" in sv)
+        by_row = sorted((o["coords"]["data"], sv) for o, sv in zip(outs, serves,
+                                                                    strict=True)
+                        if o["coords"]["model"] == 0)
+        routing = ([np.concatenate(parts) for parts in
+                    zip(*[sv["routing"] for _, sv in by_row], strict=True)]
+                   if cfg.n_experts else None)
+        one, serve_pin, one_s = _ep_serve_reference(cfg, c["prompts"], zero["forced"],
+                                                    routing)
+        v = cfg.vocab_size
+        diffs = [_family_logit_diff(torch.from_numpy(a).to(b.device), b, v)
+                 for a, b in zip(zero["logits"], one, strict=True)]
+        top1 = _top1_over_rows(diffs)
+        slots = zero.get("slots")
+        for sv in serves:
+            for k, n in sv["counts"].items():
+                counts[k] = counts.get(k, 0) + n
+            for k, n in sv["routes"].items():
+                routes[k] = routes.get(k, 0) + n
+
+        def rank_row(o, t, sv):
+            ms = [x * 1e3 for x in t["step_s"]]
+            tm = sv["timings"]
+            n_tok = S["serve_batch"] // S["data"] * sv["n_steps"]
+            return dict(rank=o["rank"], coords=o["coords"],
+                        init_s=round(t["init_s"], 3),
+                        init_peak_bytes=t["init_peak_bytes"],
+                        repeat_init_peak_bytes=t["repeat_init_peak_bytes"],
+                        step_ms_first=ms[0], step_ms_p50_rest=float(np.median(ms[1:])),
+                        repeat_step_ms=[x * 1e3 for x in t["repeat_step_s"]],
+                        staged_bytes_per_step=t["moved"][0] / S["steps"],
+                        ipc_bytes_per_step=t["moved"][1] / S["steps"],
+                        expert_gather_bytes_per_step=t["expert_gather_bytes"],
+                        peak_bytes=t["peak_bytes"], train_pins=t["pins"],
+                        launches=sv["counts"], launches_want=sv["want"],
+                        prefill_ms=tm["prefill_s"] * 1e3, decode_s=tm["decode_s"],
+                        decode_tok_per_s=n_tok / tm["decode_s"],
+                        compress_ms=[x["seconds"] * 1e3 for x in tm["compress"]],
+                        forced_s=round(sv["forced_s"], 3))
+
+        rows = [rank_row(o, t, sv) for o, t, sv in zip(outs, trains, serves, strict=True)]
+        peak = max((r["peak_bytes"] or 0) for r in rows)
+        init_peak = max(max(r["init_peak_bytes"] or 0, r["repeat_init_peak_bytes"] or 0)
+                        for r in rows)
+        emit(f"mesh_ep_{name}", arch=cfg.name, layers=cfg.n_layers,
+             mesh=[S["data"], S["model"]], backend="gloo",
+             params_per_rank=c["per_rank_params"],
+             state_bytes_per_rank_reckoned=c["reckoned"], peak_bytes_max=peak,
+             init_bytes_per_rank_reckoned=c["init_reckoned"], init_peak_bytes_max=init_peak,
+             train=dict(batch=S["batch"], seq=S["seq"], remat=c["remat"], steps=S["steps"],
+                        one_device_microbatches=S["data"], losses=trains[0]["losses"],
+                        reference_losses=ref["losses"],
+                        grad_norms=trains[0]["grad_norms"],
+                        reference_grad_norms=ref["grad_norms"],
+                        grad_ratio_max=grad_ratio, grad_ulps_max=grad_ratio * GRAD_ULPS,
+                        grad_ulps_allowed=(GRAD_ULPS if cfg.n_experts
+                                           else MESH_EP["ssm_grad_ulps"]),
+                        grad_ratio_leaf=max(trains, key=lambda t: t["grad_ratio_max"])[
+                            "grad_ratio_leaf"],
+                        one_device_1_vs_2_microbatches_ratio=ref["grad_floor_ratio"],
+                        weights_dmax_max=max(dmax.values()),
+                        weights_dmean_max=max(dmean.values()), lr_sum=lr_sum,
+                        repeat_bitwise=all(t["repeat_bitwise"] for t in trains),
+                        replicated_leaves=trains[0]["replicated_leaves"],
+                        replicated_equal=all(t["replicated_equal"] for t in trains),
+                        pinned_to_one_device=_pins_total(train_pins),
+                        one_device_s=round(ref["seconds"], 3)),
+             serve=dict(batch=S["serve_batch"], prompt=S["prompt"],
+                        new_tokens=serves[0]["n_steps"], forced_steps=len(diffs) - 1,
+                        logit_ulps=LOGIT_ULPS, steps=[_rounded(d) for d in diffs],
+                        top1_over_rows=top1, slot_agreement=slots,
+                        pinned_one_device=serve_pin, k5_held=[sv["held"] for sv in serves],
+                        k5_held_want=serves[0]["held_want"],
+                        one_device_s=round(one_s, 3)),
+             per_rank=rows)
+        verdicts[name] = dict(cfg=cfg, trains=trains, serves=serves, loss_ok=loss_ok,
+                              grad_ratio=grad_ratio, weights_ok=weights_ok, dmax=dmax,
+                              dmean=dmean, lr_sum=lr_sum, diffs=diffs, top1=top1,
+                              slots=slots, rows=rows, peak=peak, init_peak=init_peak,
+                              serve_pin=serve_pin, ctx=c)
+        if name == "moe":
+            t = trains[0]
+            state["mesh_ep_measured"] = dict(
+                t["dry_step"], ranks_ops=[x["dry_step"]["ops"] for x in trains],
+                p50_ms=float(np.median([x * 1e3 for x in t["step_s"][1:]])), cfg=cfg)
+    state["mesh_ep_counts"], state["mesh_ep_routes"] = counts, routes
+    seconds = round(time.perf_counter() - t_start, 3)
+    emit("mesh_ep_phase", seconds=seconds, limit_s=MESH_EP["limit_s"],
+         spawn_seconds=round(spawn_s, 3), parent_allocated_reserved_bytes=parent_bytes,
+         rank_seconds=[round(o["ep_s"], 3) for o in outs])
+    check(DEV != "cuda" or seconds <= MESH_EP["limit_s"],
+          f"mesh_ep: the phase took {seconds} s, past its {MESH_EP['limit_s']} s")
+    for name, vd in verdicts.items():
+        what = f"mesh_ep {vd['cfg'].name}"
+        trains, serves = vd["trains"], vd["serves"]
+        check(vd["loss_ok"], f"{what}: losses or grad norms past {GRAD_ULPS} bf16 ulps "
+              f"of the one-device step: {trains[0]['losses']}")
+        ulps = GRAD_ULPS if vd["cfg"].n_experts else MESH_EP["ssm_grad_ulps"]
+        check(vd["grad_ratio"] * GRAD_ULPS <= ulps, f"{what}: a step-0 gradient past "
+              f"{ulps} bf16 ulps of its leaf's largest |g| ({vd['grad_ratio'] * GRAD_ULPS} "
+              f"ulps)")
+        check(vd["weights_ok"], f"{what}: weights past 2·Σlr or a mean past 0.1·Σlr "
+              f"({max(vd['dmax'].values())}, {max(vd['dmean'].values())}; "
+              f"Σlr {vd['lr_sum']})")
+        check(all(t["repeat_bitwise"] for t in trains), f"{what}: the second run differs")
+        check(all(t["replicated_equal"] for t in trains),
+              f"{what}: a replicated leaf differs across the model ranks")
+        check(all(t["losses"] == trains[0]["losses"] for t in trains),
+              f"{what}: the ranks' losses differ")
+        if vd["cfg"].n_experts:  # RoutingPin: then require pin.far == 0
+            slots = S["batch"] // S["data"] * S["seq"] * vd["cfg"].n_experts_per_tok
+            check(all(len(t["pins"]) == S["steps"] and t["pins"][0]["far"] == 0
+                      for t in trains),
+                  f"{what}: step 0's routing differs from one device's beyond a "
+                  f"near-tie: {[t['pins'][:1] for t in trains]}")
+            check(all(p["far"] <= MAX_FAR_SHARE * slots for t in trains
+                      for p in t["pins"][1:]),
+                  f"{what}: a later step pinned more than {MAX_FAR_SHARE} of a rank's "
+                  f"{slots} slots beyond a near-tie: {[t['pins'] for t in trains]}")
+            check(vd["serve_pin"] is not None and vd["serve_pin"]["far"] == 0,
+                  f"{what}: the one-device serving routes beyond a near-tie of the "
+                  f"mesh's: {vd['serve_pin']}")
+        for i, e in enumerate(vd["diffs"]):
+            check(e["finite"], f"{what} step {i}: non-finite logits")
+            check(e["err"] <= e["bound"],
+                  f"{what} step {i}: max |dlogit| {e['err']} > {e['bound']}")
+        check(vd["top1"] >= MIN_TOP1, f"{what}: top-1 agreement over the rows {vd['top1']}")
+        check(len({sv["tokens_print"] for sv in serves}) == 1,
+              f"{what}: the ranks' generated tokens differ")
+        if vd["slots"] is not None:
+            check(vd["slots"] >= MIN_SLOT_AGREEMENT,
+                  f"{what}: compressed slots agree {vd['slots']} with the caches put "
+                  f"together")
+        for sv in serves:
+            h = sv["held"]
+            if vd["cfg"].n_heads:
+                got = [h.get("prefill", {}).get("calls"), h.get("decode", {}).get("calls")]
+                check(got == sv["held_want"], f"{what}: K5 held against its plain version "
+                      f"in {got} (prefill, decode) calls, want {sv['held_want']}")
+            for hname, a in h.items():
+                check(a["ratio"] <= 1.0, f"{what}: K5's {hname} at a rank's heads "
+                      f"against its plain version: {a}")
+            c = sv["counts"]
+            check(DEV != "cuda" or (all(c.get(k, 0) == n for k, n in sv["want"].items())
+                                    and (c.get("K3", 0) > 0) == bool(vd["cfg"].n_heads)),
+                  f"{what}: a rank's serving launched {c}, want {sv['want']}")
+        reckoned = vd["ctx"]["reckoned"]
+        check(DEV != "cuda" or all(reckoned <= (r["peak_bytes"] or 0) for r in vd["rows"]),
+              f"{what}: a rank's peak {vd['peak']} B is below the {reckoned} B of state "
+              f"check_fits reckons: the reckoning is wrong")
+        check(DEV != "cuda" or vd["init_peak"] <= vd["ctx"]["init_reckoned"],
+              f"{what}: a rank's peak while the model is drawn, {vd['init_peak']} B, is "
+              f"past the {vd['ctx']['init_reckoned']} B check_fits reckons for it")
+
+
+def _pins_total(pins: list) -> dict:
+    """RoutingPin summaries added up (the tokens pinned within and beyond
+    the band, the largest gap)."""
+    return {"pinned": sum(p["pinned"] for p in pins), "near": sum(p["near"] for p in pins),
+            "far": sum(p["far"] for p in pins),
+            "worst_gap": max((p["worst_gap"] for p in pins), default=0.0),
+            "band": RoutingPin.BAND}
+
+
 def _timed_ms(fn, reps: int) -> float:
     """Median milliseconds of ``fn()`` between CUDA events (one warm-up)."""
     fn()
@@ -4965,8 +5575,9 @@ def phase_dryrun(state: dict) -> None:
     if "train_measured" not in state:  # run alone: what it compares against
         phase_train(state)
         state.pop("trainer", None)
-    if "mesh_tp_measured" not in state:
-        phase_mesh_tp(state)
+    missing = tuple(p for p in ("mesh_tp", "mesh_ep") if f"{p}_measured" not in state)
+    if missing:
+        phase_mesh(state, missing)
     if "lm_engine" not in state:
         phase_lm(state)
     t0 = time.perf_counter()
@@ -4997,6 +5608,14 @@ def phase_dryrun(state: dict) -> None:
     rank = dict(mt, p50_ms=mt["p50_ms"])
     cut_active = dryrun._active_params(cut, dryrun._model(cut, trainable=False, mesh=None))
     lines.append(_dry_line("mesh_tp_gemma2_rank", cut, shape, got, rank, cut_active))
+    tp_ops = got["op_counts"]
+    et = state["mesh_ep_measured"]
+    moe = et["cfg"]
+    got_ep = dryrun.trace_step(moe, shape, MeshShape(("data", "model"),
+                                                     (S["data"], S["model"])),
+                               parallel=ParallelConfig(remat="block"))
+    moe_active = dryrun._active_params(moe, dryrun._model(moe, trainable=False, mesh=None))
+    lines.append(_dry_line("mesh_ep_deepseek_rank", moe, shape, got_ep, et, moe_active))
     seconds = round(time.perf_counter() - t0, 3)
     emit("dryrun_phase", seconds=seconds, limit_s=DRYRUN["limit_s"])
     lo, hi = DRYRUN["peak_ratio"]
@@ -5008,9 +5627,12 @@ def phase_dryrun(state: dict) -> None:
               f"dryrun {ln['cell']}: reckoned / measured peak {ln['peak_ratio']} "
               f"outside [{lo}, {hi}]")
     for r, ops in enumerate(mt["ranks_ops"]):
-        check(ops == got["op_counts"],
-              f"dryrun: mesh_tp rank {r} recorded {ops}, the dry run reckons "
-              f"{got['op_counts']}")
+        check(ops == tp_ops,
+              f"dryrun: mesh_tp rank {r} recorded {ops}, the dry run reckons {tp_ops}")
+    for r, ops in enumerate(et["ranks_ops"]):
+        check(ops == got_ep["op_counts"],
+              f"dryrun: mesh_ep's deepseek rank {r} recorded {ops}, the dry run reckons "
+              f"{got_ep['op_counts']}")
     check(seconds <= DRYRUN["limit_s"],
           f"dryrun: the phase took {seconds} s, past its {DRYRUN['limit_s']} s")
 
@@ -5211,7 +5833,7 @@ def _cloned(c):
 
 def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
                   attention=None, traffic=LM, held=None, inputs=None,
-                  cache_kw=None, compress=True, plan=None, whole=None):
+                  cache_kw=None, compress=True, plan=None, whole=None, timings=None):
     """One route through prefill, compression and teacher-forced decode:
     (last-position f32 logits of the prefill and of each step, the prefill
     caches, a copy of the compressed caches as the steps found them).
@@ -5223,10 +5845,14 @@ def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
     raw caches (then the copy is of those). On a mesh's model axis:
     ``plan`` (``make_plan``), ``cache_kw=dict(tp_size=)`` and ``whole``,
     which puts one rank's last-position logits (its rows, its vocabulary
-    columns) together into the whole batch's."""
+    columns) together into the whole batch's. ``timings``: a dict that
+    receives the prefill's and the decode steps' seconds (``prefill_s``,
+    ``decode_s``; host clock, the card synchronised at each end)."""
     from repro_torch.serve.kv_compression import compress_model_caches
 
     B, S = tok.shape
+    sync_ = torch.cuda.synchronize if tok.is_cuda else (lambda: None)
+    t0 = time.perf_counter()
     with torch.inference_mode(), _attention_as(attention), \
             (_attention_held(held) if held is not None else contextlib.nullcontext()):
         raw = bundle.init_caches(B, S + traffic["new_tokens"], device=tok.device,
@@ -5239,15 +5865,22 @@ def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
             return (x[:, -1] if whole is None else whole(x[:, -1])).float()
 
         out = [last(logits)]
+        if timings is not None:
+            sync_()
+            timings["prefill_s"] = time.perf_counter() - t0
         comp = (compress_model_caches(raw, traffic["t"], traffic["m"],
                                       tail=traffic["tail"], impl=compress_impl)
                 if compress else raw)
         start = _cloned(comp)
+        t0 = time.perf_counter()
         for i in range(steps.shape[1]):
             logits, comp = bundle.decode_step(model, comp,
                                               {"tokens": steps[:, i:i + 1]},
                                               impl=impl, **pl)
             out.append(last(logits))
+        if timings is not None:
+            sync_()
+            timings["decode_s"] = time.perf_counter() - t0
     return out, raw, start
 
 
@@ -5522,13 +6155,14 @@ class RoutingPin:
             rec = torch.zeros_like(own).scatter_(-1, want, True)
             differ = own ^ rec
             rows = differ.any(dim=-1)
+            pd = probs.detach()  # the counts hold no graph
             if k < e:
-                srt = torch.sort(probs, dim=-1, descending=True).values
+                srt = torch.sort(pd, dim=-1, descending=True).values
                 edge = 0.5 * (srt[:, k - 1] + srt[:, k])
             else:  # every expert is chosen: no boundary
-                edge = torch.ones_like(probs[:, 0])
-            gap = torch.where(differ, (probs - edge[:, None]).abs()
-                              / edge[:, None], torch.zeros_like(probs)).amax(dim=-1)
+                edge = torch.ones_like(pd[:, 0])
+            gap = torch.where(differ, (pd - edge[:, None]).abs()
+                              / edge[:, None], torch.zeros_like(pd)).amax(dim=-1)
             near = rows & (gap <= self.BAND)
             far = rows & ~near
             take = rows if self.pin_far else near
@@ -6096,7 +6730,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    if {"sharded", "train_mesh", "mesh_tp"} & set(phases):
+    if {"sharded", "train_mesh", "mesh_tp", "mesh_ep", "dryrun"} & set(phases):
         from repro_torch.launch.mesh import start_rank_server, stop_rank_server
 
         start_rank_server()  # the ranks' server imports in the background
@@ -6140,8 +6774,9 @@ def main() -> int:
             phase_train_family(state, which, profile="profile" in phases)
     if "train_mesh" in phases:
         phase_train_mesh(state)
-    if "mesh_tp" in phases:
-        phase_mesh_tp(state)
+    mesh = tuple(p for p in ("mesh_tp", "mesh_ep") if p in phases)
+    if mesh:  # one spawn for both
+        phase_mesh(state, mesh)
     if "lm" in phases:
         phase_lm(state)
     if "dryrun" in phases:
@@ -6168,6 +6803,7 @@ def main() -> int:
                  "select": state.get("select_counts", {}),
                  **{w: state.get(f"{w}_counts", {}) for w in TRAIN_FAMILIES},
                  "mesh_tp": state.get("mesh_tp_counts", {}),
+                 "mesh_ep": state.get("mesh_ep_counts", {}),
                  "lm": state.get("lm_counts", {}),
                  "lm_moe": state.get("lm_moe_counts", {}),
                  "lm_hybrid": state.get("lm_hybrid_counts", {}),
@@ -6184,6 +6820,7 @@ def main() -> int:
                   "select": state.get("select_routes", {}),
                   **{w: state.get(f"{w}_routes", {}) for w in TRAIN_FAMILIES},
                   "mesh_tp": state.get("mesh_tp_routes", {}),
+                  "mesh_ep": state.get("mesh_ep_routes", {}),
                   "lm": state.get("lm_routes", {}),
                   "lm_moe": state.get("lm_moe_routes", {}),
                   "lm_hybrid": state.get("lm_hybrid_routes", {}),

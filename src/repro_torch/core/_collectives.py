@@ -39,8 +39,10 @@ the same card (several ranks sharing one GPU, as the chip smoke runs
 them), the copies (``gather_rows``, ``broadcast``, ``ring_shift`` and
 ``sum_scatter``'s exchange) skip the host: each rank keeps a device
 mailbox of :data:`MAILBOX_BYTES`, opened in every other rank by CUDA IPC
-once (:class:`_Mailbox`), writes its piece there, and the others read it
-device to device between two barriers of the group. The bits are those of the staged path: the same bytes land in
+once (:class:`_Mailbox`), writes its piece into one half of it, and the
+others read it device to device after a barrier of the group; the rounds
+take the two halves in turn, so one barrier a round keeps a half from
+being written again while a rank still reads it. The bits are those of the staged path: the same bytes land in
 the same places, and ``sum_scatter`` adds in rank order either way. The
 reductions (``pmax``, ``pmin``, ``psum``) stay with gloo on the host.
 Mailbox traffic is counted apart (:func:`ipc_counts`). The tests run the
@@ -70,7 +72,7 @@ import torch.distributed as dist
 HOST_STAGED_BACKENDS = ("gloo",)
 
 #: bytes of one rank's device mailbox (ranks of a gloo group on one card):
-#: a larger collective goes through it in pieces
+#: a collective larger than half of it goes through it in pieces
 MAILBOX_BYTES = 1 << 28
 
 # op name -> [staged calls, staged bytes] (the tensors sent)
@@ -139,15 +141,29 @@ def _count(table: Dict[Any, list], op: Any, nbytes: int) -> None:
 
 
 class _Mailbox:
-    """One buffer of ``nbytes`` for each rank of a group, every rank's
-    mapped in this process: ``boxes[j]`` is rank j's buffer, ``buf`` this
-    rank's own. On a card the buffers are device memory opened by CUDA
-    IPC; on the host (:func:`use_host_mailboxes`) files mapped shared."""
+    """One buffer for each rank of a group, every rank's mapped in this
+    process, used in two halves of ``nbytes`` taken in turn, one a round
+    (:meth:`_Axis._round` moves to the other): ``boxes[j]`` is rank j's
+    half of this round, ``buf`` this rank's own. On a card the buffers are
+    device memory opened by CUDA IPC; on the host
+    (:func:`use_host_mailboxes`) files mapped shared."""
 
     def __init__(self, buf: torch.Tensor, boxes: List[torch.Tensor]):
-        self.buf = buf
-        self.boxes = boxes
-        self.nbytes = buf.numel()
+        self._buf = buf
+        self._boxes = boxes
+        self.nbytes = buf.numel() // 2
+        self.turn = 0
+
+    def _half(self, t: torch.Tensor) -> torch.Tensor:
+        return t[self.turn * self.nbytes:(self.turn + 1) * self.nbytes]
+
+    @property
+    def buf(self) -> torch.Tensor:
+        return self._half(self._buf)
+
+    @property
+    def boxes(self) -> List[torch.Tensor]:
+        return [self._half(t) for t in self._boxes]
 
     @staticmethod
     def open(group, index: int, size: int, device: torch.device) -> Optional["_Mailbox"]:
@@ -199,15 +215,26 @@ def use_host_mailboxes(directory: Optional[str], nbytes: int = MAILBOX_BYTES) ->
 
 def release_mailboxes() -> None:
     """Close every mailbox this process opened, group by group: each rank
-    drops its views of the others' buffers, the group waits for all, then
-    each drops its own (so no buffer goes while another rank maps it).
-    Every rank of each group calls it (``spawn_ranks`` does, after the
-    rank's function returns)."""
+    waits for its last reads, drops its views of the others' buffers, the
+    group waits for all, then each drops its own (so no buffer goes while
+    another rank maps it). Every rank of each group calls it
+    (``spawn_ranks`` does, after the rank's function returns)."""
     for (group, _), box in list(_MAILBOXES.items()):
         if box is not None:
-            box.boxes.clear()
+            _wait(box._buf.device)
+            box._boxes.clear()
             dist.barrier(group=group)
     _MAILBOXES.clear()
+
+
+def _wait(device: torch.device) -> None:
+    """Wait for the card's queued work on this rank's stream (nothing on
+    the host) on a blocking event, so a rank sleeps instead of spinning on
+    a core that the other ranks' collectives need."""
+    if device.type == "cuda":
+        done = torch.cuda.Event(blocking=True)
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -324,26 +351,20 @@ class Axis:
             _MAILBOXES[key] = _Mailbox.open(self.group, self.index, self.size, t.device)
         return _MAILBOXES[key]
 
-    def _round(self, device, write: Optional[Callable[[], Any]],
+    def _round(self, box: _Mailbox, write: Optional[Callable[[], Any]],
                read: Callable[[], Any]) -> None:
-        """One exchange through the mailboxes: this rank writes, every rank
-        waits for all, reads, and waits again (then a mailbox may be
-        written anew). The card's copies are waited for on a blocking
-        event, so a rank sleeps instead of spinning on a core that the
-        other ranks' collectives need."""
-        def wait() -> None:
-            if device.type == "cuda":
-                done = torch.cuda.Event(blocking=True)
-                done.record(torch.cuda.current_stream(device))
-                done.synchronize()
-
+        """One exchange through the mailboxes' halves of this round: this
+        rank writes, waits for its card's copies, every rank waits for
+        all, reads; the next round takes the other halves. A half is
+        written again two rounds on, after the next round's barrier, which
+        a rank reaches only once its reads of this one are done (its wait
+        before the barrier covers them)."""
         if write is not None:
             write()
-        wait()
+        _wait(box._buf.device)
         dist.barrier(group=self.group)
         read()
-        wait()
-        dist.barrier(group=self.group)
+        box.turn ^= 1
 
     def _copy_via(self, box: _Mailbox, op: str, src: torch.Tensor,
                   read: Callable[[int, int], Any], write: bool = True) -> None:
@@ -355,7 +376,7 @@ class Axis:
             _count(_IPC, op, n)
         for a in range(0, n, box.nbytes):
             b = min(n, a + box.nbytes)
-            self._round(src.device,
+            self._round(box,
                         (lambda: box.buf[:b - a].copy_(flat[a:b])) if write else None,
                         lambda: read(a, b))
 
@@ -437,9 +458,9 @@ class Axis:
         if box is not None:
             recv = torch.empty_like(t)
             dst = _bytes(recv)
-            nxt = box.boxes[(me + 1) % self.size]
+            nxt = (me + 1) % self.size
             self._copy_via(box, "ring_shift", t,
-                           lambda a, b: dst[a:b].copy_(nxt[:b - a]))
+                           lambda a, b: dst[a:b].copy_(box.boxes[nxt][:b - a]))
             return recv
         h, staged = self._host(t, "ring_shift")
         recv = self._out(h.shape, h.dtype, h, staged)
@@ -496,7 +517,7 @@ class Axis:
                 for peer in box.boxes[1:]:
                     out += piece(peer)[self.index]
 
-            self._round(t.device, lambda a=a, b=b: piece(box.buf).copy_(rows[:, a:b]),
+            self._round(box, lambda a=a, b=b: piece(box.buf).copy_(rows[:, a:b]),
                         read)
         return acc
 

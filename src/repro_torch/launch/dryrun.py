@@ -32,12 +32,15 @@ decode cell one step against a full one. The port traces every layer, so
 the count is direct: the reference's two-point extrapolation (XLA counts
 a scanned layer once) has no counterpart.
 
-The model axis runs the dense and VLM families; the MoE, Mamba and
-enc-dec families on a model axis larger than one wait for ROADMAP.md,
-Queue 1, item 7d, and their cells report ``status: "waits"`` with that
-message. Where the query heads do not divide the model ranks (gemma2-2b's
-8 heads over 16), the port runs the attention replicated, and the dry run
-reckons what the port runs.
+The model axis runs the dense, VLM, MoE (expert parallel: the experts'
+outputs gathered along E, recorded as ``gather_rows``), SSM and hybrid
+families (Mamba by heads: the gated norm's (b, s, 1) partial sums added
+over the ranks, recorded as ``gather_rows`` too); the encoder-decoder on
+a model axis larger than one waits for ROADMAP.md, Queue 1, item 7d, and
+its cells report ``status: "waits"`` with that message. Where the query
+heads, the experts or the SSD heads do not divide the model ranks
+(gemma2-2b's 8 heads over 16), the port runs that module replicated, and
+the dry run reckons what the port runs.
 
 Usage (any machine: it traces on "meta", as the reference's runs on host
 devices):
@@ -347,11 +350,13 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Optional[MeshShape], 
     n_rank_params = sum(p.numel() for p in model.parameters())
     _collectives.reset_op_counts()
     trace = StepTrace(live)
-    with trace, torch.no_grad() if kind != "train" else contextlib.nullcontext():
+    with trace, tensor_parallel.expert_gathers() as experts, \
+            torch.no_grad() if kind != "train" else contextlib.nullcontext():
         out = run()
     del out
     return dict(trace.summary(), records=_collectives.op_records(),
-                op_counts=_collectives.op_counts(), rank_params=n_rank_params)
+                op_counts=_collectives.op_counts(), rank_params=n_rank_params,
+                expert_gather={"calls": len(experts), "bytes": sum(experts)})
 
 
 def _strides(mesh: MeshShape) -> Dict[str, int]:
@@ -449,7 +454,7 @@ def run_cell(
         kernels=got["kernels"],
         collectives={"bytes_per_chip": coll, "bytes_per_chip_by_link": by_link,
                      "op_counts": hlo_utils.collective_op_counts(got["records"]),
-                     "calls": got["op_counts"]},
+                     "calls": got["op_counts"], "expert_gather": got["expert_gather"]},
         roofline=dataclasses.asdict(report),
     )
     if verbose:
@@ -511,7 +516,7 @@ def main(argv=None) -> None:
             waits += res["status"] == "waits"
             print(f"[{a} × {s} × {m}] {res['status'].upper()}: {res['reason']}")
     print(f"\ndry-run finished: {len(cells)} cells, {failures} failures, "
-          f"{waits} waiting for the model axis (ROADMAP.md item 7d)")
+          f"{waits} waiting for the enc-dec on the model axis (ROADMAP.md item 7d)")
     raise SystemExit(1 if failures else 0)
 
 

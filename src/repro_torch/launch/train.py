@@ -22,8 +22,9 @@ run under ``torchrun`` with 8 ranks), ``pod1`` and ``pod2`` ((16, 16) and
 raise). On such a mesh the model is sharded over "model"
 (``bundle.init(mesh=)``: each rank draws its slices, one whole leaf at a
 time) and the step takes the cell's
-``make_plan``; the dense and VLM families run there (MoE, Mamba and the
-enc-dec raise, naming ROADMAP.md, Queue 1, item 7d).
+``make_plan``; the dense, VLM, MoE (expert parallel), SSM and hybrid
+families run there (the enc-dec raises, naming ROADMAP.md, Queue 1, item
+7d).
 
 Over data ranks alone, :func:`train` runs in every rank's process under
 ``runtime.configure(mesh=...)`` (a mesh of ``("data",)`` or ``("pod",
@@ -156,7 +157,8 @@ def check_fits(cfg: ModelConfig, device: torch.device, *, data_ranks: int = 1,
             f"{ranks_per_card} rank(s) on the card), more than its "
             f"{have / 1e9:.1f} GB; cut the depth (--layers) or spread the state "
             f"over data and model ranks on more cards (--mesh; ROADMAP.md, Queue 1, "
-            f"item 7c; MoE, Mamba and the enc-dec on a model axis wait for item 7d)")
+            f"item 7c, and item 7d for the experts and the Mamba heads; the enc-dec "
+            f"on a model axis waits for item 7d's rest)")
 
 
 def batch_dims(shape: ShapeConfig, batch: int = 0, seq: int = 0) -> Tuple[int, int]:

@@ -15,6 +15,10 @@ card); the projections run in the compute dtype, as in the reference.
 
 jamba uses Mamba-1; the reference substitutes this SSD block with jamba's
 dimensions (state 16), and so does the port.
+
+On a model axis (``tp``, ``models.tensor_parallel``) a rank runs its share
+of the SSD heads where the ranks divide them
+(``TensorParallel.mamba_operands``), else the whole block replicated.
 """
 from __future__ import annotations
 
@@ -186,30 +190,51 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ModelConfig, *,
-                cache: Optional[dict] = None
+                cache: Optional[dict] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """The whole block on u (b, s, d). ``cache = {"ssm": (b, h, p, n) f32,
     "conv": (b, k − 1, d_in + 2n)}``: with s = 1 the recurrent step, else
     the chunked scan from the cached state. Returns (out, new cache or
-    None)."""
+    None). ``tp`` (a sharded model's ``TensorParallel``): this rank's heads
+    and d_inner columns (the cache holds them: ``init_mamba_cache``'s
+    ``tp_size``), the output summed over the model ranks; or, where the
+    heads do not divide the ranks, the block replicated."""
     b, s, _ = u.shape
     dt_ = u.dtype
     d_in, h, hp, n = dims(cfg)
+    part = None
+    if tp is None:
+        w = {k: getattr(p, k) for k in mamba_specs(cfg)}
+    else:
+        w, part = tp.mamba_operands(p)
+    if part is None:
+        def cols(name):
+            return u @ w[name].to(dt_)
+    else:  # this rank's columns (see TensorParallel.mamba_operands)
+        d_in = part[1]
+        h = d_in // hp
+        uc = tp.copy(u.float())  # one sum of the three projections' gradients
 
-    z = u @ p.wz.to(dt_)
-    x = u @ p.wx.to(dt_)
-    Br = u @ p.wB.to(dt_)
-    Cr = u @ p.wC.to(dt_)
-    dt_raw = u @ p.wdt.to(dt_)
+        def cols(name):
+            return (uc @ w[name].to(dt_).float()).to(dt_)
+
+    z = cols("wz")
+    x = cols("wx")
+    Br = u @ w["wB"].to(dt_)  # B, C and their conv: whole on every rank
+    Cr = u @ w["wC"].to(dt_)
+    dt_raw = cols("wdt")
 
     xbc = torch.cat([x, Br, Cr], dim=-1)
-    xbc, new_conv = causal_conv(xbc, p.conv_w.to(dt_), p.conv_b.to(dt_),
+    xbc, new_conv = causal_conv(xbc, w["conv_w"].to(dt_), w["conv_b"].to(dt_),
                                 cache["conv"] if cache is not None else None)
     xbc = nn.functional.silu(xbc.float()).to(dt_)
     x, Br, Cr = torch.split(xbc, [d_in, n, n], dim=-1)
+    Bf, Cf = Br.float(), Cr.float()  # the scan's operands
+    if part is not None:  # into this rank's heads: their gradients summed in f32
+        Bf, Cf = torch.split(tp.copy(torch.cat([Bf, Cf], dim=-1)), [n, n], dim=-1)
 
-    dt = softplus(dt_raw.float() + p.dt_bias.float())     # (b, s, h)
-    A = -torch.exp(p.A_log.float())
+    dt = softplus(dt_raw.float() + w["dt_bias"].float())  # (b, s, h)
+    A = -torch.exp(w["A_log"].float())
     xh = x.reshape(b, s, h, hp)
     x_dt = xh.float() * dt[..., None]
     a_log = dt * A
@@ -218,27 +243,38 @@ def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ModelConfig, *,
     if cache is not None and s == 1:  # the recurrent decode step
         st = cache["ssm"].float()                         # (b, h, p, n)
         dec = torch.exp(a_log[:, 0, :])
-        outer = x_dt[:, 0, :, :, None] * Br[:, 0].float()[:, None, None, :]
+        outer = x_dt[:, 0, :, :, None] * Bf[:, 0][:, None, None, :]
         st = st * dec[..., None, None] + outer
-        y = torch.einsum("bn,bhpn->bhp", Cr[:, 0].float(), st)[:, None]
+        y = torch.einsum("bn,bhpn->bhp", Cf[:, 0], st)[:, None]
         new_cache = {"ssm": st, "conv": new_conv}
     else:
         init = cache["ssm"] if cache is not None else None
-        y, final = ssd_chunked(x_dt, a_log, Br, Cr, init_state=init)
+        y, final = ssd_chunked(x_dt, a_log, Bf, Cf, init_state=init)
         if cache is not None:
             new_cache = {"ssm": final, "conv": new_conv}
 
-    y = y + p.D.float()[None, None, :, None] * xh.float()
+    y = y + w["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, s, d_in).to(dt_)
     gated = y * nn.functional.silu(z.float()).to(dt_)
-    gated = rms_norm(gated, p.norm, cfg.norm_eps)
-    return gated @ p.out.to(dt_), new_cache
+    if part is None:
+        gated = rms_norm(gated, w["norm"], cfg.norm_eps)
+        return gated @ w["out"].to(dt_), new_cache
+    gated = tp.rms_norm(gated, w["norm"], cfg.norm_eps, dims(cfg)[0])
+    # the row-parallel partials add in f32 and round once, as one device's
+    # product rounds once (bf16 partials would round every rank's share)
+    out = gated.float() @ w["out"].to(dt_).float()
+    return tp.reduce(out).to(dt_), new_cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, *, dtype=COMPUTE_DTYPE,
-                     device=None) -> dict:
-    """Zero state: ``ssm`` in f32, ``conv`` in the compute dtype."""
+                     device=None, tp_size: int = 1) -> dict:
+    """Zero state: ``ssm`` in f32, ``conv`` in the compute dtype.
+    ``tp_size``: the ranks the heads are split over (1: the whole state);
+    one rank's state holds its heads of ``ssm`` and its x channels then
+    all of B and C of ``conv`` (``tensor_parallel.mamba_heads_local``
+    decides where the split is taken)."""
     d_in, h, hp, n = dims(cfg)
+    d_in, h = d_in // tp_size, h // tp_size
     return {"ssm": torch.zeros((batch, h, hp, n), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_in + 2 * n), dtype=dtype,
                                 device=device)}

@@ -13,6 +13,11 @@ The arithmetic follows the reference step by step: the router product
 and softmax in f32 (TF32 off on the card), top-k ties toward the lowest
 expert index, integer slot ranks (bitwise), the expert products in the
 compute dtype, the weighted combine in f32 cast back at the end.
+
+On a model axis (``tp``, ``models.tensor_parallel``) a rank runs the
+products of its experts only, on its rows of the (G, E, C, d) buffer; the
+outputs are gathered along E and every rank runs the one-device combine
+(the k slots added in the one-device order).
 """
 from __future__ import annotations
 
@@ -115,9 +120,12 @@ class MoE(nn.Module):
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
-              capacity_factor: Optional[float] = None
+              capacity_factor: Optional[float] = None, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(output (b, s, d) in x's dtype, aux load-balancing loss () f32)."""
+    """(output (b, s, d) in x's dtype, aux load-balancing loss () f32).
+    ``tp`` (a sharded model's ``TensorParallel``): this rank's experts
+    (``TensorParallel.expert_share``) and the shared MLP's column/row pair;
+    the output is the same bits on every model rank."""
     b, s, d = x.shape
     dt = x.dtype
     e, k = cfg.n_experts, cfg.n_experts_per_tok
@@ -131,27 +139,42 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     topv, topi = top_k(probs, k)                                # (T, k)
     topv = topv / torch.clamp_min(topv.sum(dim=-1, keepdim=True), 1e-9)
 
-    # aux loss (Switch): E · Σ_e fraction of slots_e · mean prob_e
-    counts = torch.bincount(topi.reshape(-1), minlength=e).float()
+    # aux loss (Switch): E · Σ_e fraction of slots_e · mean prob_e (the
+    # slot counts as an integer scatter: bincount has no meta kernel)
+    ids = topi.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+        0, ids, torch.ones_like(ids)).float()
     aux = e * torch.sum(counts / (t * k) * probs.mean(dim=0))
 
-    # dispatch to (G, E, C, d)
+    # dispatch to (G, E_local, C, d): every expert here, or this rank's
     ng, capacity = capacity_of(cfg, t, capacity_factor)
     tg = t // ng
     flat, ok = dispatch_indices(topi.reshape(ng, tg * k), e, capacity)
-    rows = e * capacity + 1                                     # + the sink row
-    src = token_slots(xt, k)
-    gidx = (flat + rows * torch.arange(ng, device=x.device)[:, None]).reshape(-1)
+    share = None if tp is None else tp.expert_share(p)
+    el, local = e, flat
+    if share is not None:  # this rank's experts: other slots go to the sink
+        first, el = share
+        lo = first * capacity
+        mine = ok & (flat >= lo) & (flat < lo + el * capacity)
+        local = torch.where(mine, flat - lo, torch.full_like(flat, el * capacity))
+        xt_in = tp.copy(xt)
+    else:
+        xt_in = xt
+    rows = el * capacity + 1                                    # + the sink row
+    src = token_slots(xt_in, k)
+    gidx = (local + rows * torch.arange(ng, device=x.device)[:, None]).reshape(-1)
     buf = torch.zeros((ng * rows, d), dtype=dt, device=x.device)
     buf.index_copy_(0, gidx, src)  # dropped slots all land on the sink rows
-    buf = buf.reshape(ng, rows, d)[:, :e * capacity].reshape(ng, e, capacity, d)
+    buf = buf.reshape(ng, rows, d)[:, :el * capacity].reshape(ng, el, capacity, d)
 
     # the experts: grouped products over the expert axis
-    xe = buf.permute(1, 0, 2, 3).reshape(e, ng * capacity, d)
+    xe = buf.permute(1, 0, 2, 3).reshape(el, ng * capacity, d)
     g = torch.bmm(xe, p.gate.to(dt))
     u = torch.bmm(xe, p.up.to(dt))
     h = nn.functional.silu(g) * u
-    out_buf = torch.bmm(h, p.down.to(dt))                       # (E, G·C, d)
+    out_buf = torch.bmm(h, p.down.to(dt))                       # (E_local, G·C, d)
+    if share is not None:  # every rank's experts, in order: (E, G·C, d)
+        out_buf = tp.gather(out_buf, 0)
     out_flat = out_buf.reshape(e, ng, capacity, d).permute(1, 0, 2, 3).reshape(
         ng * e * capacity, d)
 
@@ -164,5 +187,5 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     weighted = slot_out.float() * topv.reshape(-1)[:, None]
     out = weighted.reshape(t, k, d).sum(dim=1).to(dt)
     if cfg.n_shared_experts:
-        out = out + p.shared(xt)
+        out = out + p.shared(xt, tp)
     return out.reshape(b, s, d), aux.float()

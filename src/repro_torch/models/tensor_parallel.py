@@ -40,21 +40,50 @@ Where each module runs (:class:`TensorParallel`):
     lookup then the sum (one rank is non-zero for each token: exact), the
     tied unembedding gives this rank's columns of the logits, the final
     softcap and the padding mask by the global column index;
-  * the loss (:meth:`TensorParallel.cross_entropy`): vocabulary-parallel.
+  * the loss (:meth:`TensorParallel.cross_entropy`): vocabulary-parallel;
+  * the MoE (expert parallel, :meth:`TensorParallel.expert_share`): where
+    the model ranks divide the experts a rank holds E/M of them
+    (``moe_specs``' dim 0). The router, top-k, dispatch and aux loss run
+    on the replicated residual stream, so every rank routes the same
+    way; the tokens enter this rank's experts through :func:`copy_to`,
+    their outputs are gathered along E (an exact copy; its backward is
+    this rank's slice), and the one-device combine runs on every rank.
+    Where the experts do not divide, every rank holds them all and the
+    MoE runs replicated. The shared experts are the MLP's pair;
+  * Mamba (:meth:`TensorParallel.mamba_operands`): where the model ranks
+    divide the SSD heads, ``wz``/``wx``/``wdt`` are column-parallel,
+    ``A_log``/``D``/``dt_bias`` taken by head and ``out`` row-parallel;
+    ``wB``/``wC`` and the conv of B and C run whole on every rank, the
+    conv's x channels and the gate norm at this rank's columns (one
+    :meth:`~TensorParallel.copy_many` of the three); B and C enter this
+    rank's heads through one :func:`copy_to` in f32, so the heads'
+    partial gradients add before they round to bf16; the gated norm's
+    sum of squares over d_inner is one :func:`rank_sum` of a (b, s, 1)
+    partial. The partial products stay f32 until their sums, which then
+    round to bf16 once, as one device's products round: ``out``'s, and the
+    input gradient of ``wz``/``wx``/``wdt``'s columns, which enter through
+    one f32 :func:`copy_to` (bf16 partials, rounded on every rank, moved a
+    deep Mamba stack's step-0 gradients further from one device's;
+    ``tests/mamba_tp_rounding_check.py`` measures what remains). The
+    decode cache holds this rank's heads of ``ssm`` and its
+    x channels plus B and C of ``conv``. Where the heads do not divide
+    (d_inner may: the column specs then split a head), the weights are
+    gathered whole and the block runs replicated.
 
-Only the dense and VLM families run on a model axis larger than one; MoE
-(expert parallel), Mamba heads and the encoder-decoder raise
+The encoder-decoder raises on a model axis larger than one
 (:func:`check_model_axis`), as does ``heads_mode="seq"`` (a plan with a
 ``kv`` spec): ROADMAP.md, Queue 1, item 7d.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba2
 
 #: the mesh dimension of tensor parallelism
 MODEL = "model"
@@ -85,20 +114,19 @@ def model_ranks(mesh) -> int:
 def check_model_axis(cfg: ModelConfig, tp_size: int) -> None:
     """Raise where ``cfg`` cannot run on a model axis of ``tp_size`` ranks
     (before anything is built)."""
-    if tp_size <= 1:
-        return
-    what = None
-    if cfg.family == "encdec-audio":
-        what = "the encoder-decoder"
-    elif cfg.n_experts:
-        what = "MoE layers (expert parallel)"
-    elif any(cfg.layer_kind(l) == "mamba" for l in range(cfg.n_layers)):
-        what = "Mamba heads"
-    if what is not None:
+    if tp_size > 1 and cfg.family == "encdec-audio":
         raise NotImplementedError(
-            f"{cfg.name}: {what} over a model axis of {tp_size} ranks wait for "
-            f"ROADMAP.md, Queue 1, item 7d; the model axis runs the dense and VLM "
-            f"families")
+            f"{cfg.name}: the encoder-decoder over a model axis of {tp_size} ranks "
+            f"waits for ROADMAP.md, Queue 1, item 7d; the model axis runs the dense, "
+            f"VLM, MoE, SSM and hybrid families")
+
+
+def mamba_heads_local(cfg: ModelConfig, tp_size: int) -> bool:
+    """Whether a rank of ``tp_size`` model ranks runs its share of the SSD
+    heads (the ranks divide them) rather than the whole Mamba block
+    replicated: the layout of the weights (:class:`TensorParallel`) and of
+    the decode cache (``transformer.init_lm_caches``)."""
+    return tp_size > 1 and bool(cfg.ssm_state) and mamba2.dims(cfg)[1] % tp_size == 0
 
 
 def cache_kv_heads(cfg: ModelConfig, tp_size: int) -> int:
@@ -176,6 +204,22 @@ def gather_from(w: torch.Tensor, axis, dim: int) -> torch.Tensor:
     return _GatherFrom.apply(w, axis, dim)
 
 
+# the bytes each TensorParallel.gather hands in while expert_gathers runs
+_GATHERS: Optional[List[int]] = None
+
+
+@contextlib.contextmanager
+def expert_gathers() -> Iterator[List[int]]:
+    """While the block runs, the bytes this rank hands to each gather of
+    the experts' outputs (:meth:`TensorParallel.gather`), in call order."""
+    global _GATHERS
+    outer, _GATHERS = _GATHERS, []
+    try:
+        yield _GATHERS
+    finally:
+        _GATHERS = outer
+
+
 # ------------------------------------------------------------- the layout
 class TensorParallel:
     """A sharded model's place on the model axis: the ``axis``, the
@@ -199,6 +243,14 @@ class TensorParallel:
                     f"{hkv} kv heads ({g} queries each) on {self.size} model ranks")
             lo = self.index * per // g
             self.kv_range = (lo, ((self.index + 1) * per - 1) // g + 1)
+        # the MoE: experts over the ranks where they divide, else replicated
+        self.experts_local = bool(cfg.n_experts) and cfg.n_experts % self.size == 0
+        # Mamba: heads over the ranks where they divide, else replicated
+        self.mamba_local = mamba_heads_local(cfg, self.size)
+        self.mamba_dims: Dict[str, Optional[int]] = {}
+        if cfg.ssm_state:
+            self.mamba_dims = {n: model_dim(sp) for n, sp in
+                               mamba2.mamba_specs(cfg, MODEL, self.size).items()}
 
     # ---- the plan
     def check_plan(self, plan) -> None:
@@ -220,9 +272,25 @@ class TensorParallel:
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return reduce_from(x, self.axis)
 
+    def copy_many(self, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """:meth:`copy` of several tensors at once, through one f32 buffer
+        (each returned in its own dtype and shape): one sum of their
+        gradients."""
+        flat = self.copy(torch.cat([t.reshape(-1).float() for t in ts]))
+        parts = torch.split(flat, [t.numel() for t in ts])
+        return tuple(x.view(t.shape).to(t.dtype) for x, t in zip(parts, ts, strict=True))
+
     def whole(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """``w`` whole (gathered along ``dim``; ``dim`` None: it is whole)."""
         return w if dim is None else gather_from(w, self.axis, dim)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` along ``dim`` in rank order (an exact copy);
+        its gradient is this rank's slice. The MoE's experts' outputs come
+        back through here (:func:`expert_gathers` counts them)."""
+        if _GATHERS is not None:
+            _GATHERS.append(t.numel() * t.element_size())
+        return gather_from(t, self.axis, dim)
 
     def attention_operands(self, p, x: torch.Tensor) -> dict:
         """What one attention layer computes with on this rank: the inputs
@@ -249,6 +317,53 @@ class TensorParallel:
                     w[n] = self.copy(self.whole(w[n], dim))
         return dict(xq=xq, xkv=xq, w=w, hq=cfg.n_heads // self.size, hkv=hkv,
                     kv_range=self.kv_range, partial=True)
+
+    def expert_share(self, p) -> Optional[Tuple[int, int]]:
+        """The experts of one MoE layer this rank holds and runs: (first,
+        count) where they are sharded (expert parallel; ``p.gate`` holds
+        them), None where every rank holds and runs all of them
+        (``moe_specs`` keeps them whole where the ranks do not divide their
+        count)."""
+        if not self.experts_local:
+            return None
+        per = p.gate.shape[0]
+        return self.index * per, per
+
+    def mamba_operands(self, p) -> Tuple[Dict[str, torch.Tensor],
+                                          Optional[Tuple[int, int]]]:
+        """One Mamba block's weights by name as this rank computes with
+        them, and the d_inner columns it holds: (first, count) where the
+        heads are this rank's (the conv and the gate norm taken at this
+        rank's x channels, whose gradients sum over the ranks; the conv
+        keeps B and C whole), None where the block runs replicated (every
+        weight gathered whole)."""
+        w = {n: getattr(p, n) for n in self.mamba_dims}
+        if not self.mamba_local:
+            return {n: self.whole(t, self.mamba_dims[n]) for n, t in w.items()}, None
+        d_in = mamba2.dims(self.cfg)[0]
+        per = d_in // self.size
+        lo = self.index * per
+        # the x channels' conv and the norm, used at this rank's columns: one
+        # copy (one sum of their gradients); B's and C's conv runs whole
+        cw, cb, norm = self.copy_many(w["conv_w"][:, :d_in], w["conv_b"][:d_in],
+                                      w["norm"])
+        w["conv_w"] = torch.cat([cw.narrow(1, lo, per), w["conv_w"][:, d_in:]], dim=1)
+        w["conv_b"] = torch.cat([cb.narrow(0, lo, per), w["conv_b"][d_in:]])
+        w["norm"] = norm.narrow(0, lo, per)
+        return w, (lo, per)
+
+    def rms_norm(self, x: torch.Tensor, w: torch.Tensor, eps: float,
+                 width: int) -> torch.Tensor:
+        """``layers.rms_norm`` of a tensor whose last dimension is this
+        rank's columns of ``width``: the sum of squares over all of them
+        (this rank's (…, 1) partial in f32, added over the ranks in rank
+        order; its gradient summed back over the ranks), then this rank's
+        columns normalised."""
+        dt = x.dtype
+        x = x.float()
+        part = torch.sum(torch.square(x), dim=-1, keepdim=True)
+        var = self.reduce(self.copy(part)) / width
+        return (x * torch.rsqrt(var + eps) * (1.0 + w.float())).to(dt)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         """The vocabulary-parallel lookup: this rank's rows, zeros for the

@@ -205,7 +205,8 @@ class Block(nn.Module):
                 cache: Optional[dict], impl: Optional[str], tp=None
                 ) -> Tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
         """(x, the layer's new cache, the MoE aux loss or None); ``tp``: the
-        model's ``TensorParallel`` (attention and MLP on this rank's part)."""
+        model's ``TensorParallel`` (attention or Mamba, then the MoE or the
+        MLP, on this rank's part)."""
         cfg = self.cfg
         aux = None
         h = rms_norm(x, self.ln1, cfg.norm_eps)
@@ -214,14 +215,14 @@ class Block(nn.Module):
                                                 positions=positions, cache=cache,
                                                 impl=impl, tp=tp)
         else:
-            y, new_cache = mamba2.mamba_apply(self.mamba, h, cfg, cache=cache)
+            y, new_cache = mamba2.mamba_apply(self.mamba, h, cfg, cache=cache, tp=tp)
         if cfg.post_norm:
             y = rms_norm(y, self.ln1_post, cfg.norm_eps)
         x = x + y
         if hasattr(self, "ln2"):
             h2 = rms_norm(x, self.ln2, cfg.norm_eps)
             if hasattr(self, "moe"):
-                y2, aux = moe_mod.moe_apply(self.moe, h2, cfg)
+                y2, aux = moe_mod.moe_apply(self.moe, h2, cfg, tp=tp)
             else:
                 y2 = self.mlp(h2, tp)
             if cfg.post_norm:
@@ -424,17 +425,19 @@ def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     list (an attention layer's KV cache or a Mamba layer's state) with the
     reference's stack plan beside it. ``tp_size``: the caches of one rank
     of a model sharded over that many model ranks (its kv heads,
-    ``tensor_parallel.cache_kv_heads``)."""
-    from repro_torch.models.tensor_parallel import cache_kv_heads
+    ``tensor_parallel.cache_kv_heads``; its Mamba heads,
+    ``tensor_parallel.mamba_heads_local``)."""
+    from repro_torch.models.tensor_parallel import cache_kv_heads, mamba_heads_local
 
     n_prefix, period, _ = stack_plan(cfg)
     heads = cache_kv_heads(cfg, tp_size)
+    ssm_split = tp_size if mamba_heads_local(cfg, tp_size) else 1
     return {
         "layers": [attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device,
                                    kv_heads=heads)
                    if cfg.layer_kind(l) == "attn"
                    else mamba2.init_mamba_cache(cfg, batch, dtype=dtype,
-                                                device=device)
+                                                device=device, tp_size=ssm_split)
                    for l in range(cfg.n_layers)],
         "n_prefix": n_prefix,
         "period": period,

@@ -37,8 +37,8 @@ grad norm adds the squares of model-sharded leaves over the model ranks
 in rank order (replicated leaves once). Every model rank then holds the
 same bits of every replicated leaf; the step is within rounding of the
 one-device step (the row-parallel sums add in another order), not bitwise.
-MoE, Mamba heads and the enc-dec on a model axis wait for ROADMAP.md,
-Queue 1, item 7d.
+The MoE runs expert parallel and Mamba by heads there; the enc-dec on a
+model axis waits for ROADMAP.md, Queue 1, item 7d.
 """
 from __future__ import annotations
 

@@ -35,9 +35,10 @@ the prompts) and a 2-head gemma2 at (1, 4) (the attention replicated):
   * the model drawn from a seed on a mesh (each rank's slices, one whole
     leaf at a time) bitwise the one-device draw sliced.
 
-Also: MoE, Mamba and the enc-dec on a model axis raise naming item 7d
-before anything is built, and the launcher's ``--mesh debug`` at
-``--smoke --device cpu`` trains over 8 spawned ranks.
+Also: the enc-dec on a model axis raises naming item 7d before anything
+is built while MoE and Mamba go on (tests/test_torch_ep.py runs them),
+and the launcher's ``--mesh debug`` at ``--smoke --device cpu`` trains
+over 8 spawned ranks.
 """
 import dataclasses
 import functools
@@ -208,12 +209,15 @@ def _by_path(named: dict, arch) -> dict:
             for path, parts in tree_flatten_with_paths(named, cfg=_cfg(arch))}
 
 
-def _check_train(got: dict, want: dict, grads_ref: dict, arch, what, *, lr_ulps=0):
+def _check_train(got: dict, want: dict, grads_ref: dict, arch, what, *, lr_ulps=0,
+                 grad_ulps=GRAD_ULPS, leaf_ulps=None):
     """A run's metrics, step-0 gradients and final weights (``got``, by
     reference path) within tests/test_torch_train.py's bounds of
     ``want``'s; the weights' mean over the elements whose reference step-0
     gradient (``grads_ref``) is beyond the gradient bound; the learning
-    rate within ``lr_ulps`` f32 ulps (0: equal)."""
+    rate within ``lr_ulps`` f32 ulps (0: equal). ``grad_ulps``: the step-0
+    gradients' bound (bf16 ulps of a leaf's largest |g|); ``leaf_ulps``:
+    {reference path: bound} where one leaf takes another."""
     lr_sum = sum(m["lr"] for m in want["mets"])
     for s, (g, w) in enumerate(zip(got["mets"], want["mets"], strict=True)):
         for k in ("loss", "grad_norm"):
@@ -224,7 +228,8 @@ def _check_train(got: dict, want: dict, grads_ref: dict, arch, what, *, lr_ulps=
     for path, g in want["grads0"].items():
         top = float(np.abs(g).max())
         err = float(np.abs(got["grads0"][path] - g).max())
-        assert err <= GRAD_ULPS * bf16_ulp(top) if top else err == 0.0, \
+        ulps = (leaf_ulps or {}).get(path, grad_ulps)
+        assert err <= ulps * bf16_ulp(top) if top else err == 0.0, \
             (what, path, err, top)
     for path, p in want["params"].items():
         d = np.abs(got["params"][path] - p)
@@ -373,9 +378,11 @@ def test_a_tensor_parallel_checkpoint_restores_on_one_device_and_back(ranks, one
 def _slot_agreement(got, want, rows, heads):
     """Share of (layer, row, head, slot) entries of this rank's compressed
     caches equal to ``want``'s (whole caches) within one bf16 ulp (k, v)
-    and SUM_TOL (mass)."""
+    and SUM_TOL (mass); a Mamba layer (no "k") holds none."""
     agree = total = 0
     for cg, cw in zip(got, want, strict=True):
+        if "k" not in cw:
+            continue
         assert cg["pos"] == cw["pos"]
         P = cw["pos"]
         sl = (slice(*rows), slice(*heads) if heads else slice(None))
@@ -391,10 +398,13 @@ def _slot_agreement(got, want, rows, heads):
 
 def _whole_raw(outs, cfg):
     """Every rank's raw prefill caches put together: the whole batch, every
-    kv head."""
+    kv head (a Mamba layer's entry stays empty: the compression passes it)."""
     first = outs[0]["raw"]
     layers = []
     for l, c in enumerate(first["layers"]):
+        if "k" not in c:
+            layers.append(c)
+            continue
         shape = (tpr.SERVE["batch"], cfg.n_kv_heads) + tuple(c["k"].shape[2:])
         whole = {k: torch.zeros(shape, dtype=torch.bfloat16) for k in ("k", "v")}
         for o in outs:  # bf16 values widened to f32 by the ranks: exact
@@ -472,21 +482,31 @@ def test_a_seeded_draw_on_a_mesh_is_the_one_device_draw_sliced(ranks, shape, arc
             assert o["local"][n].tobytes() == tpr._np(p).tobytes(), (o["rank"], n)
 
 
-# ------------------------------------------------------------- what waits
+# ------------------------------------------------------------- what runs, what waits
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-370m",
                                   "seamless-m4t-large-v2"])
 def test_moe_mamba_and_encdec_on_a_model_axis_name_item_7d(arch, monkeypatch):
+    """What runs and what waits on a model axis: the MoE (expert parallel)
+    and Mamba heads pass ``check_model_axis`` and the launcher's ``--mesh
+    debug`` goes on to start its ranks (tests/test_torch_ep.py trains
+    them); the enc-dec raises, naming item 7d, before any rank starts."""
     def no_spawn(*a, **kw):
         raise AssertionError("ranks were started")
 
     monkeypatch.setattr(launcher, "spawn_ranks", no_spawn)
     monkeypatch.setattr(launcher, "init_state", no_spawn)
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        launcher.main(["--arch", arch, "--smoke", "--mesh", "debug", "--steps", "1",
-                       "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        check_model_axis(_cfg(arch), 2)
+    argv = ["--arch", arch, "--smoke", "--mesh", "debug", "--steps", "1",
+            "--device", "cpu"]
     check_model_axis(_cfg(arch), 1)
+    if arch == "seamless-m4t-large-v2":
+        with pytest.raises(NotImplementedError, match="item 7d"):
+            launcher.main(argv)
+        with pytest.raises(NotImplementedError, match="item 7d"):
+            check_model_axis(_cfg(arch), 2)
+        return
+    check_model_axis(_cfg(arch), 2)
+    with pytest.raises(AssertionError, match="ranks were started"):
+        launcher.main(argv)
 
 
 def test_context_parallel_plans_name_item_7d():

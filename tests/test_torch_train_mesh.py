@@ -771,3 +771,46 @@ def test_chip_mesh_tp_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     assert all(h["prefill"]["calls"] == 1 and h["decode"]["calls"] == 2 * 4
                for h in line["serve"]["k5_held"])
     assert len(line["per_rank"]) == 8
+
+
+def test_chip_mesh_ep_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py``'s mesh_ep phase, its control flow on the CPU:
+    deepseek-moe-16b and mamba2-370m at their smoke configs cut to 2 and 8
+    layers over 8 gloo ranks at (data 2, model 4) (one expert and two SSD
+    heads a rank), b 8, s 32, a 64-token prompt, 8 new tokens and 4 forced
+    steps (mamba2: 4 decode steps); the one-device trainer's routing
+    replayed on the ranks, the ranks' serving routing replayed on one
+    device; every check of the phase holds (the time limit, the launch
+    counts and the memory checks are the card's)."""
+    import chip_smoke
+
+    from repro_torch import configs
+
+    failed = []
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda cond, msg: None if cond else failed.append(msg))
+    for k, v in dict(seq=32, prompt=64, new_tokens=8, forced_steps=4, tail=8,
+                     timeout=LIMIT_S).items():
+        monkeypatch.setitem(chip_smoke.MESH_TP, k, v)
+    monkeypatch.setitem(chip_smoke.MESH_EP, "ssm_steps", 4)
+    for arch in ("deepseek-moe-16b", "mamba2-370m"):
+        monkeypatch.setitem(configs.ARCHS, arch, smoke_config(ARCHS[arch]))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    state = {}
+    chip_smoke.phase_mesh_ep(state)
+    assert not failed, failed
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    moe = next(d for d in out if d.get("phase") == "mesh_ep_moe")
+    ssm = next(d for d in out if d.get("phase") == "mesh_ep_ssm")
+    for line in (moe, ssm):
+        assert line["train"]["repeat_bitwise"] and line["train"]["replicated_equal"]
+        assert len(line["per_rank"]) == 8
+    assert moe["serve"]["slot_agreement"] >= 0.999 and ssm["serve"]["slot_agreement"] is None
+    assert all(h["prefill"]["calls"] == 2 and h["decode"]["calls"] == 2 * 4
+               for h in moe["serve"]["k5_held"])
+    assert moe["train"]["pinned_to_one_device"]["far"] == 0
+    assert all(sum(r["expert_gather_bytes_per_step"]) > 0 for r in moe["per_rank"])
+    assert all(sum(r["expert_gather_bytes_per_step"]) == 0 for r in ssm["per_rank"])
+    assert state["mesh_ep_measured"]["ranks_ops"]
