@@ -39,7 +39,10 @@ Phases, each printing one JSON line:
                K5's prefill at head_dim 96 on the tensor-core route and, in
                f32, on the tiled route, its decode at head_dim 96, and
                seamless's encoder, cross-attention prefill and cross
-               decode calls at head_dim 64;
+               decode calls at head_dim 64; K5's lse entry at the mesh_cp
+               phase's decode shape (a rank's 68 slots of the
+               sequence-split cache), its output and lse against its plain
+               version, a slice past the decode position giving lse -inf;
                then awkward shapes on a dyadic grid, where kernel and plain
                version must agree bit for bit, tie-breaking included, and
                the edge cases of K1's tensor-core and split routes (every
@@ -230,6 +233,36 @@ Phases, each printing one JSON line:
                (first apart), peak memory against check_fits, decode
                tokens/s a rank, the pinned tokens; the phase fails past
                40 s;
+  mesh_cp      the rest of the model axis (MESH_CP): one spawn of 16 gloo
+               ranks on this card at (data 1, model 16), every rank drawing
+               its slices one whole leaf at a time. gemma2-2b at full width
+               cut to 2 layers (8 query and 4 kv heads: neither divides
+               16): 3 train steps under make_plan(..., heads_mode="seq")
+               (context-parallel attention, 16 rows a rank) within mesh_tp's
+               bounds of the one-device step at 1 microbatch (run first, in
+               this process), a second run bitwise, every replicated leaf
+               bitwise across the ranks; the lm phase's prompt prefilled
+               context-parallel (128 rows a rank) within lm_parity's limits
+               of the one-device prefill; the lm phase's traffic served
+               under the decode cell's plan (the cache's sequence over the
+               16 ranks: each decode step attends a rank's slots through
+               K5's lse entry and merges the ranks in rank order; each
+               compression gathers a layer whole and keeps the rank's
+               slice) with mesh_tp's shorter decode, within lm_parity's
+               limits of the one-device kernel path, bitwise on repeat,
+               every K5 call (the lse entry's among them) held against its
+               plain version, the compressed slots the one-device
+               compression of the caches put together; seamless-m4t-large-v2
+               at full width cut to 2 + 2 layers (1 query and 1 kv head a
+               rank): the same train steps and checks (its step-0
+               gradients within 16 bf16 ulps, its one-device floor read
+               beside them), and lm_encdec's traffic (no compression) with
+               its decode cut to 16 tokens and 4 forced steps, within
+               lm_parity's limits (top-1 over the route's rows);
+               step ms (first apart), bytes a rank a step, peak memory
+               against check_fits, decode tokens/s a rank, cache slots a
+               rank against one device's, the merges, the spawn's seconds;
+               the phase fails past 60 s;
   lm           the LM serving path at the full gemma2-2b config (random
                weights from a seeded generator): ServeEngine.generate with
                batch 4, prompt 2048, 160 new tokens, IHTC KV compression
@@ -246,17 +279,20 @@ Phases, each printing one JSON line:
                2048-token prompt into its 2,208-slot cache and one decode
                step over a compressed 1,232-slot cache (both timed here on
                the lm phase's model, DRYRUN's repeats), one mesh_tp rank's
-               step (the mesh_tp phase's rank 0) and one mesh_ep deepseek
-               rank's step (the mesh_ep phase's rank 0); each line has the
+               step (the mesh_tp phase's rank 0), one mesh_ep deepseek
+               rank's step (the mesh_ep phase's rank 0) and one mesh_cp
+               gemma2 rank's context-parallel step (the mesh_cp phase's
+               rank 0); each line has the
                reckoned FLOPs by dtype, bytes, peak and model FLOPs beside
                the measured p50 and the step's own peak (the card's
                max_memory_allocated less what was allocated beside the
                step's inputs): mfu (model FLOPs over p50 x the bf16 peak)
                and hw_flops_share (the counted FLOPs at their types' peaks
                over p50) must be <= 1, peak_ratio (reckoned / measured) in
-               DRYRUN's band, the mesh_tp and mesh_ep ranks' reckoned
-               collectives (the experts' gathers among them) equal, op by
-               op, to what every rank recorded over its last step, and the
+               DRYRUN's band, the mesh_tp, mesh_ep and mesh_cp ranks'
+               reckoned collectives (the experts' gathers among them) equal,
+               op by op, to what every rank recorded over its last step
+               (all 16 of mesh_cp's), and the
                phase within DRYRUN's 20 s; run alone it
                first runs the phases it compares against;
   lm_moe       the lm phase's serving, compression and parity on
@@ -377,7 +413,8 @@ DEFAULT_PHASES = ("device", "build", "kernels", "fit", "serve", "sharded", "tune
                   "headline",
                   "determinism", "hac", "dbscan", "online", "train", "select",
                   "train_moe", "train_ssm", "train_hybrid", "train_vlm",
-                  "train_encdec", "train_mesh", "mesh_tp", "mesh_ep", "lm", "dryrun",
+                  "train_encdec", "train_mesh", "mesh_tp", "mesh_ep", "mesh_cp", "lm",
+                  "dryrun",
                   "lm_moe",
                   "lm_hybrid",
                   "lm_vlm",
@@ -598,6 +635,45 @@ MESH_TP = dict(arch="gemma2-2b", layers=2, data=2, model=4, batch=8, seq=256,
 MESH_EP = dict(moe_arch="deepseek-moe-16b", moe_layers=2, ssm_arch="mamba2-370m",
                ssm_layers=8, ssm_steps=16, ssm_remat="none", ssm_grad_ulps=16,
                limit_s=40.0)
+#: the mesh_cp phase: 16 gloo ranks on this card at (data 1, model 16), the
+#: smallest model axis on which a supported arch's query heads do not divide
+#: (gemma2-2b's 8 over 16; its 4 kv heads do not either), each rank drawing
+#: its slices one whole leaf at a time. gemma2-2b at full width cut to 2
+#: layers (one local, one global): MESH_TP's ``steps`` train steps at its
+#: batch and sequence under make_plan(..., heads_mode="seq") (context
+#: parallelism, 16 of the 256 rows a rank) against the one-device step at
+#: 1 microbatch; the lm phase's prompt (batch 4, 2048 tokens) prefilled
+#: context-parallel (128 rows a rank) against the one-device prefill; the
+#: lm phase's traffic served under the decode cell's plan (the cache's
+#: sequence over the 16 ranks) with mesh_tp's shorter decode (48 tokens, a
+#: 32-slot tail, 8 forced steps). seamless-m4t-large-v2 at full width cut
+#: to 2 encoder and 2 decoder layers (1 query and 1 kv head a rank): the
+#: same train steps, and lm_encdec's traffic (batch 4, prompt 128, 2048
+#: frames, no compression) with its decode cut to ``encdec_new_tokens`` (16)
+#: and ``encdec_forced_steps`` (4): at 48 tokens and 8 forced steps the
+#: phase read 57.6-60.7 s of its 60 on one card, every decode step a few
+#: mailbox rounds of ~14 ms among 16 processes sharing the card (PERF.md).
+#: At most ``draw_at_once`` ranks draw their slices at a time (all
+#: 16 drawing gemma2's 2.36 GB embedding leaf at once ran the card out of
+#: memory beside the one-device oracles). The ranks train with ``remat``
+#: "none" (the one-device oracle with "block": the values do not depend on
+#: it; a rank's activations are small, and a recomputed forward repeats its
+#: exchanges). ``encdec_grad_ulps``: seamless's step-0 gradients against
+#: the one-device step's, bf16 ulps of a leaf's largest |g|, 16 where gemma2
+#: keeps GRAD_ULPS: its cross-attention leaves (wq, wk) and the norm before
+#: them read 9-11 ulps on 16 ranks, and one device against itself, the same
+#: step at 2 microbatches, reads as much (10.2 ulps at layer 0's wq on the
+#: CPU at full width; the phase measures it on the card beside the mesh's);
+#: in f32 the mesh sits 1e-4 of the bound from one device
+#: (tests/encdec_tp_rounding_check.py): rounding carried through near-uniform
+#: attention over 2048 frames, not the layout. The phase fails past
+#: ``limit_s`` (60 s)
+MESH_CP = dict(arch="gemma2-2b", layers=2, encdec_arch="seamless-m4t-large-v2",
+               encdec_layers=2, data=1, model=16, batch=8, seq=256, steps=3,
+               serve_batch=4, prompt=2048, new_tokens=48, t=2, m=1, tail=32,
+               forced_steps=8, encdec_prompt=128, frames=2048, encdec_new_tokens=16,
+               encdec_forced_steps=4, draw_at_once=4, remat="none", encdec_grad_ulps=16,
+               timeout=300.0, limit_s=60.0)
 #: the dryrun phase: the lm decode step's cache (the compressed cache of
 #: the lm phase's K5 decode row), timed repeats, the band of reckoned over
 #: measured peak memory, and the phase's budget (seconds)
@@ -653,6 +729,8 @@ KERNEL_META = {
     "K5-prefill": ("flash_attention_tiled_mma",
                    "src/repro_torch/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:23"),
+    "K5-lse": ("flash_attention_lse", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:23"),
     "K1-bf16": ("fused_topk_bf16", "src/repro_torch/csrc/topk.cu",
                 "src/repro/kernels/fused_assign.py:61"),
     "K1-int8": ("fused_topk_int8", "src/repro_torch/csrc/topk.cu",
@@ -1070,6 +1148,7 @@ def phase_kernels(results: dict) -> None:
     _k3_compression()
     _select_shapes()
     _k5_path_shapes(results)
+    _k5_lse_row(results)
     _k5_head_dim_128()
     _k5_vlm_encdec()
     _edge_checks(gen)
@@ -1600,6 +1679,58 @@ def _k5_path_shapes(results: dict) -> None:
                    bound_by=b_by, causal_half_counted=False, library_ms=None)
         emit("kernels", **row)
         results[kid] = row
+
+
+def _k5_lse_row(results: dict) -> None:
+    """K5's lse entry at the mesh_cp phase's decode shape: one rank's slice
+    of the compressed sequence-split cache (gemma2-2b, q 4 x 8 x 1 x 256,
+    kv 4 x 4 x ceil((P + tail) / 16) x 256 with log-mass bias, softcap 50),
+    bf16; its output and lse against its plain version within
+    ATTN_TOL_BF16, a repeat bitwise, and a slice wholly past the decode
+    position (every slot masked): lse -inf at every row, the output finite.
+    Its bound: the bytes (q, k, v and the bias read, the f32 output and lse
+    written) against the operations, as K5's decode row counts them."""
+    from repro_torch.kernels import flash_attention as fa
+
+    S = MESH_CP
+    B, hq, hkv, dh = S["serve_batch"], 8, 4, 256
+    P = (S["prompt"] + S["new_tokens"]) // S["t"]
+    lk = -(-(P + S["tail"]) // S["model"])
+    check(fa.route(hq, hkv, 1, torch.bfloat16, dh) == "split_kv",
+          "K5-lse: the decode shape is not on the split-kv route")
+    q, k, v, _ = _attn_inputs(B, hq, hkv, 1, lk, dh, torch.bfloat16, 11)
+    g = torch.Generator(device=DEV).manual_seed(12)
+    kb = torch.log(torch.randint(1, 5, (B, hkv, lk), generator=g, device=DEV).float())
+    kw = dict(causal=False, scale=1.0 / 16, logit_softcap=50.0)
+    o, lse = fa.flash_attention_lse(q, k, v, kb, **kw)
+    o2, lse2 = fa.flash_attention_lse(q, k, v, kb, **kw)
+    want, want_lse = fa.flash_attention_lse_plain(q, k, v, kb, **kw)
+    masked = torch.full_like(kb, -1e30)
+    mo, mlse = fa.flash_attention_lse(q, k, v, masked, **kw)
+    sync()
+    err = max(float((o - want).abs().max()), float((lse - want_lse).abs().max()))
+    check(torch.equal(o, o2) and torch.equal(lse, lse2), "K5-lse: a repeat differs")
+    check(torch.allclose(o, want, **ATTN_TOL_BF16)
+          and torch.allclose(lse, want_lse, **ATTN_TOL_BF16),
+          f"K5-lse against its plain version: {err}")
+    check(bool(torch.isinf(mlse).all()) and bool((mlse < 0).all())
+          and bool(torch.isfinite(mo).all()),
+          "K5-lse: a slice past the decode position gives a finite lse or a NaN")
+    ms = cuda_ms(lambda: fa.flash_attention_lse(q, k, v, kb, **kw))
+    dev_ms = device_ms(lambda: fa.flash_attention_lse(q, k, v, kb, **kw))
+    plain = cuda_ms(lambda: fa.flash_attention_lse_plain(q, k, v, kb, **kw))
+    flops, tc_flops, nbytes = _attention_work(B, hq, hkv, 1, lk, dh, False, 2, hkv)
+    nbytes += B * hq * dh * 2 + B * hq * 4  # the output in f32 (not bf16) and the lse
+    b_ms, b_by = bound(flops, nbytes, bf16_flops=tc_flops)
+    row = dict(kernel="K5-lse", path="mesh_cp", shape="decode (a rank's slots)",
+               variant="split_kv", q=list(q.shape), kv=list(k.shape), causal=False,
+               bias=True, dtype="bfloat16", max_abs_err=err, bitwise_repeat=True,
+               split_keys=fa.split_keys(lk), splits=-(-lk // fa.split_keys(lk)),
+               ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, masked_slice_lse_inf=True)
+    emit("kernels", **row)
+    results["K5-lse"] = row
+    del q, k, v, o, o2, want, mo
 
 
 def _decode_bias(b: int, h: int, P: int, tail: int, seed: int) -> torch.Tensor:
@@ -4493,12 +4624,20 @@ def _tp_train(job: dict, mesh, dev) -> dict:
     from repro_torch.train.optimizer import local_shard
 
     cfg, on_card = job["cfg"], dev.type == "cuda"
-    ref = job["ref"]
-    if "index" in ref:  # two flat buffers (mesh_ep's)
-        ref = dict(zip(("grads0", "params"),
-                       (_views(torch.as_tensor(f), ref["index"]) for f in ref["flat"]),
-                       strict=True))
-    plan = make_plan(cfg, ShapeConfig("mesh_tp", job["seq"], job["batch"], "train"), mesh)
+    got = {}
+
+    def reference():  # read when first needed: mesh_cp's arrives while the ranks train
+        if not got:
+            ref = _late(job, "ref")
+            if "index" in ref:  # two flat buffers (mesh_ep's)
+                ref = dict(zip(("grads0", "params"),
+                               (_views(torch.as_tensor(f), ref["index"])
+                                for f in ref["flat"]), strict=True))
+            got.update(ref)
+        return got
+
+    plan = make_plan(cfg, ShapeConfig("mesh_tp", job["seq"], job["batch"], "train"), mesh,
+                     heads_mode=job.get("heads_mode", "auto"))
     bfs = batch_fn(cfg, SHAPES["train_4k"], job["batch"], job["seq"], dev)
     runs = []
     for attempt in range(2):
@@ -4506,8 +4645,11 @@ def _tp_train(job: dict, mesh, dev) -> dict:
         before = torch.cuda.memory_allocated() if on_card else 0
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        # every rank draws its slices at once, one whole leaf at a time
-        bundle, model, opt = init_state(cfg, device=dev, seed=job["seed"], mesh=mesh)
+        # every rank draws its slices, one whole leaf at a time (at most
+        # job["draw_at_once"] ranks at once, else all)
+        bundle, model, opt = _drawn_in_turns(
+            lambda: init_state(cfg, device=dev, seed=job["seed"], mesh=mesh),
+            job.get("draw_at_once"))
         init_peak = torch.cuda.max_memory_allocated() - before if on_card else None
         tp = model.tp
         coords = {"model": (tp.index, tp.size)}  # slices of the one-device leaves
@@ -4543,12 +4685,12 @@ def _tp_train(job: dict, mesh, dev) -> dict:
             losses.append(m["loss"])
             gnorms.append(m["grad_norm"])
             if s == 0 and attempt == 0:
-                ratios = {}
+                ratios, ref, grad_max = {}, reference(), _late(job, "grad_max")
                 for n, p in model.named_parameters():
                     want = ref["grads0"][n]
                     err = float((p.grad - local_shard(want, tp.specs[n], coords))
                                 .abs().max())
-                    bound = GRAD_ULPS * _bf16_ulp(job["grad_max"][n])
+                    bound = GRAD_ULPS * _bf16_ulp(grad_max[n])
                     ratios[n] = (err / bound if bound else
                                  (0.0 if err == 0 else float("inf")))
                 worst = max(ratios, key=ratios.get)
@@ -4562,6 +4704,7 @@ def _tp_train(job: dict, mesh, dev) -> dict:
         run["prints"] = torch.stack([_fingerprint(p) for p in named.values()]).cpu()
         if attempt == 0:
             dmax, dsum, count = {}, {}, {}
+            ref = reference()
             for n, p in named.items():
                 d = (p.detach() - local_shard(ref["params"][n], tp.specs[n], coords)).abs()
                 dmax[n], dsum[n], count[n] = float(d.max()), float(d.sum()), d.numel()
@@ -4582,6 +4725,26 @@ def _tp_train(job: dict, mesh, dev) -> dict:
                 repeat_init_s=b["init_s"], repeat_step_s=b["step_s"],
                 repeat_init_peak_bytes=b["init_peak_bytes"], dry_step=b["dry_step"],
                 prints=None)
+
+
+def _drawn_in_turns(draw, at_once):
+    """``draw()`` on this rank with at most ``at_once`` ranks of the world
+    drawing at a time (None: all at once), the whole-leaf buffers each
+    turn freed given back to the card before the next turn draws: 16
+    ranks drawing gemma2-2b's 2.36 GB embedding leaf at once do not fit
+    one card beside the phase's one-device oracles."""
+    import torch.distributed as dist
+
+    if not at_once:
+        return draw()
+    out, me = None, dist.get_rank()
+    for turn in range(-(-dist.get_world_size() // at_once)):
+        if me // at_once == turn:
+            out = draw()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
 
 
 def _tp_serve(job: dict, mesh, dev) -> dict:
@@ -4709,20 +4872,35 @@ def mesh_rank(rank: int, job: dict) -> dict:
             out["ep"][name] = dict(train=train, serve=serve, train_s=t2 - t1,
                                    serve_s=time.perf_counter() - t2)
         out["ep_s"] = time.perf_counter() - t0
+    _release_shared(job)
     return out
 
 
-def _tp_reference(cfg, dev, prompts) -> tuple:
-    """The one-device oracles of the mesh_tp phase, in this process: the
-    trainer at ``data`` microbatches (losses, grad norms, step-0 gradients,
-    final weights) and the kernel path's generate and forced route."""
+def _release_shared(*holders) -> None:
+    """Drop this rank's views of the parent's tensors (its one-device
+    oracles, mapped by CUDA IPC) before the rank ends: the parent frees a
+    shared block only once every rank that mapped it has let it go
+    (``torch.cuda.ipc_collect``, ``_free_models``), and a rank that exits
+    holding it leaves the block held in the parent for the rest of the run
+    (15 GB after mesh_tp and mesh_ep)."""
+    import gc
+
+    for h in holders:
+        h.clear()
+    gc.collect()
+
+
+def _tp_reference(cfg, dev, prompts, S=MESH_TP) -> tuple:
+    """The one-device oracles of the mesh_tp phase (``S``: MESH_TP, or
+    MESH_CP's sizes), in this process: the trainer at ``data``
+    microbatches (losses, grad norms, step-0 gradients, final weights) and
+    the kernel path's generate and forced route."""
     from repro_torch.configs import SHAPES, ParallelConfig
     from repro_torch.launch.train import batch_fn, init_state
     from repro_torch.models import build
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.train import OptConfig, make_train_step
 
-    S = MESH_TP
     t0 = time.perf_counter()
     bundle, model, opt = init_state(cfg, device=dev, seed=TRAIN["seed"])
     step = make_train_step(bundle, OptConfig(**_mesh_tp_opt()),
@@ -5036,6 +5214,661 @@ def _mesh_tp_verdict(state: dict, outs: list, ctx: dict, spawn_s: float,
     check(DEV != "cuda" or init_peak <= init_reckoned,
           f"mesh_tp: a rank's peak while the model is drawn, {init_peak} B, is past "
           f"the {init_reckoned} B check_fits reckons for it")
+
+
+
+# ------------------------------------------------------------- mesh_cp
+def _cp_prefill(job: dict, bundle, model, mesh, dev) -> dict:
+    """The context-parallel prefill of the lm phase's prompt (the prefill
+    cell's ``heads_mode="seq"`` plan: 128 of the 2048 rows a rank), every
+    K5 call held against its plain version: the last position's logits
+    (whole) against the one-device prefill's, the calls and the seconds."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_plan
+    from repro_torch.models.tensor_parallel import CALLS, gather_dim
+
+    cfg, S, tp = job["cfg"], job["sizes"], model.tp
+    plan = make_plan(cfg, ShapeConfig("mesh_cp", S["prompt"], S["serve_batch"],
+                                      "prefill"), mesh, heads_mode="seq")
+    tok = torch.from_numpy(job["prompts"]).to(dev)
+    held = []
+    context = CALLS["context_parallel"]
+    _rank_sync(dev.type == "cuda")
+    t0 = time.perf_counter()
+    with torch.inference_mode(), _attention_held(held):
+        caches = bundle.init_caches(tok.shape[0], S["prompt"] + S["new_tokens"],
+                                    device=dev, tp_size=tp.size)
+        logits, caches = bundle.prefill(model, caches, {"tokens": tok}, impl="auto",
+                                        plan=plan)
+        last = gather_dim(logits[:, -1:], tp.axis, 2)[:, 0].float()
+    _rank_sync(dev.type == "cuda")
+    seconds = time.perf_counter() - t0
+    del caches
+    return dict(diff=_logit_diff(last, _late(job, "ref")["logits"][0]),
+                held=_held_summary(held),
+                context_parallel=CALLS["context_parallel"] - context, seconds=seconds,
+                kv=plan.kv, heads=plan.heads)
+
+
+def _cp_serve(job: dict, mesh, dev) -> dict:
+    """mesh_cp's gemma2 server: the context-parallel prefill
+    (:func:`_cp_prefill`), then the lm phase's traffic through ServeEngine
+    under the decode cell's plan (the cache's sequence over the 16 model
+    ranks: a rank's slice of the slots; launches and merges counted), then
+    the forced route twice, the first with every K5 call (the lse entry's
+    among them) held against its plain version; the raw and compressed
+    caches of the first gathered whole along the slots (on rank 0)."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import data_axis, make_plan
+    from repro_torch.models import build
+    from repro_torch.models.tensor_parallel import CALLS, gather_dim
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.kv_compression import gather_cache
+
+    cfg, S = job["cfg"], job["sizes"]
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    bundle = build(cfg)
+    model = _drawn_in_turns(lambda: bundle.init(torch.Generator(device=dev).manual_seed(0),
+                                                device=dev, mesh=mesh),
+                            job.get("draw_at_once"))
+    tp = model.tp
+    _rank_sync(on_card)
+    out = {"init_s": time.perf_counter() - t0}
+    out["prefill"] = _cp_prefill(job, bundle, model, mesh, dev)
+    plan = make_plan(cfg, ShapeConfig("mesh_cp", S["prompt"], S["serve_batch"],
+                                      "decode"), mesh)
+    engine = ServeEngine(bundle, model, ServeConfig(
+        max_new_tokens=S["new_tokens"], compress=True, compress_t=S["t"],
+        compress_m=S["m"], compress_tail=S["tail"], impl="auto"), plan=plan, mesh=mesh)
+    rows = data_axis(mesh)
+    tp.axis.barrier()
+    kernels.reset_launch_counts()
+    merges = CALLS["seq_merge"]
+    gen = engine.generate({"tokens": job["prompts"]})
+    _rank_sync(on_card)
+    out.update(counts=kernels.launch_counts(), routes=kernels.route_counts(),
+               tokens=gen["tokens"].cpu().numpy(), timings=gen["timings"],
+               n_steps=gen["n_steps"], compressions=gen["compressions"],
+               merges=CALLS["seq_merge"] - merges)
+    # this rank's launches: K5 at the global layer's prefill, the lse entry
+    # at every layer of every decode step, K2 once a (row, kv head) a layer
+    # a compression (every rank compresses the gathered cache)
+    n_global = sum(cfg.attn_type(l) == "global" for l in range(cfg.n_layers))
+    per = S["serve_batch"] // rows.size
+    out["want"] = {"K5": n_global, "K5-decode": 0,
+                   "K5-lse": cfg.n_layers * S["new_tokens"],
+                   "K2": cfg.n_layers * per * cfg.n_kv_heads
+                   * len(gen["timings"]["compress"])}
+    lo = rows.index * per
+    tok = torch.from_numpy(job["prompts"][lo:lo + per]).to(dev)
+    steps = torch.from_numpy(_late(job, "forced")[lo:lo + per]).to(dev)
+    route = dict(impl="auto", compress_impl="auto",
+                 cache_kw=dict(tp_size=tp.size, plan=plan, mesh=mesh), plan=plan,
+                 whole=lambda x: rows.gather_rows(gather_dim(x, tp.axis, 1)),
+                 traffic=dict(LM, t=S["t"], m=S["m"], tail=S["tail"],
+                              new_tokens=S["new_tokens"]))
+    held = []
+    t0 = time.perf_counter()
+    merges = CALLS["seq_merge"]
+    first, raw, comp = _forced_route(bundle, model, tok, steps, held=held, **route)
+    out["forced_merges"] = CALLS["seq_merge"] - merges
+    again = _forced_route(bundle, model, tok, steps, **route)[0]
+    _rank_sync(on_card)
+    out["forced_s"] = time.perf_counter() - t0
+    out["repeat_bitwise"] = all(torch.equal(a, b) for a, b in zip(first, again,
+                                                                  strict=True))
+    out["diffs"] = [_logit_diff(a, b) for a, b in zip(first, _late(job, "ref")["logits"],
+                                                      strict=True)]
+    out["held"] = _held_summary(held)
+    out["held_want"] = [n_global, cfg.n_layers * steps.shape[1]]
+    c0, r0 = comp["layers"][0], raw["layers"][0]
+    out["slots"] = dict(raw_rank=int(r0["k"].shape[2]), raw_one_device=int(r0["slots"]),
+                        compressed_rank=int(c0["k"].shape[2]),
+                        compressed_one_device=int(c0["slots"]), ranks=c0["seq"].size)
+
+    def host(c):  # numpy for the parent (bf16 widened to f32: exact)
+        return {k: v if k == "pos" else v.float().cpu().numpy() for k, v in c.items()}
+
+    raw_all = [gather_cache(c) for c in raw["layers"]]
+    comp_all = [gather_cache(c) for c in comp["layers"]]
+    if rows.index == 0 and tp.index == 0:
+        out.update(raw=dict(raw, layers=[host(c) for c in raw_all]),
+                   comp={"layers": [host(c) for c in comp_all]})
+    del raw_all, comp_all, model, engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cp_encdec_serve(job: dict, mesh, dev) -> dict:
+    """mesh_cp's seamless server: lm_encdec's traffic (the encoder frames,
+    the prompts, no compression) through ServeEngine under the decode
+    cell's plan (a rank's kv heads of the self-attention and cross caches;
+    launches counted), then the forced route twice, the first with every
+    K5 call held against its plain version."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import data_axis, make_plan
+    from repro_torch.models import build
+    from repro_torch.models.tensor_parallel import gather_dim
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, S = job["cfg"], job["sizes"]
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    bundle = build(cfg)
+    model = _drawn_in_turns(lambda: bundle.init(torch.Generator(device=dev).manual_seed(0),
+                                                device=dev, mesh=mesh),
+                            job.get("draw_at_once"))
+    tp = model.tp
+    plan = make_plan(cfg, ShapeConfig("mesh_cp", S["encdec_prompt"], S["serve_batch"],
+                                      "decode"), mesh)
+    engine = ServeEngine(bundle, model, ServeConfig(
+        max_new_tokens=S["encdec_new_tokens"], compress=False, impl="auto"), plan=plan,
+        mesh=mesh)
+    rows = data_axis(mesh)
+    frames = job["frames"].to(dev)
+    _rank_sync(on_card)
+    out = {"init_s": time.perf_counter() - t0}
+    tp.axis.barrier()
+    kernels.reset_launch_counts()
+    gen = engine.generate({"tokens": job["prompts"], "frames": frames},
+                          enc_len=S["frames"])
+    _rank_sync(on_card)
+    out.update(counts=kernels.launch_counts(), routes=kernels.route_counts(),
+               tokens=gen["tokens"].cpu().numpy(), timings=gen["timings"],
+               n_steps=gen["n_steps"])
+    L, N = cfg.n_layers, S["encdec_new_tokens"]
+    n_prefill = cfg.n_enc_layers + 2 * L  # the encoder, the self and cross calls
+    out["want"] = {"K5": n_prefill + 2 * L * N, "K5-decode": 2 * L * N, "K5-lse": 0,
+                   "K2": 0}
+    per = S["serve_batch"] // rows.size
+    lo = rows.index * per
+    tok = torch.from_numpy(job["prompts"][lo:lo + per]).to(dev)
+    steps = torch.from_numpy(_late(job, "forced")[lo:lo + per]).to(dev)
+    route = dict(impl="auto", compress_impl="auto", compress=False,
+                 inputs={"frames": frames[lo:lo + per]},
+                 cache_kw=dict(tp_size=tp.size, plan=plan, mesh=mesh,
+                               enc_len=S["frames"]), plan=plan,
+                 whole=lambda x: rows.gather_rows(gather_dim(x, tp.axis, 1)),
+                 traffic=dict(LM_ENCDEC, new_tokens=S["encdec_new_tokens"]))
+    held = []
+    t0 = time.perf_counter()
+    first, raw, _ = _forced_route(bundle, model, tok, steps, held=held, **route)
+    again = _forced_route(bundle, model, tok, steps, **route)[0]
+    _rank_sync(on_card)
+    out["forced_s"] = time.perf_counter() - t0
+    out["repeat_bitwise"] = all(torch.equal(a, b) for a, b in zip(first, again,
+                                                                  strict=True))
+    # over the real vocabulary (the padding columns hold -1e30)
+    out["diffs"] = [_family_logit_diff(a, b, cfg.vocab_size)
+                    for a, b in zip(first, _late(job, "ref")["logits"], strict=True)]
+    out["held"] = _held_summary(held)
+    out["held_want"] = [n_prefill, 2 * L * steps.shape[1]]
+    layer = raw["layers"][0]
+    out["cache_heads"] = dict(self=int(layer["self"]["k"].shape[1]),
+                              cross=int(layer["cross_k"].shape[1]),
+                              one_device=cfg.n_kv_heads)
+    del model, engine, raw
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def cp_rank(rank: int, job: dict) -> dict:
+    """One rank of the mesh_cp phase (started by spawn_ranks): the (data 1,
+    model 16) mesh; gemma2's context-parallel trainer, its prefill and its
+    server on the sequence-split cache; then seamless's trainer and
+    server."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // dist.get_world_size()))
+    dev = torch.device(job["device"])
+    started_s = time.time() - job["spawned_at"]
+    mesh = make_debug_mesh(job["data"], job["model"], device_type=dev.type)
+    out = {"rank": rank, "coords": {a: int(mesh.get_local_rank(a))
+                                    for a in ("data", "model")},
+           "start_s": started_s}
+    on_card = dev.type == "cuda"
+    queue, late = job["late"], {}
+
+    def fetched():  # the parent's one-device oracles, once they are done
+        if not late:
+            t = time.perf_counter()
+            got = queue.get(timeout=MESH_CP["timeout"])
+            if isinstance(got, str):
+                raise RuntimeError(got)
+            late.update(got)
+            out["waited_for_oracles_s"] = time.perf_counter() - t
+        return late
+
+    for name in ("gemma", "encdec"):
+        job[name]["late"] = lambda name=name: fetched()[name]
+    # wait for the oracles before drawing: a rank's draw beside the parent's
+    # one-device training runs the card out of memory
+    fetched()
+    reserved = {}  # the most this process's allocator reserved in each part
+
+    def part(name, fn, sub):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out[name] = fn(sub, mesh, dev)
+        out["seconds"][name] = time.perf_counter() - t
+        reserved[name] = torch.cuda.max_memory_reserved() if on_card else None
+
+    out["seconds"] = {}
+    part("train", _tp_train, job["gemma"])
+    part("serve", _cp_serve, job["gemma"])
+    part("encdec_train", _tp_train, job["encdec"])
+    part("encdec_serve", _cp_encdec_serve, job["encdec"])
+    out["max_reserved_bytes"] = reserved
+    out["card_free_bytes"] = torch.cuda.mem_get_info()[0] if on_card else None
+    _release_shared(job, late)
+    return out
+
+
+def _encdec_reference(cfg, dev, prompts, frames, S) -> tuple:
+    """The one-device oracles of mesh_cp's seamless, in this process: the
+    trainer at ``data`` microbatches and the kernel path's generate and
+    forced route over the frames (no compression)."""
+    from repro_torch.configs import SHAPES, ParallelConfig
+    from repro_torch.launch.train import batch_fn, init_state
+    from repro_torch.models import build
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train import OptConfig, make_train_step
+
+    t0 = time.perf_counter()
+    bundle, model, opt = init_state(cfg, device=dev, seed=TRAIN["seed"])
+    step = make_train_step(bundle, OptConfig(**_mesh_tp_opt()),
+                           ParallelConfig(remat="block", microbatches=S["data"]))
+    bfs = batch_fn(cfg, SHAPES["train_4k"], S["batch"], S["seq"], dev)
+    losses, gnorms, lrs, grads0 = [], [], [], None
+    for s in range(S["steps"]):
+        model, opt, m = step(model, opt, bfs(s))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        if s == 0:
+            grads0 = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt, step
+    # one device against itself: the same first step at 2 microbatches
+    _, model, opt = init_state(cfg, device=dev, seed=TRAIN["seed"])
+    step = make_train_step(bundle, OptConfig(**_mesh_tp_opt()),
+                           ParallelConfig(remat="block", microbatches=2))
+    step(model, opt, bfs(0))
+    floor = max(float((p.grad - grads0[n]).abs().max())
+                / (GRAD_ULPS * _bf16_ulp(float(grads0[n].abs().max())))
+                for n, p in model.named_parameters())
+    del model, opt, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sb = build(cfg)
+    smodel = sb.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine = ServeEngine(sb, smodel, ServeConfig(max_new_tokens=S["encdec_new_tokens"],
+                                                 compress=False, impl="auto"))
+    gen = engine.generate({"tokens": prompts, "frames": frames}, enc_len=S["frames"])
+    tok = torch.from_numpy(prompts).to(dev)
+    forced = gen["tokens"][:, :S["encdec_forced_steps"]].to(dev, torch.int64)
+    logits = _forced_route(sb, smodel, tok, forced, impl="auto", compress_impl="auto",
+                           compress=False, inputs={"frames": frames},
+                           cache_kw={"enc_len": S["frames"]},
+                           traffic=dict(LM_ENCDEC, new_tokens=S["encdec_new_tokens"]))[0]
+    del smodel, engine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return (dict(losses=losses, grad_norms=gnorms, lrs=lrs, grads0=grads0, params=params,
+                 logits=logits, tokens=gen["tokens"].cpu().numpy(), timings=gen["timings"],
+                 forced=forced.cpu().numpy(), grad_floor_ratio=floor),
+            train_s, time.perf_counter() - t0)
+
+
+def _mesh_cp_job() -> tuple:
+    """mesh_cp's ranks' job without what the one-device oracles give (the
+    prompts, the frames, the sizes), and what :func:`_mesh_cp_oracles`
+    needs: (job, ctx)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import frontend_batch
+    from repro_torch.launch.train import (init_bytes_per_rank, rank_param_count,
+                                          state_bytes_per_rank)
+
+    S = MESH_CP
+    cfg = dataclasses.replace(ARCHS[S["arch"]], n_layers=S["layers"])
+    enc = dataclasses.replace(ARCHS[S["encdec_arch"]], n_layers=S["encdec_layers"],
+                              n_enc_layers=S["encdec_layers"])
+    ctx = dict(cfg=cfg, enc=enc)
+    job = dict(device=DEV, data=S["data"], model=S["model"])
+    for name, c, prompt in (("gemma", cfg, S["prompt"]), ("encdec", enc,
+                                                          S["encdec_prompt"])):
+        n = rank_param_count(c, S["model"])
+        ctx[name] = dict(per_rank_params=n,
+                         reckoned=state_bytes_per_rank(n, S["data"]),
+                         init_reckoned=init_bytes_per_rank(c, n, S["data"],
+                                                           model_ranks=S["model"]))
+        prompts = np.random.default_rng(0).integers(0, c.vocab_size,
+                                                    size=(S["serve_batch"], prompt))
+        job[name] = dict(cfg=c, seed=TRAIN["seed"], batch=S["batch"], seq=S["seq"],
+                         steps=S["steps"], opt=_mesh_tp_opt(), prompts=prompts,
+                         sizes=dict(S), heads_mode="seq" if name == "gemma" else "auto",
+                         draw_at_once=S["draw_at_once"], remat=S["remat"])
+    job["encdec"]["frames"] = frontend_batch(enc, prng.PRNGKey(0), S["serve_batch"],
+                                             S["frames"], device=DEV)["frames"]
+    return job, ctx
+
+
+def _mesh_cp_oracles(job: dict, ctx: dict) -> dict:
+    """mesh_cp's one-device oracles, in this process (while the ranks
+    start): into ``ctx`` what the verdict reads; returns what each rank
+    fetches before it draws (``_late``): each model's reference gradients,
+    weights and logits, the gradients' bounds, the forced tokens."""
+    dev = torch.device(DEV)
+    S = MESH_CP
+    g, e = job["gemma"], job["encdec"]
+    ref, train_s, serve_s = _tp_reference(ctx["cfg"], dev, g["prompts"], S=S)
+    enc_ref, enc_train_s, enc_serve_s = _encdec_reference(
+        ctx["enc"], dev, e["prompts"], e["frames"], S)
+    ctx.update(ref=ref, enc_ref=enc_ref,
+               seconds=dict(train=train_s, serve=serve_s, encdec_train=enc_train_s,
+                            encdec_serve=enc_serve_s))
+    return {name: dict(forced=r["forced"], grad_max=_leaf_max(r["grads0"]),
+                       ref={k: r[k] for k in ("grads0", "params", "logits")})
+            for name, r in (("gemma", ref), ("encdec", enc_ref))}
+
+
+def _late(job: dict, key: str):
+    """``job[key]``, or where the parent hands it over later (mesh_cp: its
+    one-device oracles run while the ranks start) what ``job["late"]()``
+    fetched."""
+    return job[key] if key in job else job["late"]()[key]
+
+
+def _train_verdict(trains: list, outs: list, ref: dict, key: str) -> dict:
+    """The train checks of one mesh_cp model from the ranks' ``_tp_train``
+    results (every element of a leaf once: its slices over the ranks)."""
+    lr_sum = sum(ref["lrs"])
+    loss_ok = all(abs(a - b) <= GRAD_ULPS * _bf16_ulp(b)
+                  for t in trains for k in ("losses", "grad_norms")
+                  for a, b in zip(t[k], ref[k], strict=True))
+    names = list(trains[0]["dmax"])
+    dmax = {n: max(t["dmax"][n] for t in trains) for n in names}
+    dmean = {}
+    for n in names:
+        parts = trains if trains[0]["count"][n] < ref["params"][n].numel() else trains[:1]
+        dmean[n] = sum(t["dsum"][n] for t in parts) / sum(t["count"][n] for t in parts)
+    return dict(lr_sum=lr_sum, loss_ok=loss_ok,
+                grad_ratio=max(t["grad_ratio_max"] for t in trains),
+                grad_leaf=max(trains, key=lambda t: t["grad_ratio_max"])["grad_ratio_leaf"],
+                weights_ok=all(dmax[n] <= 2 * lr_sum and dmean[n] <= 0.1 * lr_sum
+                               for n in names),
+                dmax=max(dmax.values()), dmean=max(dmean.values()),
+                repeat_bitwise=all(t["repeat_bitwise"] for t in trains),
+                replicated_equal=all(t["replicated_equal"] for t in trains),
+                ranks_equal=all(o[key]["losses"] == trains[0]["losses"] for o in outs))
+
+
+def _rank_rows(outs: list, train_key: str, serve_key: str, S: dict) -> list:
+    rows = []
+    for o in outs:
+        t, sv = o[train_key], o[serve_key]
+        ms = [x * 1e3 for x in t["step_s"]]
+        tm = sv["timings"]
+        n_tok = sv["tokens"].shape[0] * sv["n_steps"] // S["data"]
+        rows.append(dict(
+            rank=o["rank"], step_ms_first=ms[0], step_ms_p50_rest=float(np.median(ms[1:])),
+            repeat_step_ms=[x * 1e3 for x in t["repeat_step_s"]],
+            staged_bytes_per_step=t["moved"][0] / S["steps"],
+            ipc_bytes_per_step=t["moved"][1] / S["steps"],
+            peak_bytes=t["peak_bytes"], init_peak_bytes=t["init_peak_bytes"],
+            repeat_init_peak_bytes=t["repeat_init_peak_bytes"],
+            decode_tok_per_s=n_tok / tm["decode_s"], prefill_ms=tm["prefill_s"] * 1e3,
+            compress_ms=[c["seconds"] * 1e3 for c in tm["compress"]],
+            launches=sv["counts"], launches_want=sv["want"],
+            forced_s=round(sv["forced_s"], 3)))
+    return rows
+
+
+def phase_mesh_cp(state: dict) -> None:
+    """Context-parallel attention, the sequence-split decode cache and the
+    enc-dec on the model axis (MESH_CP; module docstring)."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serve.kv_compression import compress_model_caches
+
+    import threading
+
+    import torch.multiprocessing as mp
+
+    t_start = time.perf_counter()
+    _free_models(state)
+    S = MESH_CP
+    n_ranks = S["data"] * S["model"]
+    emit("mesh_cp_spawn", parent_allocated_reserved_bytes=(
+        [torch.cuda.memory_allocated(), torch.cuda.memory_reserved()]
+        if DEV == "cuda" else None))
+    job, ctx = _mesh_cp_job()
+    # the one-device oracles run in a thread while the ranks start; each rank
+    # fetches them from this queue before it draws its slices (a queue that
+    # ranks which failed never read must not hold this process at its exit)
+    job["late"] = mp.get_context("forkserver").Queue()
+    job["late"].cancel_join_thread()
+    prep = {}
+
+    def oracles():
+        t0 = time.perf_counter()
+        try:
+            late = _mesh_cp_oracles(job, ctx)
+        except BaseException as e:  # noqa: BLE001 — handed to the ranks and raised below
+            prep["error"] = e
+            late = f"mesh_cp: the one-device oracles failed: {e!r}"
+        prep["seconds"] = time.perf_counter() - t0
+        if DEV == "cuda":  # the oracles' freed blocks back to the card for the ranks
+            torch.cuda.empty_cache()
+            prep["parent"] = [torch.cuda.memory_allocated(), torch.cuda.memory_reserved()]
+        for _ in range(n_ranks):
+            job["late"].put(late)
+
+    worker = threading.Thread(target=oracles, name="mesh_cp-oracles")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cp-") as tmp:
+        t0 = time.perf_counter()
+        job["spawned_at"] = time.time()
+        worker.start()
+        try:
+            outs = spawn_ranks(cp_rank, n_ranks, backend="gloo", device=DEV,
+                               init_dir=tmp, timeout=S["timeout"], args=(job,))
+        finally:
+            worker.join()
+            if "error" in prep:
+                raise prep["error"]
+        spawn_s = time.perf_counter() - t0
+    del job
+    prep_s, parent = prep["seconds"], prep.get("parent")
+    cfg, enc, ref, enc_ref = ctx["cfg"], ctx["enc"], ctx["ref"], ctx["enc_ref"]
+    # gemma2: the trainer, the context-parallel prefill, the server
+    trains = [o["train"] for o in outs]
+    tv = _train_verdict(trains, outs, ref, "train")
+    serves = [o["serve"] for o in outs]
+    zero = next(sv for sv in serves if "raw" in sv)
+    together = compress_model_caches(_on_card(zero["raw"]), S["t"], S["m"],
+                                     tail=S["tail"], impl="auto")
+    slots = _slot_agreement(_on_card(zero["comp"]), together)
+    counts, routes = {}, {}
+    for o in outs:
+        for sv in (o["serve"], o["encdec_serve"]):
+            for k, v in sv["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+            for k, v in sv["routes"].items():
+                routes[k] = routes.get(k, 0) + v
+    state["mesh_cp_counts"], state["mesh_cp_routes"] = counts, routes
+    state["mesh_cp_measured"] = dict(
+        trains[0]["dry_step"], ranks_ops=[t["dry_step"]["ops"] for t in trains],
+        p50_ms=float(np.median([x * 1e3 for x in trains[0]["step_s"][1:]])))
+    # seamless
+    etrains = [o["encdec_train"] for o in outs]
+    ev = _train_verdict(etrains, outs, enc_ref, "encdec_train")
+    eserves = [o["encdec_serve"] for o in outs]
+    prefills = [sv["prefill"] for sv in serves]
+    g_rows = _rank_rows(outs, "train", "serve", S)
+    e_rows = _rank_rows(outs, "encdec_train", "encdec_serve", S)
+    peak = max(r["peak_bytes"] or 0 for r in g_rows + e_rows)
+    emit("mesh_cp", mesh=[S["data"], S["model"]], backend="gloo",
+         spawn_seconds=round(spawn_s, 3), prepare_seconds=round(prep_s, 3),
+         start_seconds_max=round(max(o["start_s"] for o in outs), 3),
+         waited_for_oracles_s_max=round(max(o.get("waited_for_oracles_s", 0.0)
+                                            for o in outs), 3),
+         rank_seconds_max={k: round(max(o["seconds"][k] for o in outs), 3)
+                           for k in outs[0]["seconds"]},
+         rank_max_reserved_bytes={k: max(o["max_reserved_bytes"][k] or 0 for o in outs)
+                                  for k in outs[0]["max_reserved_bytes"]},
+         card_free_bytes_at_end=[o["card_free_bytes"] for o in outs],
+         reference_seconds={k: round(v, 3) for k, v in ctx["seconds"].items()},
+         parent_allocated_reserved_bytes=parent, peak_bytes_max=peak,
+         gemma2=dict(
+             arch=cfg.name, layers=cfg.n_layers, heads=[cfg.n_heads, cfg.n_kv_heads],
+             params_per_rank=ctx["gemma"]["per_rank_params"],
+             state_bytes_per_rank_reckoned=ctx["gemma"]["reckoned"],
+             init_bytes_per_rank_reckoned=ctx["gemma"]["init_reckoned"],
+             train=dict(batch=S["batch"], seq=S["seq"], steps=S["steps"],
+                        heads_mode="seq", one_device_microbatches=S["data"],
+                        losses=trains[0]["losses"], reference_losses=ref["losses"],
+                        grad_norms=trains[0]["grad_norms"],
+                        reference_grad_norms=ref["grad_norms"],
+                        grad_ratio_max=tv["grad_ratio"], grad_ratio_leaf=tv["grad_leaf"],
+                        weights_dmax_max=tv["dmax"], weights_dmean_max=tv["dmean"],
+                        lr_sum=tv["lr_sum"], repeat_bitwise=tv["repeat_bitwise"],
+                        replicated_leaves=trains[0]["replicated_leaves"],
+                        replicated_equal=tv["replicated_equal"]),
+             prefill=dict(batch=S["serve_batch"], prompt=S["prompt"],
+                          rows_a_rank=-(-S["prompt"] // S["model"]),
+                          diff=_rounded(prefills[0]["diff"]), k5_held=prefills[0]["held"],
+                          context_parallel_calls=prefills[0]["context_parallel"],
+                          seconds_max=max(p["seconds"] for p in prefills)),
+             serve=dict(batch=S["serve_batch"], prompt=S["prompt"],
+                        new_tokens=S["new_tokens"], forced_steps=S["forced_steps"],
+                        logit_ulps=LOGIT_ULPS,
+                        steps=[_rounded(d) for d in serves[0]["diffs"]],
+                        slot_agreement=slots, cache_slots=serves[0]["slots"],
+                        merges=serves[0]["merges"],
+                        forced_merges=serves[0]["forced_merges"],
+                        tokens_equal_share=float((serves[0]["tokens"]
+                                                  == ref["tokens"]).mean()),
+                        k5_held=[sv["held"] for sv in serves],
+                        repeat_bitwise=all(sv["repeat_bitwise"] for sv in serves)),
+             per_rank=g_rows),
+         seamless=dict(
+             arch=enc.name, layers=[enc.n_enc_layers, enc.n_layers],
+             heads=[enc.n_heads, enc.n_kv_heads],
+             params_per_rank=ctx["encdec"]["per_rank_params"],
+             state_bytes_per_rank_reckoned=ctx["encdec"]["reckoned"],
+             train=dict(losses=etrains[0]["losses"], reference_losses=enc_ref["losses"],
+                        grad_norms=etrains[0]["grad_norms"],
+                        reference_grad_norms=enc_ref["grad_norms"],
+                        grad_ratio_max=ev["grad_ratio"], grad_ratio_leaf=ev["grad_leaf"],
+                        grad_ulps=S["encdec_grad_ulps"],
+                        one_device_1_vs_2_microbatches_ratio=enc_ref["grad_floor_ratio"],
+                        weights_dmax_max=ev["dmax"], weights_dmean_max=ev["dmean"],
+                        repeat_bitwise=ev["repeat_bitwise"],
+                        replicated_leaves=etrains[0]["replicated_leaves"],
+                        replicated_equal=ev["replicated_equal"]),
+             serve=dict(batch=S["serve_batch"], prompt=S["encdec_prompt"],
+                        frames=S["frames"], new_tokens=S["encdec_new_tokens"],
+                        forced_steps=S["encdec_forced_steps"],
+                        steps=[_rounded(d) for d in eserves[0]["diffs"]],
+                        cache_heads=eserves[0]["cache_heads"],
+                        tokens_equal_share=float((eserves[0]["tokens"]
+                                                  == enc_ref["tokens"]).mean()),
+                        k5_held=[sv["held"] for sv in eserves],
+                        repeat_bitwise=all(sv["repeat_bitwise"] for sv in eserves)),
+             per_rank=e_rows),
+         launches=counts, launches_by_route=routes)
+    seconds = round(time.perf_counter() - t_start, 3)
+    emit("mesh_cp_phase", seconds=seconds, limit_s=S["limit_s"])
+    check(DEV != "cuda" or seconds <= S["limit_s"],
+          f"mesh_cp: the phase took {seconds} s, past its {S['limit_s']} s")
+    for name, v, rows_, c, tr, ulps in (
+            ("gemma2", tv, g_rows, ctx["gemma"], trains, GRAD_ULPS),
+            ("seamless", ev, e_rows, ctx["encdec"], etrains, S["encdec_grad_ulps"])):
+        check(v["loss_ok"], f"mesh_cp {name}: losses or grad norms past {GRAD_ULPS} "
+              f"bf16 ulps of the one-device step")
+        check(v["grad_ratio"] * GRAD_ULPS <= ulps, f"mesh_cp {name}: a step-0 gradient "
+              f"past {ulps} bf16 ulps of its leaf's largest |g| "
+              f"({v['grad_ratio'] * GRAD_ULPS} ulps at {v['grad_leaf']})")
+        check(v["weights_ok"], f"mesh_cp {name}: weights past 2·Σlr or a mean past "
+              f"0.1·Σlr ({v['dmax']}, {v['dmean']}; Σlr {v['lr_sum']})")
+        check(v["repeat_bitwise"], f"mesh_cp {name}: the second run differs")
+        check(v["replicated_equal"] and tr[0]["replicated_leaves"] > 0,
+              f"mesh_cp {name}: a replicated leaf differs across the model ranks")
+        check(v["ranks_equal"], f"mesh_cp {name}: the ranks' losses differ")
+        check(DEV != "cuda" or all(c["reckoned"] <= (r["peak_bytes"] or 0) for r in rows_),
+              f"mesh_cp {name}: a rank's peak is below the {c['reckoned']} B of state "
+              f"check_fits reckons")
+        init_peak = max(max(r["init_peak_bytes"] or 0, r["repeat_init_peak_bytes"] or 0)
+                        for r in rows_)
+        check(DEV != "cuda" or init_peak <= c["init_reckoned"],
+              f"mesh_cp {name}: a rank's peak while drawing, {init_peak} B, is past the "
+              f"{c['init_reckoned']} B check_fits reckons")
+    for p in prefills:
+        e = p["diff"]
+        check(p["kv"] is not None and p["context_parallel"] == cfg.n_layers,
+              f"mesh_cp: the prefill ran {p['context_parallel']} context-parallel "
+              f"layers under {p['kv']}")
+        check(e["finite"] and e["err"] <= e["bound"] and e["top1"] >= MIN_TOP1,
+              f"mesh_cp: the context-parallel prefill against one device's: {e}")
+        check(p["held"].get("prefill", {}).get("calls")
+              == sum(cfg.attn_type(l) == "global" for l in range(cfg.n_layers))
+              and p["held"]["prefill"]["ratio"] <= 1.0,
+              f"mesh_cp: K5 at the context-parallel prefill against its plain version: "
+              f"{p['held']}")
+    for which, svs in (("gemma2", serves), ("seamless", eserves)):
+        for i, e in enumerate(svs[0]["diffs"]):
+            # top-1 per step for gemma2, as mesh_tp; over every row of the
+            # route for seamless, as lm_encdec (its logits meet near-ties)
+            check(e["finite"] and e["err"] <= e["bound"]
+                  and (which == "seamless" or e["top1"] >= MIN_TOP1),
+                  f"mesh_cp {which} step {i}: {e}")
+        check(_top1_over_rows(svs[0]["diffs"]) >= MIN_TOP1,
+              f"mesh_cp {which}: top-1 over the route's rows "
+              f"{_top1_over_rows(svs[0]['diffs'])}")
+        for sv in svs:
+            h = sv["held"]
+            got = [h.get("prefill", {}).get("calls"), h.get("decode", {}).get("calls")]
+            check(got == sv["held_want"], f"mesh_cp {which}: K5 held in {got} (prefill, "
+                  f"decode) calls, want {sv['held_want']}")
+            for name, a in h.items():
+                check(a["ratio"] <= 1.0, f"mesh_cp {which}: K5's {name} against its "
+                      f"plain version: {a}")
+            c = sv["counts"]
+            check(DEV != "cuda" or all(c.get(k, 0) == n for k, n in sv["want"].items()),
+                  f"mesh_cp {which}: a rank's serving launched {c}, want {sv['want']}")
+        check(all(sv["repeat_bitwise"] for sv in svs),
+              f"mesh_cp {which}: a second prefill and forced decode differ")
+        check(all(np.array_equal(sv["tokens"], svs[0]["tokens"]) for sv in svs),
+              f"mesh_cp {which}: the ranks' tokens differ")
+    for sv in serves:
+        h = sv["held"].get("decode", {})
+        check(h.get("lse_calls") == h.get("calls") and sv["merges"]
+              == cfg.n_layers * S["new_tokens"],
+              f"mesh_cp: the decode went through the lse entry {h} and merged "
+              f"{sv['merges']} times")
+        check(DEV != "cuda" or sv["counts"].get("K3", 0) > 0, "mesh_cp: K3 not launched")
+    check(slots >= MIN_SLOT_AGREEMENT,
+          f"mesh_cp: compressed slots agree {slots} with the one-device compression")
+    check(serves[0]["slots"]["compressed_rank"] * S["model"]
+          >= serves[0]["slots"]["compressed_one_device"]
+          and serves[0]["slots"]["compressed_rank"] < serves[0]["slots"]["compressed_one_device"],
+          f"mesh_cp: a rank's cache slots {serves[0]['slots']}")
+    check(eserves[0]["cache_heads"]["self"] == eserves[0]["cache_heads"]["cross"]
+          == enc.n_kv_heads // S["model"],
+          f"mesh_cp: seamless's caches hold {eserves[0]['cache_heads']} kv heads a rank")
 
 
 def _ep_train_reference(cfg, dev, remat: str) -> dict:
@@ -5578,6 +6411,8 @@ def phase_dryrun(state: dict) -> None:
     missing = tuple(p for p in ("mesh_tp", "mesh_ep") if f"{p}_measured" not in state)
     if missing:
         phase_mesh(state, missing)
+    if "mesh_cp_measured" not in state:
+        phase_mesh_cp(state)
     if "lm_engine" not in state:
         phase_lm(state)
     t0 = time.perf_counter()
@@ -5616,6 +6451,14 @@ def phase_dryrun(state: dict) -> None:
                                parallel=ParallelConfig(remat="block"))
     moe_active = dryrun._active_params(moe, dryrun._model(moe, trainable=False, mesh=None))
     lines.append(_dry_line("mesh_ep_deepseek_rank", moe, shape, got_ep, et, moe_active))
+    C, ct = MESH_CP, state["mesh_cp_measured"]
+    cp_cut = dataclasses.replace(gemma, n_layers=C["layers"])
+    cp_shape = ShapeConfig("mesh_cp_gemma2", C["seq"], C["batch"], "train")
+    got_cp = dryrun.trace_step(cp_cut, cp_shape,
+                               MeshShape(("data", "model"), (C["data"], C["model"])),
+                               parallel=ParallelConfig(remat=C["remat"]), heads_mode="seq")
+    lines.append(_dry_line("mesh_cp_gemma2_rank", cp_cut, cp_shape, got_cp, ct,
+                           cut_active))
     seconds = round(time.perf_counter() - t0, 3)
     emit("dryrun_phase", seconds=seconds, limit_s=DRYRUN["limit_s"])
     lo, hi = DRYRUN["peak_ratio"]
@@ -5633,6 +6476,10 @@ def phase_dryrun(state: dict) -> None:
         check(ops == got_ep["op_counts"],
               f"dryrun: mesh_ep's deepseek rank {r} recorded {ops}, the dry run reckons "
               f"{got_ep['op_counts']}")
+    for r, ops in enumerate(ct["ranks_ops"]):
+        check(ops == got_cp["op_counts"],
+              f"dryrun: mesh_cp's gemma2 rank {r} recorded {ops}, the dry run reckons "
+              f"{got_cp['op_counts']}")
     check(seconds <= DRYRUN["limit_s"],
           f"dryrun: the phase took {seconds} s, past its {DRYRUN['limit_s']} s")
 
@@ -5884,6 +6731,30 @@ def _forced_route(bundle, model, tok, steps, *, impl, compress_impl,
     return out, raw, start
 
 
+def _plain_in_row_blocks(q, k, v, kv_bias, *, causal, scale, logit_softcap,
+                         rows: int = 256):
+    """K5's plain version over blocks of ``rows`` query rows, each against
+    the keys its rows may see (the causal mask is aligned to the end of kv):
+    each row's dense softmax as the whole call computes it, with a
+    (rows, keys) logit tile at a time rather than (lq, lk) (16 ranks each
+    holding a 2048 x 2048 tile of 8 heads do not fit one card)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    lq, lk = q.shape[2], k.shape[2]
+    if lq <= rows:
+        return fa.flash_attention_plain(q, k, v, kv_bias, causal=causal, scale=scale,
+                                        logit_softcap=logit_softcap)
+    outs = []
+    for i in range(0, lq, rows):
+        j = min(lq, i + rows)
+        end = lk - lq + j if causal else lk
+        kb = None if kv_bias is None else kv_bias[..., :end]
+        outs.append(fa.flash_attention_plain(q[:, :, i:j], k[:, :, :end], v[:, :, :end],
+                                             kb, causal=causal, scale=scale,
+                                             logit_softcap=logit_softcap))
+    return torch.cat(outs, dim=2)
+
+
 @contextlib.contextmanager
 def _attention_held(held: list):
     """While the block runs, every windowless attention call (through
@@ -5891,18 +6762,42 @@ def _attention_held(held: list):
     plain version on the same inputs: ``held`` receives one entry a call,
     its query length, the largest |difference| and its ratio to the
     tolerance (ATTN_TOL_BF16, or ATTN_TOL_F32 for f32: at most 1 where
-    ``torch.allclose`` holds)."""
+    ``torch.allclose`` holds). So is every call of K5's lse entry (through
+    ``ops.flash_attention_lse``: a sequence-split cache's decode), its
+    output and its lse against ``flash_attention_lse_plain``'s (the lse
+    −inf at the same rows, the finite ones within the same tolerance);
+    its entries carry ``"lse": True``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
-    inner = ops.flash_attention
+    inner, inner_lse = ops.flash_attention, ops.flash_attention_lse
+
+    def checked_lse(q, k, v, *, kv_bias=None, impl=None, causal=True, scale=None,
+                    logit_softcap=0.0):
+        out, lse = inner_lse(q, k, v, kv_bias=kv_bias, impl=impl, causal=causal,
+                             scale=scale, logit_softcap=logit_softcap)
+        want, want_lse = fa.flash_attention_lse_plain(
+            q, k, v, kv_bias, causal=causal, scale=scale, logit_softcap=logit_softcap)
+        tol = ATTN_TOL_BF16 if q.dtype == torch.bfloat16 else ATTN_TOL_F32
+        diff = (out - want).abs()
+        ratio = float((diff / (tol["atol"] + tol["rtol"] * want.abs())).max())
+        seen = torch.isfinite(want_lse)
+        if not torch.equal(seen, torch.isfinite(lse)):
+            ratio = float("inf")
+        elif bool(seen.any()):
+            d = (lse[seen] - want_lse[seen]).abs()
+            ratio = max(ratio, float((d / (tol["atol"] + tol["rtol"]
+                                           * want_lse[seen].abs())).max()))
+        held.append({"lq": q.shape[2], "err": float(diff.max()), "ratio": ratio,
+                     "lse": True})
+        return out, lse
 
     def checked(q, k, v, *, kv_bias=None, impl=None, causal=True, scale=None,
                 logit_softcap=0.0):
         out = inner(q, k, v, kv_bias=kv_bias, impl=impl, causal=causal,
                     scale=scale, logit_softcap=logit_softcap)
-        want = fa.flash_attention_plain(q, k, v, kv_bias, causal=causal, scale=scale,
-                                        logit_softcap=logit_softcap).float()
+        want = _plain_in_row_blocks(q, k, v, kv_bias, causal=causal, scale=scale,
+                                    logit_softcap=logit_softcap).float()
         tol = ATTN_TOL_BF16 if q.dtype == torch.bfloat16 else ATTN_TOL_F32
         diff = (out.float() - want).abs()
         held.append({"lq": q.shape[2], "err": float(diff.max()),
@@ -5910,11 +6805,11 @@ def _attention_held(held: list):
                                      ).max())})
         return out
 
-    ops.flash_attention = checked
+    ops.flash_attention, ops.flash_attention_lse = checked, checked_lse
     try:
         yield held
     finally:
-        ops.flash_attention = inner
+        ops.flash_attention, ops.flash_attention_lse = inner, inner_lse
 
 
 def _held_summary(held: list) -> dict:
@@ -5924,7 +6819,8 @@ def _held_summary(held: list) -> dict:
                         ("decode", [h for h in held if h["lq"] == 1])):
         if calls:
             w = max(calls, key=lambda h: h["ratio"])
-            out[name] = {"calls": len(calls), "err": w["err"], "ratio": w["ratio"]}
+            out[name] = {"calls": len(calls), "err": w["err"], "ratio": w["ratio"],
+                         "lse_calls": sum(bool(h.get("lse")) for h in calls)}
     return out
 
 
@@ -6255,11 +7151,16 @@ def _parity_checks(which: str, errs: dict, top1: dict, att: dict, want_calls,
 
 def _free_models(state: dict) -> None:
     """Drop what earlier phases hold on the card before a large model
-    loads (the lm phase's engine; main drops the train phase's state)."""
+    loads (the lm phase's engine; main drops the train phase's state), and
+    the blocks of tensors an earlier spawn's ranks mapped by CUDA IPC (this
+    process keeps them until asked: mesh_tp's and mesh_ep's oracles, 15 GB,
+    ran mesh_cp's ranks out of memory in the whole smoke)."""
     import gc
 
     state.pop("lm_engine", None)
     gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
 
 
@@ -6730,7 +7631,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    if {"sharded", "train_mesh", "mesh_tp", "mesh_ep", "dryrun"} & set(phases):
+    if {"sharded", "train_mesh", "mesh_tp", "mesh_ep", "mesh_cp", "dryrun"} & set(phases):
         from repro_torch.launch.mesh import start_rank_server, stop_rank_server
 
         start_rank_server()  # the ranks' server imports in the background
@@ -6777,6 +7678,8 @@ def main() -> int:
     mesh = tuple(p for p in ("mesh_tp", "mesh_ep") if p in phases)
     if mesh:  # one spawn for both
         phase_mesh(state, mesh)
+    if "mesh_cp" in phases:
+        phase_mesh_cp(state)
     if "lm" in phases:
         phase_lm(state)
     if "dryrun" in phases:
@@ -6804,6 +7707,7 @@ def main() -> int:
                  **{w: state.get(f"{w}_counts", {}) for w in TRAIN_FAMILIES},
                  "mesh_tp": state.get("mesh_tp_counts", {}),
                  "mesh_ep": state.get("mesh_ep_counts", {}),
+                 "mesh_cp": state.get("mesh_cp_counts", {}),
                  "lm": state.get("lm_counts", {}),
                  "lm_moe": state.get("lm_moe_counts", {}),
                  "lm_hybrid": state.get("lm_hybrid_counts", {}),
@@ -6821,6 +7725,7 @@ def main() -> int:
                   **{w: state.get(f"{w}_routes", {}) for w in TRAIN_FAMILIES},
                   "mesh_tp": state.get("mesh_tp_routes", {}),
                   "mesh_ep": state.get("mesh_ep_routes", {}),
+                  "mesh_cp": state.get("mesh_cp_routes", {}),
                   "lm": state.get("lm_routes", {}),
                   "lm_moe": state.get("lm_moe_routes", {}),
                   "lm_hybrid": state.get("lm_hybrid_routes", {}),
@@ -6828,7 +7733,7 @@ def main() -> int:
                   "lm_encdec": state.get("lm_encdec_routes", {})}
         line = []
         for kid in ("K1", "K1-bf16", "K1-int8", "K2", "K3", "K4", "K5", "K5-decode",
-                    "K5-prefill"):
+                    "K5-prefill", "K5-lse"):
             if kid not in results:  # a run without the kernels phase
                 continue
             r = results[kid]

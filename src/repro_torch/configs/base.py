@@ -8,8 +8,9 @@ AdamW's state replicated, 1: sharded; the same bits either way).
 train step reads it (the int8 error-feedback all-reduce is the library
 function ``train.compression.tree_compressed_psum``). ``shard_kv_seq`` and
 ``seq_shard_activations`` are declared and read nowhere, as in the
-reference (the model axis's sequence-sharded cache and context-parallel
-attention wait for ROADMAP.md, Queue 1, item 7d).
+reference: the model axis's sequence-sharded decode cache and
+context-parallel attention follow the cell's plan
+(``launch.mesh.make_plan``) instead.
 """
 from __future__ import annotations
 

@@ -49,6 +49,10 @@ Mailbox traffic is counted apart (:func:`ipc_counts`). The tests run the
 same path on the CPU through files mapped shared
 (:func:`use_host_mailboxes`).
 
+An axis of one rank moves nothing: each collective returns a copy of this
+rank's tensor (its exact result), without a wait on the card or a
+barrier, and is counted as any other call.
+
 The logical count. :func:`op_counts` counts every call of an
 :class:`Axis` collective once, with the bytes this rank hands it, whatever
 the route (mailbox, staged, NCCL, gloo on host tensors); :func:`op_records`
@@ -388,6 +392,8 @@ class Axis:
         is_bool = t.dtype == torch.bool
         src = (t.to(torch.uint8) if is_bool else t).contiguous()
         _record("gather_rows", self.size, src)
+        if self.size == 1:  # this rank's rows alone: no exchange, no wait on the card
+            return t.clone()
         box = self._mailbox(src)
         if box is not None:
             out = torch.empty((self.size * src.shape[0], *src.shape[1:]),
@@ -410,6 +416,8 @@ class Axis:
 
     def _all_reduce(self, t: torch.Tensor, op, name: str) -> torch.Tensor:
         """All-reduce of a fresh copy of ``t`` (``t`` is left as it was)."""
+        if self.size == 1:
+            return t.clone()
         h, staged = self._host(t.contiguous(), name)
         out = h if staged else h.clone()
         dist.all_reduce(out, op=op, group=self.group)
@@ -432,6 +440,8 @@ class Axis:
         buffer's shape and dtype on the others)."""
         t = t.contiguous()
         _record("broadcast", self.size, t)
+        if self.size == 1:
+            return t.clone()
         box = self._mailbox(t)
         if box is not None:
             out = t.clone()
@@ -482,6 +492,8 @@ class Axis:
                              f"{self.size} elements, not {tuple(t.shape)}")
         t = t.contiguous()
         _record("sum_scatter", self.size, t)
+        if self.size == 1:  # the sum of one rank's tensor: itself
+            return t.clone()
         box = self._mailbox(t)
         if box is not None:
             return self._sum_scatter_via(box, t)

@@ -56,6 +56,14 @@
 // one-block kernel averages over the keys it visits); the LM forms no such
 // row, since the slot being decoded is always visible with a finite bias.
 //
+// The lse entry (repro_flash_attention_lse) runs the same split-kv route and
+// returns the softmax statistics the Pallas kernel keeps in m_ref and l_ref
+// (its wrapper drops them): the combine also writes lse = M + log L per row
+// and the output in f32. A row with no unmasked key (M <= kNoKey, or no key
+// at all) gets lse = -inf, so a merge of several such (out, lse) pairs can
+// weigh it 0. A model axis that splits the decode cache along the sequence
+// attends each rank's slots through it and merges the ranks in rank order.
+//
 // The tiled route (flash_kernel; prefill and every call with more rows).
 // Design (simple and right first): the hq / hkv query heads that share a kv
 // head are packed with their rows into one row space of g * lq rows, so a
@@ -127,6 +135,8 @@ constexpr int kBQ = kThreads / kGroup * kRowsPerThread;  // 64 rows a block
 constexpr int kBK = 32;                         // keys a kv tile
 constexpr int kColsPerThread = kBK / kGroup;    // 4 logits per row a thread
 constexpr float kMasked = -1e30f;
+// a row's max logit at or below this saw no unmasked key (lse -inf)
+constexpr float kNoKey = -1e29f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -883,12 +893,14 @@ __global__ void __launch_bounds__(kSplitThreads)
 }
 
 // One block per (batch * kv head, packed row): the splits' partials in
-// split order, stored in q's type.
-template <typename T>
+// split order, stored in TO (q's type, or f32 for the lse entry); with
+// ``lse`` also the row's log-sum-exp M + log L, -inf for a row whose every
+// logit is masked (M at or below kNoKey) or that has no key.
+template <typename TO>
 __global__ void __launch_bounds__(kCombineThreads)
-    split_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
-                         int hq, int hkv, int lq, int dh, int splits,
-                         long long n_parts) {
+    split_combine_kernel(const float* __restrict__ part, TO* __restrict__ out,
+                         float* __restrict__ lse, int hq, int hkv, int lq, int dh,
+                         int splits, long long n_parts) {
   __shared__ float s_w[kSplitMaxSplits];
   const int g = hq / hkv;
   const int n_rows = g * lq;
@@ -906,18 +918,21 @@ __global__ void __launch_bounds__(kCombineThreads)
   float ll = 0.f;
   for (int s = 0; s < splits; ++s) ll = fmaf(pl[s], s_w[s], ll);
   const float den = fmaxf(ll, 1e-30f);
-  T* o = out + (((size_t)bb * hq + h) * lq + i) * dh;
+  const size_t row = ((size_t)bb * hq + h) * lq + i;
+  TO* o = out + row * dh;
   for (int f = threadIdx.x; f < dh; f += kCombineThreads) {
     float a = 0.f;
     for (int s = 0; s < splits; ++s) a = fmaf(part_acc[(size_t)s * dh + f], s_w[s], a);
     store(o + f, a / den);
   }
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[row] = (mm <= kNoKey || ll <= 0.f) ? -CUDART_INF_F : mm + logf(ll);
 }
 
 template <typename T, int DH, int R>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const float* bias,
-                         void* out, int b, int hq, int hkv, int lq, int lk, int dh,
-                         int bias_heads, int causal, float scale, float softcap,
+                         void* out, float* lse, int b, int hq, int hkv, int lq, int lk,
+                         int dh, int bias_heads, int causal, float scale, float softcap,
                          void* scratch, cudaStream_t stream) {
   const int keys = split_keys(lk), splits = split_count(lk);
   const int n_rows = (hq / hkv) * lq;
@@ -933,31 +948,35 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const floa
       vec ? 1 : 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  split_combine_kernel<T><<<(unsigned)(blocks * n_rows), kCombineThreads, 0, stream>>>(
-      part, static_cast<T*>(out), hq, hkv, lq, dh, splits, n_parts);
+  if (lse != nullptr)  // the lse entry: the output in f32 beside the statistics
+    split_combine_kernel<float><<<(unsigned)(blocks * n_rows), kCombineThreads, 0, stream>>>(
+        part, static_cast<float*>(out), lse, hq, hkv, lq, dh, splits, n_parts);
+  else
+    split_combine_kernel<T><<<(unsigned)(blocks * n_rows), kCombineThreads, 0, stream>>>(
+        part, static_cast<T*>(out), nullptr, hq, hkv, lq, dh, splits, n_parts);
   return cudaGetLastError();
 }
 
 template <typename T, int R>
 cudaError_t launch_split_dh(const void* q, const void* k, const void* v, const float* bias,
-                            void* out, int b, int hq, int hkv, int lq, int lk, int dh,
-                            int bias_heads, int causal, float scale, float softcap,
+                            void* out, float* lse, int b, int hq, int hkv, int lq, int lk,
+                            int dh, int bias_heads, int causal, float scale, float softcap,
                             void* scratch, cudaStream_t s) {
   if (dh <= 64)
-    return launch_split<T, 64, R>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+    return launch_split<T, 64, R>(q, k, v, bias, out, lse, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
   if (dh <= 128)
-    return launch_split<T, 128, R>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
-  return launch_split<T, 256, R>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+    return launch_split<T, 128, R>(q, k, v, bias, out, lse, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+  return launch_split<T, 256, R>(q, k, v, bias, out, lse, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
 }
 
 template <typename T>
 cudaError_t launch_split_rows(const void* q, const void* k, const void* v, const float* bias,
-                              void* out, int b, int hq, int hkv, int lq, int lk, int dh,
-                              int bias_heads, int causal, float scale, float softcap,
+                              void* out, float* lse, int b, int hq, int hkv, int lq, int lk,
+                              int dh, int bias_heads, int causal, float scale, float softcap,
                               void* scratch, cudaStream_t s) {
   if ((hq / hkv) * lq <= 2)
-    return launch_split_dh<T, 2>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
-  return launch_split_dh<T, kSplitMaxRows>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+    return launch_split_dh<T, 2>(q, k, v, bias, out, lse, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+  return launch_split_dh<T, kSplitMaxRows>(q, k, v, bias, out, lse, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
 }
 
 }  // namespace
@@ -1000,8 +1019,8 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   if (split_route(hq, hkv, lq)) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-      return (int)launch_split_rows<float>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
-    return (int)launch_split_rows<__nv_bfloat16>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+      return (int)launch_split_rows<float>(q, k, v, bias, out, nullptr, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+    return (int)launch_split_rows<__nv_bfloat16>(q, k, v, bias, out, nullptr, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
   }
   if (mma_route(dtype, dh)) {
     if (dh == 64)
@@ -1015,6 +1034,31 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return (int)launch_dh<float>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, s);
   return (int)launch_dh<__nv_bfloat16>(q, k, v, bias, out, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, s);
+}
+
+// The split-kv route with its softmax statistics: out (b, hq, lq, dh) f32
+// (the normalised output, not rounded to q's type) and lse (b, hq, lq) f32,
+// M + log L of each row, -inf where every logit the row sees is masked
+// (M <= -1e29: positions past the decode position, or a row with no key).
+// The arguments are repro_flash_attention's; only calls of the split-kv
+// route (at most 8 packed rows a kv head) are taken. A model axis whose
+// decode cache is split along the sequence merges the ranks' (out, lse).
+int repro_flash_attention_lse(const void* q, const void* k, const void* v,
+                              const float* bias, float* out, float* lse, int dtype, int b,
+                              int hq, int hkv, int lq, int lk, int dh, int bias_heads,
+                              int causal, float scale, float softcap, void* scratch,
+                              void* stream) {
+  if (b < 0 || hq < 1 || hkv < 1 || hq % hkv != 0 || lq < 0 || lk < 0 || dh < 1 ||
+      dh > 256 || (bias != nullptr && bias_heads != hkv && bias_heads != hq) ||
+      (dtype != 0 && dtype != 1) || (long long)b * hkv > 0x7fffffffLL || lse == nullptr ||
+      !split_route(hq, hkv, lq))
+    return (int)cudaErrorInvalidValue;
+  if (b == 0 || lq == 0) return (int)cudaSuccess;
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_split_rows<float>(q, k, v, bias, out, lse, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
+  return (int)launch_split_rows<__nv_bfloat16>(q, k, v, bias, out, lse, b, hq, hkv, lq, lk, dh, bias_heads, causal, scale, softcap, scratch, s);
 }
 
 const char* repro_error_string(int err) {

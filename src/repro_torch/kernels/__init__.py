@@ -3,7 +3,8 @@
 Each kernel wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches`` (K1 counts its bf16 and int8 key instances apart,
 in ``.launches_bf16`` and ``.launches_int8``; K5 counts every launch and,
-apart, those of its split-kv decode route in ``.launches_decode``);
+apart, those of its split-kv decode route in ``.launches_decode``; its
+lse entry, ``flash_attention_lse``, is "K5-lse");
 :func:`launch_counts` reads them all, :func:`route_counts` the launches
 of K1–K5 per route (K5's tensor-core prefill route is "K5/tiled_mma"
 there, K4's instances "K4/small_m" and "K4/tiled", K3's paths "K3/few"
@@ -31,6 +32,7 @@ COUNTERS = {
     "K4": (_pairwise_l2.pairwise_sq_l2, "launches"),
     "K5": (_flash_attention.flash_attention, "launches"),
     "K5-decode": (_flash_attention.flash_attention, "launches_decode"),
+    "K5-lse": (_flash_attention.flash_attention_lse, "launches"),
 }
 
 #: wrappers that count their launches per route in ``.route_launches``

@@ -74,7 +74,9 @@ _HELPERS = {
     "flash_attention": {
         "repro_flash_attention_route": ([_I, _I, _I, _I, _I], _I),
         "repro_flash_attention_split_keys": ([_I], _I),
-        "repro_flash_attention_scratch_bytes": ([_I, _I, _I, _I, _I, _I], _L)},
+        "repro_flash_attention_scratch_bytes": ([_I, _I, _I, _I, _I, _I], _L),
+        "repro_flash_attention_lse": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _F, _F, _P, _P], _I)},
 }
 
 _lock = threading.Lock()
@@ -160,15 +162,16 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def call(name: str, *args) -> None:
-    """Launch through library ``name``'s C entry point; raise on a nonzero
+def call(name: str, *args, entry: Optional[str] = None) -> None:
+    """Launch through library ``name``'s C entry point (``entry``: another
+    of its launching functions, one of its helpers); raise on a nonzero
     ``cudaGetLastError()``."""
     lib = library(name)
-    err = getattr(lib, _SIGNATURES[name][0])(*args)
+    fn = entry or _SIGNATURES[name][0]
+    err = getattr(lib, fn)(*args)
     if err != 0:
         msg = lib.repro_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {_SIGNATURES[name][0]} failed: "
-                           f"error {err} ({msg})")
+        raise RuntimeError(f"CUDA kernel {fn} failed: error {err} ({msg})")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -19,7 +19,9 @@ column:
     tensor-core prefill route "tiled_mma" q·k and p·v twice as bf16
     products (6·dh) and 8 f32 softmax operations; on "split_kv" and
     "tiled" q·k in q's type (bf16 products where q is bf16), p·v and the
-    softmax in f32. Bytes: q, k, v and the bias read, the output written.
+    softmax in f32. Bytes: q, k, v and the bias read, the output written;
+    the lse entry ("split_kv") writes its output in f32 and the (b, hq, lq)
+    f32 lse besides.
 
 Launch counters do not move: a meta call launches nothing. The
 conversions a wrapper makes before its launch (a bias to f32, a view made
@@ -137,3 +139,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _report("K5", route, attention_work(b, hq, lq, k.shape[2], dh, causal, q.dtype,
                                         route), nbytes)
     return out
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_bias: Optional[torch.Tensor], causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's lse entry (the split-kv route): (o f32 of q's shape, lse (b, hq,
+    lq) f32)."""
+    b, hq, lq, dh = q.shape
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    nbytes = (q.numel() + 2 * k.numel()) * q.element_size() + _nbytes(out, lse) + (
+        0 if kv_bias is None else kv_bias.numel() * 4)
+    _report("K5", "split_kv_lse", attention_work(b, hq, lq, k.shape[2], dh, causal,
+                                                 q.dtype, "split_kv"), nbytes)
+    return out, lse

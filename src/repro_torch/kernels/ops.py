@@ -250,3 +250,24 @@ def flash_attention(
                                    logit_softcap=logit_softcap)
     return _fa.flash_attention_plain(q, k, v, kv_bias, causal=causal,
                                      scale=scale, logit_softcap=logit_softcap)
+
+
+def flash_attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    kv_bias: Optional[torch.Tensor] = None,
+    logit_softcap: float = 0.0,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` with the rows' log-sum-exp: (o f32, lse (b,
+    hq, lq) f32). K5's lse entry for a CUDA tensor (decode calls: its
+    split-kv route), its plain version for a CPU tensor or ``impl="ref"``."""
+    if resolve(impl, q.device) == "cuda":
+        return _fa.flash_attention_lse(q, k, v, kv_bias, causal=causal, scale=scale,
+                                       logit_softcap=logit_softcap)
+    return _fa.flash_attention_lse_plain(q, k, v, kv_bias, causal=causal, scale=scale,
+                                         logit_softcap=logit_softcap)

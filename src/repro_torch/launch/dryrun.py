@@ -32,15 +32,16 @@ decode cell one step against a full one. The port traces every layer, so
 the count is direct: the reference's two-point extrapolation (XLA counts
 a scanned layer once) has no counterpart.
 
-The model axis runs the dense, VLM, MoE (expert parallel: the experts'
-outputs gathered along E, recorded as ``gather_rows``), SSM and hybrid
-families (Mamba by heads: the gated norm's (b, s, 1) partial sums added
-over the ranks, recorded as ``gather_rows`` too); the encoder-decoder on
-a model axis larger than one waits for ROADMAP.md, Queue 1, item 7d, and
-its cells report ``status: "waits"`` with that message. Where the query
-heads, the experts or the SSD heads do not divide the model ranks
-(gemma2-2b's 8 heads over 16), the port runs that module replicated, and
-the dry run reckons what the port runs.
+The model axis runs every family: dense, VLM, MoE (expert parallel: the
+experts' outputs gathered along E, recorded as ``gather_rows``), SSM and
+hybrid (Mamba by heads: the gated norm's (b, s, 1) partial sums added
+over the ranks, recorded as ``gather_rows`` too) and the encoder-decoder.
+Where the query heads, the experts or the SSD heads do not divide the
+model ranks (gemma2-2b's 8 heads over 16), the port runs that module
+replicated, or with ``heads_mode="seq"`` (``run_cell``) the attention
+context-parallel in train and prefill cells; a decode cell's cache
+follows its plan (a rank's kv heads, or its slice of the slots:
+:func:`cache_abstract`); the dry run reckons what the port runs.
 
 Usage (any machine: it traces on "meta", as the reference's runs on host
 devices):
@@ -268,29 +269,33 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *, kind: str,
 
 def cache_abstract(cfg: ModelConfig, shape: ShapeConfig, mesh, bundle, tp_size: int,
                    variant: str, *, kind: str, device=META,
-                   cache_len: Optional[int] = None) -> dict:
+                   cache_len: Optional[int] = None, heads_mode: str = "auto") -> dict:
     """One rank's caches: a prefill's empty cache of ``seq_len`` slots; a
     decode step's full one (``pos`` at its last slot), under ``ihtc-kv``
     the compressed cache (t = m = 2: a quarter of the slots plus a 1024
     tail) with its prototype bias and mass. ``cache_len`` sets the slots
-    instead (a prefill's prompt is still ``seq_len``)."""
+    instead (a prefill's prompt is still ``seq_len``). On a mesh the
+    caches follow the cell's plan (``make_plan``): a rank's kv heads, or
+    its slice of the slots where the plan splits the sequence."""
     b, s = _local_batch(cfg, shape, mesh), shape.seq_len
     if variant == "ihtc-kv" and kind == "decode":
         t, m, tail = 2, 2, 1024
         s = s // (t ** m) + tail
     if cache_len is not None:
         s = cache_len
+    kw = dict(device=device, tp_size=tp_size)
+    if mesh is not None:
+        kw.update(plan=make_plan(cfg, shape, mesh, heads_mode=heads_mode), mesh=mesh)
     if cfg.family == "encdec-audio":
-        caches = bundle.init_caches(b, s, enc_len=shape.seq_len, device=device,
-                                    tp_size=tp_size)
+        caches = bundle.init_caches(b, s, enc_len=shape.seq_len, **kw)
     else:
-        caches = bundle.init_caches(b, s, device=device, tp_size=tp_size)
+        caches = bundle.init_caches(b, s, **kw)
     for c in caches["layers"]:
         c = c.get("self", c)
         if "pos" not in c:
             continue
         if kind == "decode":
-            c["pos"] = c["k"].shape[2] - 1
+            c["pos"] = c.get("slots", c["k"].shape[2]) - 1
         if variant == "ihtc-kv" and kind == "decode":
             c["bias"] = torch.zeros(c["k"].shape[:-1], dtype=torch.float32,
                                     device=device)
@@ -318,7 +323,6 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Optional[MeshShape], 
     slots (:func:`cache_abstract`)."""
     mesh = None if mesh is None else traced_mesh(mesh)
     tp = tensor_parallel.model_ranks(mesh)
-    tensor_parallel.check_model_axis(cfg, tp)
     bundle = build(cfg)
     plan = make_plan(cfg, shape, mesh, heads_mode=heads_mode) if mesh is not None else None
     kind = shape.kind
@@ -340,7 +344,8 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Optional[MeshShape], 
     else:
         model = _model(cfg, trainable=False, mesh=mesh, device=device)
         caches = cache_abstract(cfg, shape, mesh, bundle, tp, variant, kind=kind,
-                                device=device, cache_len=cache_len)
+                                device=device, cache_len=cache_len,
+                                heads_mode=heads_mode)
         batch = input_specs(cfg, shape, mesh, kind=kind, device=device)
         fn = bundle.prefill if kind == "prefill" else bundle.decode_step
         live = _tensors((list(model.parameters()), caches, batch))
@@ -417,11 +422,6 @@ def run_cell(
         return dict(head, status="skip",
                     reason="full-attention arch at 500k context (DESIGN.md §6); "
                            "runnable under --variant ihtc-kv")
-    try:
-        tensor_parallel.check_model_axis(cfg, mesh.sizes[-1])
-    except NotImplementedError as e:
-        return dict(head, status="waits", reason=str(e))
-
     t0 = time.time()
     got = trace_step(cfg, shape, mesh, parallel=parallel, variant=variant,
                      heads_mode=heads_mode, param_dtype=param_dtype)
@@ -498,7 +498,7 @@ def main(argv=None) -> None:
         for m in meshes:
             cells.append((args.arch, args.shape, m))
 
-    failures = waits = 0
+    failures = 0
     for a, s, m in cells:
         try:
             res = run_cell(a, s, m, variant=args.variant)
@@ -512,11 +512,9 @@ def main(argv=None) -> None:
             fn = f"{a}__{s}__{m}__{args.variant}.json"
             with open(os.path.join(args.out, fn), "w") as f:
                 json.dump(res, f, indent=1)
-        if res["status"] in ("skip", "waits"):
-            waits += res["status"] == "waits"
-            print(f"[{a} × {s} × {m}] {res['status'].upper()}: {res['reason']}")
-    print(f"\ndry-run finished: {len(cells)} cells, {failures} failures, "
-          f"{waits} waiting for the enc-dec on the model axis (ROADMAP.md item 7d)")
+        if res["status"] == "skip":
+            print(f"[{a} × {s} × {m}] SKIP: {res['reason']}")
+    print(f"\ndry-run finished: {len(cells)} cells, {failures} failures")
     raise SystemExit(1 if failures else 0)
 
 

@@ -181,8 +181,8 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
       auto: attention replicated over "model" (the port gathers q and the
             out projection; the reference leaves it to SPMD propagation);
       seq:  context parallelism, q sequence-sharded over "model" and k/v
-            replicated (``plan.kv``); the port's model axis does not run
-            it yet (ROADMAP.md, Queue 1, item 7d)."""
+            replicated (``plan.kv``; train and prefill): each rank attends
+            its chunk of the sequence (``models.tensor_parallel``)."""
     from repro_torch.models.mamba2 import dims
 
     dp = data_axes(mesh)

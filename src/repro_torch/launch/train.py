@@ -22,9 +22,8 @@ run under ``torchrun`` with 8 ranks), ``pod1`` and ``pod2`` ((16, 16) and
 raise). On such a mesh the model is sharded over "model"
 (``bundle.init(mesh=)``: each rank draws its slices, one whole leaf at a
 time) and the step takes the cell's
-``make_plan``; the dense, VLM, MoE (expert parallel), SSM and hybrid
-families run there (the enc-dec raises, naming ROADMAP.md, Queue 1, item
-7d).
+``make_plan``; every family runs there: dense, VLM, MoE (expert
+parallel), SSM, hybrid and the audio encoder-decoder.
 
 Over data ranks alone, :func:`train` runs in every rank's process under
 ``runtime.configure(mesh=...)`` (a mesh of ``("data",)`` or ``("pod",
@@ -63,7 +62,7 @@ from repro_torch.launch.mesh import (
     make_production_mesh,
     spawn_ranks,
 )
-from repro_torch.models.tensor_parallel import check_model_axis, model_dim
+from repro_torch.models.tensor_parallel import model_dim
 from repro_torch.runtime import active, resolve_device
 from repro_torch.train import (
     CheckpointManager,
@@ -156,9 +155,8 @@ def check_fits(cfg: ModelConfig, device: torch.device, *, data_ranks: int = 1,
             f"over {data_ranks} data rank(s) and {model_ranks} model rank(s), x "
             f"{ranks_per_card} rank(s) on the card), more than its "
             f"{have / 1e9:.1f} GB; cut the depth (--layers) or spread the state "
-            f"over data and model ranks on more cards (--mesh; ROADMAP.md, Queue 1, "
-            f"item 7c, and item 7d for the experts and the Mamba heads; the enc-dec "
-            f"on a model axis waits for item 7d's rest)")
+            f"over data and model ranks on more cards (--mesh: the model axis of "
+            f"ROADMAP.md, Queue 1, item 7c, and its rest, item 7d, both done)")
 
 
 def batch_dims(shape: ShapeConfig, batch: int = 0, seq: int = 0) -> Tuple[int, int]:
@@ -220,8 +218,6 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, steps: int, batch: int = 0,
     with a model axis of :data:`MESH_SHAPES`, built over this process
     group (every rank calls ``train``; :func:`main` starts them)."""
     dev = resolve_device(device)
-    if mesh != "single":
-        check_model_axis(cfg, MESH_SHAPES[mesh].sizes[-1])
     ranks = active().mesh if mesh == "single" else _mesh_named(mesh, dev)
     parallel = ParallelConfig(remat=remat, microbatches=microbatches)
     b, s = batch_dims(shape, batch, seq)
@@ -231,7 +227,6 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *, steps: int, batch: int = 0,
     else:
         names = tuple(ranks.mesh_dim_names or ())
         tp = axis_size(ranks, "model") if "model" in names else 1
-        check_model_axis(cfg, tp)
         check_fits(cfg, dev, data_ranks=axis_size(ranks, data_axes(ranks)),
                    ranks_per_card=ranks_per_card(ranks, dev),
                    zero_stage=parallel.zero_stage, model_ranks=tp)
@@ -308,13 +303,11 @@ def launch_mesh(cfg: ModelConfig, shape: str, mesh: str, kw: dict, *,
     process is one rank (the launch must have exactly the mesh's ranks);
     else ``debug`` spawns its 8 ranks on this host (gloo; on one card the
     copies go through the ranks' device mailboxes), and ``pod1``/``pod2``
-    raise. Raises before anything is built for an arch the model axis does
-    not run. Returns every rank's :func:`mesh_rank` (this rank's alone
-    under ``torchrun``)."""
+    raise. Returns every rank's :func:`mesh_rank` (this rank's alone under
+    ``torchrun``)."""
     import torch.distributed as dist
 
     need = MESH_SHAPES[mesh].size()
-    check_model_axis(cfg, MESH_SHAPES[mesh].sizes[-1])
     dev = resolve_device(kw.get("device"))
     if "WORLD_SIZE" in os.environ:  # torchrun
         world = int(os.environ["WORLD_SIZE"])

@@ -21,6 +21,16 @@ Caches are per layer: ``{"layers": [{"self": attention cache, "cross_k",
 in the prefill, from the encoder output, and reused by every decode step
 (the reference's ``_project_cross_kv``); they are kept heads first, the
 layout attention reads, where the reference keeps (b, s_enc, hkv, hd).
+
+On a model axis (``tensor_parallel.shard_model``, ``self.tp``; every call
+then takes the cell's ``plan``): the encoder's and the decoder's
+self-attention, the cross-attention's q and the MLPs run on this rank's
+heads and columns, the embedding, unembedding and loss over its rows of
+the vocabulary, as the decoder-only LM's; each decoder layer projects the
+cross k/v of this rank's kv heads from its ``wk``/``wv`` columns
+(``TensorParallel.cross_kv_operands``), and the cross k/v cache holds
+those heads, while ``encdec_cache_specs`` keeps the reference's (dp,
+None, None, None): the same choice as the Mamba conv cache's.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import tensor_parallel
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     MLP,
@@ -76,15 +87,19 @@ class DecLayer(nn.Module):
         self.mlp = MLP(d, cfg.d_ff, cfg.mlp, **kw)
 
 
-def project_cross_kv(p: attn.Attention, enc_out: torch.Tensor, cfg: ModelConfig
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def project_cross_kv(p: attn.Attention, enc_out: torch.Tensor, cfg: ModelConfig,
+                     tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross k/v, (b, hkv, s_enc, hd) each, from the
     (b, s_enc, d) encoder output: no bias, no rope (the reference's
-    ``_project_cross_kv``)."""
+    ``_project_cross_kv``). ``tp``: the kv heads this rank holds
+    (``TensorParallel.cross_kv_operands``)."""
     b, s, _ = enc_out.shape
     dt = enc_out.dtype
-    k = (enc_out @ p.wk.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ p.wv.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    x, wk, wv, hkv = enc_out, p.wk, p.wv, cfg.n_kv_heads
+    if tp is not None:
+        x, wk, wv, hkv = tp.cross_kv_operands(p, enc_out)
+    k = tensor_parallel.column_mm(x, wk, dt).reshape(b, s, hkv, cfg.head_dim)
+    v = tensor_parallel.column_mm(x, wv, dt).reshape(b, s, hkv, cfg.head_dim)
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
@@ -92,7 +107,11 @@ class EncDec(nn.Module):
     """Embedding, encoder and decoder stacks, ``ln_enc`` and ``ln_f``.
 
     ``trainable=False`` (serving): frozen bf16 weights; ``trainable=True``:
-    f32 weights and norms with ``requires_grad``, as ``LM``."""
+    f32 weights and norms with ``requires_grad``, as ``LM``. ``tp``: None
+    on one device, the ``TensorParallel`` of a model sliced over a mesh's
+    "model" dimension (module docstring)."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, *, device=None, trainable: bool = False):
         super().__init__()
@@ -124,29 +143,35 @@ class EncDec(nn.Module):
                 dense_init_(p, generator)
         return self
 
+    def _bound(self, plan):
+        """The model's layout bound to ``plan`` (None on one device)."""
+        return self.tp.bind(plan) if self.tp is not None else None
+
     def _enc_block(self, lp: EncLayer, x: torch.Tensor, positions: torch.Tensor,
-                   impl: Optional[str]) -> torch.Tensor:
+                   impl: Optional[str], tp) -> torch.Tensor:
         cfg = self.cfg
         h = rms_norm(x, lp.ln1, cfg.norm_eps)
         y, _ = attn.attention_apply(lp.attn, h, cfg, layer=0, positions=positions,
-                                    causal=False, impl=impl)
+                                    causal=False, impl=impl, tp=tp)
         x = x + y
-        return x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps))
+        return x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps), tp)
 
     def encode(self, frames: torch.Tensor, *, impl: Optional[str] = None,
-               remat: str = "none") -> torch.Tensor:
-        """frames (b, s_enc, d) → the encoder output (b, s_enc, d) bf16."""
+               remat: str = "none", plan=None) -> torch.Tensor:
+        """frames (b, s_enc, d) → the encoder output (b, s_enc, d) bf16
+        (replicated over the model ranks)."""
         _check_remat(remat)
+        tp = self._bound(plan)
         x = frames.to(COMPUTE_DTYPE)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         for lp in self.enc:
-            x = _run(self._enc_block, remat, lp, x, positions, impl)
+            x = _run(self._enc_block, remat, lp, x, positions, impl, tp)
         return rms_norm(x, self.ln_enc, self.cfg.norm_eps)
 
     def _dec_block(self, lp: DecLayer, x: torch.Tensor, positions: torch.Tensor,
                    cache: Optional[dict], enc_out: Optional[torch.Tensor],
-                   impl: Optional[str]):
+                   impl: Optional[str], tp):
         """(x, the layer's new cache or None). A decode step (s = 1 with a
         cache) attends to the cached cross k/v; otherwise the layer
         projects them from ``enc_out``."""
@@ -154,18 +179,18 @@ class EncDec(nn.Module):
         h = rms_norm(x, lp.ln1, cfg.norm_eps)
         y, new_self = attn.attention_apply(
             lp.self_attn, h, cfg, layer=0, positions=positions,
-            cache=cache["self"] if cache is not None else None, impl=impl)
+            cache=cache["self"] if cache is not None else None, impl=impl, tp=tp)
         x = x + y
         hx = rms_norm(x, lp.ln_x, cfg.norm_eps)
         if cache is not None and x.shape[1] == 1:
             cross = (cache["cross_k"], cache["cross_v"])  # decode: reuse
         else:
-            cross = project_cross_kv(lp.cross_attn, enc_out, cfg)  # prefill
+            cross = project_cross_kv(lp.cross_attn, enc_out, cfg, tp)  # prefill
         yx, _ = attn.attention_apply(lp.cross_attn, hx, cfg, layer=0,
                                      positions=positions, causal=False,
-                                     cross_kv=cross, impl=impl)
+                                     cross_kv=cross, impl=impl, tp=tp)
         x = x + yx
-        x = x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps))
+        x = x + lp.mlp(rms_norm(x, lp.ln2, cfg.norm_eps), tp)
         if cache is None:
             return x, None
         return x, {"self": new_self, "cross_k": cross[0], "cross_v": cross[1]}
@@ -180,16 +205,19 @@ class EncDec(nn.Module):
         impl: Optional[str] = None,
         last_only: bool = False,
         remat: str = "none",
+        plan=None,
     ) -> Tuple[torch.Tensor, Optional[dict]]:
-        """(logits (b, s or 1, padded_vocab) f32, caches). A decode step
-        (s = 1 with caches) attends to the cached cross k/v; otherwise
-        each layer projects them from ``enc_out`` (and, with caches,
-        stores them). ``remat`` (training) takes no caches."""
+        """(logits (b, s or 1, padded_vocab) f32, caches; on a model axis
+        this rank's vocabulary columns of the logits). A decode step (s = 1
+        with caches) attends to the cached cross k/v; otherwise each layer
+        projects them from ``enc_out`` (and, with caches, stores them).
+        ``remat`` (training) takes no caches."""
         _check_remat(remat)
         if remat != "none" and caches is not None:
             raise ValueError("remat is for training, which passes no caches")
         cfg = self.cfg
-        x = self.embed.embed(tokens).to(COMPUTE_DTYPE)
+        tp = self._bound(plan)
+        x = self.embed.embed(tokens, tp).to(COMPUTE_DTYPE)
         b, s, _ = x.shape
         offset = 0 if start_pos is None else int(start_pos)
         positions = (offset + torch.arange(s, device=x.device)).expand(b, s)
@@ -198,22 +226,24 @@ class EncDec(nn.Module):
         for lp, c in zip(self.dec, layer_caches, strict=True):
             if c is None:
                 x, _ = _run(self._dec_block, remat, lp, x, positions, None,
-                            enc_out, impl)
+                            enc_out, impl, tp)
             else:
-                x, nc = self._dec_block(lp, x, positions, c, enc_out, impl)
+                x, nc = self._dec_block(lp, x, positions, c, enc_out, impl, tp)
                 new_layers.append(nc)
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
-        logits = self.embed.logits(x)
+        logits = self.embed.logits(x, tp)
         new_caches = {**caches, "layers": new_layers} if caches is not None else None
         return logits, new_caches
 
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor, *,
-                impl: Optional[str] = None, remat: str = "none") -> torch.Tensor:
-        """The full (b, s, padded_vocab) f32 logits of the decoder."""
-        enc_out = self.encode(frames, impl=impl, remat=remat)
-        return self.decode(tokens, enc_out, impl=impl, remat=remat)[0]
+                impl: Optional[str] = None, remat: str = "none",
+                plan=None) -> torch.Tensor:
+        """The full (b, s, padded_vocab) f32 logits of the decoder (on a
+        model axis, this rank's vocabulary columns)."""
+        enc_out = self.encode(frames, impl=impl, remat=remat, plan=plan)
+        return self.decode(tokens, enc_out, impl=impl, remat=remat, plan=plan)[0]
 
 
 def _check_remat(remat: str) -> None:
@@ -264,12 +294,23 @@ def encdec_cache_specs(cfg: ModelConfig, plan, tp_size: int = 1) -> dict:
 
 
 def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
-                       *, dtype=COMPUTE_DTYPE, device=None) -> dict:
+                       *, dtype=COMPUTE_DTYPE, device=None, tp_size: int = 1,
+                       layout=None) -> dict:
     """Per decoder layer: a self-attention cache of ``max_len`` slots and
-    zero cross k/v of ``enc_len`` (the prefill replaces them)."""
-    shape = (batch, cfg.n_kv_heads, enc_len, cfg.head_dim)
+    zero cross k/v of ``enc_len`` (the prefill replaces them). ``tp_size``:
+    one rank's caches over that many model ranks, the kv heads it projects
+    (``tensor_parallel.cache_kv_heads``); ``layout`` (the cell's
+    ``tensor_parallel.CacheLayout``): the self-attention cache's heads and
+    slots by it."""
+    from repro_torch.models.tensor_parallel import cache_kv_heads
+
+    heads = cache_kv_heads(cfg, tp_size)
+    shape = (batch, heads, enc_len, cfg.head_dim)
+    self_heads = layout.heads if layout is not None else heads
+    seq = layout.seq if layout is not None else None
     return {"layers": [
-        {"self": attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device),
+        {"self": attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device,
+                                 kv_heads=self_heads, seq=seq),
          "cross_k": torch.zeros(shape, dtype=dtype, device=device),
          "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
         for _ in range(cfg.n_layers)]}

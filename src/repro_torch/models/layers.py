@@ -111,18 +111,19 @@ class MLP(nn.Module):
         """``tp`` (a sharded model's ``TensorParallel``): gate and up hold
         this rank's columns, down its rows; the output is summed over the
         model ranks."""
+        from repro_torch.models.tensor_parallel import column_mm
+
         dt = x.dtype
         if tp is not None:
-            x = tp.copy(x)
-        up = x @ self.up.to(dt)
+            x = tp.column_input(x)
+        up = column_mm(x, self.up, dt)
         if self.kind == "swiglu":
-            h = nn.functional.silu(x @ self.gate.to(dt)) * up
+            h = nn.functional.silu(column_mm(x, self.gate, dt)) * up
         elif self.kind == "relu2":
             h = torch.square(torch.relu(up))
         else:  # the reference's jax.nn.gelu: the tanh approximation
             h = nn.functional.gelu(up, approximate="tanh")
-        y = h @ self.down.to(dt)
-        return y if tp is None else tp.reduce(y)
+        return h @ self.down.to(dt) if tp is None else tp.row_reduce(h, self.down, dt)
 
 
 # ---------------------------------------------------------------- embedding
@@ -153,14 +154,16 @@ class Embed(nn.Module):
     def logits(self, x: torch.Tensor, tp=None) -> torch.Tensor:
         """(…, padded_vocab) f32 logits: final softcap, padding masked;
         ``tp``: this rank's columns of them (…, padded_vocab / tp)."""
+        from repro_torch.models.tensor_parallel import column_mm
+
         cfg = self.cfg
         dt = x.dtype
         if tp is not None:
-            x = tp.copy(x)
+            x = tp.column_input(x)
         if cfg.tie_embeddings:
-            logits = x @ self.table.to(dt).T
+            logits = column_mm(x, self.table.T, dt)
         else:
-            logits = x @ self.unembed.to(dt)
+            logits = column_mm(x, self.unembed, dt)
         logits = logits.float()
         if cfg.final_logit_softcap:
             c = cfg.final_logit_softcap

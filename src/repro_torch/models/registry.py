@@ -28,11 +28,14 @@ prefix's logits; its prefill keeps the last position's.
 
 ``param_specs(tp=, tp_size=)`` and ``cache_specs(plan=, tp_size=)`` are
 the reference's, keyed by the port's parameter names and laid out as
-``init_caches`` lays out the caches. A decoder-only model sharded over a
-mesh's "model" dimension (``models.tensor_parallel.shard_model``) takes
+``init_caches`` lays out the caches. A model sharded over a mesh's "model"
+dimension (``models.tensor_parallel.shard_model``; every family) takes
 ``plan=`` (``launch.mesh.make_plan``) in ``forward``, ``prefill`` and
-``decode_step``, and its caches come from ``init_caches(...,
-tp_size=)``.
+``decode_step``, and its caches come from ``init_caches(..., tp_size=,
+plan=, mesh=)``: with the plan and the mesh they follow ``plan.cache``
+(``tensor_parallel.cache_layout``: kv heads or slots over the ranks);
+with ``tp_size`` alone each rank holds its kv heads where they divide,
+else all of them whole.
 """
 from __future__ import annotations
 
@@ -101,12 +104,13 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
                      plan=plan)
 
     def init_caches(batch: int, max_len: int, *, dtype=COMPUTE_DTYPE,
-                    device=None, tp_size: int = 1) -> dict:
+                    device=None, tp_size: int = 1, plan=None, mesh=None) -> dict:
         if is_vlm:  # room for the patch-embedding prefix
             max_len = max_len + VISION_PREFIX_TOKENS
         return transformer.init_lm_caches(cfg, batch, max_len, dtype=dtype,
                                           device=resolve_device(device),
-                                          tp_size=tp_size)
+                                          tp_size=tp_size,
+                                          layout=_layout(cfg, plan, mesh))
 
     def param_specs(tp="model", tp_size=1):
         return transformer.lm_specs(cfg, tp, tp_size)
@@ -119,27 +123,37 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
                        param_specs, cache_specs)
 
 
+def _layout(cfg: ModelConfig, plan, mesh):
+    """The caches' ``tensor_parallel.CacheLayout`` under ``plan`` on
+    ``mesh`` (None without both)."""
+    if plan is None or mesh is None:
+        return None
+    return tensor_parallel.cache_layout(cfg, plan, mesh)
+
+
 def _encdec_bundle(cfg: ModelConfig) -> ModelBundle:
-    # ``plan`` is taken for a uniform signature: an enc-dec model runs on
-    # one model rank (tensor_parallel.check_model_axis)
     def forward(model, batch, *, impl="ref", remat="none", plan=None):
-        logits = model(batch["frames"], batch["tokens"], impl=impl, remat=remat)
+        logits = model(batch["frames"], batch["tokens"], impl=impl, remat=remat,
+                       plan=plan)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
     def prefill(model, caches, batch, *, impl=None, plan=None):
-        enc_out = model.encode(batch["frames"], impl=impl)
+        enc_out = model.encode(batch["frames"], impl=impl, plan=plan)
         return model.decode(batch["tokens"], enc_out, caches=caches, impl=impl,
-                            last_only=True)
+                            last_only=True, plan=plan)
 
     def decode_step(model, caches, batch, *, impl=None, plan=None):
         return model.decode(batch["tokens"], None, caches=caches,
-                            start_pos=encdec.cache_start_pos(caches), impl=impl)
+                            start_pos=encdec.cache_start_pos(caches), impl=impl,
+                            plan=plan)
 
     def init_caches(batch: int, max_len: int, enc_len: Optional[int] = None, *,
-                    dtype=COMPUTE_DTYPE, device=None, tp_size: int = 1) -> dict:
-        tensor_parallel.check_model_axis(cfg, tp_size)
+                    dtype=COMPUTE_DTYPE, device=None, tp_size: int = 1, plan=None,
+                    mesh=None) -> dict:
         return encdec.init_encdec_caches(cfg, batch, max_len, enc_len or max_len,
-                                         dtype=dtype, device=resolve_device(device))
+                                         dtype=dtype, device=resolve_device(device),
+                                         tp_size=tp_size,
+                                         layout=_layout(cfg, plan, mesh))
 
     def param_specs(tp="model", tp_size=1):
         return encdec.encdec_specs(cfg, tp, tp_size)

@@ -70,19 +70,55 @@ Where each module runs (:class:`TensorParallel`):
     (d_inner may: the column specs then split a head), the weights are
     gathered whole and the block runs replicated.
 
-The encoder-decoder raises on a model axis larger than one
-(:func:`check_model_axis`), as does ``heads_mode="seq"`` (a plan with a
-``kv`` spec): ROADMAP.md, Queue 1, item 7d.
+  * the encoder-decoder (:meth:`TensorParallel.cross_kv_operands`): its
+    encoder and decoder self-attention, the cross-attention's q and the
+    MLPs as above, the embedding, unembedding and loss
+    vocabulary-parallel; each decoder layer projects the cross k/v of the
+    kv heads this rank holds from its ``wk``/``wv`` columns, the encoder
+    output entering through :func:`copy_to` (its gradient summed over the
+    ranks), and the cross k/v cache holds those heads.
+
+A model's layout under one cell's plan is :meth:`TensorParallel.bind`:
+
+  * context parallelism (``heads_mode="seq"``, ``plan.kv`` set: train and
+    prefill where the query heads do not divide the ranks): a rank takes
+    the queries of its chunk of the sequence (:func:`seq_chunk`; the
+    chunks of ``ceil(s / M)`` rows, the last ones shorter or empty where
+    M does not divide s, as GSPMD pads them) through :func:`seq_scatter`
+    (its gradient gathered back along the sequence), projects them with
+    the whole ``wq`` (every weight gathered in one exchange,
+    :func:`gather_many`; the gradients of ``wq`` and ``wo`` are the rank
+    sums of the chunks' partials, this rank's slice of them, one
+    ``sum_scatter``), computes k and v whole on every rank (they enter
+    through one :meth:`~TensorParallel.copy_many`: the chunks' partial
+    gradients add in one rank sum), attends its queries over the keys up
+    to its chunk's end (the causal mask and gemma2's window are aligned to
+    the end of kv, so the chunk's rows see what they see on one device),
+    runs the whole ``wo`` on its rows and gathers the rows along the
+    sequence (:func:`seq_gather`, an exact copy);
+  * the decode cache (:func:`cache_layout`) follows ``plan.cache``: a
+    rank holds its kv heads where the plan puts them over "model", and
+    its contiguous slice of the slots where the plan puts the sequence
+    over mesh dimensions ("model" at batch > 1 where the kv heads do not
+    divide; at batch 1 the data dimensions, plus "model" where they do
+    not divide). Such a cache carries its ``"seq"`` axis and its logical
+    ``"slots"``; a decode step attends each rank's slots through K5's lse
+    entry and merges the ranks' (o, lse) in rank order
+    (``models/attention.py``).
 """
 from __future__ import annotations
 
 import contextlib
+import copy
+from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import no_tf32
 from repro_torch.models import mamba2
 
 #: the mesh dimension of tensor parallelism
@@ -111,16 +147,6 @@ def model_ranks(mesh) -> int:
     return int(mesh.size(names.index(MODEL))) if MODEL in names else 1
 
 
-def check_model_axis(cfg: ModelConfig, tp_size: int) -> None:
-    """Raise where ``cfg`` cannot run on a model axis of ``tp_size`` ranks
-    (before anything is built)."""
-    if tp_size > 1 and cfg.family == "encdec-audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder over a model axis of {tp_size} ranks "
-            f"waits for ROADMAP.md, Queue 1, item 7d; the model axis runs the dense, "
-            f"VLM, MoE, SSM and hybrid families")
-
-
 def mamba_heads_local(cfg: ModelConfig, tp_size: int) -> bool:
     """Whether a rank of ``tp_size`` model ranks runs its share of the SSD
     heads (the ranks divide them) rather than the whole Mamba block
@@ -130,27 +156,82 @@ def mamba_heads_local(cfg: ModelConfig, tp_size: int) -> bool:
 
 
 def cache_kv_heads(cfg: ModelConfig, tp_size: int) -> int:
-    """The kv heads one rank's attention cache holds: its share where the
-    query and kv heads both divide the model ranks, else all of them
-    (replicated; the sequence-sharded decode cache waits for item 7d)."""
+    """The kv heads one rank's attention cache holds with no plan (the
+    caches ``init_caches(tp_size=)`` builds): its share where the query and
+    kv heads both divide the model ranks, else all of them."""
     if tp_size > 1 and cfg.n_heads % tp_size == 0 and cfg.n_kv_heads % tp_size == 0:
         return cfg.n_kv_heads // tp_size
     return cfg.n_kv_heads
 
 
+@dataclass(frozen=True)
+class CacheLayout:
+    """How a rank's attention caches hold the (b, hkv, S, hd) decode cache
+    under a plan: ``heads`` kv heads (its share, or all), and with ``seq``
+    (the collective axis over the mesh dimensions the plan puts the
+    sequence on) its contiguous slice of the slots: ``ceil(S / seq.size)``
+    of them from ``seq.index`` times that."""
+    heads: int
+    seq: Optional[object] = None
+
+
+def cache_layout(cfg: ModelConfig, plan, mesh) -> CacheLayout:
+    """This rank's :class:`CacheLayout` under ``plan`` on ``mesh`` (a mesh
+    of process groups or a ``launch.mesh.TracedMesh``): the kv heads over
+    "model" where ``plan.cache`` puts them there, the slots over the mesh
+    dimensions its sequence entry names (one axis over them, row-major)."""
+    from repro_torch.launch.mesh import _axis
+
+    spec = plan.cache if plan is not None and plan.cache is not None else (None,) * 4
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+    tp_size = int(mesh.size(names.index(MODEL))) if MODEL in names else 1
+    heads = (cache_kv_heads(cfg, tp_size) if MODEL in entry_names(spec[1])
+             else cfg.n_kv_heads)
+    seq_names = tuple(a for a in entry_names(spec[2]) if a in names)
+    if not seq_names or int(np.prod([mesh.size(names.index(a)) for a in seq_names])) == 1:
+        return CacheLayout(heads)
+    return CacheLayout(heads, _axis(mesh, seq_names))
+
+
+def seq_chunk(s: int, size: int, index: int) -> Tuple[int, int, int]:
+    """(lo, hi, c): rank ``index`` of ``size`` takes rows [lo, hi) of a
+    sequence of ``s``, chunks of c = ceil(s / size) rows (GSPMD's padded
+    split: the last chunks are shorter, or empty, where size does not
+    divide s)."""
+    c = -(-s // size)
+    lo = min(s, index * c)
+    return lo, min(s, lo + c), c
+
+
 # ------------------------------------------------------------- the sums
+#: bytes of every rank's copies that one gather of :func:`rank_sum` holds at
+#: most: a larger tensor is summed in pieces, each its elements' same
+#: rank-order sum (16 ranks' copies of a prefill's (4, 2048, 2304) f32
+#: partial are 1.2 GB a rank at once, past one card beside 15 others)
+RANK_SUM_BYTES = 1 << 29
+
+
 def rank_sum(t: torch.Tensor, axis) -> torch.Tensor:
     """The sum of every model rank's ``t``, ``t_0 + t_1 + ... + t_(size-1)``
     (in f32 for narrower floats, returned in ``t``'s dtype); every rank
-    gets the same bits."""
+    gets the same bits. Gathered in pieces of at most RANK_SUM_BYTES of
+    every rank's copies."""
     dt = t.dtype
-    flat = t.detach().reshape(1, -1)
+    flat = t.detach().reshape(-1)
     if dt in (torch.bfloat16, torch.float16):
         flat = flat.float()
-    rows = axis.gather_rows(flat.contiguous())
-    acc = rows[0].clone()
-    for r in range(1, axis.size):
-        acc += rows[r]
+    per = max(1, RANK_SUM_BYTES // (axis.size * flat.element_size()))
+    acc = torch.empty_like(flat) if flat.numel() > per else None
+    for a in range(0, flat.numel(), per):
+        rows = axis.gather_rows(flat[a:a + per].reshape(1, -1).contiguous())
+        part = rows[0].clone()
+        for r in range(1, axis.size):
+            part += rows[r]
+        if acc is None:
+            acc = part
+        else:
+            acc[a:a + per] = part
+        del rows
     return acc.view(t.shape).to(dt)
 
 
@@ -192,6 +273,129 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.per, ctx.per).contiguous(), None, None
 
 
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, lo, hi, c):
+        ctx.axis, ctx.lo, ctx.hi, ctx.c, ctx.s = axis, lo, hi, c, x.shape[1]
+        return x[:, lo:hi].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        pad = ctx.c - (ctx.hi - ctx.lo)
+        if pad:
+            g = torch.cat([g, g.new_zeros((g.shape[0], pad) + tuple(g.shape[2:]))], dim=1)
+        return gather_dim(g, ctx.axis, 1)[:, :ctx.s], None, None, None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, axis, s, c):
+        ctx.n = y.shape[1]
+        ctx.lo = min(s, axis.index * c)
+        pad = c - y.shape[1]
+        if pad:
+            y = torch.cat([y, y.new_zeros((y.shape[0], pad) + tuple(y.shape[2:]))], dim=1)
+        return gather_dim(y, axis, 1)[:, :s]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, ctx.lo:ctx.lo + ctx.n].contiguous(), None, None, None
+
+
+class _ColumnMM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, dt):
+        xb, wb = x.to(dt), w.to(dt)
+        ctx.save_for_backward(xb, wb)
+        ctx.w_dtype = w.dtype
+        return xb @ wb
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            gf = g2.float()
+            no_tf32(gf)
+            dx = (gf @ wb.float().t()).view(*g.shape[:-1], wb.shape[0])
+        if ctx.needs_input_grad[1]:
+            dw = (xb.reshape(-1, xb.shape[-1]).t() @ g2).to(ctx.w_dtype)
+        return dx, dw, None
+
+
+def column_mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``x @ w`` in ``dt``, the product of a column-parallel projection:
+    ``x`` as :meth:`TensorParallel.column_input` gives it. An f32 ``x``
+    (training) holds ``dt`` values: the product is the same ``dt`` product,
+    and its input gradient is computed in f32 and stays f32, so this rank's
+    partial of a sum over the ranks rounds once after the sum, as one
+    device's product rounds (the weight's gradient is the ``dt`` product
+    autograd gives it)."""
+    if x.dtype == dt:
+        return x @ w.to(dt)
+    return _ColumnMM.apply(x, w, dt)
+
+
+def seq_scatter(x: torch.Tensor, axis, lo: int, hi: int, c: int) -> torch.Tensor:
+    """Rows [lo, hi) of a replicated (b, s, ...) tensor (:func:`seq_chunk`);
+    the gradient is every rank's rows gathered along the sequence (exact)."""
+    return _SeqScatter.apply(x, axis, lo, hi, c)
+
+
+def seq_gather(y: torch.Tensor, axis, s: int, c: int) -> torch.Tensor:
+    """Every rank's (b, rows, ...) chunk of a sequence of ``s`` (chunks of
+    ``c``, :func:`seq_chunk`) gathered in rank order, an exact copy; the
+    gradient is this rank's rows."""
+    return _SeqGather.apply(y, axis, s, c)
+
+
+class _GatherMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, dims, summed, *ws):
+        ctx.axis, ctx.dims, ctx.summed = axis, dims, summed
+        ctx.pers = [w.shape[d] for w, d in zip(ws, dims)]
+        fronts = [w.detach().movedim(d, 0).contiguous() for w, d in zip(ws, dims)]
+        every = axis.gather_rows(torch.cat([f.reshape(-1) for f in fronts])[None])
+        outs, at = [], 0
+        for f, d in zip(fronts, dims):
+            part = every[:, at:at + f.numel()].reshape((axis.size * f.shape[0],)
+                                                       + tuple(f.shape[1:]))
+            outs.append(part.movedim(0, d))
+            at += f.numel()
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        axis, size = ctx.axis, ctx.axis.size
+        out = [None if g is None or s else
+               g.narrow(d, axis.index * per, per).contiguous()
+               for g, d, per, s in zip(gs, ctx.dims, ctx.pers, ctx.summed)]
+        summed = [i for i, s in enumerate(ctx.summed) if s and gs[i] is not None]
+        if summed:  # one sum_scatter: rank r's chunk holds every summed tensor's rows of r
+            rows = [gs[i].movedim(ctx.dims[i], 0).reshape(size, -1).float()
+                    for i in summed]
+            mine = axis.sum_scatter(torch.cat(rows, dim=1).reshape(-1).contiguous())
+            for i, part in zip(summed, torch.split(mine, [r.shape[1] for r in rows]),
+                               strict=True):
+                front = gs[i].movedim(ctx.dims[i], 0)
+                out[i] = (part.view((ctx.pers[i],) + tuple(front.shape[1:]))
+                          .movedim(0, ctx.dims[i]).to(gs[i].dtype))
+        return (None, None, None) + tuple(out)
+
+
+def gather_many(ws, axis, dims, summed=None) -> Tuple[torch.Tensor, ...]:
+    """Several sharded tensors of one dtype gathered whole in one exchange
+    (the same bits as :func:`gather_from` of each, along its dimension in
+    rank order). A tensor's gradient is this rank's slice of its gradient
+    (:func:`gather_from`'s), or with ``summed`` (a flag a tensor) this
+    rank's slice of the rank-order sum of every rank's gradient (where
+    every rank computes with all of it on its own part of the data; one
+    ``sum_scatter`` for all of them, in f32)."""
+    summed = tuple(summed) if summed is not None else (False,) * len(ws)
+    return _GatherMany.apply(axis, tuple(dims), summed, *ws)
+
+
 def copy_to(x: torch.Tensor, axis) -> torch.Tensor:
     return _CopyTo.apply(x, axis)
 
@@ -203,6 +407,12 @@ def reduce_from(x: torch.Tensor, axis) -> torch.Tensor:
 def gather_from(w: torch.Tensor, axis, dim: int) -> torch.Tensor:
     return _GatherFrom.apply(w, axis, dim)
 
+
+#: calls in this process of the layouts ``models/attention.py`` runs under a
+#: plan: "context_parallel" (a context-parallel attention layer) and
+#: "seq_merge" (a decode step's merge of a sequence-split cache's (o, lse)
+#: over the ranks)
+CALLS = {"context_parallel": 0, "seq_merge": 0}
 
 # the bytes each TensorParallel.gather hands in while expert_gathers runs
 _GATHERS: Optional[List[int]] = None
@@ -226,9 +436,12 @@ class TensorParallel:
     parameter ``specs`` it was sliced by, and the layout of each module
     (module docstring)."""
 
+    #: context-parallel attention (:meth:`bind`: ``plan.kv`` set)
+    context_parallel = False
+
     def __init__(self, cfg: ModelConfig, axis, specs: Dict[str, tuple]):
-        check_model_axis(cfg, axis.size)
         self.cfg, self.axis, self.specs = cfg, axis, specs
+        self._wholes: Dict[tuple, Tuple[torch.Tensor, ...]] = {}  # whole_many's
         self.size, self.index = axis.size, axis.index
         hq, hkv = cfg.n_heads, cfg.n_kv_heads
         self.heads_local = hq % self.size == 0
@@ -254,23 +467,49 @@ class TensorParallel:
 
     # ---- the plan
     def check_plan(self, plan) -> None:
-        """A plan this layout can run: vocabulary-sharded logits, no
-        context-parallel attention."""
+        """A plan this layout can run: vocabulary-sharded logits."""
         if plan is None or plan.logits is None or model_dim(plan.logits) is None:
             raise ValueError(
                 f"{self.cfg.name} is sharded over {self.size} model ranks: pass "
                 f"plan= (launch.mesh.make_plan) with vocabulary-sharded logits")
-        if plan.kv is not None:
-            raise NotImplementedError(
-                "heads_mode='seq' (context-parallel attention) waits for ROADMAP.md, "
-                "Queue 1, item 7d")
+
+    def bind(self, plan) -> "TensorParallel":
+        """This layout under one cell's ``plan`` (checked): a copy whose
+        attention runs context-parallel where ``plan.kv`` is set (module
+        docstring)."""
+        self.check_plan(plan)
+        bound = copy.copy(self)
+        bound.context_parallel = plan.kv is not None
+        return bound
 
     # ---- the pieces
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return copy_to(x, self.axis)
 
+    def column_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` entering this rank's columns of column-parallel projections
+        (:func:`copy_to`): in f32 while autograd records it, so the
+        projections' partial input gradients (:func:`column_mm`) add over
+        the ranks in f32 and round once (16 ranks' bf16 partials put a norm's
+        gradient past 8 bf16 ulps of one device's); as it is otherwise."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return self.copy(x.float())
+        return self.copy(x)
+
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return reduce_from(x, self.axis)
+
+    def row_reduce(self, x: torch.Tensor, w: torch.Tensor, dt: torch.dtype
+                   ) -> torch.Tensor:
+        """A row-parallel projection ``x @ w`` (this rank's rows of ``w``)
+        summed over the ranks, in ``dt``: this rank's partial product of
+        ``dt`` values in f32, the partials added in f32 in rank order and
+        rounded to ``dt`` once, as one device's product rounds (16 ranks'
+        partials rounded to bf16 each put gradients past 8 bf16 ulps of one
+        device's)."""
+        xf = x.float()
+        no_tf32(xf)
+        return self.reduce(xf @ w.to(dt).float()).to(dt)
 
     def copy_many(self, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """:meth:`copy` of several tensors at once, through one f32 buffer
@@ -283,6 +522,30 @@ class TensorParallel:
     def whole(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """``w`` whole (gathered along ``dim``; ``dim`` None: it is whole)."""
         return w if dim is None else gather_from(w, self.axis, dim)
+
+    def whole_many(self, ws: Dict[str, torch.Tensor],
+                   dims: Dict[str, Optional[int]]) -> Dict[str, torch.Tensor]:
+        """:meth:`whole` of every tensor of ``ws`` by its ``dims`` entry, the
+        sharded ones of one dtype in one exchange (:func:`gather_many`: a
+        replicated attention layer's weights). Outside autograd (serving)
+        the gathered weights are kept while their slices are unchanged (the
+        same storage at the same version on every rank), so a decode step
+        does not gather them again."""
+        out = dict(ws)
+        names = [n for n in ws if dims.get(n) is not None]
+        for dt in dict.fromkeys(ws[n].dtype for n in names):  # in the order of ws
+            group = [n for n in names if ws[n].dtype == dt]
+            key = None
+            if not torch.is_grad_enabled() and not ws[group[0]].is_meta:
+                key = tuple((ws[n].data_ptr(), ws[n]._version, dims[n]) for n in group)
+            got = self._wholes.get(key) if key is not None else None
+            if got is None:
+                got = gather_many([ws[n] for n in group], self.axis,
+                                  [dims[n] for n in group])
+                if key is not None:
+                    self._wholes[key] = got
+            out.update(zip(group, got, strict=True))
+        return out
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``t`` along ``dim`` in rank order (an exact copy);
@@ -305,18 +568,57 @@ class TensorParallel:
             dims = {"wq": 1, "wk": kv_dim, "wv": kv_dim, "wo": 0, "bq": 0,
                     "bk": 0 if self.kv_split else None,
                     "bv": 0 if self.kv_split else None}
-            w = {n: self.whole(t, dims[n]) for n, t in w.items()}
+            w = self.whole_many(w, dims)
             return dict(xq=x, xkv=x, w=w, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
                         kv_range=None, partial=False)
-        xq = self.copy(x)
+        xq = self.column_input(x)
         hkv = cfg.n_kv_heads // self.size if self.kv_local else cfg.n_kv_heads
         if not self.kv_local:  # whole k/v, used by this rank's heads only
-            for n in ("wk", "wv", "bk", "bv"):
-                if n in w:
-                    dim = (1 if n[0] == "w" else 0) if self.kv_split else None
-                    w[n] = self.copy(self.whole(w[n], dim))
+            kv = [n for n in ("wk", "wv", "bk", "bv") if n in w]
+            dims = {n: (1 if n[0] == "w" else 0) if self.kv_split else None for n in kv}
+            got = self.whole_many({n: w[n] for n in kv}, dims)
+            w.update({n: self.copy(got[n]) for n in kv})
         return dict(xq=xq, xkv=xq, w=w, hq=cfg.n_heads // self.size, hkv=hkv,
                     kv_range=self.kv_range, partial=True)
+
+    def cross_kv_operands(self, p, enc_out: torch.Tensor):
+        """What a decoder layer projects its cross k/v with on this rank:
+        (the encoder output, ``wk``, ``wv``, the kv heads projected). Where
+        the kv heads are this rank's, its ``wk``/``wv`` columns, the input
+        entering through :func:`copy_to` (the encoder output's gradient is
+        summed over the ranks); where the query heads are local but the kv
+        heads are not, every kv head (the weights gathered, entered through
+        :func:`copy_to`); where the attention runs replicated, every weight
+        gathered."""
+        cfg = self.cfg
+        kv_dim = 1 if self.kv_split else None
+        if not self.heads_local:
+            return (enc_out, self.whole(p.wk, kv_dim), self.whole(p.wv, kv_dim),
+                    cfg.n_kv_heads)
+        x = self.column_input(enc_out)
+        if self.kv_local:
+            return x, p.wk, p.wv, cfg.n_kv_heads // self.size
+        return (x, self.copy(self.whole(p.wk, kv_dim)), self.copy(self.whole(p.wv, kv_dim)),
+                cfg.n_kv_heads)
+
+    def context_operands(self, p, x: torch.Tensor) -> dict:
+        """Context-parallel attention's operands on this rank (module
+        docstring): this rank's rows of the sequence (lo, hi; chunks of c)
+        entered through :func:`seq_scatter`, and every weight whole in one
+        exchange (:func:`gather_many`): ``wq``/``bq``/``wo`` with the rank
+        sum of their gradients, ``wk``/``wv``/``bk``/``bv`` with this rank's
+        slice (their gradients are the same on every rank)."""
+        lo, hi, c = seq_chunk(x.shape[1], self.size, self.index)
+        w = {n: getattr(p, n) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+             if hasattr(p, n)}
+        kv_dim = 1 if self.kv_split else None
+        dims = {"wq": 1, "bq": 0, "wo": 0, "wk": kv_dim, "wv": kv_dim,
+                "bk": 0 if self.kv_split else None, "bv": 0 if self.kv_split else None}
+        shard = [n for n in w if dims[n] is not None]
+        got = gather_many([w[n] for n in shard], self.axis, [dims[n] for n in shard],
+                          summed=[n in ("wq", "bq", "wo") for n in shard])
+        w.update(zip(shard, got, strict=True))
+        return dict(xq=seq_scatter(x, self.axis, lo, hi, c), w=w, lo=lo, hi=hi, c=c)
 
     def expert_share(self, p) -> Optional[Tuple[int, int]]:
         """The experts of one MoE layer this rank holds and runs: (first,
@@ -489,7 +791,6 @@ def shard_model(model: nn.Module, mesh, specs: Optional[Dict[str, tuple]] = None
     size = model_ranks(mesh)
     if size == 1:
         return model
-    check_model_axis(model.cfg, size)
     specs = _model_specs(model, mesh, specs)
     shard_params(model, specs, mesh_coords(mesh))
     return _attach(model, mesh, specs)
@@ -508,7 +809,6 @@ def init_sharded(model: nn.Module, generator: torch.Generator, mesh,
     from repro_torch.train.optimizer import mesh_coords
 
     size = model_ranks(mesh)
-    check_model_axis(model.cfg, size)
     specs = _model_specs(model, mesh, None)
     index = mesh_coords(mesh)[MODEL][0]
     for name, p in list(model.named_parameters()):

@@ -342,18 +342,16 @@ class LM(nn.Module):
         route: the kernels have no backward pass.
 
         A model sharded over "model" (``self.tp``) needs ``plan`` (the
-        reference's ``make_plan`` of its cell) and gives this rank's
-        vocabulary columns of the logits, ``plan.logits``; one device
-        reads no plan.
+        reference's ``make_plan`` of its cell: ``plan.kv`` runs the
+        attention context-parallel) and gives this rank's vocabulary
+        columns of the logits, ``plan.logits``; one device reads no plan.
         """
         if remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         if remat != "none" and caches is not None:
             raise ValueError("remat is for training, which passes no caches")
         cfg = self.cfg
-        tp = self.tp
-        if tp is not None:
-            tp.check_plan(plan)
+        tp = self.tp.bind(plan) if self.tp is not None else None
         x = self.embed.embed(tokens, tp).to(COMPUTE_DTYPE)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.device, COMPUTE_DTYPE), x], dim=1)
@@ -420,21 +418,26 @@ def _dots_context():
 
 
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                   dtype=COMPUTE_DTYPE, device=None, tp_size: int = 1) -> dict:
+                   dtype=COMPUTE_DTYPE, device=None, tp_size: int = 1,
+                   layout=None) -> dict:
     """``{"layers": [per-layer cache], "n_prefix", "period"}`` — the layer
     list (an attention layer's KV cache or a Mamba layer's state) with the
     reference's stack plan beside it. ``tp_size``: the caches of one rank
     of a model sharded over that many model ranks (its kv heads,
     ``tensor_parallel.cache_kv_heads``; its Mamba heads,
-    ``tensor_parallel.mamba_heads_local``)."""
+    ``tensor_parallel.mamba_heads_local``). ``layout`` (a
+    ``tensor_parallel.CacheLayout``, from the cell's plan): the attention
+    caches hold its kv heads and, where it splits the sequence, this rank's
+    slice of the ``max_len`` slots (:func:`attention.init_cache`)."""
     from repro_torch.models.tensor_parallel import cache_kv_heads, mamba_heads_local
 
     n_prefix, period, _ = stack_plan(cfg)
-    heads = cache_kv_heads(cfg, tp_size)
+    heads = layout.heads if layout is not None else cache_kv_heads(cfg, tp_size)
+    seq = layout.seq if layout is not None else None
     ssm_split = tp_size if mamba_heads_local(cfg, tp_size) else 1
     return {
         "layers": [attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device,
-                                   kv_heads=heads)
+                                   kv_heads=heads, seq=seq)
                    if cfg.layer_kind(l) == "attn"
                    else mamba2.init_mamba_cache(cfg, batch, dtype=dtype,
                                                 device=device, tp_size=ssm_split)

@@ -16,13 +16,18 @@ after a device synchronise at each phase boundary (a handful per call).
 On a mesh (``plan=``, the cell's ``launch.mesh.make_plan``, and ``mesh=``,
 default the runtime's), as the reference's ``ServeEngine(..., plan=)``:
 each data rank serves its rows of the batch (``plan.resid``'s batch axes;
-every row where the batch does not divide), a model sharded over "model"
-(``models.tensor_parallel.shard_model``) holds each rank's kv heads in its
-caches and compresses them unchanged (every (row, head) set draws with its
-layer's key, so a head's prototypes do not depend on the rank that holds
-it), the last position's logits are gathered over the model ranks (an
-exact copy) before sampling, and the tokens are gathered over the data
-ranks at the end.
+every row where the batch does not divide); the caches follow
+``plan.cache`` (``models.tensor_parallel.cache_layout``): a model sharded
+over "model" (``models.tensor_parallel.shard_model``) holds each rank's kv
+heads where they divide the ranks and compresses them unchanged (every
+(row, head) set draws with its layer's key, so a head's prototypes do not
+depend on the rank that holds it), else each rank's slice of the slots
+(the sequence over "model"; at batch 1 over the data dimensions too),
+whose compression gathers each layer whole, compresses it as one device
+does and keeps the rank's slice (the boundaries move with P + tail at each
+compression, never in the decode loop); the last position's logits are
+gathered over the model ranks (an exact copy) before sampling, and the
+tokens are gathered over the data ranks at the end.
 """
 from __future__ import annotations
 
@@ -72,11 +77,13 @@ class ServeEngine:
         self.plan = plan
         self.tp = getattr(model, "tp", None)
         self.rows = None  # the data ranks' axis, where each serves its rows
+        self.mesh = None
         if plan is not None:
             from repro_torch.launch.mesh import data_axis
             from repro_torch.runtime import active
 
             mesh = active().mesh if mesh is None else mesh
+            self.mesh = mesh
             if mesh is not None and plan.resid is not None and plan.resid[0] is not None:
                 self.rows = data_axis(mesh)
         if self.tp is not None:
@@ -145,6 +152,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         if self.tp is not None:
             cache_kw = dict(cache_kw, tp_size=self.tp.size)
+        if self.plan is not None and self.mesh is not None:
+            cache_kw = dict(cache_kw, plan=self.plan, mesh=self.mesh)
         caches = self.bundle.init_caches(b, total, device=dev, **cache_kw)
         if scfg.compress and next(find_attention_caches(caches), None) is None:
             raise ValueError(
@@ -217,6 +226,8 @@ class ServeEngine:
     @staticmethod
     def _cache_size(caches) -> int:
         """Sequence capacity of the first attention cache (Mamba layers
-        skipped; an enc-dec model's first self-attention cache): shape
-        metadata, no device read."""
-        return next(find_attention_caches(caches))["k"].shape[2]
+        skipped; an enc-dec model's first self-attention cache; a cache
+        split along the sequence: its logical ``"slots"``): shape metadata,
+        no device read."""
+        c = next(find_attention_caches(caches))
+        return int(c.get("slots", c["k"].shape[2]))

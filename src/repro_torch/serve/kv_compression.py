@@ -109,9 +109,20 @@ def compress_cache(
     (−1e30 on empty prototypes), then ``tail`` zero slots with bias 0 and
     mass 1; ``pos = P``. Slots at or past the old ``pos`` are not part of
     the set.
+
+    A cache split along the sequence (``"seq"``, ``"slots"``: a rank's
+    slice of a model axis's decode cache) is gathered whole first (an
+    exact copy of every rank's slots, cut to the logical ``slots``), so
+    every rank compresses the sets one device compresses, with the same
+    keys, and keeps its slice of the result: P + tail slots padded to a
+    multiple of the ranks (zero slots past P + tail, which the decode's
+    position mask hides), ``"slots"`` P + tail.
     """
     if key is None:
         key = prng.PRNGKey(0)
+    seq = cache.get("seq")
+    if seq is not None:
+        cache = gather_cache(cache)
     k, v = cache["k"], cache["v"]  # (b, h, S, hd)
     b, h, S, hd = k.shape
     dev = k.device
@@ -136,7 +147,38 @@ def compress_cache(
         pvalid, torch.log(torch.clamp_min(pmass, 1e-9)), _MASKED)
     nmass = torch.ones((b, h, total), dtype=torch.float32, device=dev)
     nmass[:, :, :P] = torch.where(pvalid, pmass, 1.0)
-    return {"k": nk, "v": nv, "pos": P, "bias": nbias, "mass": nmass}
+    out = {"k": nk, "v": nv, "pos": P, "bias": nbias, "mass": nmass}
+    return out if seq is None else _slice(out, seq, total)
+
+
+def gather_cache(cache: dict) -> dict:
+    """A sequence-split cache's k, v and mass gathered along the slots over
+    its ``"seq"`` axis (rank order, an exact copy), cut to its logical
+    ``"slots"``; with its ``pos``."""
+    seq, n = cache["seq"], cache["slots"]
+    out = {"pos": cache["pos"]}
+    for name in ("k", "v", "mass"):
+        if name in cache:
+            t = cache[name].movedim(2, 0).contiguous()
+            out[name] = seq.gather_rows(t)[:n].movedim(0, 2)
+    return out
+
+
+def _slice(cache: dict, seq, slots: int) -> dict:
+    """This rank's slice of a whole compressed cache of ``slots`` slots:
+    padded with zero slots (bias 0, mass 1) to a multiple of the ranks."""
+    per = -(-slots // seq.size)
+    pad = per * seq.size - slots
+    lo = seq.index * per
+    out = {"pos": cache["pos"], "seq": seq, "slots": slots}
+    for name in ("k", "v", "bias", "mass"):
+        t = cache[name]
+        if pad:
+            shape = t.shape[:2] + (pad,) + t.shape[3:]
+            fill = torch.ones if name == "mass" else torch.zeros
+            t = torch.cat([t, fill(shape, dtype=t.dtype, device=t.device)], dim=2)
+        out[name] = t[:, :, lo:lo + per].contiguous()
+    return out
 
 
 def _is_attn(c) -> bool:

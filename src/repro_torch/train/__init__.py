@@ -2,8 +2,8 @@
 fault tolerance, on one device, over data ranks (ZeRO-1 AdamW, the
 rank-order gradient reduction, collective and elastic checkpoints, the
 int8 error-feedback all-reduce) and over a model axis (tensor parallel:
-``models.tensor_parallel``; the dense, VLM, MoE, SSM and hybrid
-families; the enc-dec waits for ROADMAP.md, Queue 1, item 7d)."""
+``models.tensor_parallel``; every family, with context-parallel
+attention under ``heads_mode="seq"``)."""
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: F401
 from repro_torch.train.optimizer import (  # noqa: F401
     OptConfig,

@@ -37,8 +37,9 @@ grad norm adds the squares of model-sharded leaves over the model ranks
 in rank order (replicated leaves once). Every model rank then holds the
 same bits of every replicated leaf; the step is within rounding of the
 one-device step (the row-parallel sums add in another order), not bitwise.
-The MoE runs expert parallel and Mamba by heads there; the enc-dec on a
-model axis waits for ROADMAP.md, Queue 1, item 7d.
+The MoE runs expert parallel, Mamba by heads and the enc-dec as the
+dense family there; a plan with ``heads_mode="seq"`` (``plan.kv``) runs
+the attention context-parallel.
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ from repro.kernels.pairwise_l2 import pairwise_sq_l2 as j_pairwise
 from repro.kernels.segment_sum import segment_sum as j_segment_sum
 from repro_torch import kernels as tkernels
 from repro_torch.kernels import _cuda, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse
 from repro_torch.kernels.fused_assign import fused_topk, fused_topk_plain, launch_topk
 from repro_torch.kernels.knn_topk import knn_topk
 from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2
@@ -253,12 +253,13 @@ def test_cuda_launch_refuses_cpu_tensors_and_counts_nothing(rng):
     pairwise_sq_l2(x, x)
     q = x.reshape(1, 1, 5, 2)
     flash_attention(q, q, q)
+    flash_attention_lse(q[:, :, :1], q, q, causal=False)
     fused_topk(x.bfloat16(), x.bfloat16(), 1)
     fused_topk(x, torch.zeros((5, 2), dtype=torch.int8), 1,
                keys_scale=torch.ones(2), keys_zero=torch.zeros(2))
     assert tkernels.launch_counts() == {"K1": 0, "K1-bf16": 0, "K1-int8": 0,
                                         "K2": 0, "K3": 0, "K4": 0, "K5": 0,
-                                        "K5-decode": 0}
+                                        "K5-decode": 0, "K5-lse": 0}
     assert tkernels.route_counts() == {}
 
 

@@ -35,10 +35,12 @@ the prompts) and a 2-head gemma2 at (1, 4) (the attention replicated):
   * the model drawn from a seed on a mesh (each rank's slices, one whole
     leaf at a time) bitwise the one-device draw sliced.
 
-Also: the enc-dec on a model axis raises naming item 7d before anything
-is built while MoE and Mamba go on (tests/test_torch_ep.py runs them),
-and the launcher's ``--mesh debug`` at ``--smoke --device cpu`` trains
-over 8 spawned ranks.
+Also: the launcher's ``--mesh debug`` goes on to start its ranks for the
+MoE, Mamba and enc-dec families (tests/test_torch_ep.py and
+tests/test_torch_encdec_tp.py run them), a ``heads_mode="seq"`` plan binds
+to a context-parallel layout (tests/test_torch_cp.py runs it), and the
+launcher's ``--mesh debug`` at ``--smoke --device cpu`` trains over 8
+spawned ranks.
 """
 import dataclasses
 import functools
@@ -67,7 +69,7 @@ from repro.utils.tree import tree_flatten_with_paths as j_flatten
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.launch import train as launcher
-from repro_torch.models.tensor_parallel import check_model_axis, model_dim, shard_params
+from repro_torch.models.tensor_parallel import model_dim, shard_params
 from repro_torch.train import CheckpointManager
 from repro_torch.utils.tree import tree_flatten_with_paths
 
@@ -482,14 +484,17 @@ def test_a_seeded_draw_on_a_mesh_is_the_one_device_draw_sliced(ranks, shape, arc
             assert o["local"][n].tobytes() == tpr._np(p).tobytes(), (o["rank"], n)
 
 
-# ------------------------------------------------------------- what runs, what waits
+# ------------------------------------------------------------- what runs
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-370m",
                                   "seamless-m4t-large-v2"])
 def test_moe_mamba_and_encdec_on_a_model_axis_name_item_7d(arch, monkeypatch):
-    """What runs and what waits on a model axis: the MoE (expert parallel)
-    and Mamba heads pass ``check_model_axis`` and the launcher's ``--mesh
-    debug`` goes on to start its ranks (tests/test_torch_ep.py trains
-    them); the enc-dec raises, naming item 7d, before any rank starts."""
+    """Every family runs on a model axis (ROADMAP item 7d, done): for the
+    MoE (expert parallel), Mamba heads and the enc-dec the launcher's
+    ``--mesh debug`` goes on to start its ranks (tests/test_torch_ep.py and
+    tests/test_torch_encdec_tp.py train them), and each builds its
+    model-axis layout at 2 model ranks."""
+    from repro_torch.models.tensor_parallel import TensorParallel
+
     def no_spawn(*a, **kw):
         raise AssertionError("ranks were started")
 
@@ -497,19 +502,17 @@ def test_moe_mamba_and_encdec_on_a_model_axis_name_item_7d(arch, monkeypatch):
     monkeypatch.setattr(launcher, "init_state", no_spawn)
     argv = ["--arch", arch, "--smoke", "--mesh", "debug", "--steps", "1",
             "--device", "cpu"]
-    check_model_axis(_cfg(arch), 1)
-    if arch == "seamless-m4t-large-v2":
-        with pytest.raises(NotImplementedError, match="item 7d"):
-            launcher.main(argv)
-        with pytest.raises(NotImplementedError, match="item 7d"):
-            check_model_axis(_cfg(arch), 2)
-        return
-    check_model_axis(_cfg(arch), 2)
+    axis = type("A", (), {"size": 2, "index": 0})()
+    tp = TensorParallel(_cfg(arch), axis, {})
+    assert tp.size == 2 and not tp.context_parallel
     with pytest.raises(AssertionError, match="ranks were started"):
         launcher.main(argv)
 
 
 def test_context_parallel_plans_name_item_7d():
+    """A ``heads_mode="seq"`` plan (ROADMAP item 7d, done) binds to a
+    context-parallel layout (tests/test_torch_cp.py runs it); a plan
+    without vocabulary-sharded logits is refused."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import MeshShape, make_plan
     from repro_torch.models.tensor_parallel import TensorParallel
@@ -519,8 +522,14 @@ def test_context_parallel_plans_name_item_7d():
                      MeshShape(("data", "model"), (2, 4)), heads_mode="seq")
     assert plan.kv is not None
     axis = type("A", (), {"size": 4, "index": 0})()
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        TensorParallel(cfg, axis, {}).check_plan(plan)
+    tp = TensorParallel(cfg, axis, {})
+    bound = tp.bind(plan)
+    assert bound.context_parallel and not tp.context_parallel
+    auto = make_plan(cfg, ShapeConfig("c", 32, 8, "train"),
+                     MeshShape(("data", "model"), (2, 4)))
+    assert not tp.bind(auto).context_parallel
+    with pytest.raises(ValueError, match="vocabulary-sharded logits"):
+        tp.bind(dataclasses.replace(plan, logits=None))
 
 
 # ------------------------------------------------------------- the launcher

@@ -525,14 +525,20 @@ def _no_model(*args, **kw):
 
 @pytest.mark.parametrize("mesh", ["debug", "pod1", "pod2"])
 def test_launcher_rejects_meshes(mesh, monkeypatch):
-    """A mesh with a model axis runs the dense, VLM, MoE, SSM and hybrid
-    families (items 7c and 7d); the enc-dec there raises, naming item 7d,
-    before any rank or model."""
+    """A mesh with a model axis runs every family, the enc-dec among them
+    (items 7c and 7d): ``--mesh debug`` goes on to start its 8 ranks;
+    ``pod1`` and ``pod2`` outside ``torchrun`` are refused before any rank
+    or model, naming torchrun."""
     monkeypatch.setattr(launcher, "init_state", _no_model)  # never full size here
     monkeypatch.setattr(launcher, "spawn_ranks", _no_model)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7d"):
-        launcher.main(["--arch", "seamless-m4t-large-v2", "--mesh", mesh, "--steps",
-                       "1", "--device", "cpu"])
+    argv = ["--arch", "seamless-m4t-large-v2", "--mesh", mesh, "--steps", "1",
+            "--device", "cpu"]
+    if mesh == "debug":
+        with pytest.raises(AssertionError, match="the launcher built a model"):
+            launcher.main(argv)
+        return
+    with pytest.raises(RuntimeError, match="torchrun"):
+        launcher.main(argv)
 
 
 def test_launcher_needs_the_card_unless_told_cpu(monkeypatch):

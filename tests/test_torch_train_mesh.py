@@ -773,6 +773,52 @@ def test_chip_mesh_tp_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     assert len(line["per_rank"]) == 8
 
 
+def test_chip_mesh_cp_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py``'s mesh_cp phase, its control flow on the CPU: 4
+    gloo ranks at (data 1, model 4) instead of 16; gemma2-2b at its smoke
+    config cut to 2 layers with 6 query and 2 kv heads (neither divides 4:
+    context-parallel training and prefill, the sequence-split decode cache)
+    and seamless-m4t-large-v2 at its smoke config cut to 2 + 2 layers; b 8,
+    s 32, a 64-token prompt, 8 new tokens and 4 forced steps, a 16-token
+    enc-dec prompt over 24 frames; every check of the phase holds (the time
+    limit, the launch counts and the memory checks are the card's)."""
+    import dataclasses
+
+    import chip_smoke
+
+    from repro_torch import configs
+
+    failed = []
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda cond, msg: None if cond else failed.append(msg))
+    for k, v in dict(model=4, seq=32, prompt=64, new_tokens=8, forced_steps=4, tail=8,
+                     encdec_prompt=16, frames=24, timeout=LIMIT_S).items():
+        monkeypatch.setitem(chip_smoke.MESH_CP, k, v)
+    monkeypatch.setitem(configs.ARCHS, "gemma2-2b", dataclasses.replace(
+        smoke_config(ARCHS["gemma2-2b"]), n_heads=6, n_kv_heads=2))
+    monkeypatch.setitem(configs.ARCHS, "seamless-m4t-large-v2",
+                        smoke_config(ARCHS["seamless-m4t-large-v2"]))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    state = {}
+    chip_smoke.phase_mesh_cp(state)
+    assert not failed, failed
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    line = next(d for d in out if d.get("phase") == "mesh_cp")
+    g, e = line["gemma2"], line["seamless"]
+    assert g["train"]["repeat_bitwise"] and g["train"]["replicated_equal"]
+    assert e["train"]["repeat_bitwise"] and e["train"]["replicated_equal"]
+    assert g["prefill"]["context_parallel_calls"] == 2
+    assert g["serve"]["merges"] == 2 * 8 and g["serve"]["slot_agreement"] >= 0.999
+    assert g["serve"]["cache_slots"]["ranks"] == 4
+    assert all(h["decode"]["lse_calls"] == h["decode"]["calls"] == 2 * 4
+               for h in g["serve"]["k5_held"])
+    assert e["serve"]["cache_heads"] == {"self": 1, "cross": 1, "one_device": 4}
+    assert len(g["per_rank"]) == len(e["per_rank"]) == 4
+    assert len(state["mesh_cp_measured"]["ranks_ops"]) == 4
+
+
 def test_chip_mesh_ep_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     """``chip_smoke.py``'s mesh_ep phase, its control flow on the CPU:
     deepseek-moe-16b and mamba2-370m at their smoke configs cut to 2 and 8

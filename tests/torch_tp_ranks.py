@@ -15,6 +15,14 @@ the reference's routing (``chip_smoke.RoutingPin``, the far differences
 pinned too), a data rank taking its microbatch's calls of a step and its
 rows of each serving call. The reference writes each run's routing to
 that file as the run ends, and a job waits for it.
+
+tests/test_torch_cp.py and tests/test_torch_encdec_tp.py run the rest of
+the model axis through the same jobs: a train job's ``seq`` and
+``heads_mode`` ("seq": context parallelism), a serve job's ``batch``,
+``prompt``, ``layout`` (the caches by the decode cell's plan: a rank's
+slice of the slots where it splits the sequence), ``prefill_mode``
+("seq": a context-parallel prefill), ``compress`` and the enc-dec's
+encoder frames.
 """
 import contextlib
 import os
@@ -35,6 +43,8 @@ METRICS = ("loss", "grad_norm", "lr", "weight", "total_loss")
 #: the serving check: rows, prompt, cache room, forced decode steps, the
 #: compression (t, m, tail)
 SERVE = dict(batch=4, prompt=40, steps=6, t=2, m=1, tail=8)
+#: the enc-dec's encoder frames a serving row
+ENC_LEN = 24
 
 
 def _np(t):
@@ -113,8 +123,10 @@ def _replaying(pin):
 
 
 def train_run(cfg, tree, steps, *, mesh=None, microbatches=1, ckpt_dir="",
-              restore_dir="", remat="block", pins=None, pin_far=False):
-    """``steps`` train steps at b 8, s 32 (``remat``, default "block"):
+              restore_dir="", remat="block", pins=None, pin_far=False, seq=S,
+              heads_mode="auto"):
+    """``steps`` train steps at b 8, s ``seq`` (default 32; ``remat``,
+    default "block"; ``heads_mode`` the plan's on a mesh):
     every step's metrics, the step-0 gradients and the final weights
     (whole), and on a mesh each rank's own bits of its replicated leaves;
     ``ckpt_dir``: a checkpoint after the last step; ``restore_dir``: the
@@ -135,7 +147,8 @@ def train_run(cfg, tree, steps, *, mesh=None, microbatches=1, ckpt_dir="",
     model = model_of(cfg, tree, trainable=True, mesh=mesh)
     plan = specs = None
     if mesh is not None:
-        plan = make_plan(cfg, ShapeConfig("tp", S, B, "train"), mesh)
+        plan = make_plan(cfg, ShapeConfig("tp", seq, B, "train"), mesh,
+                         heads_mode=heads_mode)
         specs = mesh_opt_specs(model, mesh)
     opt = init_opt_state(model, mesh=mesh, specs=specs)
     out = {}
@@ -149,9 +162,12 @@ def train_run(cfg, tree, steps, *, mesh=None, microbatches=1, ckpt_dir="",
     step = make_train_step(bundle, OptConfig(**SCHED),
                            ParallelConfig(remat=remat, microbatches=microbatches),
                            mesh=mesh, plan=plan)
+    from repro_torch.models.tensor_parallel import CALLS
+
     mets, pinned = [], []
+    context = CALLS["context_parallel"]
     for s in range(steps):
-        batch = make_batch(cfg, SHAPES["train_4k"], s, batch_override=B, seq_override=S,
+        batch = make_batch(cfg, SHAPES["train_4k"], s, batch_override=B, seq_override=seq,
                            device="cpu")
         pin = None
         if pins:
@@ -170,6 +186,7 @@ def train_run(cfg, tree, steps, *, mesh=None, microbatches=1, ckpt_dir="",
             out["grads0"] = {n: _np(whole(p.grad, n, model))
                              for n, p in model.named_parameters()}
     out["mets"], out["pins"] = mets, pinned
+    out["context_parallel"] = CALLS["context_parallel"] - context
     tp = getattr(model, "tp", None)
     if tp is not None:
         from repro_torch.models.tensor_parallel import model_dim
@@ -187,54 +204,74 @@ def train_run(cfg, tree, steps, *, mesh=None, microbatches=1, ckpt_dir="",
     return out
 
 
-def serve_inputs(cfg):
+def serve_inputs(cfg, batch=None, prompt=None):
     """SERVE's seeded prompts (n, prompt), forced tokens (n, steps) and, for
-    the VLM, the stubbed patch prefix (n, 256, d) in f32 (bf16 values)."""
+    the VLM, the stubbed patch prefix (n, 256, d), for the enc-dec the
+    encoder frames (n, ENC_LEN, d), in f32 (bf16 values); ``batch`` and
+    ``prompt``: n and the prompt's length (SERVE's by default)."""
     from repro_torch.models.frontends import VISION_PREFIX_TOKENS
 
     rng = np.random.default_rng(7)
-    n, p = SERVE["batch"], SERVE["prompt"]
+    n, p = batch or SERVE["batch"], prompt or SERVE["prompt"]
     prompts = rng.integers(0, cfg.vocab_size, (n, p))
     forced = rng.integers(0, cfg.vocab_size, (n, SERVE["steps"]))
     patches = None
-    if cfg.frontend == "vision":
+    if cfg.frontend in ("vision", "audio"):
+        rows = VISION_PREFIX_TOKENS if cfg.frontend == "vision" else ENC_LEN
         patches = torch.from_numpy(rng.standard_normal(
-            (n, VISION_PREFIX_TOKENS, cfg.d_model)).astype(np.float32)).bfloat16()
+            (n, rows, cfg.d_model)).astype(np.float32)).bfloat16()
         patches = patches.float().numpy()
     return prompts, forced, patches
 
 
-def forced_route(cfg, tree, *, mesh=None, pins=None, pin_far=False):
-    """Prefill SERVE's prompts (seeded), compress the caches once, then
+def forced_route(cfg, tree, *, mesh=None, pins=None, pin_far=False, batch=None,
+                 prompt=None, layout=False, prefill_mode="auto", compress=True):
+    """Prefill SERVE's prompts (seeded; ``batch`` rows of ``prompt``
+    tokens), compress the caches once (unless ``compress`` is False), then
     ``steps`` teacher-forced decode steps: the last position's logits of
     the prefill and of each step (b, vocab), whole, and this rank's raw
     and compressed attention caches (a Mamba layer's entry empty) with the
-    rows and kv heads they hold (None: all the kv heads). ``pins``: the MoE
-    calls of the whole batch's route (a data rank replays its rows)."""
+    rows, kv heads (None: all the kv heads) and slots (first, count; None:
+    all) they hold. ``pins``: the MoE calls of the whole batch's route (a
+    data rank replays its rows). On a mesh: ``layout`` builds the caches
+    by the decode cell's plan (else each rank's kv heads where they
+    divide, every slot); ``prefill_mode`` "seq" prefills under the
+    prefill cell's ``heads_mode="seq"`` plan (context parallelism)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import data_axis, make_plan
     from repro_torch.models import build
-    from repro_torch.models.tensor_parallel import gather_dim
+    from repro_torch.models.tensor_parallel import CALLS, gather_dim
     from repro_torch.serve.kv_compression import compress_model_caches
 
-    n, p = SERVE["batch"], SERVE["prompt"]
-    prompts, forced, patches = serve_inputs(cfg)
+    n, p = batch or SERVE["batch"], prompt or SERVE["prompt"]
+    prompts, forced, patches = serve_inputs(cfg, n, p)
     prompts, forced = torch.from_numpy(prompts), torch.from_numpy(forced)
     inputs = {}
-    if patches is not None:  # the stubbed patch prefix, bf16
-        inputs["patch_embeds"] = torch.from_numpy(patches).bfloat16()
+    if patches is not None:  # the stubbed patch prefix (or frames), bf16
+        key = "frames" if cfg.frontend == "audio" else "patch_embeds"
+        inputs[key] = torch.from_numpy(patches).bfloat16()
     bundle = build(cfg)
     model = model_of(cfg, tree, trainable=False, mesh=mesh)
     tp = getattr(model, "tp", None)
     plan, rows, lo, tp_size = None, None, 0, 1
+    prefill_plan = cache_kw = None
     if mesh is not None:
         plan = make_plan(cfg, ShapeConfig("tp", p, n, "decode"), mesh)
-        rows = data_axis(mesh)
-        per = n // rows.size
-        lo = rows.index * per
-        prompts, forced = prompts[lo:lo + per], forced[lo:lo + per]
-        inputs = {k: v[lo:lo + per] for k, v in inputs.items()}
+        prefill_plan = plan
+        if prefill_mode == "seq":
+            prefill_plan = make_plan(cfg, ShapeConfig("tp", p, n, "prefill"), mesh,
+                                     heads_mode="seq")
+        if plan.resid[0] is not None:  # this data rank's rows
+            rows = data_axis(mesh)
+            per = n // rows.size
+            lo = rows.index * per
+            prompts, forced = prompts[lo:lo + per], forced[lo:lo + per]
+            inputs = {k: v[lo:lo + per] for k, v in inputs.items()}
         tp_size = tp.size if tp is not None else 1
+        if layout:
+            cache_kw = dict(plan=plan, mesh=mesh)
+    if cfg.frontend == "audio":
+        cache_kw = dict(cache_kw or {}, enc_len=ENC_LEN)
 
     pin = None
     if pins:
@@ -249,30 +286,48 @@ def forced_route(cfg, tree, *, mesh=None, pins=None, pin_far=False):
         x = x[:, 0].float()
         return x if rows is None else rows.gather_rows(x)
 
+
+    def attn(c):  # an attention cache (an enc-dec layer's self-attention)
+        return c.get("self", c)
+
+    def slots(c):  # (first, count) of a sequence-split cache
+        return (c["seq"].index * c["k"].shape[2], c["k"].shape[2]) if "seq" in c else None
+
     with torch.inference_mode(), _replaying(pin):
         caches = bundle.init_caches(prompts.shape[0], p + SERVE["steps"], device="cpu",
-                                    tp_size=tp_size)
+                                    tp_size=tp_size, **(cache_kw or {}))
+        context = CALLS["context_parallel"]
         logits, caches = bundle.prefill(model, caches, {"tokens": prompts, **inputs},
-                                        plan=plan)
+                                        plan=prefill_plan)
+        context = CALLS["context_parallel"] - context
         out = [full(logits)]
-        raw = [{k: _np(c[k]) for k in ("k", "v")} | {"pos": c["pos"]} if "k" in c else {}
-               for c in caches["layers"]]
-        caches = compress_model_caches(caches, SERVE["t"], SERVE["m"], tail=SERVE["tail"])
-        kept = [{k: _np(c[k]) for k in ("k", "v", "mass")} | {"pos": c["pos"]}
-                if "k" in c else {} for c in caches["layers"]]
+        merges = CALLS["seq_merge"]
+        raw = [{k: _np(attn(c)[k]) for k in ("k", "v")}
+               | {"pos": attn(c)["pos"], "slots": slots(attn(c))}
+               | ({"cross_heads": c["cross_k"].shape[1]} if "cross_k" in c else {})
+               if "k" in attn(c) else {} for c in caches["layers"]]
+        if compress:
+            caches = compress_model_caches(caches, SERVE["t"], SERVE["m"],
+                                           tail=SERVE["tail"])
+        kept = [{k: _np(attn(c)[k]) for k in ("k", "v", "mass") if k in attn(c)}
+                | {"pos": attn(c)["pos"], "slots": slots(attn(c)),
+                   "total": int(attn(c).get("slots", attn(c)["k"].shape[2]))}
+                if "k" in attn(c) else {} for c in caches["layers"]]
         for i in range(SERVE["steps"]):
             logits, caches = bundle.decode_step(model, caches,
                                                 {"tokens": forced[:, i:i + 1]}, plan=plan)
             out.append(full(logits))
+        merges = CALLS["seq_merge"] - merges
     heads = None
     if tp is not None and tp.kv_local:
         per_h = cfg.n_kv_heads // tp.size
         heads = (tp.index * per_h, (tp.index + 1) * per_h)
     return {"logits": [_np(x) for x in out], "caches": kept,
-            "raw": {"layers": raw, "n_prefix": caches["n_prefix"],
-                    "period": caches["period"]},
+            "raw": {"layers": raw, "n_prefix": caches.get("n_prefix", cfg.n_layers),
+                    "period": caches.get("period", 1)},
             "rows": (lo, lo + prompts.shape[0]), "heads": heads,
-            "pins": pin.summary() if pin is not None else None}
+            "pins": pin.summary() if pin is not None else None,
+            "merges": merges, "context_parallel": context}
 
 
 def drawn(cfg, *, trainable, mesh=None):
@@ -283,6 +338,10 @@ def drawn(cfg, *, trainable, mesh=None):
     model = build(cfg).init(torch.Generator().manual_seed(11), device="cpu",
                             trainable=trainable, mesh=mesh)
     return {n: _np(p) for n, p in model.named_parameters()}
+
+
+#: the options a serve job may pass to :func:`forced_route`
+SERVE_OPTIONS = ("batch", "prompt", "layout", "prefill_mode", "compress")
 
 
 def tp_jobs(rank, jobs):
@@ -308,12 +367,15 @@ def tp_jobs(rank, jobs):
             res = train_run(job["cfg"], job["tree"], job["steps"], mesh=mesh,
                             ckpt_dir=job.get("ckpt_dir", ""),
                             restore_dir=job.get("restore_dir", ""),
-                            remat=job.get("remat", "block"), pins=pins, pin_far=True)
+                            remat=job.get("remat", "block"), pins=pins, pin_far=True,
+                            seq=job.get("seq", S),
+                            heads_mode=job.get("heads_mode", "auto"))
         elif job["kind"] == "init":
             res = {"local": drawn(job["cfg"], trainable=job["trainable"], mesh=mesh)}
         else:
             res = forced_route(job["cfg"], job["tree"], mesh=mesh, pins=pins,
-                               pin_far=True)
+                               pin_far=True, **{k: job[k] for k in SERVE_OPTIONS
+                                                if k in job})
         outs.append(dict(res, rank=rank, coords={a: int(mesh.get_local_rank(a))
                                                  for a in mesh.mesh_dim_names}))
     return outs
